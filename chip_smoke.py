@@ -5,32 +5,65 @@
 
 Phases, each gated; any failure exits non-zero before the result lines:
   1. torch / CUDA versions and the card's name and power limit;
-  2. build kernel K1 (csrc/mha_packed.cu) with nvcc, timed;
+  2. build kernels K1 (csrc/mha_packed.cu), K3 (qmm.cu), K4 (qmm4.cu) and
+     K5 (ffn_int8.cu) with nvcc, one process per source, all at once, timed;
   3. K1 against its plain torch version on the card: bf16 at the
      large-v3-turbo encoder shape (B=1, T=1536, S=1280, n_valid=1500,
      gate max|err| <= 1e-2 * max|ref|) and the narrow f32 shape (S=128,
-     gate 1e-4); kernel and plain times (CUDA events, median of 20);
-  4. Transcriber(preset="large-v3-turbo", bf16, cuda, seed 0) answers
-     11 s, 30 s and 65 s of seeded synthetic audio; K1's launch count must
-     grow by exactly 32 (encoder layers) per encoder pass;
+     gate 1e-4); kernel, plain and SDPA times (CUDA events, median of 20);
+     K3, K4 and K5 against their plain versions at the shapes large-v3-turbo
+     gives them (gate 1e-3 * max|ref|), with kernel, plain and library times
+     (torch.matmul on the dequantized bf16 weight), each launch with a cold
+     L2 cache, and the bound;
+  4. Transcriber(preset="large-v3-turbo", bf16, cuda, seed 0) answers 30 s
+     and 65 s of seeded synthetic audio; K1's launch count must be exactly
+     32 (encoder layers) per encoder pass;
   5. the narrow f32 config through whisper_full on cuda and on cpu:
-     encoder outputs within 1e-4, token ids equal.
+     encoder outputs within 1e-4, token ids equal;
+  6. a full-width large-v3-turbo q8_0 checkpoint (the port's writer, seed-0
+     random tensors) through Transcriber(model_path=...) on cuda: 30 s and
+     65 s requests (temperature_inc = 0); K3 must launch exactly
+     200 per encoder pass (32 layers x 6 linears + 4 layers x cross K/V) and
+     16 per decoder call (4 layers x qkv/o/cq/co), K5 4 per decoder call;
+  7. runtime W8 logits (decoder_int8=True; K3 once per decoder call) and W4
+     logits (quantize_decoder_int8(logits_bits=4); K4 once per decoder call)
+     on the seed-0 turbo preset, one 30 s greedy request each, after the
+     same request on the dense logits projection;
+  8. narrow q4_0 and q5_0 checkpoints (S = 128: the decoder MLP runs K5)
+     through whisper_full on cuda and on cpu, 35 s over two windows: token
+     ids equal, at least 100 of them.
 The last three lines are the kernels JSON, the nvidia-smi name/power line
 and {"ok": true, "device": {...}}. Imports nothing of JAX.
+
+    python3 chip_smoke.py --profile
+
+also traces one 30 s greedy request on the q8_0 checkpoint and one on the
+dense preset with torch.profiler (device busy share, top kernels; tables
+in chiprun_out/). It is the source of PERF.md's "Where the time goes".
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 TURBO_LAYERS = 32
 NARROW = (51864, 1500, 128, 2, 2, 448, 128, 2, 2, 80)
+NARROW_Q = (51864, 1500, 128, 2, 2, 448, 128, 2, 3, 80)   # 3 decoder layers
+TURBO = (51866, 1500, 1280, 20, 32, 448, 1280, 20, 4, 128)
+KERNELS = ("mha_packed", "qmm", "qmm4", "ffn_int8")
+SRC = "open_whisper_kit_tpu_torch/csrc/"
+# H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
+# is the larger of its bytes over HBM bandwidth and its FLOPs over bf16 rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 
 
 class PhaseFailed(Exception):
@@ -49,12 +82,17 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of fn() in ms over `reps` launches."""
+def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
+    """Median device time of fn() in ms over `reps` launches. `flush`, a
+    tensor larger than the L2 cache, is overwritten before each timed
+    launch (outside the timed span), so fn reads its inputs from HBM as a
+    caller streaming many weights does."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -65,13 +103,30 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def audio(seconds: float, seed: int):
     import numpy as np
     return (np.random.default_rng(seed).standard_normal(int(16000 * seconds))
             .astype(np.float32) * 0.1)
 
 
-def phase_kernel(torch, A, dtype, S: int, tol_rel: bool, tol: float, seed: int):
+def greedy_params(FullParams):
+    p = FullParams(print_progress=False)
+    p.temperature_inc = 0
+    return p
+
+
+def phase_k1(torch, A, dtype, S: int, tol_rel: bool, tol: float, seed: int):
+    import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn(1, 1536, S, generator=g, device="cuda").to(dtype)
                for _ in range(3))
@@ -88,12 +143,184 @@ def phase_kernel(torch, A, dtype, S: int, tol_rel: bool, tol: float, seed: int):
           f"K1 {dtype} S={S} disagrees with its plain version")
     kern = cuda_ms(torch, lambda: A.mha_packed(q, k, v, scale, n_valid))
     plain = cuda_ms(torch, lambda: A.mha_plain(q, k, v, n_head, scale, n_valid))
-    print(f"[3]   kernel {kern * 1e3:.1f} us, plain {plain * 1e3:.1f} us "
+    # the yardstick: SDPA on the head-major layout it takes, same mask
+    qh, kh, vh = (t.view(1, 1536, n_head, 64).transpose(1, 2).contiguous()
+                  for t in (q, k, v))
+    mask = (torch.arange(1536, device="cuda") < n_valid)[None, None, None, :]
+    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, scale=scale))
+    # QK^T and PV over the live keys; q/k/v read once, out written once
+    b_ms, b_by = bound(nbytes(q, k, v, out), 4 * 1536 * n_valid * S)
+    print(f"[3]   kernel {kern * 1e3:.1f} us, plain {plain * 1e3:.1f} us, SDPA "
+          f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}) "
           "(median of 20)", flush=True)
-    return err, kern, plain
+    return {"max_abs_err": err, "ms": kern, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib}
 
 
-def main() -> int:
+# (kernel, what large-v3-turbo runs it on, M, K, N)
+QUANT_SHAPES = [
+    ("qmm", "encoder mlp0", 1536, 1280, 5120),
+    ("qmm", "encoder q/k/v/o", 1536, 1280, 1280),
+    ("qmm", "encoder mlp1", 1536, 5120, 1280),
+    ("qmm", "cross-KV k/v", 1500, 1280, 1280),
+    ("qmm", "decoder qkv, 1 row", 1, 1280, 3840),
+    ("qmm", "decoder qkv, 5 rows", 5, 1280, 3840),
+    ("qmm", "decoder o/cq/co, 1 row", 1, 1280, 1280),
+    ("qmm", "W8 logits, 1 row", 1, 1280, 51866),
+    ("qmm4", "W4 logits, 1 row", 1, 1280, 51866),
+    ("ffn_int8", "decoder MLP, 1 row", 1, 1280, 5120),
+    ("ffn_int8", "decoder MLP, 5 rows", 5, 1280, 5120),
+]
+
+
+def phase_quant_kernels(torch, Q):
+    """Each shape: kernel against plain (gate 1e-3 * max|ref|), times of
+    the kernel, the plain version and the library yardstick with the L2
+    cache flushed before each launch (on the decode path every weight
+    plane arrives cold), and the bound. The bound counts the logical N
+    columns only: the planes' padding to a multiple of 512 is zeros that
+    the function does not need. Returns {kernel: [per-shape dicts]}."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def weight(K, N):
+        return torch.randn(K, N, generator=g, device="cuda") * K ** -0.5
+
+    out = {name: [] for name in ("qmm", "qmm4", "ffn_int8")}
+    for name, label, M, K, N in QUANT_SHAPES:
+        x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+        if name == "ffn_int8":
+            w0 = Q.quantize_linear(weight(K, N), pad=False)
+            w1 = Q.quantize_linear(weight(N, K))
+            b0 = (torch.randn(N, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+            args = (x, w0.qs, w0.scales, b0, w1.qs, w1.scales)
+            kern, plain = Q.ffn_int8, Q.ffn_int8_plain
+            lib_fn = None   # no single library call computes the fused pair
+            flops = 2 * M * K * N + 2 * M * N * K
+            moved = (nbytes(x, w0.qs, w0.scales, b0, w1.qs[:, :K], w1.scales[:, :K])
+                     + M * K * 4)
+        else:
+            w = (Q.quantize_linear4 if name == "qmm4" else Q.quantize_linear)(weight(K, N))
+            args = (x, w.qs, w.scales)
+            kern, plain = (Q.qmm4, Q.qmm4_plain) if name == "qmm4" else (Q.qmm, Q.qmm_plain)
+            wd = Q.dequantize_dense(w, torch.bfloat16).contiguous()
+            lib_fn = lambda x=x, wd=wd: torch.matmul(x, wd)   # noqa: E731
+            flops = 2 * M * K * N
+            moved = nbytes(x, w.qs[:, :N], w.scales[:, :N]) + M * N * 4
+        ref = plain(*args)
+        got = kern(*args)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        ref_max = ref.abs().max().item()
+        check(bool(torch.isfinite(got).all()) and err <= 1e-3 * ref_max,
+              f"{name} ({label}) disagrees with its plain version: {err:.3e} "
+              f"> 1e-3 * {ref_max:.3e}")
+        k_ms = cuda_ms(torch, lambda: kern(*args), flush=l2_flush)
+        p_ms = cuda_ms(torch, lambda: plain(*args), flush=l2_flush)
+        l_ms = cuda_ms(torch, lib_fn, flush=l2_flush) if lib_fn is not None else None
+        b_ms, b_by = bound(moved, flops)
+        out[name].append({"shape": f"{label}: M={M} K={K} N={N}", "max_abs_err": err,
+                          "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                          "bound_ms": b_ms, "bound_by": b_by})
+        lib_txt = f"{l_ms * 1e3:.1f} us" if l_ms is not None else "none"
+        print(f"[3] {name} {label} (M={M}, K={K}, N={N}): max|err| {err:.3e} "
+              f"(max|ref| {ref_max:.3e}); kernel {k_ms * 1e3:.1f} us, plain "
+              f"{p_ms * 1e3:.1f} us, library {lib_txt}, bound {b_ms * 1e3:.1f} us "
+              f"({b_by})", flush=True)
+        del args, ref, got
+    del l2_flush
+    torch.cuda.empty_cache()
+    return out
+
+
+class CallCounter:
+    """Counts calls of the model's encoder pass and decoder forward while
+    it is installed (both are looked up on the module at call time)."""
+
+    def __init__(self, TM):
+        self.TM, self.enc, self.dec = TM, 0, 0
+        self._orig = (TM.encode_with_cross_kv, TM.decode_impl)
+
+    def __enter__(self):
+        enc, dec = self._orig
+
+        def encode(*a, **k):
+            self.enc += 1
+            return enc(*a, **k)
+
+        def decode(*a, **k):
+            self.dec += 1
+            return dec(*a, **k)
+        self.TM.encode_with_cross_kv, self.TM.decode_impl = encode, decode
+        return self
+
+    def __exit__(self, *exc):
+        self.TM.encode_with_cross_kv, self.TM.decode_impl = self._orig
+
+
+def profile_request(torch, tr, FullParams, secs, seed, tag) -> None:
+    """One greedy request under torch.profiler: device busy share (the sum
+    of kernel self times over the wall time) and the kernels that take it;
+    the full table goes to chiprun_out/profile-<tag>.txt."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = tr.transcribe(audio(secs, seed), greedy_params(FullParams))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+    # device rows (kernels, copies) have no host time of their own; an aten
+    # op's row repeats the time of the kernels it launched
+    kern = sorted((e for e in rows if e.self_cpu_time_total == 0 and dev_us(e) > 0),
+                  key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in kern) / 1e3
+    n_tok = res.timings.n_sample
+    print(f"[profile {tag}] {secs:.0f} s greedy, traced: wall {wall * 1e3:.0f} ms, "
+          f"device busy {busy:.0f} ms ({100 * busy / (wall * 1e3):.1f} %), sampled "
+          f"tokens {n_tok}, device launches {sum(e.count for e in kern)}; top: "
+          + "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.1f} ms x{e.count}"
+                      for e in kern[:6]), flush=True)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    sort = "self_device_time_total" if hasattr(kern[0], "self_device_time_total") \
+        else "self_cuda_time_total"
+    (out / f"profile-{tag}.txt").write_text(rows.table(sort_by=sort, row_limit=40))
+
+
+def reset_counts(A, Q) -> None:
+    A.mha_packed.launches = 0
+    Q.qmm.launches = Q.qmm4.launches = Q.ffn_int8.launches = 0
+
+
+def serve(torch, tr, FullParams, secs, seed, tag, greedy=True):
+    t0 = time.perf_counter()
+    res = tr.transcribe(audio(secs, seed),
+                        greedy_params(FullParams) if greedy else FullParams(print_progress=False))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tm = res.timings
+    n_tok = sum(len(s.tokens) for s in res.segments)
+    print(f"[{tag}] {secs:.0f} s audio: encoder passes {tm.n_encode}, sampled "
+          f"tokens {tm.n_sample}, emitted tokens {n_tok}, segments "
+          f"{len(res.segments)}, wall {wall:.3f} s, RTF {wall / secs:.4f}", flush=True)
+    # random weights may close a window's last segment at seek + seek_delta
+    # before its opening timestamp (whisper.cpp's rule), so t0 <= t1 is not
+    # asked; ids, probabilities, text and non-negative times are
+    n_vocab = tr.ctx.cfg.n_vocab
+    bad = [(s.t0, s.t1, s.text, [(t.id, t.p) for t in s.tokens][:4])
+           for s in res.segments
+           if not (s.t0 >= 0 and s.t1 >= 0 and s.text and s.tokens and all(
+               0 <= t.id < n_vocab and 0.0 <= t.p <= 1.0 for t in s.tokens))]
+    check(n_tok > 0 and not bad, f"malformed segment: {bad[:2]}")
+    return res
+
+
+def main(profiling: bool = False) -> int:
     if not (REPO / "open_whisper_kit_tpu_torch").is_dir():
         print("chip_smoke: the open_whisper_kit_tpu_torch package is not beside "
               "this script", file=sys.stderr)
@@ -111,50 +338,58 @@ def main() -> int:
     from open_whisper_kit_tpu_torch.decode import full as TF
     from open_whisper_kit_tpu_torch.decode import tokenizer as tok_mod
     from open_whisper_kit_tpu_torch.decode.params import FullParams
+    from open_whisper_kit_tpu_torch.io import ggml_writer as W
     from open_whisper_kit_tpu_torch.models.whisper import model as TM
+    from open_whisper_kit_tpu_torch.ops import _build
     from open_whisper_kit_tpu_torch.ops import attention as A
+    from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
+
+    phase_t = {}
+    t_start = time.perf_counter()
+
+    def done(tag):
+        phase_t[tag] = time.perf_counter() - t_start - sum(phase_t.values())
+        print(f"[{tag}] phase took {phase_t[tag]:.1f} s", flush=True)
 
     # ---- 1. versions and card ----
     smi = nvidia_smi_line()
     print(f"[1] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()} | {smi}", flush=True)
+    done("1")
 
-    # ---- 2. build K1 ----
+    # ---- 2. build the kernels, one nvcc per source, all at once ----
     t0 = time.perf_counter()
+    _build.build_all(list(KERNELS))
     A._kernel_lib()
-    print(f"[2] K1 built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    for name in KERNELS[1:]:
+        Q._kernel_lib(name)
+    print(f"[2] {', '.join(KERNELS)} built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    done("2")
 
-    # ---- 3. K1 against its plain version ----
-    err_bf16, k_ms, p_ms = phase_kernel(torch, A, torch.bfloat16, 1280, True, 1e-2, 0)
-    phase_kernel(torch, A, torch.float32, 128, False, 1e-4, 1)
+    # ---- 3. every kernel against its plain version ----
+    k1 = phase_k1(torch, A, torch.bfloat16, 1280, True, 1e-2, 0)
+    phase_k1(torch, A, torch.float32, 128, False, 1e-4, 1)
+    quant = phase_quant_kernels(torch, Q)
+    done("3")
 
-    # ---- 4. three turbo requests through the public entry point ----
+    # ---- 4. turbo bf16 requests through the public entry point ----
     t0 = time.perf_counter()
-    tr = Transcriber(preset="large-v3-turbo", dtype=torch.bfloat16,
-                     device="cuda", seed=0)
+    tr = Transcriber(preset="large-v3-turbo", dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
     print(f"[4] large-v3-turbo weights (seed 0) built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    A.mha_packed.launches = 0
-    for secs, seed in ((11.0, 11), (30.0, 30), (65.0, 65)):
-        before = A.mha_packed.launches
-        t0 = time.perf_counter()
-        res = tr.transcribe(audio(secs, seed), FullParams(print_progress=False))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        tm = res.timings
-        grew = A.mha_packed.launches - before
-        n_tok = sum(len(s.tokens) for s in res.segments)
-        print(f"[4] {secs:.0f} s audio: encoder passes {tm.n_encode}, sampled "
-              f"tokens {tm.n_sample}, emitted tokens {n_tok}, segments "
-              f"{len(res.segments)}, wall {wall:.3f} s, RTF {wall / secs:.4f}, "
-              f"K1 launches {grew}", flush=True)
-        check(tm.n_encode > 0 and grew == TURBO_LAYERS * tm.n_encode,
-              f"K1 launches {grew} != {TURBO_LAYERS} x {tm.n_encode} encoder passes")
-        check(all(0 <= s.t0 <= s.t1 and s.text for s in res.segments),
-              "malformed segment")
-    launches = A.mha_packed.launches
+    reset_counts(A, Q)
+    n_enc = 0
+    for secs, seed in ((30.0, 30), (65.0, 65)):
+        res = serve(torch, tr, FullParams, secs, seed, "4", greedy=False)
+        n_enc += res.timings.n_encode
+    launches = {"mha_packed": A.mha_packed.launches}
+    print(f"[4] K1 launches {launches['mha_packed']} for {n_enc} encoder passes",
+          flush=True)
+    check(n_enc > 0 and launches["mha_packed"] == TURBO_LAYERS * n_enc,
+          f"K1 launches {launches['mha_packed']} != {TURBO_LAYERS} x {n_enc}")
     ctx = tr.ctx
     mel = mel_mod.log_mel_spectrogram(audio(30.0, 30), ctx.filters, "cuda")
     enc_out, xk, xv = ctx.encode_window(mel.data, 0, 0)
@@ -165,10 +400,11 @@ def main() -> int:
           flush=True)
     del tr, ctx, enc_out, xk, xv
     torch.cuda.empty_cache()
+    done("4")
 
     # ---- 5. narrow f32 config: cuda against cpu ----
     cfg = TM.WhisperConfig(*NARROW)
-    params = TM.init_params(cfg, seed=0, dtype=torch.float32)
+    params = TM.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     tokens = [b"<%d>" % i for i in range(min(cfg.n_vocab, 50257))]
     results = {}
     for dev in ("cuda", "cpu"):
@@ -178,9 +414,7 @@ def main() -> int:
         samples = audio(65.0, 5)
         m = mel_mod.log_mel_spectrogram(samples, c.filters, dev)
         eo = c.encode_window(m.data, 0, 0)[0].cpu()
-        p = FullParams(print_progress=False)
-        p.temperature_inc = 0
-        r = TF.whisper_full(c, p, samples)
+        r = TF.whisper_full(c, greedy_params(FullParams), samples)
         results[dev] = (eo, [[t.id for t in s.tokens] for s in r.segments])
     enc_err = (results["cuda"][0] - results["cpu"][0]).abs().max().item()
     same = results["cuda"][1] == results["cpu"][1]
@@ -188,13 +422,156 @@ def main() -> int:
           f"{len(results['cuda'][1])}, token ids equal {same}", flush=True)
     check(enc_err <= 1e-4, "narrow f32 encoder: cuda and cpu differ")
     check(same and len(results["cuda"][1]) > 0, "narrow f32 tokens: cuda and cpu differ")
+    done("5")
 
-    print(json.dumps({"kernels": [{
-        "name": "mha_packed", "route": "cuda",
-        "source": "open_whisper_kit_tpu_torch/csrc/mha_packed.cu",
-        "replaces": "open_whisper_kit_tpu/ops/attention.py:58",
-        "launches": launches, "max_abs_err": err_bf16,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+    build_dir = REPO / "build"
+    build_dir.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke-ckpt-", dir=build_dir))
+    try:
+        # ---- 6. full-width q8_0 checkpoint through Transcriber(model_path) ----
+        t0 = time.perf_counter()
+        hp = W.WhisperHParams(*TURBO, ftype=1, qntvr=0)
+        path = tmp / "ggml-large-v3-turbo-q8_0.bin"
+        tensors = W.random_reference_tensors(hp, seed=0)
+        W.write_checkpoint(path, hp, TF._synthetic_mel_filters(128), tokens, tensors,
+                           wtype=W.TYPE_FOR_NAME["q8_0"])
+        del tensors
+        print(f"[6] q8_0 large-v3-turbo checkpoint written in "
+              f"{time.perf_counter() - t0:.1f} s ({path.stat().st_size / 1e6:.0f} MB)",
+              flush=True)
+        t0 = time.perf_counter()
+        tr = Transcriber(model_path=path, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        blocks = tr.ctx.params["decoder"]["blocks"]
+        check(tr.model_type == "large-v3-turbo"
+              and isinstance(tr.ctx.params["encoder"]["blocks"]["mlp0_w"], Q.QuantLinear)
+              and isinstance(blocks["qkv_w"], Q.QuantLinear)
+              and blocks["mlp0_w"].qs.shape[-1] == blocks["mlp0_w"].n_out,
+              "q8_0 checkpoint did not load as unpadded int8 planes")
+        print(f"[6] loaded on cuda in {time.perf_counter() - t0:.1f} s", flush=True)
+        reset_counts(A, Q)
+        with CallCounter(TM) as calls:
+            for secs, seed in ((30.0, 30), (65.0, 65)):
+                serve(torch, tr, FullParams, secs, seed, "6")
+        torch.cuda.synchronize()
+        want_k3 = calls.enc * (TURBO_LAYERS * 6 + 4 * 2) + calls.dec * 4 * 4
+        want_k5 = calls.dec * 4
+        print(f"[6] encoder passes {calls.enc}, decoder calls {calls.dec}: K3 launches "
+              f"{Q.qmm.launches} (predicted {want_k3}), K5 launches "
+              f"{Q.ffn_int8.launches} (predicted {want_k5}), K1 launches "
+              f"{A.mha_packed.launches} (predicted {TURBO_LAYERS * calls.enc})",
+              flush=True)
+        check(calls.enc > 0 and Q.qmm.launches == want_k3
+              and Q.ffn_int8.launches == want_k5
+              and A.mha_packed.launches == TURBO_LAYERS * calls.enc
+              and Q.qmm4.launches == 0, "q8_0 request: launch counts off prediction")
+        launches["qmm"], launches["ffn_int8"] = Q.qmm.launches, Q.ffn_int8.launches
+        mel = mel_mod.log_mel_spectrogram(audio(30.0, 30), tr.ctx.filters, "cuda")
+        q_ms = cuda_ms(torch, lambda: tr.ctx.encode_window(mel.data, 0, 0), reps=5,
+                       warmup=1)
+        print(f"[6] q8_0 encoder + cross-KV per window: {q_ms:.2f} ms (median of 5)",
+              flush=True)
+        if profiling:
+            profile_request(torch, tr, FullParams, 30.0, 30, "q8_0")
+        del tr, blocks
+        torch.cuda.empty_cache()
+        done("6")
+
+        # ---- 7. runtime W8 and W4 logits on the turbo preset ----
+        tr = Transcriber(preset="large-v3-turbo", dtype=torch.bfloat16,
+                         decoder_int8=True, seed=0)
+        dec = tr.ctx.params["decoder"]
+        check(isinstance(dec["te_logits"], Q.QuantLinear), "decoder_int8 made no W8 plane")
+        x_ln = torch.randn(1, 1, 1280, generator=torch.Generator(device="cuda").manual_seed(3),
+                           device="cuda").to(torch.bfloat16)
+        dense = TM._dot_f32(x_ln, dec["te"].t())
+        # the same request on the dense logits projection first: the yardstick
+        # for the W8/W4 requests' RTF, in the same call on the same card
+        tr.ctx.params["decoder"] = {k: v for k, v in dec.items() if k != "te_logits"}
+        serve(torch, tr, FullParams, 30.0, 30, "7 dense logits")
+        if profiling:
+            profile_request(torch, tr, FullParams, 30.0, 30, "dense")
+        tr.ctx.params["decoder"] = dec
+        for bits in (8, 4):
+            if bits == 4:
+                dec = dict(dec)
+                dec.pop("te_logits")
+                dec = TM.quantize_decoder_int8(dec, logits_bits=4)
+                tr.ctx.params["decoder"] = dec
+                check(isinstance(dec["te_logits"], Q.QuantLinear4), "no W4 plane")
+            lg = Q.qmatmul(x_ln, dec["te_logits"])
+            rel = ((lg - dense).abs().max() / dense.abs().max()).item()
+            print(f"[7] W{bits} logits plane against the dense bf16 projection: "
+                  f"max|diff| / max|dense| {rel:.4f}", flush=True)
+            check(tuple(lg.shape) == (1, 1, 51866) and rel <= (0.05 if bits == 8 else 0.25),
+                  f"W{bits} logits far from the dense projection")
+            reset_counts(A, Q)
+            with CallCounter(TM) as calls:
+                serve(torch, tr, FullParams, 30.0, 30, "7")
+            torch.cuda.synchronize()
+            kern = Q.qmm if bits == 8 else Q.qmm4
+            other = Q.qmm4 if bits == 8 else Q.qmm
+            print(f"[7] W{bits}: decoder calls {calls.dec}, {kern.__name__} launches "
+                  f"{kern.launches}", flush=True)
+            check(calls.dec > 0 and kern.launches == calls.dec and other.launches == 0
+                  and Q.ffn_int8.launches == 0, f"W{bits} logits: launch counts off")
+            if bits == 4:
+                launches["qmm4"] = kern.launches
+        del tr, dec
+        torch.cuda.empty_cache()
+        done("7")
+
+        # ---- 8. narrow q4_0 / q5_0 checkpoints: cuda against cpu ----
+        hp = W.WhisperHParams(*NARROW_Q, ftype=1, qntvr=0)
+        tensors = W.random_reference_tensors(hp, seed=0)
+        # 35 s (two windows); audio seeds whose transcript on the CPU stays
+        # the same when the input is scaled by 1 +- 2^-20, 2^-16 or 2^-13,
+        # so a last-place difference in a sum does not flip a near-tied
+        # random-weight token
+        for qtype, seed in (("q4_0", 6), ("q5_0", 6)):
+            path = tmp / f"narrow-{qtype}.bin"
+            W.write_checkpoint(path, hp, TF._synthetic_mel_filters(80), tokens, tensors,
+                               wtype=W.TYPE_FOR_NAME[qtype])
+            ids, n_enc = {}, {}
+            for dev in ("cuda", "cpu"):
+                c = TF.WhisperContext.from_file(path, dtype=torch.float32, device=dev)
+                reset_counts(A, Q)
+                r = TF.whisper_full(c, greedy_params(FullParams), audio(35.0, seed))
+                ids[dev] = [[t.id for t in s.tokens] for s in r.segments]
+                n_enc[dev] = r.timings.n_encode
+                if dev == "cuda":
+                    check(Q.qmm.launches > 0 and Q.ffn_int8.launches > 0,
+                          f"narrow {qtype} on cuda did not run K3 and K5")
+            flat = {dev: [t for s in v for t in s] for dev, v in ids.items()}
+            same = ids["cuda"] == ids["cpu"]
+            n_tok = len(flat["cuda"])
+            first = next((i for i, (a, b) in enumerate(zip(flat["cuda"], flat["cpu"]))
+                          if a != b), None)
+            print(f"[8] narrow {qtype}: encoder passes {n_enc['cuda']}, segments "
+                  f"{len(ids['cuda'])}, tokens {n_tok}, token ids cuda == cpu {same}"
+                  + ("" if same else f" (first differing token {first})"), flush=True)
+            check(same and n_tok >= 100 and n_enc["cuda"] == n_enc["cpu"] == 2,
+                  f"narrow {qtype}: cuda and cpu differ, or too few tokens to tell")
+        done("8")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    head = {"qmm": 0, "qmm4": 0, "ffn_int8": 0}   # the row each headline takes
+    replaces = {"mha_packed": "open_whisper_kit_tpu/ops/attention.py:70",
+                "qmm": "open_whisper_kit_tpu/ops/quant_matmul.py:129",
+                "qmm4": "open_whisper_kit_tpu/ops/quant_matmul.py:280",
+                "ffn_int8": "open_whisper_kit_tpu/ops/quant_matmul.py:385"}
+    rows = [{"name": "mha_packed", **k1}]
+    for name, i in head.items():
+        rows.append({"name": name, **{k: v for k, v in quant[name][i].items()
+                                      if k != "shape"},
+                     "shape": quant[name][i]["shape"], "shapes": quant[name]})
+    for r in rows:
+        r.update(route="cuda", source=SRC + r["name"] + ".cu",
+                 replaces=replaces[r["name"]], launches=launches[r["name"]])
+        check(r["launches"] > 0, f"{r['name']} never launched on its path")
+    print(f"[end] total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -204,7 +581,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(profiling="--profile" in sys.argv[1:]))
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

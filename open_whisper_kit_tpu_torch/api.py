@@ -1,6 +1,7 @@
 """Public API facade of the PyTorch port (port of the Transcriber part of
 open_whisper_kit_tpu/api.py; Diarizer, align and batched serving are not
-ported yet)."""
+ported yet). Entry points run on the card ("cuda") unless the caller asks
+for the CPU."""
 
 from __future__ import annotations
 
@@ -27,17 +28,35 @@ class Transcriber:
     def __init__(self, model_path: str | Path | None = None,
                  preset: str | None = None,
                  dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device = "cpu", seed: int = 0):
-        """`preset` builds random weights of a real model's shapes from
-        `seed` (the same weights as the JAX package's preset). Loading
-        ggml/GGUF checkpoints (`model_path`) is not ported yet."""
+                 decoder_int8: bool = False,
+                 device: str | torch.device = "cuda", seed: int = 0, *,
+                 encoder_int8: bool = False, mesh=None,
+                 draft_model_path: str | Path | None = None,
+                 draft_preset: str | None = None):
+        """`model_path`: a whisper ggml-bin checkpoint (q8_0/q5_0/q4_0
+        weights stay int8 planes). `preset`: random weights of a real
+        model's shapes from `seed` (the same weights as the JAX package's
+        preset). `decoder_int8`: runtime W8 planes for the vocab
+        projection. Runs on the card unless `device` asks for the CPU;
+        raises when CUDA is missing. The W8A8 encoder, multi-device meshes
+        and draft models are not ported yet."""
+        unported = {"encoder_int8": encoder_int8, "mesh": mesh is not None,
+                    "draft models": draft_model_path is not None
+                    or draft_preset is not None}
+        for name, on in unported.items():
+            if on:
+                raise NotImplementedError(f"{name} is not ported to the "
+                                          "PyTorch package yet")
         if model_path is not None:
-            raise NotImplementedError("loading ggml/GGUF checkpoints is not "
-                                      "ported to the PyTorch package yet")
-        if preset is None:
-            raise ValueError("preset required")
-        self.ctx = WhisperContext.from_preset(preset, seed=seed, dtype=dtype,
-                                              device=device)
+            self.ctx = WhisperContext.from_file(
+                str(model_path), dtype=dtype, decoder_int8=decoder_int8,
+                device=device)
+        elif preset is not None:
+            self.ctx = WhisperContext.from_preset(
+                preset, seed=seed, dtype=dtype, decoder_int8=decoder_int8,
+                device=device)
+        else:
+            raise ValueError("model_path or preset required")
 
     def full(self, params: FullParams, samples: np.ndarray,
              generator: torch.Generator | None = None) -> TranscribeResult:

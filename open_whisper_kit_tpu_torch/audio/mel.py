@@ -61,7 +61,7 @@ def _bucket_chunks(n_chunks: int) -> int:
 
 
 def log_mel_spectrogram(samples: np.ndarray, filters: np.ndarray,
-                        device: str | torch.device = "cpu") -> Mel:
+                        device: str | torch.device) -> Mel:
     """Whisper log-mel of 16 kHz mono float32 `samples`, computed on
     `device`. `filters` is the (n_mel, 201) filterbank."""
     samples = np.ascontiguousarray(samples, dtype=np.float32)

@@ -1,16 +1,26 @@
 """The transcription loop: windows, temperature fallback, segments.
 
-Port of open_whisper_kit_tpu/decode/full.py (greedy decoding, dense
-weights). Host-side control flow mirrors whisper_full_with_state
-(src/whisper.cpp:6827-7800); the encoder, the greedy token loop and the
-multi-window loop run on the context's device (decode/device_loop.py,
-decode/device_windows.py). Temperature-fallback windows with t > 0 run the
-host-stepped sampled loop, one host read per token.
+Port of open_whisper_kit_tpu/decode/full.py (greedy decoding). Host-side
+control flow mirrors whisper_full_with_state (src/whisper.cpp:6827-7800);
+the encoder, the greedy token loop and the multi-window loop run on the
+context's device (decode/device_loop.py, decode/device_windows.py).
+Temperature-fallback windows with t > 0 run the host-stepped sampled loop,
+one host read per token.
+
+Contexts come from a ggml-bin checkpoint (`from_file` / `from_buffer`;
+q8_0/q5_0/q4_0 weights stay int8 planes for kernels K3 and K5, other
+formats dequantize at load) or from seeded random weights of a preset
+(`from_preset`); `decoder_int8` adds the runtime W8 logits plane (K3). They
+run on the card ("cuda") unless the caller asks for the CPU, and raise when
+CUDA is missing. The decoder always runs `decode_impl`: the JAX package
+switches its decode-step megakernel (K2) on by itself for all-int8
+decoders on an accelerator, and until K2 is ported the port runs the path
+JAX takes with megakernel=False, which is also what JAX runs on the CPU.
 
 Not ported yet, and refused with NotImplementedError: beam search,
 grammars, VAD, token-level and DTW timestamps, speculative decoding,
-`ref_sampling`, int8 cross-KV, the megakernel, and the abort /
-logits-filter callbacks (they need a host poll every token).
+`ref_sampling`, int8 cross-KV, the megakernel, GGUF checkpoints, and the
+abort / logits-filter callbacks (they need a host poll every token).
 """
 
 from __future__ import annotations
@@ -18,11 +28,13 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..audio import mel as mel_mod
+from ..io import ggml_whisper
 from ..models.whisper import model as M
 from . import logit_rules as LR
 from . import tokenizer as tok_mod
@@ -110,9 +122,16 @@ def _resolve_device(device: str | torch.device) -> torch.device:
 
 
 def _to_device(tree, device):
+    """Tensors and quantized planes (both have .to) of a params tree."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _zeros_like(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like(v) for k, v in tree.items()}
+    return torch.zeros_like(tree)
 
 
 class WhisperContext:
@@ -121,14 +140,17 @@ class WhisperContext:
     def __init__(self, cfg: M.WhisperConfig, params: M.Params,
                  vocab: tok_mod.WhisperVocab, filters: np.ndarray,
                  n_loaded: int, dtype: torch.dtype = torch.bfloat16,
-                 model_type: str = "custom",
-                 device: str | torch.device = "cpu"):
+                 model_type: str = "custom", decoder_int8: bool = False,
+                 device: str | torch.device = "cuda"):
         self.device = _resolve_device(device)
         self.cfg = cfg
         # params move to the device; the decoder's q/k/v fuse for the
         # per-token path
         params = _to_device(params, self.device)
         params["decoder"] = M.prepare_decoder(params["decoder"])
+        if decoder_int8 and n_loaded > 0:
+            # runtime W8: int8 planes for the vocab projection (K3)
+            params["decoder"] = M.quantize_decoder_int8(params["decoder"])
         self.params = params
         self.vocab = vocab
         self.filters = filters
@@ -139,9 +161,45 @@ class WhisperContext:
         self._mask_cache: dict = {}
 
     @classmethod
+    def from_buffer(cls, buf: bytes, dtype: torch.dtype = torch.bfloat16,
+                    decoder_int8: bool = False,
+                    device: str | torch.device = "cuda") -> "WhisperContext":
+        """whisper_init_from_buffer (include/whisper.h:133)."""
+        return cls.from_file(buf, dtype=dtype, decoder_int8=decoder_int8,
+                             device=device)
+
+    @classmethod
+    def from_file(cls, path: str | Path | bytes,
+                  dtype: torch.dtype = torch.bfloat16,
+                  decoder_int8: bool = False,
+                  device: str | torch.device = "cuda") -> "WhisperContext":
+        """A ggml-bin checkpoint, from a path or its bytes."""
+        dev = _resolve_device(device)
+        if isinstance(path, (bytes, bytearray, memoryview)):
+            head = bytes(path[:4])
+        else:
+            with open(path, "rb") as f:
+                head = f.read(4)
+        if head == b"GGUF":
+            raise NotImplementedError("GGUF checkpoints are not ported to the "
+                                      "PyTorch package yet")
+        ck = ggml_whisper.load_checkpoint(path)
+        cfg = M.WhisperConfig.from_hparams(ck.hparams)
+        vocab = tok_mod.build_vocab(ck.tokens, ck.hparams.n_vocab)
+        if ck.n_loaded == 0:
+            # stub checkpoint (the tests' fake-model trick): zero weights;
+            # the decode loop short-circuits (whisper.cpp:7426)
+            params = _zeros_like(M.init_params(cfg, dtype=dtype, device=dev))
+        else:
+            params = M.params_from_checkpoint(ck, dtype=dtype)
+        return cls(cfg, params, vocab, ck.mel_filters, ck.n_loaded, dtype,
+                   ck.hparams.model_type, decoder_int8=decoder_int8, device=dev)
+
+    @classmethod
     def from_preset(cls, name: str, seed: int = 0,
                     dtype: torch.dtype = torch.bfloat16,
-                    device: str | torch.device = "cpu") -> "WhisperContext":
+                    decoder_int8: bool = False,
+                    device: str | torch.device = "cuda") -> "WhisperContext":
         """Random-weight real-shape model, the same weights as the JAX
         package's from_preset with the same seed."""
         cfg = M.PRESETS[name]
@@ -152,7 +210,7 @@ class WhisperContext:
         vocab = tok_mod.build_vocab(tokens, cfg.n_vocab)
         filters = _synthetic_mel_filters(cfg.n_mels)
         return cls(cfg, params, vocab, filters, n_loaded=1, dtype=dtype,
-                   model_type=name, device=dev)
+                   model_type=name, decoder_int8=decoder_int8, device=dev)
 
     # -- compute wrappers ---------------------------------------------------
 

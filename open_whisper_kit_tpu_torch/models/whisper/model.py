@@ -1,7 +1,7 @@
 """Whisper encoder-decoder as PyTorch functions over a params dict.
 
-Port of open_whisper_kit_tpu/models/whisper/model.py (dense weights only).
-It follows the same compute graph and rounding points:
+Port of open_whisper_kit_tpu/models/whisper/model.py. It follows the same
+compute graph and rounding points:
 
 * params are nested dicts of tensors; per-layer weights are stacked on a
   leading layer axis; linears are stored (in, out) and convs (k, in, out),
@@ -16,10 +16,13 @@ It follows the same compute graph and rounding points:
   (kernel K1 on CUDA tensors),
 * the self-KV cache and the cross-KV are kept in the natural layout
   (L, B, T, S), the layout the later decode-step kernel reads; the JAX
-  package keeps both head-major (L, B, H, T, dh).
+  package keeps both head-major (L, B, H, T, dh),
+* a linear may be a QuantLinear / QuantLinear4 plane (ops/quant_matmul.py):
+  from a q8_0/q5_0/q4_0 checkpoint (`params_from_checkpoint`) or the
+  runtime W8/W4 decoder (`quantize_decoder_int8`). `_mm` sends it to
+  kernel K3 or K4, and the decoder MLP pair of unpadded int8 planes to K5.
 
-QuantKV, QuantKVNat, QuantLinear planes and cross-QK collection are not
-ported yet.
+QuantKV, QuantKVNat and cross-QK collection are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,8 +34,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...io.ggml_whisper import WhisperCheckpoint, WhisperHParams
 from ...ops.attention import mha_full
 from ...ops.layers import layer_norm as _ln
+from ...ops.quant_matmul import (QuantLinear, QuantLinear4, QuantPlanes,
+                                 concat_quant, fused_ffn_int8, qmatmul,
+                                 quantize_linear, quantize_linear4, repack)
+from ...ops.quant_matmul import stack as stack_quant
 
 Params = dict[str, Any]
 
@@ -50,6 +58,12 @@ class WhisperConfig:
     n_text_layer: int
     n_mels: int
     eps: float = 1e-5
+
+    @classmethod
+    def from_hparams(cls, hp: WhisperHParams) -> "WhisperConfig":
+        return cls(hp.n_vocab, hp.n_audio_ctx, hp.n_audio_state, hp.n_audio_head,
+                   hp.n_audio_layer, hp.n_text_ctx, hp.n_text_state,
+                   hp.n_text_head, hp.n_text_layer, hp.n_mels)
 
     @property
     def d_audio_head(self) -> int:
@@ -78,8 +92,8 @@ PRESETS: dict[str, WhisperConfig] = {
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: WhisperConfig, seed: int = 0,
-                dtype: torch.dtype = torch.bfloat16,
-                device: str | torch.device = "cpu") -> Params:
+                dtype: torch.dtype = torch.bfloat16, *,
+                device: str | torch.device) -> Params:
     """Random-init params with the real model shapes.
 
     Draw for draw the same numbers as the JAX package's
@@ -117,23 +131,104 @@ def init_params(cfg: WhisperConfig, seed: int = 0,
         })
         return d
 
-    def stack(blocks):
-        return {k: torch.stack([b[k] for b in blocks]) for k in blocks[0]}
-
     enc = {
         "conv1_w": w(3, cfg.n_mels, s, scale=(3 * cfg.n_mels) ** -0.5),
         "conv1_b": w(s, scale=0.02),
         "conv2_w": w(3, s, s, scale=(3 * s) ** -0.5),
         "conv2_b": w(s, scale=0.02),
         "pos": w(cfg.n_audio_ctx, s, scale=0.02),
-        "blocks": stack([enc_block() for _ in range(cfg.n_audio_layer)]),
+        "blocks": _stack([enc_block() for _ in range(cfg.n_audio_layer)]),
         "ln_post_w": w(s, scale=1.0) * 0 + 1, "ln_post_b": w(s, scale=0.02),
     }
     dec = {
         "te": w(v, s, scale=0.02),
         "pe": w(cfg.n_text_ctx, s, scale=0.02),
-        "blocks": stack([dec_block() for _ in range(cfg.n_text_layer)]),
+        "blocks": _stack([dec_block() for _ in range(cfg.n_text_layer)]),
         "ln_w": w(s, scale=1.0) * 0 + 1, "ln_b": w(s, scale=0.02),
+    }
+    return {"encoder": enc, "decoder": dec}
+
+
+def _stack(blocks: list[Params]) -> Params:
+    """Per-layer dicts -> one dict of per-name stacks (tensors or planes)."""
+    def one(xs):
+        return stack_quant(xs) if isinstance(xs[0], QuantPlanes) else torch.stack(xs)
+    return {k: one([b[k] for b in blocks]) for k in blocks[0]}
+
+
+def params_from_checkpoint(ck: WhisperCheckpoint,
+                           dtype: torch.dtype = torch.bfloat16,
+                           keep_quant: bool = True) -> Params:
+    """Build the params dict (CPU tensors) from a parsed ggml-bin checkpoint.
+
+    Tensor names follow the reference table (src/whisper-arch.h:42-141).
+    2-D ggml weights are stored (out,in); they are kept transposed (in,out)
+    so forward matmuls are plain x @ W. With `keep_quant`, symmetric
+    block-quantized matmul weights stay QuantLinear planes (kernel K3/K5);
+    other formats dequantize to `dtype`."""
+    cfg = WhisperConfig.from_hparams(ck.hparams)
+
+    def get(name, transpose=False):
+        raw = ck.tensors[name]
+        if keep_quant and transpose and len(raw.shape) == 2:
+            ql = repack(raw.data, raw.ggml_type, raw.shape[0], raw.shape[1])
+            if ql is not None:
+                return ql
+        t = raw.to_float()
+        if transpose:
+            t = t.T
+        return torch.from_numpy(np.ascontiguousarray(t)).to(dtype)
+
+    def enc_block(i):
+        p = f"encoder.blocks.{i}"
+        return {
+            "attn_ln_w": get(f"{p}.attn_ln.weight"), "attn_ln_b": get(f"{p}.attn_ln.bias"),
+            "q_w": get(f"{p}.attn.query.weight", True), "q_b": get(f"{p}.attn.query.bias"),
+            "k_w": get(f"{p}.attn.key.weight", True),
+            "v_w": get(f"{p}.attn.value.weight", True), "v_b": get(f"{p}.attn.value.bias"),
+            "o_w": get(f"{p}.attn.out.weight", True), "o_b": get(f"{p}.attn.out.bias"),
+            "mlp_ln_w": get(f"{p}.mlp_ln.weight"), "mlp_ln_b": get(f"{p}.mlp_ln.bias"),
+            "mlp0_w": get(f"{p}.mlp.0.weight", True), "mlp0_b": get(f"{p}.mlp.0.bias"),
+            "mlp1_w": get(f"{p}.mlp.2.weight", True), "mlp1_b": get(f"{p}.mlp.2.bias"),
+        }
+
+    def dec_block(i):
+        p = f"decoder.blocks.{i}"
+        return {
+            "attn_ln_w": get(f"{p}.attn_ln.weight"), "attn_ln_b": get(f"{p}.attn_ln.bias"),
+            "q_w": get(f"{p}.attn.query.weight", True), "q_b": get(f"{p}.attn.query.bias"),
+            "k_w": get(f"{p}.attn.key.weight", True),
+            "v_w": get(f"{p}.attn.value.weight", True), "v_b": get(f"{p}.attn.value.bias"),
+            "o_w": get(f"{p}.attn.out.weight", True), "o_b": get(f"{p}.attn.out.bias"),
+            "cross_ln_w": get(f"{p}.cross_attn_ln.weight"), "cross_ln_b": get(f"{p}.cross_attn_ln.bias"),
+            "cq_w": get(f"{p}.cross_attn.query.weight", True), "cq_b": get(f"{p}.cross_attn.query.bias"),
+            "ck_w": get(f"{p}.cross_attn.key.weight", True),
+            "cv_w": get(f"{p}.cross_attn.value.weight", True), "cv_b": get(f"{p}.cross_attn.value.bias"),
+            "co_w": get(f"{p}.cross_attn.out.weight", True), "co_b": get(f"{p}.cross_attn.out.bias"),
+            "mlp_ln_w": get(f"{p}.mlp_ln.weight"), "mlp_ln_b": get(f"{p}.mlp_ln.bias"),
+            "mlp0_w": get(f"{p}.mlp.0.weight", True), "mlp0_b": get(f"{p}.mlp.0.bias"),
+            "mlp1_w": get(f"{p}.mlp.2.weight", True), "mlp1_b": get(f"{p}.mlp.2.bias"),
+        }
+
+    # conv weights: ggml/torch (out, in, k) -> the JAX package's (k, in, out)
+    def conv(name):
+        c = ck.to_float(name).transpose(2, 1, 0)
+        return torch.from_numpy(np.ascontiguousarray(c)).to(dtype)
+
+    enc = {
+        "conv1_w": conv("encoder.conv1.weight"),
+        "conv1_b": get("encoder.conv1.bias").reshape(-1),
+        "conv2_w": conv("encoder.conv2.weight"),
+        "conv2_b": get("encoder.conv2.bias").reshape(-1),
+        "pos": get("encoder.positional_embedding"),
+        "blocks": _stack([enc_block(i) for i in range(cfg.n_audio_layer)]),
+        "ln_post_w": get("encoder.ln_post.weight"), "ln_post_b": get("encoder.ln_post.bias"),
+    }
+    dec = {
+        "te": get("decoder.token_embedding.weight"),
+        "pe": get("decoder.positional_embedding"),
+        "blocks": _stack([dec_block(i) for i in range(cfg.n_text_layer)]),
+        "ln_w": get("decoder.ln.weight"), "ln_b": get("decoder.ln.bias"),
     }
     return {"encoder": enc, "decoder": dec}
 
@@ -145,14 +240,21 @@ def _from_numpy(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_jax(tree: dict, device: str | torch.device = "cpu") -> Params:
+def params_from_jax(tree: dict, *, device: str | torch.device) -> Params:
     """The JAX package's params pytree (nested dicts of numpy arrays, e.g.
     `jax.tree.map(np.asarray, tree)`) -> the port's params, bit for bit.
 
     The layouts carry over unchanged: linears (in, out), convs
-    (k, in, out), per-layer weights stacked on a leading layer axis."""
+    (k, in, out), per-layer weights stacked on a leading layer axis. The
+    JAX package's QuantLinear / QuantLinear4 planes become the port's."""
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
+        return {k: params_from_jax(v, device=device) for k, v in tree.items()}
+    kind = {"QuantLinear": QuantLinear, "QuantLinear4": QuantLinear4}.get(
+        type(tree).__name__)
+    if kind is not None:
+        return kind(qs=_from_numpy(np.asarray(tree.qs)).to(device),
+                    scales=_from_numpy(np.asarray(tree.scales)).to(device),
+                    n=tree.n)
     return _from_numpy(np.asarray(tree)).to(device)
 
 
@@ -160,8 +262,11 @@ def params_from_jax(tree: dict, device: str | torch.device = "cpu") -> Params:
 # Encoder
 # ---------------------------------------------------------------------------
 
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w with f32 accumulation, result in x's dtype."""
+def _mm(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w with f32 accumulation, result in x's dtype; quantized planes
+    go through qmatmul (kernels K3/K4 on the card)."""
+    if isinstance(w, QuantPlanes):
+        return qmatmul(x, w).to(x.dtype)
     return torch.matmul(x, w).to(x.dtype)
 
 
@@ -277,8 +382,8 @@ def encode_with_cross_kv(cfg: WhisperConfig, enc: Params, dec: Params,
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(cfg: WhisperConfig, n_beams: int,
-                  dtype: torch.dtype = torch.bfloat16,
-                  device: str | torch.device = "cpu"):
+                  dtype: torch.dtype = torch.bfloat16, *,
+                  device: str | torch.device):
     """Static self-attention cache, natural layout (L, B, n_text_ctx, S)."""
     shape = (cfg.n_text_layer, n_beams, cfg.n_text_ctx, cfg.n_text_state)
     return (torch.zeros(shape, dtype=dtype, device=device),
@@ -287,12 +392,16 @@ def init_kv_cache(cfg: WhisperConfig, n_beams: int,
 
 def prepare_decoder(dec: Params) -> Params:
     """Fuse the self-attention q/k/v projections into one matmul per layer
-    (K gets a zero bias). Returns a new decoder dict; the original q/k/v
-    names are dropped for the fused ones."""
+    (K gets a zero bias); quantized weights fuse by concatenating their
+    planes. Returns a new decoder dict; the original q/k/v names are
+    dropped for the fused ones."""
     blocks = dict(dec["blocks"])
     q_w, k_w, v_w = blocks.pop("q_w"), blocks.pop("k_w"), blocks.pop("v_w")
     q_b, v_b = blocks.pop("q_b"), blocks.pop("v_b")
-    blocks["qkv_w"] = torch.cat([q_w, k_w, v_w], dim=-1)
+    if isinstance(q_w, QuantLinear):
+        blocks["qkv_w"] = concat_quant([q_w, k_w, v_w])
+    else:
+        blocks["qkv_w"] = torch.cat([q_w, k_w, v_w], dim=-1)
     blocks["qkv_b"] = torch.cat([q_b, torch.zeros_like(q_b), v_b], dim=-1)
     out = dict(dec)
     out["blocks"] = blocks
@@ -346,11 +455,57 @@ def decode_impl(cfg: WhisperConfig, dec: Params, tokens: torch.Tensor,
         x = x + _mm(ca, p["co_w"]) + p["co_b"]
 
         h = _ln(x, p["mlp_ln_w"], p["mlp_ln_b"], cfg.eps)
-        h = F.gelu(_mm(h, p["mlp0_w"]) + p["mlp0_b"], approximate="tanh")
-        x = x + _mm(h, p["mlp1_w"]) + p["mlp1_b"]
+        w0, w1 = p["mlp0_w"], p["mlp1_w"]
+        if (isinstance(w0, QuantLinear) and isinstance(w1, QuantLinear)
+                and w0.qs.shape[-1] == w0.n_out):   # kernel K5
+            x = x + fused_ffn_int8(h, w0, p["mlp0_b"], w1).to(x.dtype) + p["mlp1_b"]
+        else:
+            h = F.gelu(_mm(h, w0) + p["mlp0_b"], approximate="tanh")
+            x = x + _mm(h, w1) + p["mlp1_b"]
 
     x = _ln(x, dec["ln_w"], dec["ln_b"], cfg.eps)
     if logits_pos is not None:
         x = x.index_select(1, torch.as_tensor(logits_pos, device=dev).long().reshape(1))
-    logits = _dot_f32(x, dec["te"].t())
+    if "te_logits" in dec:   # quantized planes of te.T (quantize_decoder_int8)
+        logits = qmatmul(x, dec["te_logits"])
+    else:
+        logits = _dot_f32(x, dec["te"].t())
     return logits, kv_k, kv_v
+
+
+# weights on the per-token decode path; ck/cv (per-window cross-KV build)
+# and the encoder stay dense: they are compute-bound, not stream-bound
+_INT8_DECODE_WEIGHTS = ("qkv_w", "q_w", "k_w", "v_w", "o_w", "cq_w", "co_w",
+                        "mlp0_w", "mlp1_w")
+
+
+def quantize_decoder_int8(dec: Params, scope: str = "logits",
+                          logits_bits: int = 8) -> Params:
+    """Runtime W8: repack decoder matmul weights into int8 QuantLinear
+    planes (q8_0-level error). The token-embedding gather keeps the dense
+    `te`. Apply after prepare_decoder.
+
+    scope="logits" quantizes only the vocab projection (`te_logits`, the
+    one plane big enough that halving its bytes matters); "mlp" also the
+    MLP pair, which then runs through kernel K5 (mlp0 keeps its logical
+    width); "all" also the attention matmuls. logits_bits=4 makes
+    `te_logits` a split-half int4 plane (q4_0-level error, kernel K4)."""
+    out = dict(dec)
+    if scope in ("all", "mlp"):
+        blocks = dict(dec["blocks"])
+        names = (_INT8_DECODE_WEIGHTS if scope == "all"
+                 else ("mlp0_w", "mlp1_w"))
+        for name in names:
+            w = blocks.get(name)
+            if w is None or isinstance(w, QuantLinear):
+                continue
+            if w.shape[-2] % 32 or w.shape[-1] % 32:
+                continue   # not block-divisible (tiny test configs)
+            # mlp0 feeds the fused FFN kernel: unpadded logical width
+            blocks[name] = quantize_linear(w, pad=(name != "mlp0_w"))
+        out["blocks"] = blocks
+    te = dec["te"]
+    if te.shape[-1] % 32 == 0 and "te_logits" not in dec:
+        q = quantize_linear4 if logits_bits == 4 else quantize_linear
+        out["te_logits"] = q(te.t())
+    return out

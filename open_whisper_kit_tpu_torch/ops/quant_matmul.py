@@ -1,0 +1,401 @@
+"""Block-quantized linears: int8 and int4 weight planes and their matmuls.
+
+Port of open_whisper_kit_tpu/ops/quant_matmul.py. Symmetric ggml formats
+(q4_0/q5_0/q8_0) are repacked at load into planes for y = x @ w: an int8
+value plane (K, Np) plus f32 scales per 32-row block (K/32, Np), Np padded
+to a multiple of 512. Affine and K-quant formats are dequantized to float at
+load (they never reach this module). Runtime W8/W4 planes come from dense
+weights through `quantize_linear` / `quantize_linear4`.
+
+Three kernels, each beside its plain torch version:
+
+* K3 `qmm` (csrc/qmm.cu): y = bf16(x) @ bf16(q * s), f32 accumulation;
+* K4 `qmm4` (csrc/qmm4.cu): the same over split-half int4 planes
+  (low nibble = even K row, high nibble = odd), weights (nibble - 8) * s
+  rounded to bf16 as the TPU kernel rounds them;
+* K5 `ffn_int8` (csrc/ffn_int8.cu): gelu_tanh(x @ W0 + b0) rounded to bf16,
+  then @ W1, the partial products summed in K order.
+
+A wrapper takes the plain version only for a CPU tensor; a CUDA tensor
+launches the kernel or raises. Each wrapper's `launches` counts its calls
+on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..io import quant as Q
+from . import _build
+
+QK = 32          # ggml simple-quant block size
+_BN = 512        # output-tile width the planes are padded to (the TPU kernel's)
+_KERNEL_BN = 128  # the CUDA kernels' output tile: Np must be a multiple
+
+
+@dataclasses.dataclass
+class QuantPlanes:
+    """What QuantLinear and QuantLinear4 share: value planes `qs`, f32
+    scales per 32-row block, and `n`, the logical output width (None =
+    unpadded). Leading axes stack layers: `w[il]` is layer il's plane."""
+    qs: torch.Tensor
+    scales: torch.Tensor
+    n: int | None = None
+
+    @property
+    def n_out(self) -> int:
+        return self.n if self.n is not None else self.qs.shape[-1]
+
+    def __getitem__(self, i):
+        return dataclasses.replace(self, qs=self.qs[i], scales=self.scales[i])
+
+    def to(self, device):
+        return dataclasses.replace(self, qs=self.qs.to(device),
+                                   scales=self.scales.to(device))
+
+
+@dataclasses.dataclass
+class QuantLinear(QuantPlanes):
+    """Weight for y = x @ w, stored quantized: qs (..., K, Np) int8 values,
+    scales (..., K//32, Np) f32. Np is padded to a tile multiple, so no
+    per-call pad copies the weight."""
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return (*self.qs.shape[:-1], self.n_out)
+
+
+@dataclasses.dataclass
+class QuantLinear4(QuantPlanes):
+    """4-bit planes: qs (..., K/2, Np) uint8, low nibble = even K row, high
+    nibble = odd K row (a nibble pair shares its 32-row scale block).
+    scales (..., K/32, Np) f32."""
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return (*self.qs.shape[:-2], self.qs.shape[-2] * 2, self.n_out)
+
+
+def stack(ws: list[QuantPlanes]) -> QuantPlanes:
+    """Per-layer planes -> one plane with a leading layer axis."""
+    return dataclasses.replace(ws[0], qs=torch.stack([w.qs for w in ws]),
+                               scales=torch.stack([w.scales for w in ws]))
+
+
+def _padded(n: int) -> int:
+    return -(-n // _BN) * _BN
+
+
+def repack(raw: bytes | np.ndarray, ggml_type: int,
+           out_features: int, in_features: int) -> QuantLinear | None:
+    """ggml blocks for a (out, in) weight -> transposed planes for x @ w
+    (CPU tensors). None if the type has no symmetric int8 representation."""
+    n = out_features * in_features
+    buf = np.frombuffer(raw, np.uint8, count=Q.nbytes_for(ggml_type, n))
+    bs, bb = Q.block_info(ggml_type)
+    if bs != QK:
+        return None
+    blocks = buf.reshape(-1, bb)
+
+    if ggml_type == Q.GGML_TYPE_Q8_0:
+        d = blocks[:, :2].copy().view(np.float16).astype(np.float32)
+        vals = blocks[:, 2:].copy().view(np.int8)
+    elif ggml_type == Q.GGML_TYPE_Q5_0:
+        d = blocks[:, 0:2].copy().view(np.float16).astype(np.float32)
+        qh = blocks[:, 2:6].copy().view(np.uint32)
+        ql = blocks[:, 6:]
+        sh = np.arange(32, dtype=np.uint32)
+        hbits = ((qh >> sh) & 1).astype(np.uint8)
+        q4 = np.concatenate([ql & 0x0F, ql >> 4], axis=1)
+        vals = ((q4 | (hbits << 4)).astype(np.int16) - 16).astype(np.int8)
+    elif ggml_type == Q.GGML_TYPE_Q4_0:
+        d = blocks[:, :2].copy().view(np.float16).astype(np.float32)
+        q = blocks[:, 2:]
+        vals = np.concatenate([(q & 0x0F).astype(np.int8) - 8,
+                               (q >> 4).astype(np.int8) - 8], axis=1)
+    else:
+        return None
+
+    # blocks are row-major over the (out, in) weight: out*in//32 blocks
+    vals = vals.reshape(out_features, in_features)         # (N, K)
+    d = d.reshape(out_features, in_features // QK)         # (N, K/32)
+    N = out_features
+    Np = _padded(N)
+    qs = np.ascontiguousarray(vals.T)                      # (K, N)
+    sc = np.ascontiguousarray(d.T.astype(np.float32))      # (K/32, N)
+    if Np != N:   # pre-pad to the output tile: no per-call weight pad
+        qs = np.pad(qs, ((0, 0), (0, Np - N)))
+        sc = np.pad(sc, ((0, 0), (0, Np - N)))
+    return QuantLinear(qs=torch.from_numpy(qs), scales=torch.from_numpy(sc), n=N)
+
+
+def concat_quant(ws: list[QuantLinear]) -> QuantLinear:
+    """Concatenate QuantLinears along the output axis (logical widths; pad
+    columns of each part are dropped, the result is re-padded)."""
+    qs = torch.cat([w.qs[..., :w.n_out] for w in ws], dim=-1)
+    sc = torch.cat([w.scales[..., :w.n_out] for w in ws], dim=-1)
+    N = qs.shape[-1]
+    Np = _padded(N)
+    if Np != N:
+        qs, sc = F.pad(qs, (0, Np - N)), F.pad(sc, (0, Np - N))
+    return QuantLinear(qs=qs, scales=sc, n=N)
+
+
+def _quantize_planes(w: torch.Tensor):
+    *lead, K, N = w.shape
+    x32 = w.float().reshape(*lead, K // QK, QK, N)
+    amax = x32.abs().amax(dim=-2)                               # (..., K/32, N)
+    # the JAX side's jitted amax / 127 compiles to a multiply by f32(1/127);
+    # the same product here keeps the scales bit-equal to its planes
+    scale = amax * np.float32(1.0 / 127.0).item()
+    inv = torch.where(scale > 0, 1.0 / torch.where(scale == 0, 1.0, scale), 0.0)
+    qs = torch.clamp(torch.round(x32 * inv[..., None, :]), -127, 127)
+    return qs.reshape(*lead, K, N).to(torch.int8), scale
+
+
+def quantize_linear(w: torch.Tensor, pad: bool = True) -> QuantLinear:
+    """Dense (..., K, N) weight -> symmetric per-32-K-block int8 planes
+    (amax/127 scales, q8_0-level error), pre-padded to the 512-wide output
+    tile; pad=False keeps the logical width (fused_ffn_int8's W0). The
+    runtime W8 mode."""
+    qs, scale = _quantize_planes(w)
+    N = w.shape[-1]
+    Np = _padded(N)
+    if pad and Np != N:
+        qs, scale = F.pad(qs, (0, Np - N)), F.pad(scale, (0, Np - N))
+    return QuantLinear(qs=qs, scales=scale, n=N)
+
+
+def quantize_linear4(w: torch.Tensor) -> QuantLinear4:
+    """Dense (K, N) weight -> symmetric per-32-K-block int4 planes
+    (amax/7 scales, q4_0-level error), split-half nibbles."""
+    K, N = w.shape
+    x32 = w.float().reshape(K // QK, QK, N)
+    amax = x32.abs().amax(dim=1)
+    scale = amax / 7.0
+    inv = torch.where(scale > 0, 1.0 / torch.where(scale == 0, 1.0, scale), 0.0)
+    q = torch.clamp(torch.round(x32 * inv[:, None, :]), -8, 7) + 8
+    q = q.reshape(K, N).to(torch.uint8)
+    packed = q[0::2] | (q[1::2] << 4)                        # (K/2, N)
+    Np = _padded(N)
+    if Np != N:
+        packed, scale = F.pad(packed, (0, Np - N)), F.pad(scale, (0, Np - N))
+    return QuantLinear4(qs=packed, scales=scale, n=N)
+
+
+def _nibbles(qs: torch.Tensor) -> torch.Tensor:
+    """(K/2, Np) packed uint8 -> (K, Np) f32 values nibble - 8, rows
+    interleaved back: row 2i from the low nibble, row 2i+1 from the high."""
+    q = qs.to(torch.int32)
+    lo, hi = (q & 0x0F) - 8, (q >> 4) - 8
+    return torch.stack([lo, hi], dim=-2).reshape(
+        *qs.shape[:-2], 2 * qs.shape[-2], qs.shape[-1]).float()
+
+
+def dequantize_dense(w: QuantPlanes, dtype: torch.dtype = torch.bfloat16
+                     ) -> torch.Tensor:
+    """Expand to a dense (K, N) tensor: q * s in f32, cast to `dtype`."""
+    q = _nibbles(w.qs) if isinstance(w, QuantLinear4) else w.qs.float()
+    s = w.scales.repeat_interleave(QK, dim=-2)
+    return (q * s).to(dtype)[..., :w.n_out]
+
+
+# -- plain versions of the kernels ---------------------------------------------
+
+def _dot_bf16(x: torch.Tensor, w_bf16: torch.Tensor) -> torch.Tensor:
+    """bf16(x) @ w_bf16 with every product exact and an f32 sum."""
+    return torch.matmul(x.to(torch.bfloat16).float(), w_bf16.float())
+
+
+def qmm_plain(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor
+              ) -> torch.Tensor:
+    """K3's function: x (M, K) -> (M, Np) f32; the weight is q * s in f32,
+    rounded to bf16; x is rounded to bf16."""
+    return _dot_bf16(x, dequantize_dense(QuantLinear(qs, scales)))
+
+
+def qmm4_plain(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor
+               ) -> torch.Tensor:
+    """K4's function: x (M, K) -> (M, Np) f32 over int4 planes, weights
+    (nibble - 8) * s rounded to bf16 (the TPU kernel's rounding; the JAX
+    interpret mode keeps them f32)."""
+    return _dot_bf16(x, dequantize_dense(QuantLinear4(qs, scales)))
+
+
+def ffn_int8_plain(x: torch.Tensor, q0: torch.Tensor, s0: torch.Tensor,
+                   b0: torch.Tensor, q1: torch.Tensor, s1: torch.Tensor
+                   ) -> torch.Tensor:
+    """K5's function: x (M, K) -> (M, N1p) f32. Per 512-wide tile t of the
+    hidden axis, h_t = gelu_tanh(x @ W0_t + b0_t) in f32, rounded to bf16,
+    times W1_t; the partial products add in tile order."""
+    FF = q0.shape[1]
+    bn = min(_BN, FF)
+    acc = None
+    for t in range(FF // bn):
+        cols, blks = slice(t * bn, (t + 1) * bn), slice(t * bn // QK, (t + 1) * bn // QK)
+        h = qmm_plain(x, q0[:, cols], s0[:, cols]) + b0[cols].float()
+        h = F.gelu(h, approximate="tanh").to(torch.bfloat16)
+        y = qmm_plain(h, q1[cols], s1[blks])
+        acc = y if acc is None else acc + y
+    return acc
+
+
+# -- the kernels -----------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.cache
+def _kernel_lib(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, f"owk_{name}")
+    if name == "ffn_int8":   # x q0 s0 b0 q1 s1 h out, M K FF N1p, stream
+        fn.argtypes = [_P] * 8 + [_I] * 4 + [_P]
+    else:                    # x qs scales out, M K Np, stream
+        fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(name: str, x: torch.Tensor, *planes: tuple[torch.Tensor, torch.dtype]):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise ValueError(f"{name}: x must be a 2-D float tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    for t, dtype in planes:
+        if t.device != x.device:
+            raise ValueError(f"{name}: planes on {t.device}, x on {x.device}")
+        if t.dtype != dtype or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: planes must be contiguous {dtype} on a "
+                             f"16-byte boundary, got {t.dtype} (contiguous="
+                             f"{t.is_contiguous()}, address {t.data_ptr():#x})")
+
+
+def _bf16_rows(x: torch.Tensor) -> torch.Tensor:
+    """x as contiguous bf16 starting on a 16-byte boundary (the kernels
+    load 8 values at a time)."""
+    xb = x.to(torch.bfloat16).contiguous()
+    return xb if xb.data_ptr() % 16 == 0 else xb.clone()
+
+
+def _launch(name: str, *args) -> None:
+    fn = getattr(_kernel_lib(name), f"owk_{name}")
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
+
+
+def _check_shapes(name: str, K: int, rows: int, qs: torch.Tensor,
+                  scales: torch.Tensor) -> int:
+    Np = qs.shape[1]
+    if qs.dim() != 2 or qs.shape[0] != rows or K % QK:
+        raise ValueError(f"{name}: x has K={K}, planes {tuple(qs.shape)}")
+    if Np % _KERNEL_BN or tuple(scales.shape) != (K // QK, Np):
+        raise ValueError(f"{name}: Np={Np} must be a multiple of {_KERNEL_BN} "
+                         f"and scales {(K // QK, Np)}, got {tuple(scales.shape)}")
+    return Np
+
+
+def qmm(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Kernel K3: x (M, K) @ int8 planes -> (M, Np) f32. CPU tensors take
+    `qmm_plain`; CUDA tensors launch csrc/qmm.cu on the current stream."""
+    if x.device.type == "cpu":
+        return qmm_plain(x, qs, scales)
+    _check("qmm", x, (qs, torch.int8), (scales, torch.float32))
+    M, K = x.shape
+    Np = _check_shapes("qmm", K, K, qs, scales)
+    out = torch.empty(M, Np, dtype=torch.float32, device=x.device)
+    if M:
+        xb = _bf16_rows(x)
+        _launch("qmm", xb.data_ptr(), qs.data_ptr(), scales.data_ptr(),
+                out.data_ptr(), M, K, Np)
+        qmm.launches += 1
+    return out
+
+
+def qmm4(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Kernel K4: x (M, K) @ split-half int4 planes (K/2, Np) -> (M, Np)
+    f32. CPU tensors take `qmm4_plain`; CUDA tensors launch csrc/qmm4.cu."""
+    if x.device.type == "cpu":
+        return qmm4_plain(x, qs, scales)
+    _check("qmm4", x, (qs, torch.uint8), (scales, torch.float32))
+    M, K = x.shape
+    Np = _check_shapes("qmm4", K, K // 2, qs, scales)
+    out = torch.empty(M, Np, dtype=torch.float32, device=x.device)
+    if M:
+        xb = _bf16_rows(x)
+        _launch("qmm4", xb.data_ptr(), qs.data_ptr(), scales.data_ptr(),
+                out.data_ptr(), M, K, Np)
+        qmm4.launches += 1
+    return out
+
+
+def ffn_int8(x: torch.Tensor, q0: torch.Tensor, s0: torch.Tensor,
+             b0: torch.Tensor, q1: torch.Tensor, s1: torch.Tensor) -> torch.Tensor:
+    """Kernel K5: gelu_tanh(x @ W0 + b0) @ W1 -> (M, N1p) f32, W0 (K, FF)
+    unpadded, W1 (FF, N1p). CPU tensors take `ffn_int8_plain`; CUDA tensors
+    launch csrc/ffn_int8.cu (two kernels: the up-projection writes h in
+    bf16, the down-projection sums over h in order)."""
+    if x.device.type == "cpu":
+        return ffn_int8_plain(x, q0, s0, b0, q1, s1)
+    b0f = b0.float().contiguous()
+    _check("ffn_int8", x, (q0, torch.int8), (s0, torch.float32), (b0f, torch.float32),
+           (q1, torch.int8), (s1, torch.float32))
+    M, K = x.shape
+    FF = _check_shapes("ffn_int8", K, K, q0, s0)
+    N1p = _check_shapes("ffn_int8", FF, FF, q1, s1)
+    if tuple(b0f.shape) != (FF,):
+        raise ValueError(f"ffn_int8: b0 {tuple(b0f.shape)} != ({FF},)")
+    out = torch.empty(M, N1p, dtype=torch.float32, device=x.device)
+    if M:
+        xb = _bf16_rows(x)
+        h = torch.empty(M, FF, dtype=torch.bfloat16, device=x.device)
+        _launch("ffn_int8", xb.data_ptr(), q0.data_ptr(), s0.data_ptr(),
+                b0f.data_ptr(), q1.data_ptr(), s1.data_ptr(), h.data_ptr(),
+                out.data_ptr(), M, K, FF, N1p)
+        ffn_int8.launches += 1
+    return out
+
+
+qmm.launches = 0
+qmm4.launches = 0
+ffn_int8.launches = 0
+
+
+# -- what the model calls --------------------------------------------------------
+
+def qmatmul(x: torch.Tensor, w: QuantPlanes) -> torch.Tensor:
+    """y = x @ w for quantized w (QuantLinear or QuantLinear4);
+    x (..., K) -> (..., n_out) f32."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    mm = qmm4 if isinstance(w, QuantLinear4) else qmm
+    out = mm(x2, w.qs, w.scales)
+    n = w.n_out
+    if n != out.shape[-1]:   # a contiguous result, as torch.matmul gives
+        out = out[:, :n].contiguous()
+    return out.reshape(*lead, n)
+
+
+def fused_ffn_int8(x: torch.Tensor, w0: QuantLinear, b0: torch.Tensor,
+                   w1: QuantLinear) -> torch.Tensor:
+    """y = gelu(x @ w0 + b0) @ w1 with int8 weight planes (kernel K5).
+    The caller adds the final bias."""
+    # W0 must be unpadded: pad columns would shift W1's row indexing
+    if w0.qs.shape[-1] != w0.n_out:
+        raise ValueError("fused_ffn_int8: quantize W0 with pad=False")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    out = ffn_int8(x2, w0.qs, w0.scales, b0, w1.qs, w1.scales)
+    n = w1.n_out
+    if n != out.shape[-1]:
+        out = out[:, :n].contiguous()
+    return out.reshape(*lead, n)

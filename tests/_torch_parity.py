@@ -29,10 +29,10 @@ def contexts(args, seed: int = 0):
     filters = JF._synthetic_mel_filters(jcfg.n_mels)
     jctx = JF.WhisperContext(jcfg, params, JTOK.build_vocab(tokens, jcfg.n_vocab),
                              filters, n_loaded=1, dtype=jnp.float32)
-    tctx = TF.WhisperContext(TM.WhisperConfig(*args),
-                             TM.params_from_jax(jax.tree.map(np.asarray, params)),
+    tparams = TM.params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
+    tctx = TF.WhisperContext(TM.WhisperConfig(*args), tparams,
                              TTOK.build_vocab(tokens, jcfg.n_vocab), filters,
-                             n_loaded=1, dtype=torch.float32)
+                             n_loaded=1, dtype=torch.float32, device="cpu")
     return jctx, tctx
 
 

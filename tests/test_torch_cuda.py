@@ -1,5 +1,6 @@
-"""The port on a CUDA card: kernel K1 against its plain version, and the
-device token loop on the card against the same loop on the CPU.
+"""The port on a CUDA card: kernels K1, K3, K4 and K5 against their plain
+versions, the device token loop on the card against the same loop on the
+CPU, and a narrow q8_0 checkpoint's transcript on the card and the CPU.
 
 Every test here needs a GPU and skips without one. The file imports no jax,
 so it also runs where the JAX package is not installed:
@@ -16,8 +17,10 @@ from open_whisper_kit_tpu_torch.decode import device_loop as DL
 from open_whisper_kit_tpu_torch.decode import full as TF
 from open_whisper_kit_tpu_torch.decode.params import FullParams
 from open_whisper_kit_tpu_torch.decode.tokenizer import build_vocab
+from open_whisper_kit_tpu_torch.io import ggml_writer as TW
 from open_whisper_kit_tpu_torch.models.whisper import model as TM
 from open_whisper_kit_tpu_torch.ops import attention as A
+from open_whisper_kit_tpu_torch.ops import quant_matmul as TQ
 
 pytestmark = pytest.mark.cuda
 
@@ -27,7 +30,7 @@ NARROW_TS = (51864, 1500, 128, 2, 2, 448, 128, 2, 3, 80)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: kernel K1 has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -68,7 +71,7 @@ def test_decode_segment_cuda_matches_cpu(cuda):
     """Encoder (through K1) and the greedy token loop, f32, on the card and
     on the CPU: the same tokens, probabilities within 1e-4."""
     cfg = TM.WhisperConfig(*NARROW_TS)
-    params = TM.init_params(cfg, seed=0, dtype=torch.float32)
+    params = TM.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     tokens = [b"<%d>" % i for i in range(50257)]
     samples = (np.random.default_rng(2).standard_normal(16000 * 20)
                .astype(np.float32) * 0.1)
@@ -93,3 +96,121 @@ def test_decode_segment_cuda_matches_cpu(cuda):
     np.testing.assert_array_equal(rg["tokens"], rc["tokens"])
     assert (rg["result_len"], rg["seek_delta"]) == (rc["result_len"], rc["seek_delta"])
     np.testing.assert_allclose(rg["p"], rc["p"], atol=1e-4)
+
+
+def _planes(cuda, K, N, seed, bits=8, pad=True):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn(K, N, generator=g, device=cuda) * K ** -0.5
+    if bits == 4:
+        return TQ.quantize_linear4(w)
+    return TQ.quantize_linear(w, pad=pad)
+
+
+def _x(cuda, M, K, seed, dtype=torch.bfloat16):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(M, K, generator=g, device=cuda).to(dtype)
+
+
+def _close(out, ref, tol=1e-3):
+    err = (out - ref).abs().max().item()
+    assert torch.isfinite(out).all() and err <= tol * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("M,K,N,dtype", [
+    (1, 1280, 51866, torch.bfloat16),     # W8 logits plane, Np = 52224
+    (5, 1280, 3840, torch.bfloat16),      # decoder qkv at 5 rows, Np = 4096
+    (1536, 1280, 1280, torch.bfloat16),   # encoder q/k/v/o, Np = 1536
+    (37, 256, 600, torch.float32),        # an f32 model's x, odd M
+])
+def test_qmm_kernel_matches_plain(cuda, M, K, N, dtype):
+    """K3 against its plain version within 1e-3 of max|ref| (f32 sums in
+    another order); the launch counter grows by one."""
+    w = _planes(cuda, K, N, seed=M)
+    x = _x(cuda, M, K, seed=M + 1, dtype=dtype)
+    before = TQ.qmm.launches
+    out = TQ.qmm(x, w.qs, w.scales)
+    torch.cuda.synchronize()
+    assert TQ.qmm.launches == before + 1
+    assert out.shape == (M, w.qs.shape[1]) and out.dtype == torch.float32
+    _close(out, TQ.qmm_plain(x, w.qs, w.scales))
+
+
+@pytest.mark.parametrize("M", [1, 5])
+def test_qmm4_kernel_matches_plain(cuda, M):
+    w = _planes(cuda, 1280, 51866, seed=7, bits=4)
+    x = _x(cuda, M, 1280, seed=8)
+    before = TQ.qmm4.launches
+    out = TQ.qmm4(x, w.qs, w.scales)
+    torch.cuda.synchronize()
+    assert TQ.qmm4.launches == before + 1
+    _close(out, TQ.qmm4_plain(x, w.qs, w.scales))
+
+
+@pytest.mark.parametrize("M", [1, 5, 40])
+def test_ffn_int8_kernel_matches_plain(cuda, M):
+    """K5 at whisper-large widths (1280 -> 5120 -> 1280, W1 padded to
+    1536); 40 rows take the 64-row tile."""
+    w0 = _planes(cuda, 1280, 5120, seed=9, pad=False)
+    w1 = _planes(cuda, 5120, 1280, seed=10)
+    b0 = torch.randn(5120, generator=torch.Generator(device=cuda).manual_seed(11),
+                     device=cuda).to(torch.bfloat16) * 0.1
+    x = _x(cuda, M, 1280, seed=12)
+    before = TQ.ffn_int8.launches
+    out = TQ.ffn_int8(x, w0.qs, w0.scales, b0, w1.qs, w1.scales)
+    torch.cuda.synchronize()
+    assert TQ.ffn_int8.launches == before + 1
+    _close(out, TQ.ffn_int8_plain(x, w0.qs, w0.scales, b0, w1.qs, w1.scales))
+
+
+def test_quant_wrappers_never_take_the_plain_version_on_cuda(cuda, monkeypatch):
+    """On a CUDA tensor each wrapper launches its kernel (the counters
+    grow) and never reaches the plain version; what it cannot take raises."""
+    def boom(*a, **k):
+        raise AssertionError("plain version reached from a CUDA tensor")
+    for name in ("qmm_plain", "qmm4_plain", "ffn_int8_plain"):
+        monkeypatch.setattr(TQ, name, boom)
+    w8, w4 = _planes(cuda, 256, 512, 1), _planes(cuda, 256, 512, 2, bits=4)
+    w0 = _planes(cuda, 256, 1024, 3, pad=False)
+    x = _x(cuda, 3, 256, 4)
+    counts = (TQ.qmm.launches, TQ.qmm4.launches, TQ.ffn_int8.launches)
+    TQ.qmatmul(x, w8)
+    TQ.qmatmul(x, w4)
+    TQ.fused_ffn_int8(x, w0, torch.zeros(1024, device=cuda), _planes(cuda, 1024, 256, 5))
+    torch.cuda.synchronize()
+    assert (TQ.qmm.launches, TQ.qmm4.launches, TQ.ffn_int8.launches) == tuple(
+        c + 1 for c in counts)
+    with pytest.raises(ValueError, match="planes"):
+        TQ.qmm(x, w8.qs.cpu(), w8.scales.cpu())
+    with pytest.raises(ValueError, match="K="):
+        TQ.qmm(x[:, :128], w8.qs, w8.scales)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        TQ.qmm(x, w8.qs[:, :100].contiguous(), w8.scales[:, :100].contiguous())
+
+
+def test_q8_checkpoint_tokens_cuda_match_cpu(cuda, tmp_path):
+    """A narrow q8_0 checkpoint (S=128: the decoder MLP runs K5) through
+    whisper_full on the card and on the CPU, 35 s over two windows: the
+    same token ids, at least 100 of them. Audio seed 4 is one whose CPU
+    transcript stays the same when the input is scaled by 1 +- 2^-20,
+    2^-16 or 2^-13."""
+    hp = TW.WhisperHParams(51864, 1500, 128, 2, 2, 448, 128, 2, 3, 80, ftype=1, qntvr=0)
+    path = tmp_path / "narrow-q8_0.bin"
+    TW.write_checkpoint(path, hp, TF._synthetic_mel_filters(80),
+                        [b"<%d>" % i for i in range(50257)],
+                        TW.random_reference_tensors(hp, seed=0),
+                        wtype=TW.TYPE_FOR_NAME["q8_0"])
+    samples = (np.random.default_rng(4).standard_normal(16000 * 35)
+               .astype(np.float32) * 0.1)
+    ids, n_enc = {}, {}
+    for dev in ("cuda", "cpu"):
+        ctx = TF.WhisperContext.from_file(path, dtype=torch.float32, device=dev)
+        p = FullParams(print_progress=False)
+        p.temperature_inc = 0
+        counts = (TQ.qmm.launches, TQ.ffn_int8.launches)
+        res = TF.whisper_full(ctx, p, samples)
+        ids[dev] = [[t.id for t in s.tokens] for s in res.segments]
+        n_enc[dev] = res.timings.n_encode
+        grew = (TQ.qmm.launches - counts[0], TQ.ffn_int8.launches - counts[1])
+        assert (grew[0] > 0 and grew[1] > 0) if dev == "cuda" else grew == (0, 0)
+    assert n_enc["cuda"] == n_enc["cpu"] == 2
+    assert ids["cuda"] == ids["cpu"] and sum(map(len, ids["cpu"])) >= 100

@@ -117,7 +117,9 @@ def test_port_sources_never_import_jax():
             assert not banned.match(line), f"{path}: {line}"
 
 
-@pytest.mark.parametrize("name", ["decode/tokenizer.py", "decode/params.py"])
+@pytest.mark.parametrize("name", ["decode/tokenizer.py", "decode/params.py",
+                                  "io/quant.py", "io/_iq_tables.py",
+                                  "io/ggml_whisper.py"])
 def test_copied_host_modules_match_their_source(name):
     src = (REPO / "open_whisper_kit_tpu" / name).read_text()
     copy = (REPO / "open_whisper_kit_tpu_torch" / name).read_text()
@@ -130,6 +132,39 @@ def test_cuda_device_without_cuda_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Transcriber(preset="tiny.en", dtype=torch.float32, device="cuda")
+
+
+@pytest.mark.parametrize("entry", ["Transcriber(preset)", "Transcriber(model_path)",
+                                   "WhisperContext", "from_preset", "from_file",
+                                   "from_buffer"])
+def test_entry_points_default_to_cuda(entry, tmp_path):
+    """With no `device`, every entry point targets the card: on a machine
+    without CUDA it raises before building anything, and never falls back
+    to the CPU."""
+    import inspect
+    from open_whisper_kit_tpu_torch.models.whisper import model as TM
+    from open_whisper_kit_tpu_torch.io import ggml_writer as TW
+    for fn in (Transcriber.__init__, TF.WhisperContext.__init__,
+               TF.WhisperContext.from_preset, TF.WhisperContext.from_file,
+               TF.WhisperContext.from_buffer):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = TM.WhisperConfig(*NARROW)
+    path = tmp_path / "stub.bin"
+    TW.write_checkpoint(path, TW.WhisperHParams(*NARROW, ftype=1, qntvr=0),
+                        JF._synthetic_mel_filters(80), [b"a"], {})
+    calls = {
+        "Transcriber(preset)": lambda: Transcriber(preset="tiny.en"),
+        "Transcriber(model_path)": lambda: Transcriber(model_path=path),
+        "WhisperContext": lambda: TF.WhisperContext(
+            cfg, {"encoder": {}, "decoder": {}}, None, None, n_loaded=1),
+        "from_preset": lambda: TF.WhisperContext.from_preset("tiny.en"),
+        "from_file": lambda: TF.WhisperContext.from_file(path),
+        "from_buffer": lambda: TF.WhisperContext.from_buffer(path.read_bytes()),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
 
 
 def test_transcriber_detect_language_and_tokenize_match_jax():
@@ -146,8 +181,8 @@ def test_transcriber_detect_language_and_tokenize_match_jax():
     for text in ("<12><7>", "hello world", ""):
         assert tr.tokenize(text) == jt.tokenize(text)
     assert tr.is_multilingual and tr.model_type == "tiny"
-    with pytest.raises(NotImplementedError, match="ggml"):
-        Transcriber(model_path="model.bin")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Transcriber(preset="tiny", encoder_int8=True)
 
 
 def test_transcribe_wav_path(tmp_path, narrow):

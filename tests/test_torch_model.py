@@ -27,7 +27,7 @@ def jax_params():
 
 @pytest.fixture(scope="module")
 def port_params(jax_params):
-    return TM.params_from_jax(jax.tree.map(np.asarray, jax_params))
+    return TM.params_from_jax(jax.tree.map(np.asarray, jax_params), device="cpu")
 
 
 def _leaves(tree, prefix=""):
@@ -58,7 +58,8 @@ def _nat(hm) -> np.ndarray:
 def test_init_params_bitwise_equal(dtype):
     j = dict(_leaves(M.init_params(JCFG, seed=3, dtype=getattr(jnp, dtype),
                                    device=False)))
-    t = dict(_leaves(TM.init_params(TCFG, seed=3, dtype=getattr(torch, dtype))))
+    t = dict(_leaves(TM.init_params(TCFG, seed=3, dtype=getattr(torch, dtype),
+                                    device="cpu")))
     assert sorted(j) == sorted(t)
     for name in j:
         assert tuple(j[name].shape) == tuple(t[name].shape), name
@@ -69,7 +70,7 @@ def test_init_params_bitwise_equal(dtype):
 def test_params_from_jax_round_trip():
     tree = jax.tree.map(np.asarray, M.init_params(JCFG, seed=1,
                                                   dtype=jnp.bfloat16, device=False))
-    port = TM.params_from_jax(tree)
+    port = TM.params_from_jax(tree, device="cpu")
     flat_j, flat_t = dict(_leaves(tree)), dict(_leaves(port))
     assert sorted(flat_j) == sorted(flat_t)
     for name, a in flat_j.items():
@@ -143,7 +144,7 @@ def test_decode_impl_prompt_and_steps_match_jax(jax_params, port_params):
     prompt = np.zeros((1, T_pad), np.int32)
     prompt[0, :t_real] = rng.integers(0, 50000, t_real)
     jk, jv = M.init_kv_cache(JCFG, 1, dtype=jnp.float32)
-    tk, tv = TM.init_kv_cache(TCFG, 1, dtype=torch.float32)
+    tk, tv = TM.init_kv_cache(TCFG, 1, dtype=torch.float32, device="cpu")
     jl, jk, jv, _ = M.decode_impl(JCFG, jdec, jnp.asarray(prompt), jk, jv,
                                   jnp.int32(0), j_xk, j_xv,
                                   logits_pos=jnp.int32(t_real - 1))
