@@ -5,8 +5,9 @@
 
 Phases, each gated; any failure exits non-zero before the result lines:
   1. torch / CUDA versions and the card's name and power limit;
-  2. build kernels K1 (csrc/mha_packed.cu), K3 (qmm.cu), K4 (qmm4.cu) and
-     K5 (ffn_int8.cu) with nvcc, one process per source, all at once, timed;
+  2. build kernels K1 (csrc/mha_packed.cu), K2 (mega_step.cu), K3
+     (qmm.cu), K4 (qmm4.cu) and K5 (ffn_int8.cu) with nvcc, one process per
+     source, all at once, timed;
   3. K1 against its plain torch version on the card: bf16 at the
      large-v3-turbo encoder shape (B=1, T=1536, S=1280, n_valid=1500,
      gate max|err| <= 1e-2 * max|ref|) and the narrow f32 shape (S=128,
@@ -14,7 +15,15 @@ Phases, each gated; any failure exits non-zero before the result lines:
      K3, K4 and K5 against their plain versions at the shapes large-v3-turbo
      gives them (gate 1e-3 * max|ref|), with kernel, plain and library times
      (torch.matmul on the dequantized bf16 weight), each launch with a cold
-     L2 cache, and the bound;
+     L2 cache, and the bound; K2 (the whole decoder step) at large-v3-turbo
+     width (4 layers, 448 cache rows, 1500 audio positions, vocabulary
+     51866) in its four modes (dense, int8 logits, int8, int4): 8
+     consecutive steps from a cache with 100 rows of history, each from the
+     same inputs as its plain version (logits and the new cache rows
+     within 2e-2 of max|ref|, K2_TOL), the step
+     time against the plain step and the port's decode_impl step on the
+     same weights (the yardstick; no single library call computes a step),
+     each with a cold L2 cache, and the bound;
   4. Transcriber(preset="large-v3-turbo", bf16, cuda, seed 0) answers 30 s
      and 65 s of seeded synthetic audio; K1's launch count must be exactly
      32 (encoder layers) per encoder pass;
@@ -22,17 +31,23 @@ Phases, each gated; any failure exits non-zero before the result lines:
      encoder outputs within 1e-4, token ids equal;
   6. a full-width large-v3-turbo q8_0 checkpoint (the port's writer, seed-0
      random tensors) through Transcriber(model_path=...) on cuda: 30 s and
-     65 s requests (temperature_inc = 0); K3 must launch exactly
-     200 per encoder pass (32 layers x 6 linears + 4 layers x cross K/V) and
-     16 per decoder call (4 layers x qkv/o/cq/co), K5 4 per decoder call;
+     65 s requests (temperature_inc = 0), which run K2 by themselves (its
+     int8 mode) for every token step; K3 must launch exactly 200 per
+     encoder pass (32 layers x 6 linears + 4 layers x cross K/V) and 16 per
+     decode_impl call (prompt ingest: 4 layers x qkv/o/cq/co), K5 4 per
+     decode_impl call, K2 once per token step; then one 30 s request with
+     megakernel=False, whose token steps run decode_impl (K3 and K5);
   7. runtime W8 logits (decoder_int8=True; K3 once per decoder call) and W4
      logits (quantize_decoder_int8(logits_bits=4); K4 once per decoder call)
      on the seed-0 turbo preset, one 30 s greedy request each, after the
-     same request on the dense logits projection;
+     same request on the dense logits projection and, on the same weights,
+     with megakernel=True (K2 dense) and megakernel="int4" (K2 int4);
   8. narrow q4_0 and q5_0 checkpoints (S = 128: the decoder MLP runs K5)
      through whisper_full on cuda and on cpu, 35 s over two windows: token
-     ids equal, at least 100 of them.
-The last three lines are the kernels JSON, the nvidia-smi name/power line
+     ids equal, at least 100 of them;
+  9. a narrow bf16 q8_0 checkpoint with megakernel="int8" (K2 on the card,
+     its plain version on the CPU), 35 s: token ids equal, at least 100.
+Every phase prints ms per sampled token beside its RTF. The last three lines are the kernels JSON, the nvidia-smi name/power line
 and {"ok": true, "device": {...}}. Imports nothing of JAX.
 
     python3 chip_smoke.py --profile
@@ -58,7 +73,7 @@ TURBO_LAYERS = 32
 NARROW = (51864, 1500, 128, 2, 2, 448, 128, 2, 2, 80)
 NARROW_Q = (51864, 1500, 128, 2, 2, 448, 128, 2, 3, 80)   # 3 decoder layers
 TURBO = (51866, 1500, 1280, 20, 32, 448, 1280, 20, 4, 128)
-KERNELS = ("mha_packed", "qmm", "qmm4", "ffn_int8")
+KERNELS = ("mha_packed", "mega_step", "qmm", "qmm4", "ffn_int8")
 SRC = "open_whisper_kit_tpu_torch/csrc/"
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over HBM bandwidth and its FLOPs over bf16 rate
@@ -179,7 +194,7 @@ def phase_quant_kernels(torch, Q):
     the kernel, the plain version and the library yardstick with the L2
     cache flushed before each launch (on the decode path every weight
     plane arrives cold), and the bound. The bound counts the logical N
-    columns only: the planes' padding to a multiple of 512 is zeros that
+    columns only: the planes' padding to a multiple of 128 is zeros that
     the function does not need. Returns {kernel: [per-shape dicts]}."""
     g = torch.Generator(device="cuda").manual_seed(0)
     l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
@@ -234,16 +249,166 @@ def phase_quant_kernels(torch, Q):
     return out
 
 
-class CallCounter:
-    """Counts calls of the model's encoder pass and decoder forward while
-    it is installed (both are looked up on the module at call time)."""
+K2_MODES = ("none", "logits", "all", "int4")
+K2_HISTORY, K2_STEPS = 100, 8
+# K2 against its plain version: the two sum in different f32 orders, so a
+# bf16 rounding of the residual stream flips now and then, and each later
+# layer carries the flips on. Layer 0's new cache rows agree within one
+# bf16 step (<= 1e-3 of their max); layers 1-3 and the logits, at this
+# width and depth, within 0.6-1.1 % of max|ref| (H100 80GB HBM3, 700 W).
+# Stated tolerance: 2e-2 of max|ref|, the JAX package's own for this
+# kernel (tests/test_decode_megakernel.py).
+K2_TOL = 2e-2
 
-    def __init__(self, TM):
-        self.TM, self.enc, self.dec = TM, 0, 0
-        self._orig = (TM.encode_with_cross_kv, TM.decode_impl)
+
+def turbo_decoder(torch, TM, Q, cfg, mode):
+    """Seeded random large-v3-turbo decoder weights on the card, prepared
+    (fused qkv), and the decoder decode_impl runs for the same mode: dense;
+    W8 logits plane; every matmul int8 (K3/K5); every matmul and the
+    logits int4 (K4)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    L, S, V = cfg.n_text_layer, cfg.n_text_state, cfg.n_vocab
+
+    def w(*shape, scale=None):
+        scale = scale if scale is not None else shape[-2] ** -0.5
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    blocks = {n: w(L, S, scale=0.02) for n in (
+        "attn_ln_b", "cross_ln_b", "mlp_ln_b", "q_b", "v_b", "o_b", "cq_b", "co_b", "mlp1_b")}
+    blocks.update({n: torch.ones(L, S, dtype=torch.bfloat16, device="cuda")
+                   for n in ("attn_ln_w", "cross_ln_w", "mlp_ln_w")})
+    blocks.update({n: w(L, S, S) for n in ("q_w", "k_w", "v_w", "o_w", "cq_w", "co_w")})
+    blocks.update(mlp0_w=w(L, S, 4 * S), mlp0_b=w(L, 4 * S, scale=0.02),
+                  mlp1_w=w(L, 4 * S, S))
+    dec = TM.prepare_decoder({
+        "te": w(V, S, scale=0.02), "pe": w(cfg.n_text_ctx, S, scale=0.02),
+        "blocks": blocks, "ln_w": torch.ones(S, dtype=torch.bfloat16, device="cuda"),
+        "ln_b": w(S, scale=0.02)})
+    if mode == "logits":
+        return dec, TM.quantize_decoder_int8(dec)
+    if mode == "all":
+        return dec, TM.quantize_decoder_int8(dec, scope="all")
+    if mode == "int4":
+        b4 = dict(dec["blocks"])
+        for n in ("qkv_w", "o_w", "cq_w", "co_w", "mlp0_w", "mlp1_w"):
+            b4[n] = Q.stack([Q.quantize_linear4(dec["blocks"][n][il]) for il in range(L)])
+        return dec, {**dec, "blocks": b4, "te_logits": Q.quantize_linear4(dec["te"].t())}
+    return dec, dec
+
+
+def k2_bytes_ops(MK, mp, cfg, n_keys: int, Ta: int) -> tuple[int, int]:
+    """Bytes a step must move (every plane on its logical columns with its
+    scales, biases and layernorm rows, the cross-KV, the self-KV rows it
+    attends, x0 and the logits, each once) and its operations (2 per
+    weight, and QK^T and P.V over the self and cross keys)."""
+    L, S, V = cfg.n_text_layer, cfg.n_text_state, cfg.n_vocab
+    moved, weights = 0, 0
+    for name in MK.WEIGHTS:
+        w = getattr(mp, name)
+        cols = V if name == "teT" else None
+        for t in ((w.qs, w.sc) if hasattr(w, "qs") else (w,)):
+            t = t[..., :cols] if cols else t
+            moved += t.numel() * t.element_size()
+        K, N = ({"qkv_w": (S, 3 * S), "mlp0_w": (S, 4 * S), "mlp1_w": (4 * S, S),
+                 "teT": (S, V)}.get(name, (S, S)))
+        weights += K * N * (1 if name == "teT" else L)
+    moved += sum(getattr(mp, n).numel() * 2 for n in (
+        "qkv_b", "o_b", "cq_b", "co_b", "mlp0_b", "mlp1_b", "lnw", "lnb"))
+    moved += L * 2 * (Ta + n_keys) * S * 2 + S * 2 + V * 4
+    ops = 2 * weights + L * 4 * (n_keys + Ta) * S
+    return moved, ops
+
+
+def phase_k2(torch, TM, MK, Q):
+    """K2 at large-v3-turbo width in each mode: K2_STEPS consecutive steps
+    from a cache holding K2_HISTORY rows, each kernel step against the
+    plain step on the same inputs (logits and the new cache rows within
+    K2_TOL of max|ref|); times of the kernel step, the plain
+    step and the decode_impl step (the yardstick) with a cold L2 cache;
+    the bound. Returns {mode: row}."""
+    cfg = TM.WhisperConfig(*TURBO)
+    L, S, Tc, Ta = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_ctx, cfg.n_audio_ctx
+    g = torch.Generator(device="cuda").manual_seed(1)
+    xk, xv = ((torch.randn(L, 1, Ta, S, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    hist = (torch.randn(2, L, 1, Tc, S, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    hist[:, :, :, K2_HISTORY:] = 0
+    l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for mode in K2_MODES:
+        dec, ydec = turbo_decoder(torch, TM, Q, cfg, mode)
+        mp = MK.prepare_mega(cfg, ydec if mode in ("logits", "all") else dec, quant=mode)
+        kk, kv, pk, pv = (hist[i % 2].clone() for i in range(4))
+        toks = torch.randint(0, cfg.n_vocab, (K2_STEPS,), generator=g, device="cuda")
+        err = ref_max = cache_err = 0.0
+        layer_err = [0.0] * L
+        for i in range(K2_STEPS):
+            # the same inputs each step: the kernel's cache is the plain one's
+            kk.copy_(pk)
+            kv.copy_(pv)
+            head = torch.tensor(K2_HISTORY + i, device="cuda")
+            x0 = (dec["te"][toks[i]] + dec["pe"][head])[None].to(torch.bfloat16)
+            ref, _, _ = MK.mega_decode_step_plain(cfg, mp, x0, pk[:, 0], pv[:, 0], head,
+                                                  xk[:, 0], xv[:, 0])
+            got, _, _ = MK.mega_decode_step(cfg, mp, x0, kk[:, 0], kv[:, 0], head,
+                                            xk[:, 0], xv[:, 0])
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()) and got.shape == ref.shape,
+                  f"K2 {mode}: non-finite or misshapen logits")
+            e, m = (got - ref).abs().max().item(), ref.abs().max().item()
+            check(e <= K2_TOL * m, f"K2 {mode} step {i}: logits differ from the plain "
+                  f"version: {e:.3e} > {K2_TOL} * {m:.3e}")
+            err, ref_max = max(err, e), max(ref_max, m)
+            row = K2_HISTORY + i
+            for a, b in ((kk, pk), (kv, pv)):
+                ra, rb = a[:, 0, row].float(), b[:, 0, row].float()
+                per_layer = ((ra - rb).abs().amax(dim=1) / rb.abs().max()).tolist()
+                layer_err = [max(x, y) for x, y in zip(layer_err, per_layer)]
+                cache_err = max(cache_err, max(per_layer))
+                check(torch.equal(a[:, :, :row], b[:, :, :row]) and not a[:, :, row + 1:].any(),
+                      f"K2 {mode}: cache rows other than the written one changed")
+        check(cache_err <= K2_TOL, f"K2 {mode}: new cache rows differ from the plain "
+              f"version ({cache_err:.3e} of their max)")
+        head = torch.tensor(K2_HISTORY + K2_STEPS, device="cuda")
+        x0 = (dec["te"][toks[0]] + dec["pe"][head])[None].to(torch.bfloat16)
+        tok = toks[:1, None]
+        k_ms = cuda_ms(torch, lambda: MK.mega_decode_step(
+            cfg, mp, x0, kk[:, 0], kv[:, 0], head, xk[:, 0], xv[:, 0]), flush=l2_flush)
+        p_ms = cuda_ms(torch, lambda: MK.mega_decode_step_plain(
+            cfg, mp, x0, pk[:, 0], pv[:, 0], head, xk[:, 0], xv[:, 0]), flush=l2_flush)
+        y_ms = cuda_ms(torch, lambda: TM.decode_impl(cfg, ydec, tok, pk, pv, head, xk, xv),
+                       flush=l2_flush)
+        moved, ops = k2_bytes_ops(MK, mp, cfg, K2_HISTORY + K2_STEPS + 1, Ta)
+        b_ms, b_by = bound(moved, ops)
+        out[mode] = {"mode": mode, "max_abs_err": err, "max_ref": ref_max,
+                     "cache_rel_err": cache_err, "cache_rel_err_by_layer": layer_err, "ms": k_ms, "plain_ms": p_ms,
+                     "decode_impl_ms": y_ms, "library_ms": None, "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": moved}
+        print(f"[3] K2 {mode}: {K2_STEPS} steps, logits max|err| {err:.3e} (max|ref| "
+              f"{ref_max:.3e}), cache rows {cache_err:.3e} of max (by layer "
+              f"{', '.join(f'{x:.1e}' for x in layer_err)}); step {k_ms * 1e3:.1f} "
+              f"us, plain {p_ms * 1e3:.1f} us, decode_impl step {y_ms * 1e3:.1f} us, "
+              f"bound {b_ms * 1e3:.1f} us ({b_by}, {moved / 1e6:.1f} MB)", flush=True)
+        del dec, ydec, mp, kk, kv, pk, pv
+        torch.cuda.empty_cache()
+    del l2_flush, hist, xk, xv
+    torch.cuda.empty_cache()
+    return out
+
+
+class CallCounter:
+    """Counts calls of the model's encoder pass and decoder forward, and the
+    token loop's calls of the K2 step, while it is installed (each is looked
+    up on its module at call time; the loop's view of the K2 module is
+    swapped for one that counts, so the wrapper's own counter is untouched)."""
+
+    def __init__(self, TM, DL):
+        self.TM, self.DL, self.enc, self.dec, self.mega = TM, DL, 0, 0, 0
+        self._orig = (TM.encode_with_cross_kv, TM.decode_impl, DL.MK)
 
     def __enter__(self):
-        enc, dec = self._orig
+        enc, dec, mk = self._orig
+        counter = self
 
         def encode(*a, **k):
             self.enc += 1
@@ -252,11 +417,21 @@ class CallCounter:
         def decode(*a, **k):
             self.dec += 1
             return dec(*a, **k)
+
+        class CountingMK:
+            def __getattr__(self, name):
+                return getattr(mk, name)
+
+            @staticmethod
+            def mega_decode_step(*a, **k):
+                counter.mega += 1
+                return mk.mega_decode_step(*a, **k)
         self.TM.encode_with_cross_kv, self.TM.decode_impl = encode, decode
+        self.DL.MK = CountingMK()
         return self
 
     def __exit__(self, *exc):
-        self.TM.encode_with_cross_kv, self.TM.decode_impl = self._orig
+        self.TM.encode_with_cross_kv, self.TM.decode_impl, self.DL.MK = self._orig
 
 
 def profile_request(torch, tr, FullParams, secs, seed, tag) -> None:
@@ -292,22 +467,25 @@ def profile_request(torch, tr, FullParams, secs, seed, tag) -> None:
     (out / f"profile-{tag}.txt").write_text(rows.table(sort_by=sort, row_limit=40))
 
 
-def reset_counts(A, Q) -> None:
-    A.mha_packed.launches = 0
+def reset_counts(A, Q, MK) -> None:
+    A.mha_packed.launches = MK.mega_decode_step.launches = 0
     Q.qmm.launches = Q.qmm4.launches = Q.ffn_int8.launches = 0
 
 
-def serve(torch, tr, FullParams, secs, seed, tag, greedy=True):
+def serve(torch, tr, FullParams, secs, seed, tag, greedy=True, megakernel=None):
+    p = greedy_params(FullParams) if greedy else FullParams(print_progress=False)
+    p.megakernel = megakernel
     t0 = time.perf_counter()
-    res = tr.transcribe(audio(secs, seed),
-                        greedy_params(FullParams) if greedy else FullParams(print_progress=False))
+    res = tr.transcribe(audio(secs, seed), p)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     tm = res.timings
     n_tok = sum(len(s.tokens) for s in res.segments)
-    print(f"[{tag}] {secs:.0f} s audio: encoder passes {tm.n_encode}, sampled "
-          f"tokens {tm.n_sample}, emitted tokens {n_tok}, segments "
-          f"{len(res.segments)}, wall {wall:.3f} s, RTF {wall / secs:.4f}", flush=True)
+    print(f"[{tag}] {secs:.0f} s audio, megakernel={megakernel!r} (mode "
+          f"{tr.ctx.mega_mode(p)}): encoder passes {tm.n_encode}, sampled tokens "
+          f"{tm.n_sample}, emitted tokens {n_tok}, segments {len(res.segments)}, wall "
+          f"{wall:.3f} s, RTF {wall / secs:.4f}, {wall * 1e3 / max(tm.n_sample, 1):.2f} ms "
+          "per sampled token", flush=True)
     # random weights may close a window's last segment at seek + seek_delta
     # before its opening timestamp (whisper.cpp's rule), so t0 <= t1 is not
     # asked; ids, probabilities, text and non-negative times are
@@ -335,6 +513,7 @@ def main(profiling: bool = False) -> int:
 
     from open_whisper_kit_tpu_torch import Transcriber
     from open_whisper_kit_tpu_torch.audio import mel as mel_mod
+    from open_whisper_kit_tpu_torch.decode import device_loop as DL
     from open_whisper_kit_tpu_torch.decode import full as TF
     from open_whisper_kit_tpu_torch.decode import tokenizer as tok_mod
     from open_whisper_kit_tpu_torch.decode.params import FullParams
@@ -342,6 +521,7 @@ def main(profiling: bool = False) -> int:
     from open_whisper_kit_tpu_torch.models.whisper import model as TM
     from open_whisper_kit_tpu_torch.ops import _build
     from open_whisper_kit_tpu_torch.ops import attention as A
+    from open_whisper_kit_tpu_torch.ops import decode_megakernel as MK
     from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
 
     phase_t = {}
@@ -362,7 +542,8 @@ def main(profiling: bool = False) -> int:
     t0 = time.perf_counter()
     _build.build_all(list(KERNELS))
     A._kernel_lib()
-    for name in KERNELS[1:]:
+    MK._kernel_lib()
+    for name in KERNELS[2:]:
         Q._kernel_lib(name)
     print(f"[2] {', '.join(KERNELS)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -372,6 +553,7 @@ def main(profiling: bool = False) -> int:
     k1 = phase_k1(torch, A, torch.bfloat16, 1280, True, 1e-2, 0)
     phase_k1(torch, A, torch.float32, 128, False, 1e-4, 1)
     quant = phase_quant_kernels(torch, Q)
+    k2 = phase_k2(torch, TM, MK, Q)
     done("3")
 
     # ---- 4. turbo bf16 requests through the public entry point ----
@@ -380,7 +562,7 @@ def main(profiling: bool = False) -> int:
     torch.cuda.synchronize()
     print(f"[4] large-v3-turbo weights (seed 0) built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    reset_counts(A, Q)
+    reset_counts(A, Q, MK)
     n_enc = 0
     for secs, seed in ((30.0, 30), (65.0, 65)):
         res = serve(torch, tr, FullParams, secs, seed, "4", greedy=False)
@@ -449,23 +631,43 @@ def main(profiling: bool = False) -> int:
               and blocks["mlp0_w"].qs.shape[-1] == blocks["mlp0_w"].n_out,
               "q8_0 checkpoint did not load as unpadded int8 planes")
         print(f"[6] loaded on cuda in {time.perf_counter() - t0:.1f} s", flush=True)
-        reset_counts(A, Q)
-        with CallCounter(TM) as calls:
-            for secs, seed in ((30.0, 30), (65.0, 65)):
-                serve(torch, tr, FullParams, secs, seed, "6")
-        torch.cuda.synchronize()
-        want_k3 = calls.enc * (TURBO_LAYERS * 6 + 4 * 2) + calls.dec * 4 * 4
-        want_k5 = calls.dec * 4
-        print(f"[6] encoder passes {calls.enc}, decoder calls {calls.dec}: K3 launches "
-              f"{Q.qmm.launches} (predicted {want_k3}), K5 launches "
-              f"{Q.ffn_int8.launches} (predicted {want_k5}), K1 launches "
-              f"{A.mha_packed.launches} (predicted {TURBO_LAYERS * calls.enc})",
-              flush=True)
-        check(calls.enc > 0 and Q.qmm.launches == want_k3
-              and Q.ffn_int8.launches == want_k5
-              and A.mha_packed.launches == TURBO_LAYERS * calls.enc
-              and Q.qmm4.launches == 0, "q8_0 request: launch counts off prediction")
-        launches["qmm"], launches["ffn_int8"] = Q.qmm.launches, Q.ffn_int8.launches
+        check(tr.ctx.mega_mode(greedy_params(FullParams)) == "all",
+              "q8_0 checkpoint: K2 is not switched on by itself")
+        launches["qmm"] = launches["ffn_int8"] = 0
+        # auto (K2 int8 for every token step), then megakernel=False, whose
+        # token steps run decode_impl (K3 and K5 on the decoder path)
+        for megakernel, runs in ((None, ((30.0, 30), (65.0, 65))), (False, ((30.0, 30),))):
+            reset_counts(A, Q, MK)
+            with CallCounter(TM, DL) as calls:
+                n_sample = sum(serve(torch, tr, FullParams, secs, seed, "6",
+                                     megakernel=megakernel).timings.n_sample
+                               for secs, seed in runs)
+            torch.cuda.synchronize()
+            want_k3 = calls.enc * (TURBO_LAYERS * 6 + 4 * 2) + calls.dec * 4 * 4
+            want_k5 = calls.dec * 4
+            n_k2 = MK.mega_decode_step.launches
+            print(f"[6] megakernel={megakernel!r}: encoder passes {calls.enc}, decode_impl "
+                  f"calls {calls.dec}, K2 steps {calls.mega}, sampled tokens {n_sample}: "
+                  f"K2 launches {n_k2}, K3 launches {Q.qmm.launches} (predicted {want_k3}), "
+                  f"K5 launches {Q.ffn_int8.launches} (predicted {want_k5}), K1 launches "
+                  f"{A.mha_packed.launches} (predicted {TURBO_LAYERS * calls.enc})",
+                  flush=True)
+            check(calls.enc > 0 and Q.qmm.launches == want_k3
+                  and Q.ffn_int8.launches == want_k5
+                  and A.mha_packed.launches == TURBO_LAYERS * calls.enc
+                  and Q.qmm4.launches == 0, "q8_0 request: launch counts off prediction")
+            if megakernel is None:
+                # every token step is one K2 launch; a window's loop steps once
+                # per sampled token but its last, and at most POLL - 1 masked
+                # steps past its end
+                check(n_k2 == calls.mega and n_sample - calls.dec <= n_k2
+                      <= n_sample + 16 * calls.dec,
+                      f"q8_0 auto: K2 launches {n_k2} do not match the token steps")
+                launches["mega_decode_step"] = n_k2
+            else:
+                check(n_k2 == 0 and calls.mega == 0, "megakernel=False still ran K2")
+            launches["qmm"] += Q.qmm.launches
+            launches["ffn_int8"] += Q.ffn_int8.launches
         mel = mel_mod.log_mel_spectrogram(audio(30.0, 30), tr.ctx.filters, "cuda")
         q_ms = cuda_ms(torch, lambda: tr.ctx.encode_window(mel.data, 0, 0), reps=5,
                        warmup=1)
@@ -491,6 +693,12 @@ def main(profiling: bool = False) -> int:
         serve(torch, tr, FullParams, 30.0, 30, "7 dense logits")
         if profiling:
             profile_request(torch, tr, FullParams, 30.0, 30, "dense")
+        # the same weights through K2: dense planes, then runtime int4 planes
+        for megakernel in (True, "int4"):
+            reset_counts(A, Q, MK)
+            serve(torch, tr, FullParams, 30.0, 30, "7 K2", megakernel=megakernel)
+            check(MK.mega_decode_step.launches > 0 and Q.qmm.launches == 0
+                  and Q.qmm4.launches == 0, f"megakernel={megakernel!r} did not run K2 alone")
         tr.ctx.params["decoder"] = dec
         for bits in (8, 4):
             if bits == 4:
@@ -505,8 +713,8 @@ def main(profiling: bool = False) -> int:
                   f"max|diff| / max|dense| {rel:.4f}", flush=True)
             check(tuple(lg.shape) == (1, 1, 51866) and rel <= (0.05 if bits == 8 else 0.25),
                   f"W{bits} logits far from the dense projection")
-            reset_counts(A, Q)
-            with CallCounter(TM) as calls:
+            reset_counts(A, Q, MK)
+            with CallCounter(TM, DL) as calls:
                 serve(torch, tr, FullParams, 30.0, 30, "7")
             torch.cuda.synchronize()
             kern = Q.qmm if bits == 8 else Q.qmm4
@@ -535,7 +743,7 @@ def main(profiling: bool = False) -> int:
             ids, n_enc = {}, {}
             for dev in ("cuda", "cpu"):
                 c = TF.WhisperContext.from_file(path, dtype=torch.float32, device=dev)
-                reset_counts(A, Q)
+                reset_counts(A, Q, MK)
                 r = TF.whisper_full(c, greedy_params(FullParams), audio(35.0, seed))
                 ids[dev] = [[t.id for t in s.tokens] for s in r.segments]
                 n_enc[dev] = r.timings.n_encode
@@ -553,21 +761,48 @@ def main(profiling: bool = False) -> int:
             check(same and n_tok >= 100 and n_enc["cuda"] == n_enc["cpu"] == 2,
                   f"narrow {qtype}: cuda and cpu differ, or too few tokens to tell")
         done("8")
+
+        # ---- 9. narrow bf16 q8_0 checkpoint, megakernel="int8": cuda against cpu ----
+        path = tmp / "narrow-q8_0.bin"
+        W.write_checkpoint(path, hp, TF._synthetic_mel_filters(80), tokens, tensors,
+                           wtype=W.TYPE_FOR_NAME["q8_0"])
+        p9 = greedy_params(FullParams)
+        p9.megakernel = "int8"
+        ids = {}
+        for dev in ("cuda", "cpu"):
+            c = TF.WhisperContext.from_file(path, dtype=torch.bfloat16, device=dev)
+            check(c.mega_mode(p9) == "all", "narrow q8_0: K2 not selected")
+            reset_counts(A, Q, MK)
+            # audio seed 7: its CPU transcript stays the same when the input
+            # is scaled by 1 +- 2^-20, 2^-16 or 2^-13
+            r = TF.whisper_full(c, p9, audio(35.0, 7))
+            ids[dev] = [[t.id for t in s.tokens] for s in r.segments]
+            if dev == "cuda":
+                check(MK.mega_decode_step.launches > 0, "narrow q8_0 on cuda did not run K2")
+        n_tok = sum(map(len, ids["cuda"]))
+        print(f"[9] narrow bf16 q8_0, megakernel='int8': segments {len(ids['cuda'])}, "
+              f"tokens {n_tok}, token ids cuda == cpu {ids['cuda'] == ids['cpu']}", flush=True)
+        check(ids["cuda"] == ids["cpu"] and n_tok >= 100,
+              "narrow bf16 q8_0 with K2: cuda and cpu differ, or too few tokens to tell")
+        done("9")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     head = {"qmm": 0, "qmm4": 0, "ffn_int8": 0}   # the row each headline takes
     replaces = {"mha_packed": "open_whisper_kit_tpu/ops/attention.py:70",
+                "mega_decode_step": "open_whisper_kit_tpu/ops/decode_megakernel.py:1128",
                 "qmm": "open_whisper_kit_tpu/ops/quant_matmul.py:129",
                 "qmm4": "open_whisper_kit_tpu/ops/quant_matmul.py:280",
                 "ffn_int8": "open_whisper_kit_tpu/ops/quant_matmul.py:385"}
-    rows = [{"name": "mha_packed", **k1}]
+    rows = [{"name": "mha_packed", **k1},
+            {"name": "mega_decode_step", **k2["all"], "modes": list(k2.values())}]
     for name, i in head.items():
         rows.append({"name": name, **{k: v for k, v in quant[name][i].items()
                                       if k != "shape"},
                      "shape": quant[name][i]["shape"], "shapes": quant[name]})
     for r in rows:
-        r.update(route="cuda", source=SRC + r["name"] + ".cu",
+        stem = "mega_step" if r["name"] == "mega_decode_step" else r["name"]
+        r.update(route="cuda", source=SRC + stem + ".cu",
                  replaces=replaces[r["name"]], launches=launches[r["name"]])
         check(r["launches"] > 0, f"{r['name']} never launched on its path")
     print(f"[end] total {time.perf_counter() - t_start:.1f} s", flush=True)

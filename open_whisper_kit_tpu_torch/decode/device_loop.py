@@ -1,6 +1,5 @@
 """On-device greedy segment decoder (port of
-open_whisper_kit_tpu/decode/device_loop.py, dense weights, no megakernel,
-no grammar).
+open_whisper_kit_tpu/decode/device_loop.py, no grammar).
 
 The t=0 greedy segment decode -- prompt ingest, no-speech probability, the
 full logit rule-set, argmax sampling and the sliding-window/EOT state
@@ -9,7 +8,9 @@ device. The JAX side fuses it into one lax.while_loop; here the host issues
 the steps without waiting and reads the loop's done flag only once every
 `POLL` tokens. Steps issued after the segment completed or failed are
 masked, so they change no recorded output, and their cache slot is clamped
-inside n_text_ctx. The host reads one packed result per segment.
+inside n_text_ctx. The host reads one packed result per segment. With `mega` (MegaParams)
+each token step is one call of the decode-step kernel K2
+(ops/decode_megakernel.py); the prompt ingest stays on `decode_impl`.
 `HostReads` counts every device-to-host read these loops make.
 """
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..models.whisper import model as M
+from ..ops import decode_megakernel as MK
 from . import logit_rules as LR
 
 CHUNK_FRAMES = 3000  # 100 * WHISPER_CHUNK_SIZE
@@ -145,7 +147,8 @@ def segment_core(cfg: M.WhisperConfig, rc: LR.RuleConfig,
                  t_real: torch.Tensor, token_nosp: int, seek, seek_end: int, *,
                  n_max: int, reads: HostReads, max_tokens: int = 0,
                  single_segment: bool = False, no_timestamps: bool = False,
-                 stub: bool = False) -> SegmentResult:
+                 stub: bool = False, mega: MK.MegaParams | None = None
+                 ) -> SegmentResult:
     """Greedy segment decode on the prompt's device; shared by the one-window
     `decode_segment` and the K-windows loop in decode/device_windows.py.
 
@@ -163,6 +166,8 @@ def segment_core(cfg: M.WhisperConfig, rc: LR.RuleConfig,
                                            xk, xv, logits_pos=t_real - 1)
     logits = logits_all[:, 0]                              # (1, V)
     no_speech_prob = LR.compute_no_speech_prob(logits[0], token_nosp)
+    if mega is not None:   # the kernel's (L, T, S) views of the batch-1 caches
+        nat = kv_k[:, 0], kv_v[:, 0], xk[:, 0], xv[:, 0]
 
     zf = lambda: torch.zeros(n_max, dtype=torch.float32, device=dev)
     zl = lambda: torch.zeros(n_max, dtype=torch.long, device=dev)
@@ -215,9 +220,14 @@ def segment_core(cfg: M.WhisperConfig, rc: LR.RuleConfig,
         # ---- next decode step (unused after the last live step) ----
         if i + 1 < n_max:
             kv_head = torch.clamp(t_real + i, max=n_ctx - 1)
-            step_logits, kv_k, kv_v = M.decode_impl(
-                cfg, dec, tok[:, None], kv_k, kv_v, kv_head, xk, xv)
-            logits = step_logits[:, 0]
+            if mega is not None:
+                x0 = (dec["te"][tok] + dec["pe"][kv_head][None]).to(torch.bfloat16)
+                logits, _, _ = MK.mega_decode_step(cfg, mega, x0, nat[0], nat[1],
+                                                   kv_head, nat[2], nat[3])
+            else:
+                step_logits, kv_k, kv_v = M.decode_impl(
+                    cfg, dec, tok[:, None], kv_k, kv_v, kv_head, xk, xv)
+                logits = step_logits[:, 0]
 
     return SegmentResult(
         tokens=tokens, p=p_buf, plog=plog_buf, pt=pt_buf, ptsum=ptsum_buf,
@@ -233,7 +243,8 @@ def decode_segment(cfg: M.WhisperConfig, rc: LR.RuleConfig,
                    scalars, *, n_max: int, reads: HostReads,
                    max_tokens: int = 0, single_segment: bool = False,
                    no_timestamps: bool = False, stub: bool = False,
-                   cache_dtype: torch.dtype = torch.bfloat16) -> SegmentResult:
+                   cache_dtype: torch.dtype = torch.bfloat16,
+                   mega: MK.MegaParams | None = None) -> SegmentResult:
     """Greedy-decode one window. prompt (1, T_pad) long; `scalars` =
     (t_real, token_nosp, seek, seek_end) ints. The self-KV cache is
     allocated here: a window always starts from an empty cache."""
@@ -244,7 +255,7 @@ def decode_segment(cfg: M.WhisperConfig, rc: LR.RuleConfig,
         cfg, rc, dec, prompt, kv_k, kv_v, xk, xv, base_mask, init_mask,
         t_real_d, token_nosp, seek, seek_end, n_max=n_max, reads=reads,
         max_tokens=max_tokens, single_segment=single_segment,
-        no_timestamps=no_timestamps, stub=stub)
+        no_timestamps=no_timestamps, stub=stub, mega=mega)
 
 
 def pack_segment_result(res: SegmentResult) -> torch.Tensor:

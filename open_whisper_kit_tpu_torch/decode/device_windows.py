@@ -1,6 +1,7 @@
 """Multi-window greedy decode: up to K 30 s windows per call (port of
-open_whisper_kit_tpu/decode/device_windows.py, greedy mode only; the
-speculative, beam, int8 cross-KV and megakernel modes are not ported yet).
+open_whisper_kit_tpu/decode/device_windows.py, greedy mode, with or without
+the decode-step kernel K2; the speculative, beam and int8 cross-KV modes
+are not ported yet).
 
 Each window runs on the device: encoder + cross-KV, the prompt build from
 the right-aligned rolling context, the greedy segment decode
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from ..models.whisper import model as M
+from ..ops.decode_megakernel import MegaParams
 from . import logit_rules as LR
 from .device_loop import CHUNK_FRAMES, HostReads, segment_core
 
@@ -90,14 +92,16 @@ def decode_windows(cfg: M.WhisperConfig, rc: LR.RuleConfig,
                    reads: HostReads, max_tokens: int = 0,
                    no_timestamps: bool = False, stub: bool = False,
                    window_frames: int = 2 * 1500,
-                   fallback_available: bool = True) -> WindowsResult:
+                   fallback_available: bool = True,
+                   mega: MegaParams | None = None) -> WindowsResult:
     """Decode up to K windows greedily.
 
     mel_data (n_pad, n_mels) whole-audio mel on the device, zero past n_len;
     past_buf (P,) right-aligned rolling prompt context on the device.
     iscalars ints: [token_nosp, token_prev, seek, seek_start, seek_end,
     past_len]. fscalars floats: [logprob_thold, entropy_thold,
-    no_speech_thold]."""
+    no_speech_thold]. `mega`: token steps run kernel K2
+    (device_loop.segment_core)."""
     dev = mel_data.device
     token_nosp, token_prev, seek0, seek_start, seek_end, past_len0 = (
         int(x) for x in iscalars[:6])
@@ -161,7 +165,8 @@ def decode_windows(cfg: M.WhisperConfig, rc: LR.RuleConfig,
             cfg, rc, dec_params, prompt[None], kv_k, kv_v, xk, xv,
             base_mask, init_mask, t_real, token_nosp, seek, seek_end,
             n_max=n_max, reads=reads, max_tokens=max_tokens,
-            single_segment=False, no_timestamps=no_timestamps, stub=stub)
+            single_segment=False, no_timestamps=no_timestamps, stub=stub,
+            mega=mega)
         nsp = seg.no_speech_prob
 
         # ---- quality gates (whisper_rank / _score_sequence) ----

@@ -12,14 +12,16 @@ q8_0/q5_0/q4_0 weights stay int8 planes for kernels K3 and K5, other
 formats dequantize at load) or from seeded random weights of a preset
 (`from_preset`); `decoder_int8` adds the runtime W8 logits plane (K3). They
 run on the card ("cuda") unless the caller asks for the CPU, and raise when
-CUDA is missing. The decoder always runs `decode_impl`: the JAX package
-switches its decode-step megakernel (K2) on by itself for all-int8
-decoders on an accelerator, and until K2 is ported the port runs the path
-JAX takes with megakernel=False, which is also what JAX runs on the CPU.
+CUDA is missing. The greedy token steps run the decode-step kernel K2
+(ops/decode_megakernel.py) when `WhisperContext.mega_params` picks a mode,
+as the JAX package does: by itself for a bf16 decoder whose matmul weights
+are all int8 planes on the card, and in every mode `FullParams.megakernel`
+asks for (on the CPU through K2's plain version); otherwise, and always in
+the host-stepped sampled fallback, `decode_impl`.
 
 Not ported yet, and refused with NotImplementedError: beam search,
 grammars, VAD, token-level and DTW timestamps, speculative decoding,
-`ref_sampling`, int8 cross-KV, the megakernel, GGUF checkpoints, and the
+`ref_sampling`, int8 cross-KV, GGUF checkpoints, and the
 abort / logits-filter callbacks (they need a host poll every token).
 """
 
@@ -36,6 +38,8 @@ import torch
 from ..audio import mel as mel_mod
 from ..io import ggml_whisper
 from ..models.whisper import model as M
+from ..ops import decode_megakernel as MK
+from ..ops.quant_matmul import QuantLinear
 from . import logit_rules as LR
 from . import tokenizer as tok_mod
 from .device_loop import HostReads
@@ -159,6 +163,7 @@ class WhisperContext:
         self.model_type = model_type
         self.reads = HostReads()
         self._mask_cache: dict = {}
+        self._mega = None         # (decoder, mode, MegaParams), built lazily
 
     @classmethod
     def from_buffer(cls, buf: bytes, dtype: torch.dtype = torch.bfloat16,
@@ -211,6 +216,51 @@ class WhisperContext:
         filters = _synthetic_mel_filters(cfg.n_mels)
         return cls(cfg, params, vocab, filters, n_loaded=1, dtype=dtype,
                    model_type=name, decoder_int8=decoder_int8, device=dev)
+
+    _MEGA_WEIGHTS = ("qkv_w", "o_w", "cq_w", "co_w", "mlp0_w", "mlp1_w")
+
+    def mega_mode(self, p: FullParams, on_card: bool | None = None) -> str | None:
+        """The prepare_mega mode the decode-step kernel K2 runs in for `p`,
+        or None for decode_impl. `on_card` (default: this context's device
+        is CUDA) stands for the JAX package's "on an accelerator".
+
+        * megakernel=None (auto): on the card, "all" when every decoder
+          matmul weight is an int8 QuantLinear plane (q8_0/q5_0/q4_0
+          checkpoints, decoder_int8 scope="all"); otherwise off.
+        * True: also on for dense weights ("logits" when a te_logits plane
+          exists, else "none"); "int8": "all", quantizing dense weights;
+          "int4": "int4" (needs S % 256 == 0). These run on the CPU too.
+        * False, or use_device_loops off: None.
+        Structural needs: a bf16 context, the fused qkv_w, S % 128 == 0."""
+        if p.megakernel is False or not p.use_device_loops:
+            return None
+        blocks = self.params["decoder"]["blocks"]
+        on_card = self.device.type == "cuda" if on_card is None else on_card
+        structural = (self.dtype == torch.bfloat16 and "qkv_w" in blocks
+                      and self.cfg.n_text_state % 128 == 0)
+        if not structural or not (on_card or p.megakernel in (True, "int8", "int4")):
+            return None
+        quant = [isinstance(blocks[n], QuantLinear) for n in self._MEGA_WEIGHTS]
+        if p.megakernel == "int4":
+            return "int4" if self.cfg.n_text_state % 256 == 0 else None
+        if p.megakernel == "int8" or all(quant):
+            return "all"
+        if any(quant):
+            return None                          # mixed planes: unsupported
+        if p.megakernel is True:
+            return "logits" if "te_logits" in self.params["decoder"] else "none"
+        return None                              # auto: dense stays on decode_impl
+
+    def mega_params(self, p: FullParams) -> MK.MegaParams | None:
+        """MegaParams for `mega_mode(p)`, prepared once per decoder and
+        mode, or None."""
+        mode = self.mega_mode(p)
+        if mode is None:
+            return None
+        dec = self.params["decoder"]
+        if self._mega is None or self._mega[0] is not dec or self._mega[1] != mode:
+            self._mega = (dec, mode, MK.prepare_mega(self.cfg, dec, quant=mode))
+        return self._mega[2]
 
     # -- compute wrappers ---------------------------------------------------
 
@@ -297,7 +347,6 @@ def _refuse_unported(p: FullParams) -> None:
         "speculative decoding (speculative > 0)": p.speculative > 0,
         "ref_sampling": p.ref_sampling,
         "cross_kv_int8": p.cross_kv_int8,
-        "megakernel": p.megakernel not in (None, False),
         "abort_callback (per-token host polling)": p.abort_callback is not None,
         "logits_filter_callback (per-token host polling)":
             p.logits_filter_callback is not None,
@@ -522,7 +571,7 @@ def _run_device_windows(ctx: WhisperContext, p: FullParams,
             reads=ctx.reads, max_tokens=p.max_tokens,
             no_timestamps=no_timestamps, stub=ctx.n_loaded == 0,
             window_frames=2 * cfg.n_audio_ctx,
-            fallback_available=fallback_available)
+            fallback_available=fallback_available, mega=ctx.mega_params(p))
         r = DW.unpack_windows_result(
             ctx.reads.fetch(DW.pack_windows_result(res)), res, K, n_max)
         past_buf = res.past_buf        # stays on the device for the next call
@@ -603,8 +652,9 @@ def _run_device_windows(ctx: WhisperContext, p: FullParams,
 def _device_greedy_window(ctx, p, rc, decoders, prompt, xk, xv,
                           base_mask, init_mask, seek, seek_end,
                           no_timestamps, timings) -> float:
-    """One window through the on-device greedy loop (decode/device_loop.py);
-    fills decoders[0], returns no_speech_prob."""
+    """One window through the on-device greedy loop (decode/device_loop.py,
+    its token steps through K2 where ctx.mega_params picks a mode); fills
+    decoders[0], returns no_speech_prob."""
     from . import device_loop as DL
     cfg, vocab = ctx.cfg, ctx.vocab
     t0 = time.perf_counter()
@@ -615,7 +665,7 @@ def _device_greedy_window(ctx, p, rc, decoders, prompt, xk, xv,
         (T_real, vocab.token_nosp, seek, seek_end), n_max=n_max,
         reads=ctx.reads, max_tokens=p.max_tokens,
         single_segment=p.single_segment, no_timestamps=no_timestamps,
-        stub=ctx.n_loaded == 0, cache_dtype=ctx.dtype)
+        stub=ctx.n_loaded == 0, cache_dtype=ctx.dtype, mega=ctx.mega_params(p))
     r = DL.unpack_segment_result(ctx.reads.fetch(DL.pack_segment_result(res)),
                                  n_max)
     n_tok = r["n_tokens"]

@@ -3,9 +3,11 @@
 Port of open_whisper_kit_tpu/ops/quant_matmul.py. Symmetric ggml formats
 (q4_0/q5_0/q8_0) are repacked at load into planes for y = x @ w: an int8
 value plane (K, Np) plus f32 scales per 32-row block (K/32, Np), Np padded
-to a multiple of 512. Affine and K-quant formats are dequantized to float at
-load (they never reach this module). Runtime W8/W4 planes come from dense
-weights through `quantize_linear` / `quantize_linear4`.
+to a multiple of 128 (the CUDA kernels' column tile; the JAX package pads
+to 512, its TPU kernel's tile). Affine and K-quant formats are
+dequantized to float at load (they never reach this module). Runtime W8/W4
+planes come from dense weights through `quantize_linear` /
+`quantize_linear4`.
 
 Three kernels, each beside its plain torch version:
 
@@ -35,8 +37,9 @@ from ..io import quant as Q
 from . import _build
 
 QK = 32          # ggml simple-quant block size
-_BN = 512        # output-tile width the planes are padded to (the TPU kernel's)
-_KERNEL_BN = 128  # the CUDA kernels' output tile: Np must be a multiple
+_BN = 128        # output-tile width the planes are padded to (the CUDA kernels')
+_FFN_TILE = 512  # hidden-axis tile of the TPU kernel _ffn_int8, which
+                 # ffn_int8_plain sums its partial products in
 
 
 @dataclasses.dataclass
@@ -156,12 +159,13 @@ def _quantize_planes(w: torch.Tensor):
     scale = amax * np.float32(1.0 / 127.0).item()
     inv = torch.where(scale > 0, 1.0 / torch.where(scale == 0, 1.0, scale), 0.0)
     qs = torch.clamp(torch.round(x32 * inv[..., None, :]), -127, 127)
-    return qs.reshape(*lead, K, N).to(torch.int8), scale
+    # contiguous even for a transposed weight (te.t()): the kernels take rows
+    return qs.reshape(*lead, K, N).to(torch.int8).contiguous(), scale.contiguous()
 
 
 def quantize_linear(w: torch.Tensor, pad: bool = True) -> QuantLinear:
     """Dense (..., K, N) weight -> symmetric per-32-K-block int8 planes
-    (amax/127 scales, q8_0-level error), pre-padded to the 512-wide output
+    (amax/127 scales, q8_0-level error), pre-padded to the 128-wide output
     tile; pad=False keeps the logical width (fused_ffn_int8's W0). The
     runtime W8 mode."""
     qs, scale = _quantize_planes(w)
@@ -182,11 +186,11 @@ def quantize_linear4(w: torch.Tensor) -> QuantLinear4:
     inv = torch.where(scale > 0, 1.0 / torch.where(scale == 0, 1.0, scale), 0.0)
     q = torch.clamp(torch.round(x32 * inv[:, None, :]), -8, 7) + 8
     q = q.reshape(K, N).to(torch.uint8)
-    packed = q[0::2] | (q[1::2] << 4)                        # (K/2, N)
+    packed = (q[0::2] | (q[1::2] << 4)).contiguous()         # (K/2, N)
     Np = _padded(N)
     if Np != N:
         packed, scale = F.pad(packed, (0, Np - N)), F.pad(scale, (0, Np - N))
-    return QuantLinear4(qs=packed, scales=scale, n=N)
+    return QuantLinear4(qs=packed, scales=scale.contiguous(), n=N)
 
 
 def _nibbles(qs: torch.Tensor) -> torch.Tensor:
@@ -235,7 +239,7 @@ def ffn_int8_plain(x: torch.Tensor, q0: torch.Tensor, s0: torch.Tensor,
     hidden axis, h_t = gelu_tanh(x @ W0_t + b0_t) in f32, rounded to bf16,
     times W1_t; the partial products add in tile order."""
     FF = q0.shape[1]
-    bn = min(_BN, FF)
+    bn = min(_FFN_TILE, FF)
     acc = None
     for t in range(FF // bn):
         cols, blks = slice(t * bn, (t + 1) * bn), slice(t * bn // QK, (t + 1) * bn // QK)
@@ -298,8 +302,8 @@ def _check_shapes(name: str, K: int, rows: int, qs: torch.Tensor,
     Np = qs.shape[1]
     if qs.dim() != 2 or qs.shape[0] != rows or K % QK:
         raise ValueError(f"{name}: x has K={K}, planes {tuple(qs.shape)}")
-    if Np % _KERNEL_BN or tuple(scales.shape) != (K // QK, Np):
-        raise ValueError(f"{name}: Np={Np} must be a multiple of {_KERNEL_BN} "
+    if Np % _BN or tuple(scales.shape) != (K // QK, Np):
+        raise ValueError(f"{name}: Np={Np} must be a multiple of {_BN} "
                          f"and scales {(K // QK, Np)}, got {tuple(scales.shape)}")
     return Np
 

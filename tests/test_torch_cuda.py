@@ -1,5 +1,5 @@
-"""The port on a CUDA card: kernels K1, K3, K4 and K5 against their plain
-versions, the device token loop on the card against the same loop on the
+"""The port on a CUDA card: kernels K1, K2, K3, K4 and K5 against their
+plain versions, the device token loop on the card against the same loop on the
 CPU, and a narrow q8_0 checkpoint's transcript on the card and the CPU.
 
 Every test here needs a GPU and skips without one. The file imports no jax,
@@ -20,6 +20,7 @@ from open_whisper_kit_tpu_torch.decode.tokenizer import build_vocab
 from open_whisper_kit_tpu_torch.io import ggml_writer as TW
 from open_whisper_kit_tpu_torch.models.whisper import model as TM
 from open_whisper_kit_tpu_torch.ops import attention as A
+from open_whisper_kit_tpu_torch.ops import decode_megakernel as MK
 from open_whisper_kit_tpu_torch.ops import quant_matmul as TQ
 
 pytestmark = pytest.mark.cuda
@@ -214,3 +215,37 @@ def test_q8_checkpoint_tokens_cuda_match_cpu(cuda, tmp_path):
         assert (grew[0] > 0 and grew[1] > 0) if dev == "cuda" else grew == (0, 0)
     assert n_enc["cuda"] == n_enc["cpu"] == 2
     assert ids["cuda"] == ids["cpu"] and sum(map(len, ids["cpu"])) >= 100
+
+
+@pytest.mark.parametrize("mode", ["none", "logits", "all", "int4"])
+def test_mega_step_kernel_matches_plain(cuda, mode):
+    """K2 against its plain version at the narrow config of the CPU parity
+    tests (S=256, 4 heads, 3 layers, 64 cache rows, vocabulary 640, 48
+    audio positions), 5 steps from the same caches: logits within 1e-2 of
+    max|ref| and equal argmax, the cache rows within 1e-2 of their max;
+    one launch per step."""
+    cfg = TM.WhisperConfig(640, 48, 256, 4, 2, 64, 256, 4, 3, 80)
+    params = TM.init_params(cfg, seed=5, dtype=torch.bfloat16, device=cuda)
+    dec = TM.prepare_decoder(params["decoder"])
+    if mode == "logits":
+        dec = TM.quantize_decoder_int8(dec)
+    mp = MK.prepare_mega(cfg, dec, quant=mode)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    L, S, Tc, Ta = 3, 256, 64, 48
+    xk, xv = ((torch.randn(L, Ta, S, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    caches = [torch.zeros(L, Tc, S, dtype=torch.bfloat16, device=cuda) for _ in range(4)]
+    for i, tok in enumerate((3, 77, 500, 12, 639)):
+        x0 = (dec["te"][tok] + dec["pe"][i])[None].to(torch.bfloat16)
+        head = torch.tensor(i, device=cuda)
+        ref, _, _ = MK.mega_decode_step_plain(cfg, mp, x0, caches[0], caches[1], head, xk, xv)
+        before = MK.mega_decode_step.launches
+        got, _, _ = MK.mega_decode_step(cfg, mp, x0, caches[2], caches[3], head, xk, xv)
+        torch.cuda.synchronize()
+        assert MK.mega_decode_step.launches == before + 1
+        assert got.shape == ref.shape == (1, 640)
+        _close(got, ref, 1e-2)
+        assert int(got.argmax()) == int(ref.argmax())
+    for r, k in ((caches[0], caches[2]), (caches[1], caches[3])):
+        _close(k[:, :5].float(), r[:, :5].float(), 1e-2)
+        assert not k[:, 5:].any()

@@ -28,18 +28,24 @@ def _eq(jax_arr, t: torch.Tensor, what: str):
     np.testing.assert_array_equal(a, t.numpy(), err_msg=what)
 
 
-def _planes_eq(j, t, what: str):
+def _planes_eq(j, t, what: str, width: int | None = None):
+    """Equal on the logical columns; the port pads to a multiple of 128
+    (its kernels' column tile), the JAX package to 512. `width`: the
+    port's padded width when it differs (planes carried over from JAX)."""
     assert type(t).__name__ == type(j).__name__ and t.n == j.n, what
-    _eq(j.qs, t.qs, what + ".qs")
-    _eq(j.scales, t.scales, what + ".scales")
+    n = t.n_out
+    padded = j.qs.shape[-1] != n
+    assert t.qs.shape[-1] == (width or (-(-n // 128) * 128 if padded else n)), what
+    _eq(np.asarray(j.qs)[..., :n], t.qs[..., :n].contiguous(), what + ".qs")
+    _eq(np.asarray(j.scales)[..., :n], t.scales[..., :n].contiguous(), what + ".scales")
 
 
 @pytest.mark.parametrize("qtype", [JQF.GGML_TYPE_Q8_0, JQF.GGML_TYPE_Q5_0,
                                    JQF.GGML_TYPE_Q4_0, JQF.GGML_TYPE_Q5_1])
 @pytest.mark.parametrize("out_f", [96, 512])
 def test_repack_planes_equal_jax(qtype, out_f):
-    """ggml blocks -> (K, Np) int8 + (K/32, Np) f32 planes, Np padded to 512;
-    affine formats (q5_1) have no int8 planes on either side."""
+    """ggml blocks -> (K, Np) int8 + (K/32, Np) f32 planes, Np padded to
+    128 (JAX: 512); affine formats (q5_1) have no int8 planes on either side."""
     w = (np.random.default_rng(out_f).standard_normal((out_f, 128)) * 0.1
          ).astype(np.float32)
     blob = _encode_tensor(w, qtype)
@@ -48,7 +54,7 @@ def test_repack_planes_equal_jax(qtype, out_f):
         assert j is None and t is None
         return
     _planes_eq(j, t, "repack")
-    assert t.shape == (128, out_f) and t.qs.shape[1] % 512 == 0
+    assert t.shape == (128, out_f) and t.qs.shape[1] % 128 == 0
 
 
 @pytest.mark.parametrize("shape,dtype", [((2, 128, 600), "float32"),
@@ -229,7 +235,7 @@ def test_decode_impl_on_int8_decoders_matches_jax(decoders, scope, bits):
         cw = carried["te_logits"] if name == "te_logits" else carried["blocks"][name]
         if isinstance(jw, (JQ.QuantLinear, JQ.QuantLinear4)):
             _planes_eq(jw, tw, name)
-            _planes_eq(jw, cw, name + " (params_from_jax)")
+            _planes_eq(jw, cw, name + " (params_from_jax)", width=jw.qs.shape[-1])
         else:
             assert isinstance(tw, torch.Tensor), name
     quantized = {n for n, w in tq["blocks"].items() if isinstance(w, TQ.QuantPlanes)}
