@@ -60,7 +60,10 @@ class Transcriber:
 
     def full(self, params: FullParams, samples: np.ndarray,
              generator: torch.Generator | None = None) -> TranscribeResult:
-        """whisper_full: transcribe raw 16 kHz mono f32 samples."""
+        """whisper_full: transcribe raw 16 kHz mono f32 samples, greedily
+        or, with `FullParams(strategy=SamplingStrategy.BEAM_SEARCH,
+        beam_search=BeamSearchParams(beam_size=...))` (FullParams.
+        beam_default() is whisper.cpp's beam 5), by beam search."""
         return _full.whisper_full(self.ctx, params, samples, generator)
 
     def detect_language(self, samples: np.ndarray, offset_ms: int = 0):

@@ -1,0 +1,197 @@
+// Kernel K7: one whole decoder step for B <= 8 beams through one weight
+// stream (every layer, the final layernorm and the vocab projection), over
+// dense bf16, int8 or split-half int4 weight planes.
+//
+// Replaces the TPU kernel open_whisper_kit_tpu/ops/decode_megakernel.py::
+// mega_decode_step_beam (kernel body _make_kernel with n_beams = B,
+// use_bias, self_blocked). It computes that kernel's function: the B rows
+// take K2's rounding points (mega_rows.cuh) through every matmul and the
+// cross-attention; the self-attention is the TPU kernel's blocked online
+// softmax over 128-row time blocks of a row-flat, time-major cache whose
+// lineage is an origin table, with no physical reorder.
+//
+// Design. The same launch sequence as K2 (8 launches per layer plus the
+// logits, 33 at large-v3-turbo), with R = B rows in each:
+//   * the GEMVs (mega_rows.cuh gemv_kernel<B>) read and dequantize each
+//     weight once and multiply it into all B rows, so a beam step streams
+//     about one greedy step of weight bytes, not B of them; the QKV
+//     epilogue writes beam b's new K/V row to flat cache row head * B + b;
+//   * the cross-attention (attend_kernel<B>) reads the shared (Ta, S)
+//     cross-KV once for the B rows: full-row softmax, p rounded to bf16,
+//     keys at or past Ta masked;
+//   * the self-attention (beam_attend_kernel below) is one block per
+//     (head, beam). It walks the time blocks 0 .. head / 128 in order and
+//     keeps JAX's online softmax exactly: m starts at -1e30; per block
+//     mn = max(m, max s), a = exp(m - mn), e = bf16(exp(s - mn)),
+//     l = l * a + sum(e), o = o * a + e . V in f32; out bf16(o / l).
+//     The TPU kernel masks with a 0/-inf bias (beam_attn_bias) that leaves
+//     one slot per time row unmasked: slot origin[b, t] for t <= head. A
+//     masked entry adds an exact zero to every sum, so this kernel reads
+//     the origin table and scores only row t * B + origin[b, t], 1/B of the
+//     self-KV bytes the TPU kernel's slab copy reads.
+//
+// What bounds a step on the H100: the bytes, as for K2. At large-v3-turbo
+// and B = 5 the weights and cross-KV are K2's (347 MB dense, 209 MB int8,
+// 120 MB int4), the self-KV rows B times K2's and the logits B rows. This
+// first version is bound by its launch chain and the latency of each
+// launch's loads, not by those bytes.
+//
+// Requires 2 <= B <= 8, S % 128 == 0 (int4: S % 256 == 0), 64-wide heads,
+// every plane width a multiple of 64 and 16-byte aligned planes; the Python
+// wrapper checks.
+
+#include "mega_rows.cuh"
+
+using namespace mega;
+
+namespace {
+
+constexpr int kBT = 128;   // time rows per self-attention block (the TPU kernel's BT)
+
+struct BeamAttn {
+  const bf16* q;        // (B, S) bf16, pre-scaled
+  const bf16* k;        // this layer's (Tc * B, S): row t * B + j is slot j at time t
+  const bf16* v;
+  const long long* origin;  // (B, Tc): the slot holding beam b's row for time t
+  const long long* head;
+  int B, S, Tc;
+  bf16* out;            // (B, S) bf16
+};
+
+__global__ void __launch_bounds__(kThreads) beam_attend_kernel(BeamAttn a) {
+  __shared__ float qh[kDH];
+  __shared__ float e_sh[kBT];              // per time row: score, then e
+  __shared__ int slot[kBT];                // its cache slot, -1 where masked
+  __shared__ float red[kTY * kDH];
+  __shared__ float wsum[kThreads / 32];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = blockIdx.x, b = blockIdx.y, B = a.B, S = a.S;
+  const int head = (int)(*a.head);
+  const int nblk = min(head / kBT + 1, (a.Tc + kBT - 1) / kBT);
+  const long long* org = a.origin + (size_t)b * a.Tc;
+  if (tid < kDH) qh[tid] = __bfloat162float(a.q[(size_t)b * S + h * kDH + tid]);
+  __syncthreads();
+  const float q0 = qh[2 * lane], q1 = qh[2 * lane + 1];
+  const int tx = tid % kTX, ty = tid / kTX;
+
+  float m = -1e30f, l = 0.f, o = 0.f;      // o: output column tid (tid < 64)
+  for (int tb = 0; tb < nblk; ++tb) {
+    // ---- the score of each time row's unmasked slot, -inf past head ----
+    for (int tl = warp; tl < kBT; tl += kThreads / 32) {
+      const int t = tb * kBT + tl;
+      const long long j = (t <= head && t < a.Tc) ? org[t] : -1;
+      float s = -INFINITY;
+      if (j >= 0 && j < B) {
+        const __nv_bfloat162 kv = *reinterpret_cast<const __nv_bfloat162*>(
+            a.k + ((size_t)t * B + j) * S + h * kDH + 2 * lane);
+        const float2 kf = __bfloat1622float2(kv);
+        float d = q0 * kf.x + q1 * kf.y;
+        for (int o2 = 16; o2 > 0; o2 >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o2);
+        s = d;                             // the TPU kernel's scale is 1.0
+      }
+      if (lane == 0) {
+        e_sh[tl] = s;
+        slot[tl] = (j >= 0 && j < B) ? (int)j : -1;
+      }
+    }
+    __syncthreads();
+    // ---- the block's max, then e = bf16(exp(s - mn)) and their sum ----
+    float mx = tid < kBT ? e_sh[tid] : -INFINITY;
+    for (int o2 = 16; o2 > 0; o2 >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
+    if (lane == 0) wsum[warp] = mx;
+    __syncthreads();
+    mx = -INFINITY;
+    for (int i = 0; i < kThreads / 32; ++i) mx = fmaxf(mx, wsum[i]);
+    const float mn = fmaxf(m, mx);
+    const float al = expf(m - mn);
+    float ls = 0.f;
+    if (tid < kBT) {
+      const float e = bround(expf(e_sh[tid] - mn));
+      e_sh[tid] = e;
+      ls = e;
+    }
+    ls = block_sum(ls, wsum);              // its barriers publish e_sh too
+    l = l * al + ls;
+    // ---- P.V over the rows with e != 0 (masked ones are exact zeros) ----
+    float acc[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
+    for (int tl = ty; tl < kBT; tl += kTY) {
+      const float e = e_sh[tl];
+      if (e != 0.f) {
+        float f[kCols];
+        unpack8(*reinterpret_cast<const uint4*>(
+                    a.v + ((size_t)(tb * kBT + tl) * B + slot[tl]) * S + h * kDH
+                    + tx * kCols), f);
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[c] = fmaf(e, f[c], acc[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) red[ty * kDH + tx * kCols + c] = acc[c];
+    __syncthreads();
+    if (tid < kDH) {
+      float pv = 0.f;
+      for (int i = 0; i < kTY; ++i) pv += red[i * kDH + tid];
+      o = o * al + pv;
+    }
+    m = mn;
+    __syncthreads();                       // e_sh, slot, red and wsum are reused
+  }
+  if (tid < kDH) a.out[(size_t)b * S + h * kDH + tid] = __float2bfloat16(o / l);
+}
+
+template <int B>
+int beam_step(void* const* p, const int* dims, float eps, float kq, float cross_scale,
+              void* stream) {
+  const Step<B> s(p, dims, eps, kq, stream);
+  const Dims& d = s.d;
+  const long long* origin = static_cast<const long long*>(p[30]);
+  int e;
+  if ((e = s.start())) return e;
+  for (int il = 0; il < d.L; ++il) {
+    bf16* kk = s.kv_k() + (size_t)il * d.Tc * B * d.S;
+    bf16* vv = s.kv_v() + (size_t)il * d.Tc * B * d.S;
+    if ((e = s.gemv(0, il, s.xres, 3 * il, kEpiQKV, s.qb, nullptr, kk, vv))) return e;
+    BeamAttn a;
+    a.q = s.qb; a.k = kk; a.v = vv; a.origin = origin; a.head = s.head;
+    a.B = B; a.S = d.S; a.Tc = d.Tc; a.out = s.ab;
+    beam_attend_kernel<<<dim3(d.H, B), kThreads, 0, s.st>>>(a);
+    if ((e = (int)cudaGetLastError())) return e;
+    if ((e = s.gemv(1, il, s.ab, -1, kEpiResid, s.xres, nullptr, nullptr, nullptr))) return e;
+    if ((e = s.gemv(2, il, s.xres, 3 * il + 1, kEpiBias, s.qb, nullptr, nullptr, nullptr))) return e;
+    if ((e = s.attend(s.qb, s.xk(il), s.xv(il), d.Ta, false, cross_scale))) return e;
+    if ((e = s.gemv(3, il, s.ab, -1, kEpiResid, s.xres, nullptr, nullptr, nullptr))) return e;
+    if ((e = s.gemv(4, il, s.xres, 3 * il + 2, kEpiGelu, s.gb, nullptr, nullptr, nullptr))) return e;
+    if ((e = s.gemv(5, il, s.gb, -1, kEpiResid, s.xres, nullptr, nullptr, nullptr))) return e;
+  }
+  return s.gemv(6, 0, s.xres, 3 * d.L, kEpiLogits, nullptr, s.logits(), nullptr, nullptr);
+}
+
+}  // namespace
+
+// bytes of zero-initialised workspace a step needs (dims as owk_mega_beam)
+extern "C" long long owk_mega_beam_workspace(const int* dims) {
+  return (long long)layout(read_dims(dims), dims[13]).total;
+}
+
+// One beam decoder step. p: as mega::Step with kv_k, kv_v (L, Tc * B, S)
+// row-flat time-major and logits out (B, Vp), then p[30] the (B, Tc) int64
+// origin table.
+// dims: L, S, H, Tc (per beam), Ta, Vp, the seven kinds (0 dense, 1 int8,
+// 2 int4), B. Returns the first nonzero cudaError_t of the launches, or 0
+// (cudaErrorInvalidValue for B outside 2..8).
+extern "C" int owk_mega_beam(void* const* p, const int* dims, float eps,
+                             float kq, float cross_scale, void* stream) {
+  switch (dims[13]) {
+    case 2: return beam_step<2>(p, dims, eps, kq, cross_scale, stream);
+    case 3: return beam_step<3>(p, dims, eps, kq, cross_scale, stream);
+    case 4: return beam_step<4>(p, dims, eps, kq, cross_scale, stream);
+    case 5: return beam_step<5>(p, dims, eps, kq, cross_scale, stream);
+    case 6: return beam_step<6>(p, dims, eps, kq, cross_scale, stream);
+    case 7: return beam_step<7>(p, dims, eps, kq, cross_scale, stream);
+    case 8: return beam_step<8>(p, dims, eps, kq, cross_scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -221,7 +221,9 @@ def segment_core(cfg: M.WhisperConfig, rc: LR.RuleConfig,
         if i + 1 < n_max:
             kv_head = torch.clamp(t_real + i, max=n_ctx - 1)
             if mega is not None:
-                x0 = (dec["te"][tok] + dec["pe"][kv_head][None]).to(torch.bfloat16)
+                # index_select: indexing with a 0-d tensor would read it to the host
+                x0 = (dec["te"][tok] + dec["pe"].index_select(0, kv_head.reshape(1))
+                      ).to(torch.bfloat16)
                 logits, _, _ = MK.mega_decode_step(cfg, mega, x0, nat[0], nat[1],
                                                    kv_head, nat[2], nat[3])
             else:

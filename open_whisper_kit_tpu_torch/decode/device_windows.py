@@ -1,12 +1,14 @@
-"""Multi-window greedy decode: up to K 30 s windows per call (port of
-open_whisper_kit_tpu/decode/device_windows.py, greedy mode, with or without
-the decode-step kernel K2; the speculative, beam and int8 cross-KV modes
-are not ported yet).
+"""Multi-window decode: up to K 30 s windows per call (port of
+open_whisper_kit_tpu/decode/device_windows.py, greedy mode with or without
+the decode-step kernel K2, and beam mode with or without the beam-step
+kernel K7; the speculative and int8 cross-KV modes are not ported yet).
 
 Each window runs on the device: encoder + cross-KV, the prompt build from
-the right-aligned rolling context, the greedy segment decode
-(device_loop.segment_core), the quality gates (avg-logprob / entropy /
-no-speech, whisper.cpp:7545-7605), the rolling-context update
+the right-aligned rolling context, the segment decode (greedy:
+device_loop.segment_core; beam: device_beam.decode_segment_beam followed
+by whisper_rank over the beams -- the entropy gate, the length penalty and
+the best score -- on the device), the quality gates (avg-logprob /
+entropy / no-speech, whisper.cpp:7545-7605), the rolling-context update
 (whisper.cpp:7625-7636) and the seek advance. The host reads one small
 control pair per window (fallback flag, next seek) to decide whether to go
 on, besides the segment loop's done-flag polls, and the caller reads the
@@ -17,8 +19,8 @@ loop; the host re-decodes it with the temperature-fallback schedule
 One deliberate difference from the JAX loop: a window whose only failure
 is the entropy gate reports its true `result_len`, as
 decode/full.py::_rank_decoders (and whisper.cpp) do, where the JAX loop
-reports the full sampled length. It shows only when no fallback is
-available (temperature_inc = 0).
+reports the full sampled length (in beam mode: the best beam's). It shows
+only when no fallback is available (temperature_inc = 0).
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch
 from ..models.whisper import model as M
 from ..ops.decode_megakernel import MegaParams
 from . import logit_rules as LR
-from .device_loop import CHUNK_FRAMES, HostReads, segment_core
+from .device_beam import decode_segment_beam
+from .device_loop import CHUNK_FRAMES, HostReads, SegmentResult, segment_core
 
 DELTA_MIN = 10  # 100 ms in 10 ms frames
 
@@ -76,6 +79,35 @@ def _entropy_last32(tokens: torch.Tensor, result_len: torch.Tensor) -> torch.Ten
     return -torch.where(valid, logp, 0.0).sum() / n
 
 
+def _rank_beams(bres, ent_thold: float, length_penalty: float, ar_n: torch.Tensor):
+    """whisper_rank on the device (_rank_decoders / _score_sequence,
+    whisper.cpp:7545-7605): each beam's score over its result_len tokens
+    with the length penalty, the entropy gate, the best beam (the first of
+    equal scores; beam 0 when every beam failed). Returns the best beam's
+    segment fields as a SegmentResult (`failed` the loop's own verdict, as
+    _rank_decoders keeps it) and its full length n_valid."""
+    B = bres.tokens.shape[0]
+    rl_b = bres.result_len
+    total_lp = torch.where(ar_n[None, :] < rl_b[:, None], bres.plog, 0.0).sum(dim=1)
+    ent = torch.stack([_entropy_last32(bres.tokens[j], rl_b[j]) for j in range(B)])
+    failed = bres.failed | ((rl_b > 32) & (ent < ent_thold))
+    rlf = rl_b.float()
+    pen = ((5.0 + rlf) / 6.0) ** length_penalty if length_penalty > 0 else rlf
+    score = torch.where(failed | (rl_b == 0), float("-inf"),
+                        total_lp / torch.clamp(pen, min=1e-6))
+    best = torch.argmax(score).reshape(1)
+    # index_select: indexing with a 0-d tensor would read it to the host
+    pick = lambda a: a.index_select(0, best)[0]                 # noqa: E731
+    seg = SegmentResult(
+        tokens=pick(bres.tokens), p=pick(bres.p), plog=pick(bres.plog),
+        pt=pick(bres.pt), ptsum=pick(bres.ptsum), tid=pick(bres.tid),
+        n_tokens=bres.n_tokens, result_len=pick(rl_b),
+        seek_delta=pick(bres.seek_delta), has_ts=pick(bres.has_ts),
+        completed=pick(bres.completed), failed=pick(bres.failed),
+        sum_logprobs_all=pick(bres.sum_lp), no_speech_prob=bres.no_speech_prob)
+    return seg, pick(bres.n_valid)
+
+
 def _roll(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     """jnp.roll along axis 0 by a device-side amount."""
     n = x.shape[0]
@@ -93,15 +125,17 @@ def decode_windows(cfg: M.WhisperConfig, rc: LR.RuleConfig,
                    no_timestamps: bool = False, stub: bool = False,
                    window_frames: int = 2 * 1500,
                    fallback_available: bool = True,
-                   mega: MegaParams | None = None) -> WindowsResult:
-    """Decode up to K windows greedily.
+                   mega: MegaParams | None = None,
+                   beam_size: int = 0) -> WindowsResult:
+    """Decode up to K windows, greedily or (beam_size > 1) by beam search.
 
     mel_data (n_pad, n_mels) whole-audio mel on the device, zero past n_len;
     past_buf (P,) right-aligned rolling prompt context on the device.
     iscalars ints: [token_nosp, token_prev, seek, seek_start, seek_end,
     past_len]. fscalars floats: [logprob_thold, entropy_thold,
-    no_speech_thold]. `mega`: token steps run kernel K2
-    (device_loop.segment_core)."""
+    no_speech_thold] (+ length_penalty in beam mode). `mega`: token steps
+    run kernel K2 (greedy, device_loop.segment_core) or K7 (beam,
+    device_beam.decode_segment_beam, cross-KV shared by the beams)."""
     dev = mel_data.device
     token_nosp, token_prev, seek0, seek_start, seek_end, past_len0 = (
         int(x) for x in iscalars[:6])
@@ -161,12 +195,22 @@ def decode_windows(cfg: M.WhisperConfig, rc: LR.RuleConfig,
             prompt = torch.cat([init_arr, zl(T_pad - n_init)])
 
         # ---- segment decode ----
-        seg = segment_core(
-            cfg, rc, dec_params, prompt[None], kv_k, kv_v, xk, xv,
-            base_mask, init_mask, t_real, token_nosp, seek, seek_end,
-            n_max=n_max, reads=reads, max_tokens=max_tokens,
-            single_segment=False, no_timestamps=no_timestamps, stub=stub,
-            mega=mega)
+        if beam_size > 1:
+            bres = decode_segment_beam(
+                cfg, rc, dec_params, prompt[None], xk, xv, base_mask, init_mask,
+                (t_real, token_nosp, seek, seek_end), beam_size=beam_size,
+                n_max=n_max, reads=reads, max_tokens=max_tokens,
+                single_segment=False, no_timestamps=no_timestamps, stub=stub,
+                mega=mega, cache_dtype=cache_dtype)
+            seg, full_len = _rank_beams(bres, ent_thold, float(fscalars[3]), ar_n)
+        else:
+            seg = segment_core(
+                cfg, rc, dec_params, prompt[None], kv_k, kv_v, xk, xv,
+                base_mask, init_mask, t_real, token_nosp, seek, seek_end,
+                n_max=n_max, reads=reads, max_tokens=max_tokens,
+                single_segment=False, no_timestamps=no_timestamps, stub=stub,
+                mega=mega)
+            full_len = seg.n_tokens
         nsp = seg.no_speech_prob
 
         # ---- quality gates (whisper_rank / _score_sequence) ----
@@ -181,8 +225,9 @@ def decode_windows(cfg: M.WhisperConfig, rc: LR.RuleConfig,
 
         # single-timestamp ending skips the whole chunk (whisper.cpp:7758)
         tb = rc.token_beg
-        tl = seg.tokens[torch.clamp(rl - 1, 0, n_max - 1)]
-        tp = seg.tokens[torch.clamp(rl - 2, 0, n_max - 1)]
+        # index_select: indexing with a 0-d tensor would read it to the host
+        tl, tp = seg.tokens.index_select(
+            0, torch.clamp(torch.stack([rl - 1, rl - 2]), 0, n_max - 1))
         single_ts_end = (rl > 1) & (tp < tb) & (tl > tb)
         seek_delta = torch.where(single_ts_end,
                                  min(seek_end - seek, CHUNK_FRAMES), seg.seek_delta)
@@ -212,7 +257,7 @@ def decode_windows(cfg: M.WhisperConfig, rc: LR.RuleConfig,
         for name in ("tokens", "p", "plog", "pt", "ptsum", "tid"):
             getattr(out, name)[w] = getattr(seg, name)
         out.n_tokens[w] = seg.n_tokens
-        out.result_len[w] = torch.where(seg.failed, seg.n_tokens, rl)
+        out.result_len[w] = torch.where(seg.failed, full_len, rl)
         out.seek[w] = seek
         out.seek_delta[w] = seek_delta_h
         out.no_speech_prob[w] = nsp

@@ -1,11 +1,13 @@
 """The transcription loop: windows, temperature fallback, segments.
 
-Port of open_whisper_kit_tpu/decode/full.py (greedy decoding). Host-side
-control flow mirrors whisper_full_with_state (src/whisper.cpp:6827-7800);
-the encoder, the greedy token loop and the multi-window loop run on the
-context's device (decode/device_loop.py, decode/device_windows.py).
+Port of open_whisper_kit_tpu/decode/full.py (greedy decoding and beam
+search). Host-side control flow mirrors whisper_full_with_state
+(src/whisper.cpp:6827-7800); the encoder, the greedy and beam token loops
+and the multi-window loop run on the context's device
+(decode/device_loop.py, decode/device_beam.py, decode/device_windows.py).
 Temperature-fallback windows with t > 0 run the host-stepped sampled loop,
-one host read per token.
+and `use_device_loops=False` the host-stepped greedy or beam loop (the
+beam merge on the host, _beam_expand_and_merge), one host read per token.
 
 Contexts come from a ggml-bin checkpoint (`from_file` / `from_buffer`;
 q8_0/q5_0/q4_0 weights stay int8 planes for kernels K3 and K5, other
@@ -13,14 +15,15 @@ formats dequantize at load) or from seeded random weights of a preset
 (`from_preset`); `decoder_int8` adds the runtime W8 logits plane (K3). They
 run on the card ("cuda") unless the caller asks for the CPU, and raise when
 CUDA is missing. The greedy token steps run the decode-step kernel K2
-(ops/decode_megakernel.py) when `WhisperContext.mega_params` picks a mode,
-as the JAX package does: by itself for a bf16 decoder whose matmul weights
-are all int8 planes on the card, and in every mode `FullParams.megakernel`
-asks for (on the CPU through K2's plain version); otherwise, and always in
-the host-stepped sampled fallback, `decode_impl`.
+(ops/decode_megakernel.py), and the beam token steps the beam-step kernel
+K7, when `WhisperContext.mega_params` picks a mode, as the JAX package
+does: by itself for a bf16 decoder whose matmul weights are all int8
+planes on the card, and in every mode `FullParams.megakernel` asks for (on
+the CPU through the kernels' plain versions); otherwise, and always in the
+host-stepped loops, `decode_impl`.
 
-Not ported yet, and refused with NotImplementedError: beam search,
-grammars, VAD, token-level and DTW timestamps, speculative decoding,
+Not ported yet, and refused with NotImplementedError: grammars, VAD,
+token-level and DTW timestamps, speculative decoding,
 `ref_sampling`, int8 cross-KV, GGUF checkpoints, and the
 abort / logits-filter callbacks (they need a host poll every token).
 """
@@ -339,7 +342,6 @@ def _refuse_unported(p: FullParams) -> None:
     """Features the port does not have yet raise instead of quietly taking
     another path."""
     unported = {
-        "beam search (strategy=BEAM_SEARCH)": p.strategy == SamplingStrategy.BEAM_SEARCH,
         "grammar_rules": p.grammar_rules is not None,
         "VAD (vad=True)": p.vad,
         "token_timestamps": p.token_timestamps,
@@ -406,7 +408,11 @@ def whisper_full(ctx: WhisperContext, p: FullParams, samples: np.ndarray,
     else:
         temperatures = [p.temperature]
 
-    n_decoders = max(1, p.greedy.best_of)
+    if p.strategy == SamplingStrategy.GREEDY:
+        n_decoders = p.greedy.best_of
+    else:
+        n_decoders = max(p.greedy.best_of, p.beam_search.beam_size)
+    n_decoders = max(1, n_decoders)
     if n_decoders > MAX_DECODERS:
         raise ValueError(f"too many decoders ({n_decoders} > {MAX_DECODERS})")
 
@@ -516,10 +522,14 @@ def whisper_full(ctx: WhisperContext, p: FullParams, samples: np.ndarray,
 
 def _multiwindow_eligible(ctx: WhisperContext, p: FullParams,
                           temperatures, audio_ctx: int) -> bool:
-    """The K-windows-per-call loop covers greedy t=0 decoding; anything
-    needing per-window host intervention goes one window per call."""
+    """The K-windows-per-call loop covers greedy and beam-search t=0
+    decoding (the beams are ranked on the device); anything needing
+    per-window host intervention goes one window per call."""
+    beam_ok = (p.strategy == SamplingStrategy.BEAM_SEARCH
+               and p.beam_search.beam_size > 1
+               and not p.ref_sampling)
     return (p.use_device_loops and p.device_windows > 1
-            and p.strategy == SamplingStrategy.GREEDY
+            and (p.strategy == SamplingStrategy.GREEDY or beam_ok)
             and temperatures[0] < 1e-6
             and audio_ctx == 0
             and not p.single_segment
@@ -544,7 +554,9 @@ def _run_device_windows(ctx: WhisperContext, p: FullParams,
     n_max = cfg.n_text_ctx // 2 - 4
     K = p.device_windows
     fallback_available = len(temperatures) > 1
-    fscal = [p.logprob_thold, p.entropy_thold, p.no_speech_thold]
+    fscal = [p.logprob_thold, p.entropy_thold, p.no_speech_thold, p.length_penalty]
+    beam_size = (p.beam_search.beam_size
+                 if p.strategy == SamplingStrategy.BEAM_SEARCH else 0)
 
     def upload_past(past_list: list[int]):
         past_list = past_list[-P:] if P > 0 else []
@@ -571,7 +583,8 @@ def _run_device_windows(ctx: WhisperContext, p: FullParams,
             reads=ctx.reads, max_tokens=p.max_tokens,
             no_timestamps=no_timestamps, stub=ctx.n_loaded == 0,
             window_frames=2 * cfg.n_audio_ctx,
-            fallback_available=fallback_available, mega=ctx.mega_params(p))
+            fallback_available=fallback_available,
+            mega=ctx.mega_params(p), beam_size=beam_size)
         r = DW.unpack_windows_result(
             ctx.reads.fetch(DW.pack_windows_result(res)), res, K, n_max)
         past_buf = res.past_buf        # stays on the device for the next call
@@ -676,12 +689,43 @@ def _device_greedy_window(ctx, p, rc, decoders, prompt, xk, xv,
     return r["no_speech_prob"]
 
 
+def _device_beam_window(ctx, p, rc, decoders, prompt, xk, xv,
+                        base_mask, init_mask, seek, seek_end,
+                        no_timestamps, timings) -> float:
+    """One window through the on-device beam loop (decode/device_beam.py,
+    its token steps through K7 where ctx.mega_params picks a mode); fills
+    `decoders`, returns no_speech_prob."""
+    from . import device_beam as DB
+    cfg, vocab = ctx.cfg, ctx.vocab
+    n_dec = len(decoders)
+    t0 = time.perf_counter()
+    toks, T_real = _pad_prompt(cfg, prompt, ctx.device)
+    n_max = cfg.n_text_ctx // 2 - 4
+    res = DB.decode_segment_beam(
+        cfg, rc, ctx.params["decoder"], toks, xk, xv, base_mask, init_mask,
+        (T_real, vocab.token_nosp, seek, seek_end), beam_size=n_dec, n_max=n_max,
+        reads=ctx.reads, max_tokens=p.max_tokens, single_segment=p.single_segment,
+        no_timestamps=no_timestamps, stub=ctx.n_loaded == 0,
+        mega=ctx.mega_params(p), cache_dtype=ctx.dtype)
+    rows = DB.unpack_beam_result(ctx.reads.fetch(DB.pack_beam_result(res)), n_dec, n_max)
+    for d, r in zip(decoders, rows):
+        # each beam's own length: an early-ended beam's buffer tail is stale
+        _fill_decoder(d, r, r["n_valid"])
+    n_tok = rows[0]["n_tokens"]
+    timings.t_decode_ms += (time.perf_counter() - t0) * 1e3
+    timings.n_decode += n_tok + 1
+    timings.n_sample += n_tok
+    return rows[0]["no_speech_prob"]
+
+
 def _host_stepped_window(ctx, p, rc, decoders, prompt, xk, xv,
                          base_mask, init_mask, seek, seek_end,
-                         no_timestamps, t_cur, timings, generator) -> float:
+                         no_timestamps, t_cur, beam_mode, timings,
+                         generator) -> float:
     """One window through the host-stepped loop: the sampled (t > 0,
-    best_of decoders) fallback, and greedy when device loops are off.
-    One host read per token. Fills `decoders`; returns no_speech_prob."""
+    best_of decoders) fallback, and greedy or beam search (the merge on
+    the host) when device loops are off. One host read per token. Fills
+    `decoders`; returns no_speech_prob."""
     cfg, vocab = ctx.cfg, ctx.vocab
     dec_params = ctx.params["decoder"]
     n_dec_cur = len(decoders)
@@ -711,23 +755,35 @@ def _host_stepped_window(ctx, p, rc, decoders, prompt, xk, xv,
         st = _beam_state(decoders, vocab, ctx.device)
         f_logits, f_logprobs, f_probs = LR.apply_rules(
             rc, step_logits, base_mask, init_mask, st, t_cur)
-        if t_cur < 1e-6:
-            out = LR.sample_greedy(rc, f_logits, f_logprobs, f_probs)
+        if beam_mode:
+            k = p.beam_search.beam_size
+            out = LR.sample_topk(rc, k, f_logits, f_logprobs, f_probs)
+            a = ctx.reads.fetch(torch.cat([x.double().reshape(n_dec_cur, -1)
+                                           for x in out], dim=1))
+            _beam_expand_and_merge(decoders, a[:, :k], a[:, k:2 * k], a[:, 2 * k:3 * k],
+                                   a[:, 3 * k], a[:, 3 * k + 1], a[:, 3 * k + 2], i,
+                                   vocab.token_beg)
+            src = np.array([d._src for d in decoders], np.int64)
+            if not np.array_equal(src, np.arange(n_dec_cur)):
+                kv_k, kv_v = M.reorder_kv(kv_k, kv_v, torch.from_numpy(src).to(ctx.device))
         else:
-            out = LR.sample_multinomial(rc, generator, f_logits, f_logprobs,
-                                        f_probs)
-        tok_a, p_a, lp_a, pt_a, pts_a, tid_a = ctx.reads.fetch(
-            torch.stack([x.double() for x in out]))
-        for j, d in enumerate(decoders):
-            if d.completed or d.failed:
-                continue
-            td = TokenData(int(tok_a[j]), int(tid_a[j]), float(p_a[j]),
-                           float(lp_a[j]), float(pt_a[j]), float(pts_a[j]))
-            if td.id >= vocab.token_beg:
-                td.tid = td.id
-                td.pt = td.p
-            d.tokens.append(td)
-            d.sum_logprobs_all += td.plog
+            if t_cur < 1e-6:
+                out = LR.sample_greedy(rc, f_logits, f_logprobs, f_probs)
+            else:
+                out = LR.sample_multinomial(rc, generator, f_logits, f_logprobs,
+                                            f_probs)
+            tok_a, p_a, lp_a, pt_a, pts_a, tid_a = ctx.reads.fetch(
+                torch.stack([x.double() for x in out]))
+            for j, d in enumerate(decoders):
+                if d.completed or d.failed:
+                    continue
+                td = TokenData(int(tok_a[j]), int(tid_a[j]), float(p_a[j]),
+                               float(lp_a[j]), float(pt_a[j]), float(pts_a[j]))
+                if td.id >= vocab.token_beg:
+                    td.tid = td.id
+                    td.pt = td.p
+                d.tokens.append(td)
+                d.sum_logprobs_all += td.plog
         timings.t_sample_ms += (time.perf_counter() - t0) * 1e3
         timings.n_sample += 1
 
@@ -808,7 +864,12 @@ def _decode_window_host(ctx: WhisperContext, p: FullParams, rc,
     prompt: list[int] = []
 
     for it, t_cur in enumerate(temperatures):
-        n_dec_cur = max(1, p.greedy.best_of if t_cur > 0 else 1)
+        if p.strategy == SamplingStrategy.GREEDY:
+            n_dec_cur = p.greedy.best_of if t_cur > 0 else 1
+        else:
+            n_dec_cur = p.greedy.best_of if t_cur > 0 else p.beam_search.beam_size
+        n_dec_cur = max(1, n_dec_cur)
+        beam_mode = p.strategy == SamplingStrategy.BEAM_SEARCH and t_cur <= 0
         decoders = [_DecoderState() for _ in range(n_dec_cur)]
 
         # build prompt (whisper.cpp:7121-7148)
@@ -827,14 +888,20 @@ def _decode_window_host(ctx: WhisperContext, p: FullParams, rc,
                     prompt.extend(prompt_past1[-n_take1:])
         prompt.extend(prompt_init)
 
-        if p.use_device_loops and n_dec_cur == 1 and t_cur < 1e-6:
+        on_device = p.use_device_loops and t_cur < 1e-6
+        if on_device and beam_mode and n_dec_cur > 1:
+            no_speech_prob = _device_beam_window(
+                ctx, p, rc, decoders, prompt, xk, xv, base_mask, init_mask,
+                seek, seek_end, no_timestamps, timings)
+        elif on_device and n_dec_cur == 1:
             no_speech_prob = _device_greedy_window(
                 ctx, p, rc, decoders, prompt, xk, xv, base_mask, init_mask,
                 seek, seek_end, no_timestamps, timings)
         else:
             no_speech_prob = _host_stepped_window(
                 ctx, p, rc, decoders, prompt, xk, xv, base_mask, init_mask,
-                seek, seek_end, no_timestamps, t_cur, timings, generator)
+                seek, seek_end, no_timestamps, t_cur, beam_mode, timings,
+                generator)
 
         # ---- rank sequences (whisper.cpp:7545-7580) ----
         best_decoder_id, success = _rank_decoders(
@@ -859,7 +926,7 @@ def _pad_prompt(cfg: M.WhisperConfig, prompt: list[int], device):
 
 
 def _fill_decoder(d: _DecoderState, r: dict, n_tok: int):
-    """Copy the decoder's fields out of an unpacked greedy-loop result."""
+    """Copy the decoder's fields out of an unpacked device-loop result."""
     d.tokens = [TokenData(int(r["tokens"][k]), int(r["tid"][k]),
                           float(r["p"][k]), float(r["plog"][k]),
                           float(r["pt"][k]), float(r["ptsum"][k]))
@@ -916,6 +983,67 @@ def _beam_state(decoders: list[_DecoderState], vocab: tok_mod.WhisperVocab,
     t = lambda a: torch.from_numpy(a).to(device)
     return LR.BeamState(t(is_initial), t(last_ts), t(penult_ts), t(has_ts),
                         t(ts_min))
+
+
+def _beam_expand_and_merge(decoders, top_id, top_p, top_lp, pt, ptsum, tid, i,
+                           token_beg: int):
+    """Candidate generation + global merge on the host (whisper.cpp:7301-7352),
+    comparing sequences token by token. Sets d._src on every decoder for
+    the KV gather."""
+    candidates = []
+    for j, d in enumerate(decoders):
+        d._src = j
+        if d.completed or d.failed:
+            continue
+        for c in range(top_id.shape[1]):
+            td = TokenData(int(top_id[j, c]), int(tid[j]), float(top_p[j, c]),
+                           float(top_lp[j, c]), float(pt[j]), float(ptsum[j]))
+            if td.id >= token_beg:
+                td.tid = td.id
+                td.pt = td.p
+            candidates.append((d.sum_logprobs_all + td.plog, j, td, d))
+
+    # sort by sum_logprobs desc, then source decoder index asc
+    candidates.sort(key=lambda c: (-c[0], c[1]))
+
+    # assign top candidates to the active decoders, skipping duplicates
+    new_states = []
+    cur = 0
+    for j, d in enumerate(decoders):
+        if d.completed or d.failed:
+            new_states.append(None)
+            continue
+        if cur >= len(candidates):
+            cur = 0
+        sum_lp, src_j, td, src_d = candidates[cur]
+        cur += 1
+        # dedupe identical sequences (compare token ids incl. the new one)
+        if i > 0:
+            seq = [t.id for t in src_d.tokens] + [td.id]
+            while cur < len(candidates):
+                s2 = candidates[cur]
+                seq2 = [t.id for t in s2[3].tokens] + [s2[2].id]
+                if seq2 == seq:
+                    cur += 1
+                else:
+                    break
+        new_states.append((sum_lp, src_j, td, src_d))
+
+    # apply (copy the source sequence + append the token)
+    snapshot = {j: (list(d.tokens), d.seek_delta, d.has_ts, d.result_len)
+                for j, d in enumerate(decoders)}
+    for d, ns in zip(decoders, new_states):
+        if ns is None:
+            continue
+        sum_lp, src_j, td, _ = ns
+        toks, sd, hts, rl = snapshot[src_j]
+        d.tokens = list(toks)
+        d.tokens.append(dataclasses.replace(td))
+        d.sum_logprobs_all = sum_lp
+        d.seek_delta = sd
+        d.has_ts = hts
+        d.result_len = rl
+        d._src = src_j
 
 
 def _score_sequence(d: _DecoderState, length_penalty: float):

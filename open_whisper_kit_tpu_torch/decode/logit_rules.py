@@ -8,8 +8,8 @@ never needs the host.
 Static (per-run) suppression sets are precomputed into additive masks
 (numpy, shared with the JAX package's semantics); dynamic rules (timestamp
 pairing, monotonicity, logsumexp timestamp-vs-text) are driven by small
-per-beam state tensors. Grammar masks and top-k beam expansion are not
-ported yet.
+per-beam state tensors; `sample_topk` expands beams for beam search.
+Grammar masks are not ported yet.
 """
 
 from __future__ import annotations
@@ -187,6 +187,23 @@ def sample_multinomial(rc: RuleConfig, generator: torch.Generator,
     tok = torch.where(torch.isneginf(logits), NEG_INF, logprobs + gumbel).argmax(dim=-1)
     pt, ptsum, tid = ts_aggregates(rc, probs)
     return tok, _gather(probs, tok), _gather(logprobs, tok), pt, ptsum, tid
+
+
+def sample_topk(rc: RuleConfig, k: int, logits, logprobs, probs):
+    """Deterministic top-k beam candidates per beam -> (top_id, top_p,
+    top_lp) each (B, k), and the timestamp aggregates (pt, ptsum, tid).
+
+    The order is jax.lax.top_k's: larger logprob first, the lower token id
+    first among equal values. Equal values are common (every masked entry
+    is -inf) and torch.topk orders ties as it likes on CUDA, so the ids
+    come from a stable descending sort instead. As in the JAX package, this
+    is the standard deterministic expansion, not whisper.cpp's k draws
+    (whisper_sample_token_topk, whisper.cpp:6519-6592)."""
+    top_lp, top_id = torch.sort(logprobs, dim=-1, descending=True, stable=True)
+    top_lp, top_id = top_lp[:, :k], top_id[:, :k]
+    top_p = probs.gather(1, top_id)
+    pt, ptsum, tid = ts_aggregates(rc, probs)
+    return top_id, top_p, top_lp, pt, ptsum, tid
 
 
 def compute_no_speech_prob(logits: torch.Tensor, token_nosp: int) -> torch.Tensor:

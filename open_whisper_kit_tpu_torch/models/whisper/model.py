@@ -390,6 +390,13 @@ def init_kv_cache(cfg: WhisperConfig, n_beams: int,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
+def reorder_kv(kv_k: torch.Tensor, kv_v: torch.Tensor, src: torch.Tensor):
+    """Beam shuffle of (L, B, n_ctx, S) caches: new beam b = old beam
+    src[b] (replaces the reference's kv_seq_cp cell surgery,
+    whisper.cpp:7301-7352). `src` a long tensor on the caches' device."""
+    return kv_k.index_select(1, src), kv_v.index_select(1, src)
+
+
 def prepare_decoder(dec: Params) -> Params:
     """Fuse the self-attention q/k/v projections into one matmul per layer
     (K gets a zero bias); quantized weights fuse by concatenating their

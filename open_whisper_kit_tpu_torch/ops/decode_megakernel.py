@@ -1,11 +1,13 @@
-"""The decode-step kernel K2: the whole per-token decoder in one call.
+"""The decode-step kernels: K2, the whole per-token decoder in one call,
+and K7, the same step for B <= 8 beams through one weight stream.
 
-Port of open_whisper_kit_tpu/ops/decode_megakernel.py (the greedy,
-one-row `mega_decode_step`; the beam, batched-stream and speculative-verify
-variants are not ported yet). One step takes the (1, S) bf16 token plus
-position row and runs every layer (layernorm, fused QKV with the K/V row
-written at `kv_head`, self-attention, cross-attention, the tanh-GELU MLP),
-the final layernorm and the vocab projection to f32 logits.
+Port of open_whisper_kit_tpu/ops/decode_megakernel.py: the greedy one-row
+`mega_decode_step` and the beam-search `mega_decode_step_beam` (the
+batched-stream and speculative-verify variants are not ported yet). One
+step takes the (R, S) bf16 token plus position rows and runs every layer
+(layernorm, fused QKV with the new K/V rows written at `kv_head`,
+self-attention, cross-attention, the tanh-GELU MLP), the final layernorm
+and the vocab projection to f32 logits.
 
 Each weight field is dense bf16, int8 `QPlanes` (per-32-row f32 scales) or
 split-half int4 `Q4Planes` (bf16 scales), chosen by `prepare_mega`:
@@ -25,6 +27,16 @@ tensors. The caches are the port's natural layout: the self-cache
 tensors `init_kv_cache` and `cross_kv` return, so no conversion copy is
 made. Planes are padded to what the kernel needs (a multiple of 128
 columns); the logits come back sliced to the vocabulary.
+
+`mega_decode_step_beam` (csrc/mega_beam.cu on CUDA, `mega_decode_step_beam_
+plain` on the CPU) takes B beam rows, a shared (L, Ta, S) cross-KV and a
+row-flat, time-major self-cache (L, Tc * B, S) whose row t * B + b is slot
+b at time t. Beams never move their cache rows: lineage is an origin table
+(B, Tc), origin[b, t] the slot that holds beam b's row for time t. The TPU
+kernel takes it as the 0/-inf bias `beam_attn_bias` builds, which the plain
+version consumes as JAX does; the CUDA kernel reads the table itself. The
+self-attention is an online softmax over 128-row time blocks, as the TPU
+kernel runs it.
 """
 
 from __future__ import annotations
@@ -213,33 +225,96 @@ def _matvec(x16: torch.Tensor, w, il: int | None) -> torch.Tensor:
 
 def _attend(q16: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int,
             scale: float, n_head: int) -> torch.Tensor:
-    """(1, S) bf16 query over keys [0, n_valid) of natural (T, S) k/v:
+    """(R, S) bf16 queries over keys [0, n_valid) of natural (T, S) k/v:
     f32 scores times `scale`, full-row f32 softmax, probabilities rounded
     to bf16, P.V summed in f32, rounded to bf16."""
-    S = q16.shape[-1]
+    R, S = q16.shape
     dh = S // n_head
-    qh = q16.float().reshape(n_head, 1, dh)
+    qh = q16.float().reshape(R, n_head, dh).transpose(0, 1).contiguous()  # (H, R, dh)
     kh = k[:n_valid].float().reshape(n_valid, n_head, dh).transpose(0, 1)
     vh = v[:n_valid].float().reshape(n_valid, n_head, dh).transpose(0, 1)
-    s = (qh @ kh.transpose(1, 2)) * scale                     # (H, 1, n)
+    s = (qh @ kh.transpose(1, 2)) * scale                     # (H, R, n)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = (e / e.sum(dim=-1, keepdim=True)).to(torch.bfloat16)
-    return (p.float() @ vh).reshape(1, S).to(torch.bfloat16)
+    return (p.float() @ vh).transpose(0, 1).reshape(R, S).to(torch.bfloat16)
+
+
+BT = 128          # self-attention time-block rows of the beam step
+_BIAS_ROWS = 8    # bias rows per time block (the TPU kernel's sublane rows)
+
+
+def beam_attn_bias(origin: torch.Tensor, head, Tc: int, M: int = _BIAS_ROWS
+                   ) -> torch.Tensor:
+    """Origin (lineage) table -> the beam step's additive self-attention
+    bias, as the JAX package builds it.
+
+    origin (B, Tc) long: origin[b, t] = the cache slot that holds beam b's
+    K/V row for position t. The beam loop keeps it instead of gathering
+    the caches on every reorder: origin = origin[src], then
+    origin[:, head] = arange(B). `head` (int or 0-d tensor): this step
+    attends t <= head. Returns (ceil(Tc/128)*M, 128*B) f32 of 0 / -inf,
+    block-major: element [t*M + row, tl*B + j] gates row `row` attending
+    slot j at time t*128 + tl. Rows >= B reuse beam B-1's lineage."""
+    B, Tc0 = origin.shape
+    assert Tc0 == Tc, (Tc0, Tc)
+    dev = origin.device
+    Tcp = -(-Tc // BT) * BT
+    nblk = Tcp // BT
+    org = torch.nn.functional.pad(origin.long(), (0, Tcp - Tc, 0, M - B), value=-1)
+    org = torch.where(torch.arange(M, device=dev)[:, None] >= B, org[B - 1][None, :], org)
+    head = torch.as_tensor(head, device=dev)
+    ok = ((org[:, :, None] == torch.arange(B, device=dev)[None, None, :])
+          & (torch.arange(Tcp, device=dev)[None, :, None] <= head))   # (M, Tcp, B)
+    ok = ok.reshape(M, nblk, BT, B).permute(1, 0, 2, 3)
+    return torch.where(ok.reshape(nblk * M, BT * B), 0.0, float("-inf")).float()
+
+
+def _attend_beams(q16: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head: int,
+                  bias: torch.Tensor, n_head: int) -> torch.Tensor:
+    """(B, S) bf16 beam queries against the row-flat time-major (Tc*B, S)
+    self-cache, the TPU kernel's blocked online softmax: over time blocks
+    0 .. head // 128 in order, m from -1e30, per block mn = max(m, max s),
+    a = exp(m - mn), e = bf16(exp(s - mn)), l = l*a + sum(e), o = o*a +
+    e.V in f32 (scores masked where the bias is < 0); bf16(o / l)."""
+    B, S = q16.shape
+    dh = S // n_head
+    W = BT * B
+    qh = q16.float().reshape(B, n_head, dh).transpose(0, 1)   # (H, B, dh)
+    m = torch.full((n_head, B, 1), -1e30, device=q16.device)
+    l = torch.zeros(n_head, B, 1, device=q16.device)
+    o = torch.zeros(n_head, B, dh, device=q16.device)
+    for t in range((head + BT) // BT):
+        kb, vb = k[t * W:(t + 1) * W].float(), v[t * W:(t + 1) * W].float()
+        if kb.shape[0] < W:   # the cache's last, partial time block: zero rows
+            kb = torch.nn.functional.pad(kb, (0, 0, 0, W - kb.shape[0]))
+            vb = torch.nn.functional.pad(vb, (0, 0, 0, W - vb.shape[0]))
+        kh = kb.reshape(W, n_head, dh).transpose(0, 1)        # (H, W, dh)
+        vh = vb.reshape(W, n_head, dh).transpose(0, 1)
+        s = qh @ kh.transpose(1, 2)                           # (H, B, W)
+        s = torch.where(bias[t * _BIAS_ROWS:t * _BIAS_ROWS + B][None] < 0,
+                        float("-inf"), s)
+        mn = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        a = torch.exp(m - mn)
+        e = torch.exp(s - mn).to(torch.bfloat16).float()
+        l = l * a + e.sum(dim=-1, keepdim=True)
+        o = o * a + e @ vh
+        m = mn
+    return (o / l).transpose(0, 1).reshape(B, S).to(torch.bfloat16)
 
 
 def _ln16(x16, w, b, eps):
     return layer_norm(x16.float(), w, b, eps).to(torch.bfloat16)
 
 
-def mega_decode_step_plain(cfg, mp: MegaParams, x0: torch.Tensor,
-                           kv_k: torch.Tensor, kv_v: torch.Tensor, kv_head,
-                           xk: torch.Tensor, xv: torch.Tensor):
-    """K2's function in plain torch, the kernel's reference (and the CPU
-    path). Same arguments and results as `mega_decode_step`."""
+def _step_rows_plain(cfg, mp: MegaParams, x0: torch.Tensor, self_attend,
+                     xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+    """The decoder step for the R rows of x0, each row alone, as the TPU
+    kernel body rounds it; `self_attend(il, q, k, v)` writes the layer's
+    new K/V rows and returns the (R, S) bf16 self-attention output.
+    Returns the (R, V) f32 logits."""
     S, H, L = cfg.n_text_state, cfg.n_text_head, cfg.n_text_layer
     dh = S // H
     eps = float(cfg.eps)
-    head = int(kv_head)
     kq16 = torch.tensor(float(dh) ** -0.25, dtype=torch.bfloat16, device=x0.device)
     cross_scale = float(np.float32(float(dh) ** -0.25))
     bias = lambda name, il: getattr(mp, name)[il][None]       # noqa: E731
@@ -248,9 +323,7 @@ def mega_decode_step_plain(cfg, mp: MegaParams, x0: torch.Tensor,
         h16 = _ln16(x, mp.lnw[3 * il], mp.lnb[3 * il], eps)
         qkv = _matvec(h16, mp.qkv_w, il).to(torch.bfloat16) + bias("qkv_b", il)
         q = qkv[:, :S] * kq16
-        kv_k[il, head] = (qkv[:, S:2 * S] * kq16)[0]
-        kv_v[il, head] = qkv[0, 2 * S:]
-        a16 = _attend(q, kv_k[il], kv_v[il], head + 1, 1.0, H)
+        a16 = self_attend(il, q, qkv[:, S:2 * S] * kq16, qkv[:, 2 * S:])
         x = x + (_matvec(a16, mp.o_w, il).to(torch.bfloat16) + bias("o_b", il))
 
         h16 = _ln16(x, mp.lnw[3 * il + 1], mp.lnb[3 * il + 1], eps)
@@ -263,7 +336,40 @@ def mega_decode_step_plain(cfg, mp: MegaParams, x0: torch.Tensor,
         g = torch.nn.functional.gelu(pre.float(), approximate="tanh").to(torch.bfloat16)
         x = x + (_matvec(g, mp.mlp1_w, il).to(torch.bfloat16) + bias("mlp1_b", il))
     xf = _ln16(x, mp.lnw[3 * L], mp.lnb[3 * L], eps)
-    return _matvec(xf, mp.teT, None)[:, :cfg.n_vocab], kv_k, kv_v
+    return _matvec(xf, mp.teT, None)[:, :cfg.n_vocab]
+
+
+def mega_decode_step_plain(cfg, mp: MegaParams, x0: torch.Tensor,
+                           kv_k: torch.Tensor, kv_v: torch.Tensor, kv_head,
+                           xk: torch.Tensor, xv: torch.Tensor):
+    """K2's function in plain torch, the kernel's reference (and the CPU
+    path). Same arguments and results as `mega_decode_step`."""
+    head = int(kv_head)
+
+    def self_attend(il, q, k, v):
+        kv_k[il, head] = k[0]
+        kv_v[il, head] = v[0]
+        return _attend(q, kv_k[il], kv_v[il], head + 1, 1.0, cfg.n_text_head)
+    return _step_rows_plain(cfg, mp, x0, self_attend, xk, xv), kv_k, kv_v
+
+
+def mega_decode_step_beam_plain(cfg, mp: MegaParams, x0: torch.Tensor,
+                                kv_k: torch.Tensor, kv_v: torch.Tensor, kv_head,
+                                xk: torch.Tensor, xv: torch.Tensor,
+                                origin: torch.Tensor):
+    """K7's function in plain torch for B > 1 beams, the kernel's
+    reference (and the CPU path): the TPU kernel's body with n_beams = B,
+    the lineage bias `beam_attn_bias(origin, kv_head, Tc)` and the blocked
+    self-attention. Same arguments and results as `mega_decode_step_beam`."""
+    B = x0.shape[0]
+    head = int(kv_head)
+    attn_bias = beam_attn_bias(origin, head, kv_k.shape[1] // B)
+
+    def self_attend(il, q, k, v):
+        kv_k[il, head * B:(head + 1) * B] = k
+        kv_v[il, head * B:(head + 1) * B] = v
+        return _attend_beams(q, kv_k[il], kv_v[il], head, attn_bias, cfg.n_text_head)
+    return _step_rows_plain(cfg, mp, x0, self_attend, xk, xv), kv_k, kv_v
 
 
 # -- the kernel ----------------------------------------------------------------
@@ -271,28 +377,35 @@ def mega_decode_step_plain(cfg, mp: MegaParams, x0: torch.Tensor,
 _P = ctypes.c_void_p
 
 
+_ENTRIES = {"mega_step": "owk_mega_step", "mega_beam": "owk_mega_beam"}
+
+
 @functools.cache
-def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load("mega_step")
-    lib.owk_mega_step.argtypes = [ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int),
-                                  ctypes.c_float, ctypes.c_float, ctypes.c_float, _P]
-    lib.owk_mega_step.restype = ctypes.c_int
-    lib.owk_mega_step_workspace.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.owk_mega_step_workspace.restype = ctypes.c_longlong
+def _kernel_lib(name: str) -> ctypes.CDLL:
+    """csrc/<name>.cu built and loaded: mega_step (K2) or mega_beam (K7)."""
+    lib = _build.load(name)
+    step = getattr(lib, _ENTRIES[name])
+    step.argtypes = [ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int),
+                     ctypes.c_float, ctypes.c_float, ctypes.c_float, _P]
+    step.restype = ctypes.c_int
+    ws = getattr(lib, _ENTRIES[name] + "_workspace")
+    ws.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    ws.restype = ctypes.c_longlong
     return lib
 
 
 _WORKSPACES: dict = {}
 
 
-def _workspace(lib, dims, device) -> torch.Tensor:
-    """Zeroed scratch for one step (residual row, partial sums, attention
-    scores, split counters), kept per device and shape: every launch
-    leaves its counters at zero again."""
-    key = (str(device), tuple(dims))
+def _workspace(name: str, dims, device) -> torch.Tensor:
+    """Zeroed scratch for one step (residual rows, partial sums, attention
+    scores, split counters), kept per kernel, device and shape: every
+    launch leaves its counters at zero again."""
+    key = (name, str(device), tuple(dims))
     ws = _WORKSPACES.get(key)
     if ws is None:
-        n = lib.owk_mega_step_workspace((ctypes.c_int * len(dims))(*dims))
+        fn = getattr(_kernel_lib(name), _ENTRIES[name] + "_workspace")
+        n = fn((ctypes.c_int * len(dims))(*dims))
         ws = _WORKSPACES[key] = torch.zeros(n, dtype=torch.uint8, device=device)
     return ws
 
@@ -300,7 +413,7 @@ def _workspace(lib, dims, device) -> torch.Tensor:
 def _check_tensor(what: str, t: torch.Tensor, dtype, shape, device) -> None:
     if (t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape)
             or not t.is_contiguous() or t.data_ptr() % 16):
-        raise ValueError(f"mega_decode_step: {what} must be a contiguous {dtype} "
+        raise ValueError(f"{what} must be a contiguous {dtype} "
                          f"{tuple(shape)} tensor on {device} at a 16-byte "
                          f"boundary, got {t.dtype} {tuple(t.shape)} on {t.device} "
                          f"(contiguous={t.is_contiguous()})")
@@ -321,6 +434,66 @@ def _field_args(name: str, w, K: int, N: int, L: int | None, device):
                   (*lead, K // 2 if kind == "int4" else K, N), device)
     _check_tensor(name + ".sc", w.sc, sdt, (*lead, K // QK, N), device)
     return [w.qs.data_ptr(), w.sc.data_ptr()]
+
+
+def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tensor,
+            kv_v: torch.Tensor, kv_head, xk: torch.Tensor, xv: torch.Tensor, Tc: int,
+            origin: torch.Tensor | None = None) -> torch.Tensor:
+    """Check a step's arguments on the card and launch csrc/<kernel>.cu on
+    the current stream: R = x0's rows, self-cache (L, Tc * R, S), K7's
+    origin table last. Returns the (R, V) f32 logits; raises if a launch fails."""
+    what = {"mega_step": "mega_decode_step", "mega_beam": "mega_decode_step_beam"}[kernel]
+    dev = x0.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    R = x0.shape[0]
+    S, H, L, V = cfg.n_text_state, cfg.n_text_head, cfg.n_text_layer, cfg.n_vocab
+    if S % 128 or S // H != 64:
+        raise ValueError(f"{what}: S={S} with {H} heads; the kernel "
+                         "takes S % 128 == 0 and 64-wide heads")
+    Ta, Vp = xk.shape[1], mp.vp
+    if Vp % 64 or Vp < V:
+        raise ValueError(f"{what}: vocab plane width {Vp}")
+    x0b = x0.to(torch.bfloat16).contiguous()
+    _check_tensor(f"{what}: x0", x0b, torch.bfloat16, (R, S), dev)
+    for name, t in (("kv_k", kv_k), ("kv_v", kv_v)):
+        _check_tensor(f"{what}: {name}", t, torch.bfloat16, (L, Tc * R, S), dev)
+    for name, t in (("xk", xk), ("xv", xv)):
+        _check_tensor(f"{what}: {name}", t, torch.bfloat16, (L, Ta, S), dev)
+    head = torch.as_tensor(kv_head, device=dev).to(torch.int64).reshape(())
+    _check_tensor(f"{what}: lnw", mp.lnw, torch.bfloat16, (3 * L + 1, S), dev)
+    _check_tensor(f"{what}: lnb", mp.lnb, torch.bfloat16, (3 * L + 1, S), dev)
+    ptrs = [x0b.data_ptr(), head.data_ptr(), mp.lnw.data_ptr(), mp.lnb.data_ptr()]
+    kn = {"qkv_w": (S, 3 * S), "o_w": (S, S), "cq_w": (S, S), "co_w": (S, S),
+          "mlp0_w": (S, 4 * S), "mlp1_w": (4 * S, S), "teT": (S, Vp)}
+    for name, bname in zip(WEIGHTS, _BIASES):
+        b = getattr(mp, bname)
+        _check_tensor(f"{what}: {bname}", b, torch.bfloat16, (L, kn[name][1]), dev)
+        ptrs.append(b.data_ptr())
+    kinds = []
+    for name in WEIGHTS:
+        w = getattr(mp, name)
+        if _kind(w) == "int4" and S % 256:
+            raise ValueError(f"{what}: int4 planes need S % 256 == 0, S={S}")
+        ptrs += _field_args(f"{what}: {name}", w, *kn[name],
+                            None if name == "teT" else L, dev)
+        kinds.append(_KINDS[_kind(w)])
+    logits = torch.empty(R, Vp, dtype=torch.float32, device=dev)
+    dims = [L, S, H, Tc, Ta, Vp, *kinds] + ([R] if origin is not None else [])
+    ws = _workspace(kernel, dims, dev)
+    ptrs += [kv_k.data_ptr(), kv_v.data_ptr(), xk.data_ptr(), xv.data_ptr(),
+             logits.data_ptr(), ws.data_ptr()]
+    if origin is not None:
+        _check_tensor(f"{what}: origin", origin, torch.int64, (R, Tc), dev)
+        ptrs.append(origin.data_ptr())
+    dh = S // H
+    kq = float(torch.tensor(float(dh) ** -0.25, dtype=torch.bfloat16))
+    rc = getattr(_kernel_lib(kernel), _ENTRIES[kernel])(
+        (_P * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
+        float(cfg.eps), kq, float(dh) ** -0.25, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed (cudaError {rc})")
+    return logits[:, :V]
 
 
 def mega_decode_step(cfg, mp: MegaParams, x0: torch.Tensor,
@@ -344,54 +517,52 @@ def mega_decode_step(cfg, mp: MegaParams, x0: torch.Tensor,
             "pass of speculative decoding is not ported to the PyTorch package yet")
     if x0.device.type == "cpu":
         return mega_decode_step_plain(cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv)
-    dev = x0.device
-    if dev.type != "cuda":
-        raise ValueError(f"mega_decode_step: unsupported device {dev}")
-    S, H, L, V = cfg.n_text_state, cfg.n_text_head, cfg.n_text_layer, cfg.n_vocab
-    if S % 128 or S // H != 64:
-        raise ValueError(f"mega_decode_step: S={S} with {H} heads; the kernel "
-                         "takes S % 128 == 0 and 64-wide heads")
-    Tc, Ta, Vp = kv_k.shape[1], xk.shape[1], mp.vp
-    if Vp % 64 or Vp < V:
-        raise ValueError(f"mega_decode_step: vocab plane width {Vp}")
-    x0b = x0.to(torch.bfloat16).contiguous()
-    _check_tensor("x0", x0b, torch.bfloat16, (1, S), dev)
-    for name, t in (("kv_k", kv_k), ("kv_v", kv_v)):
-        _check_tensor(name, t, torch.bfloat16, (L, Tc, S), dev)
-    for name, t in (("xk", xk), ("xv", xv)):
-        _check_tensor(name, t, torch.bfloat16, (L, Ta, S), dev)
-    head = torch.as_tensor(kv_head, device=dev).to(torch.int64).reshape(())
-    _check_tensor("lnw", mp.lnw, torch.bfloat16, (3 * L + 1, S), dev)
-    _check_tensor("lnb", mp.lnb, torch.bfloat16, (3 * L + 1, S), dev)
-    ptrs = [x0b.data_ptr(), head.data_ptr(), mp.lnw.data_ptr(), mp.lnb.data_ptr()]
-    kn = {"qkv_w": (S, 3 * S), "o_w": (S, S), "cq_w": (S, S), "co_w": (S, S),
-          "mlp0_w": (S, 4 * S), "mlp1_w": (4 * S, S), "teT": (S, Vp)}
-    for name, bname in zip(WEIGHTS, _BIASES):
-        b = getattr(mp, bname)
-        _check_tensor(bname, b, torch.bfloat16, (L, kn[name][1]), dev)
-        ptrs.append(b.data_ptr())
-    kinds = []
-    for name in WEIGHTS:
-        w = getattr(mp, name)
-        if _kind(w) == "int4" and S % 256:
-            raise ValueError(f"mega_decode_step: int4 planes need S % 256 == 0, S={S}")
-        ptrs += _field_args(name, w, *kn[name], None if name == "teT" else L, dev)
-        kinds.append(_KINDS[_kind(w)])
-    logits = torch.empty(1, Vp, dtype=torch.float32, device=dev)
-    dims = [L, S, H, Tc, Ta, Vp, *kinds]
-    lib = _kernel_lib()
-    ws = _workspace(lib, dims, dev)
-    ptrs += [kv_k.data_ptr(), kv_v.data_ptr(), xk.data_ptr(), xv.data_ptr(),
-             logits.data_ptr(), ws.data_ptr()]
-    dh = S // H
-    kq = float(torch.tensor(float(dh) ** -0.25, dtype=torch.bfloat16))
-    rc = lib.owk_mega_step((_P * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
-                           float(cfg.eps), kq, float(dh) ** -0.25,
-                           torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"mega_decode_step: kernel launch failed (cudaError {rc})")
+    logits = _launch("mega_step", cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv, kv_k.shape[1])
     mega_decode_step.launches += 1
-    return logits[:, :V], kv_k, kv_v
+    return logits, kv_k, kv_v
 
 
 mega_decode_step.launches = 0
+
+
+def mega_decode_step_beam(cfg, mp: MegaParams, x0: torch.Tensor,
+                          kv_k: torch.Tensor, kv_v: torch.Tensor, kv_head,
+                          xk: torch.Tensor, xv: torch.Tensor,
+                          origin: torch.Tensor | None = None):
+    """Kernel K7: one beam-search decode step for B <= 8 beams, the beams
+    riding one weight stream and sharing the cross-KV.
+
+    x0 (B, S) bf16 per-beam token + position rows for position kv_head;
+    kv_k/kv_v (L, Tc * B, S) bf16 row-flat time-major self-cache (row
+    t * B + b is slot b at time t), beam b's new K/V row written in place
+    at row kv_head * B + b; kv_head a 0-d integer tensor on x0's device or
+    an int; xk/xv (L, Ta, S) bf16 shared cross-KV, xk pre-scaled by
+    dh^-0.25; origin (B, Tc) int64 lineage table, required for B > 1:
+    beam b attends row t * B + origin[b, t] at each time t <= kv_head (the
+    JAX package passes it as `beam_attn_bias(origin, kv_head, Tc)`).
+    Returns (logits (B, V) f32, kv_k, kv_v). One row delegates to K2
+    (`mega_decode_step`), as the JAX package does; origin is then unused.
+
+    CPU tensors take `mega_decode_step_beam_plain`; CUDA tensors launch
+    csrc/mega_beam.cu on the current stream or raise. `launches` counts
+    steps of B > 1 run on the card."""
+    B = x0.shape[0]
+    if x0.dim() != 2 or not 1 <= B <= 8:
+        raise ValueError(f"mega_decode_step_beam: x0 {tuple(x0.shape)}; 1 to 8 rows")
+    if B == 1:
+        return mega_decode_step(cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv)
+    if origin is None:
+        raise ValueError("mega_decode_step_beam: beam mode requires the origin table")
+    if kv_k.shape[1] % B:
+        raise ValueError(f"mega_decode_step_beam: cache rows {kv_k.shape[1]} are not "
+                         f"a multiple of {B} beams")
+    Tc = kv_k.shape[1] // B
+    if x0.device.type == "cpu":
+        return mega_decode_step_beam_plain(cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv,
+                                           origin)
+    logits = _launch("mega_beam", cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv, Tc, origin)
+    mega_decode_step_beam.launches += 1
+    return logits, kv_k, kv_v
+
+
+mega_decode_step_beam.launches = 0

@@ -1,6 +1,7 @@
-"""The port on a CUDA card: kernels K1, K2, K3, K4 and K5 against their
-plain versions, the device token loop on the card against the same loop on the
-CPU, and a narrow q8_0 checkpoint's transcript on the card and the CPU.
+"""The port on a CUDA card: kernels K1, K2, K3, K4, K5 and K7 against
+their plain versions, the device token loops (greedy and beam) on the card
+against the same loops on the CPU, and a narrow q8_0 checkpoint's transcript
+on the card and the CPU.
 
 Every test here needs a GPU and skips without one. The file imports no jax,
 so it also runs where the JAX package is not installed:
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from open_whisper_kit_tpu_torch.audio import mel as mel_mod
+from open_whisper_kit_tpu_torch.decode import device_beam as DB
 from open_whisper_kit_tpu_torch.decode import device_loop as DL
 from open_whisper_kit_tpu_torch.decode import full as TF
 from open_whisper_kit_tpu_torch.decode.params import FullParams
@@ -249,3 +251,134 @@ def test_mega_step_kernel_matches_plain(cuda, mode):
     for r, k in ((caches[0], caches[2]), (caches[1], caches[3])):
         _close(k[:, :5].float(), r[:, :5].float(), 1e-2)
         assert not k[:, 5:].any()
+
+
+# the K7 steps below: (head, the sources each step's beams continue, None
+# for no reorder), on both sides of the 128-row time-block edges
+_STEPS = [(0, None), (1, [1, 0, 1]), (2, [2, 0, 0]), (3, None), (4, [1, 1, 2]),
+          (126, None), (127, [2, 0, 1]), (128, [1, 1, 0]), (129, None),
+          (254, [0, 2, 2]), (255, None), (256, [2, 1, 0]), (257, None)]
+
+
+@pytest.mark.parametrize("mode", ["none", "logits", "all", "int4"])
+def test_mega_beam_kernel_matches_plain(cuda, mode, monkeypatch):
+    """K7 against its plain version at the narrow config of the CPU parity
+    tests (S=256, 4 heads, 3 layers, vocabulary 640, 48 audio positions)
+    with a 300-row cache (three 128-row time blocks, the last partial),
+    B = 3: steps at heads 0-4, 126-129 and 254-257 with lineage reorders,
+    the rows no step wrote holding random K/V and a random lineage: logits
+    within 2e-2 of max|ref| (the JAX package's gate for this kernel), the
+    same argmax for every beam except where the kernel's pick lies within
+    1e-2 of max|ref| of the plain best (a near tie: the two sum in other
+    f32 orders), the written cache rows within 1e-2 of their max, the rows
+    past the last head zero; one launch per step, never the plain
+    version. Prints each step's error."""
+    cfg = TM.WhisperConfig(640, 48, 256, 4, 2, 300, 256, 4, 3, 80)
+    params = TM.init_params(cfg, seed=5, dtype=torch.bfloat16, device=cuda)
+    dec = TM.prepare_decoder(params["decoder"])
+    if mode == "logits":
+        dec = TM.quantize_decoder_int8(dec)
+    mp = MK.prepare_mega(cfg, dec, quant=mode)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    L, S, Tc, Ta, B = 3, 256, 300, 48, 3
+    xk, xv = ((torch.randn(L, Ta, S, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    caches = [torch.zeros(L, Tc * B, S, dtype=torch.bfloat16, device=cuda) for _ in range(4)]
+    origin = torch.arange(B, device=cuda)[:, None].expand(B, Tc).clone()
+    toks = torch.randint(0, 640, (len(_STEPS), B), generator=g, device=cuda)
+    plain = MK.mega_decode_step_beam_plain
+    filled, written, steps = 0, [], []
+    for i, (head, src) in enumerate(_STEPS):
+        if head > filled:
+            rows = slice(filled * B, head * B)
+            for c in range(2):
+                hist = (torch.randn(L, (head - filled) * B, S, generator=g, device=cuda)
+                        * 0.5).to(torch.bfloat16)
+                caches[c][:, rows] = hist
+                caches[c + 2][:, rows] = hist
+            origin[:, filled:head] = torch.randint(0, B, (B, head - filled), generator=g,
+                                                   device=cuda)
+        if src is not None:
+            origin = origin[torch.tensor(src, device=cuda)]
+        origin[:, head] = torch.arange(B, device=cuda)
+        filled = head + 1
+        written += range(head * B, (head + 1) * B)
+        x0 = (dec["te"][toks[i]] + dec["pe"][head]).to(torch.bfloat16)
+        ht = torch.tensor(head, device=cuda)
+        ref, _, _ = plain(cfg, mp, x0, caches[0], caches[1], ht, xk, xv, origin)
+        before = (MK.mega_decode_step_beam.launches, MK.mega_decode_step.launches)
+        with monkeypatch.context() as m:
+            m.setattr(MK, "mega_decode_step_beam_plain", None)
+            got, _, _ = MK.mega_decode_step_beam(cfg, mp, x0, caches[2], caches[3], ht,
+                                                 xk, xv, origin=origin)
+        torch.cuda.synchronize()
+        assert (MK.mega_decode_step_beam.launches, MK.mega_decode_step.launches) == (
+            before[0] + 1, before[1])
+        assert got.shape == ref.shape == (B, 640) and bool(torch.isfinite(got).all())
+        m = ref.abs().max().item()
+        pick = got.argmax(1)
+        gap = ref.max(1).values - ref.gather(1, pick[:, None])[:, 0]
+        steps.append((head, (got - ref).abs().max().item() / m,
+                      int((pick != ref.argmax(1)).sum()), gap.max().item() / m))
+    print(f"K7 {mode}: (head, max|err| / max|ref|, argmax flips, plain gap / max|ref|) "
+          f"{[(h, f'{e:.2e}', n, f'{g:.1e}') for h, e, n, g in steps]}")
+    assert all(e <= 2e-2 and g <= 1e-2 for _, e, _, g in steps), steps
+    w = torch.tensor(written, device=cuda)
+    for r, k in ((caches[0], caches[2]), (caches[1], caches[3])):
+        _close(k[:, w].float(), r[:, w].float(), 1e-2)
+        assert not k[:, filled * B:].any()
+
+
+def test_mega_beam_one_row_runs_k2(cuda):
+    """One beam delegates to K2: its counter grows, K7's does not, and the
+    result is K2's own."""
+    cfg = TM.WhisperConfig(640, 48, 256, 4, 2, 64, 256, 4, 3, 80)
+    params = TM.init_params(cfg, seed=5, dtype=torch.bfloat16, device=cuda)
+    dec = TM.prepare_decoder(params["decoder"])
+    mp = MK.prepare_mega(cfg, dec, quant="all")
+    g = torch.Generator(device=cuda).manual_seed(7)
+    xk, xv = ((torch.randn(3, 48, 256, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    x0 = (dec["te"][[17]] + dec["pe"][[0]]).to(torch.bfloat16)
+    caches = [torch.zeros(3, 64, 256, dtype=torch.bfloat16, device=cuda) for _ in range(4)]
+    before = (MK.mega_decode_step_beam.launches, MK.mega_decode_step.launches)
+    a, _, _ = MK.mega_decode_step_beam(cfg, mp, x0, caches[0], caches[1], 0, xk, xv)
+    b, _, _ = MK.mega_decode_step(cfg, mp, x0, caches[2], caches[3], 0, xk, xv)
+    torch.cuda.synchronize()
+    assert (MK.mega_decode_step_beam.launches, MK.mega_decode_step.launches) == (
+        before[0], before[1] + 2)
+    assert torch.equal(a, b) and torch.equal(caches[0], caches[2])
+
+
+def test_decode_segment_beam_cuda_matches_cpu(cuda):
+    """The device beam loop (B = 3, decode_impl with the physical reorder)
+    on the card and on the CPU, f32, from the same CPU-made cross-KV: the
+    same tokens, result lengths and n_valid, probabilities within 1e-4."""
+    cfg = TM.WhisperConfig(*NARROW_TS)
+    params = TM.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    tokens = [b"<%d>" % i for i in range(50257)]
+    samples = (np.random.default_rng(1).standard_normal(16000 * 20)
+               .astype(np.float32) * 0.1)
+    ctx = TF.WhisperContext(cfg, params, build_vocab(tokens, cfg.n_vocab),
+                            TF._synthetic_mel_filters(80), n_loaded=1,
+                            dtype=torch.float32, device="cpu")
+    mel = mel_mod.log_mel_spectrogram(samples, ctx.filters, "cpu")
+    _, xk, xv = ctx.encode_window(mel.data, 0, 0)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        dctx = ctx if dev.type == "cpu" else TF.WhisperContext(
+            cfg, params, build_vocab(tokens, cfg.n_vocab), TF._synthetic_mel_filters(80),
+            n_loaded=1, dtype=torch.float32, device=dev)
+        v = dctx.vocab
+        toks, t_real = TF._pad_prompt(cfg, [v.token_sot], dev)
+        res = DB.decode_segment_beam(
+            cfg, dctx.rule_config, dctx.params["decoder"], toks, xk.to(dev), xv.to(dev),
+            *dctx.rule_masks(FullParams()), (t_real, v.token_nosp, 0, mel.n_len_org),
+            beam_size=3, n_max=220, reads=dctx.reads, cache_dtype=torch.float32)
+        out[dev.type] = DB.unpack_beam_result(
+            dctx.reads.fetch(DB.pack_beam_result(res)), 3, 220)
+    assert out["cuda"][0]["n_tokens"] == out["cpu"][0]["n_tokens"] > 0
+    for b, (rg, rc) in enumerate(zip(out["cuda"], out["cpu"])):
+        for key in ("tokens", "result_len", "n_valid", "seek_delta", "completed", "failed"):
+            np.testing.assert_array_equal(rg[key], rc[key], err_msg=f"{key}, beam {b}")
+        np.testing.assert_allclose(rg["p"], rc["p"], atol=1e-4)

@@ -88,14 +88,18 @@ def test_host_stepped_greedy_matches_jax(narrow):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("strategy", SamplingStrategy.BEAM_SEARCH), ("grammar_rules", "root ::= \"a\""),
+    ("strategy+ref_sampling", (SamplingStrategy.BEAM_SEARCH, True)),
+    ("grammar_rules", "root ::= \"a\""),
     ("vad", True), ("token_timestamps", True), ("dtw_token_timestamps", True),
     ("speculative", 2), ("ref_sampling", True), ("cross_kv_int8", True),
     ("abort_callback", lambda: False),
     ("logits_filter_callback", lambda *a: None),
 ])
 def test_unported_features_raise(narrow, field, value):
-    p = dataclasses.replace(FullParams(print_progress=False), **{field: value})
+    """Beam search is ported; its ref_sampling (mt19937) host path is not."""
+    fields = field.split("+")
+    values = value if len(fields) > 1 else (value,)
+    p = dataclasses.replace(FullParams(print_progress=False), **dict(zip(fields, values)))
     with pytest.raises(NotImplementedError, match="not ported"):
         TF.whisper_full(narrow[1], p, audio(1, 0))
 
@@ -103,6 +107,7 @@ def test_unported_features_raise(narrow, field, value):
 def test_import_leaves_jax_out():
     code = ("import sys, open_whisper_kit_tpu_torch, open_whisper_kit_tpu_torch.api; "
             "import open_whisper_kit_tpu_torch.decode.full; "
+            "import open_whisper_kit_tpu_torch.decode.device_beam; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'open_whisper_kit_tpu.')) "
             "or m == 'open_whisper_kit_tpu' for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
