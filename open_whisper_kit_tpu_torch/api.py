@@ -1,7 +1,7 @@
 """Public API facade of the PyTorch port (port of the Transcriber part of
-open_whisper_kit_tpu/api.py; Diarizer, align and batched serving are not
-ported yet). Entry points run on the card ("cuda") unless the caller asks
-for the CPU."""
+open_whisper_kit_tpu/api.py, batched serving included; Diarizer and align
+are not ported yet). Entry points run on the card ("cuda") unless the
+caller asks for the CPU."""
 
 from __future__ import annotations
 
@@ -12,9 +12,11 @@ import torch
 
 from .audio import mel as mel_mod
 from .audio.wav import load_wav
+from .decode import batch as _batch
 from .decode import full as _full
 from .decode.full import Segment, TokenData, TranscribeResult, WhisperContext
 from .decode.params import FullParams, SamplingStrategy
+from .parallel import dp as _dp
 
 __all__ = [
     "Transcriber", "FullParams", "SamplingStrategy", "Segment", "TokenData",
@@ -37,10 +39,11 @@ class Transcriber:
         weights stay int8 planes). `preset`: random weights of a real
         model's shapes from `seed` (the same weights as the JAX package's
         preset). `decoder_int8`: runtime W8 planes for the vocab
-        projection. Runs on the card unless `device` asks for the CPU;
-        raises when CUDA is missing. The W8A8 encoder, multi-device meshes
-        and draft models are not ported yet."""
-        unported = {"encoder_int8": encoder_int8, "mesh": mesh is not None,
+        projection. `encoder_int8`: the W8A8 encoder stack (kernel K6;
+        q8_0-class error), for every entry point. Runs on the card unless
+        `device` asks for the CPU; raises when CUDA is missing.
+        Multi-device meshes and draft models are not ported yet."""
+        unported = {"mesh": mesh is not None,
                     "draft models": draft_model_path is not None
                     or draft_preset is not None}
         for name, on in unported.items():
@@ -50,11 +53,11 @@ class Transcriber:
         if model_path is not None:
             self.ctx = WhisperContext.from_file(
                 str(model_path), dtype=dtype, decoder_int8=decoder_int8,
-                device=device)
+                device=device, encoder_int8=encoder_int8)
         elif preset is not None:
             self.ctx = WhisperContext.from_preset(
                 preset, seed=seed, dtype=dtype, decoder_int8=decoder_int8,
-                device=device)
+                device=device, encoder_int8=encoder_int8)
         else:
             raise ValueError("model_path or preset required")
 
@@ -86,6 +89,46 @@ class Transcriber:
             audio = load_wav(audio)
         return self.full(params or FullParams(print_progress=False), audio,
                          generator)
+
+    def transcribe_paths(self, paths: list[str | Path],
+                         params: FullParams | None = None,
+                         batched: bool = False) -> list[TranscribeResult]:
+        """Transcribe several files; `batched=True` decodes all files'
+        windows in lockstep on the device (transcribe_batch)."""
+        if batched:
+            return self.transcribe_batch(list(paths), params)
+        return [self.transcribe(p, params) for p in paths]
+
+    def transcribe_batch(self, audios: list, params: FullParams | None = None
+                         ) -> list[TranscribeResult]:
+        """Lockstep multi-file transcription: every file's windows decode
+        together, the B files' encoder passes as one batch and one decoder
+        step for all B per token (kernel K8 with `megakernel` True, "int8"
+        or "int4"). Greedy-t0 serving path with per-file fallback to
+        whisper_full where the quality gates trip; params outside that
+        envelope run the files one by one through whisper_full."""
+        p = params or FullParams(print_progress=False)
+        loaded = [load_wav(a) if isinstance(a, (str, Path))
+                  else np.asarray(a, np.float32) for a in audios]
+        if len(loaded) > 1 and _dp._batch_route_eligible(self.ctx, p):
+            segs, tms = _batch.transcribe_chunks_with_timings(self.ctx, p, loaded)
+            return [TranscribeResult(segments=s, timings=t) for s, t in zip(segs, tms)]
+        return [self.full(p, a) for a in loaded]
+
+    def transcribe_batched(self, audio: str | Path | np.ndarray,
+                           params: FullParams | None = None,
+                           n_chunks: int = 8) -> TranscribeResult:
+        """Serving-throughput mode: decode n_chunks independent chunks of one
+        recording in lockstep on the device (decode/batch.py)."""
+        if isinstance(audio, (str, Path)):
+            audio = load_wav(audio)
+        return _batch.transcribe_batched(self.ctx, params or FullParams(print_progress=False),
+                                         audio, n_chunks)
+
+    def full_parallel(self, params: FullParams, samples: np.ndarray,
+                      n_processors: int) -> TranscribeResult:
+        """whisper_full_parallel semantics (per-chunk mel, merged segments)."""
+        return _dp.full_parallel(self.ctx, params, samples, n_processors)
 
     @property
     def model_type(self) -> str:

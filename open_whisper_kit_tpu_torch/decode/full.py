@@ -12,7 +12,8 @@ beam merge on the host, _beam_expand_and_merge), one host read per token.
 Contexts come from a ggml-bin checkpoint (`from_file` / `from_buffer`;
 q8_0/q5_0/q4_0 weights stay int8 planes for kernels K3 and K5, other
 formats dequantize at load) or from seeded random weights of a preset
-(`from_preset`); `decoder_int8` adds the runtime W8 logits plane (K3). They
+(`from_preset`); `decoder_int8` adds the runtime W8 logits plane (K3),
+`encoder_int8` makes the encoder stack W8A8 (kernel K6). They
 run on the card ("cuda") unless the caller asks for the CPU, and raise when
 CUDA is missing. The greedy token steps run the decode-step kernel K2
 (ops/decode_megakernel.py), and the beam token steps the beam-step kernel
@@ -42,6 +43,7 @@ from ..audio import mel as mel_mod
 from ..io import ggml_whisper
 from ..models.whisper import model as M
 from ..ops import decode_megakernel as MK
+from ..ops.encoder_int8 import prepare_encoder_int8
 from ..ops.quant_matmul import QuantLinear
 from . import logit_rules as LR
 from . import tokenizer as tok_mod
@@ -148,7 +150,7 @@ class WhisperContext:
                  vocab: tok_mod.WhisperVocab, filters: np.ndarray,
                  n_loaded: int, dtype: torch.dtype = torch.bfloat16,
                  model_type: str = "custom", decoder_int8: bool = False,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", encoder_int8: bool = False):
         self.device = _resolve_device(device)
         self.cfg = cfg
         # params move to the device; the decoder's q/k/v fuse for the
@@ -158,6 +160,11 @@ class WhisperContext:
         if decoder_int8 and n_loaded > 0:
             # runtime W8: int8 planes for the vocab projection (K3)
             params["decoder"] = M.quantize_decoder_int8(params["decoder"])
+        if encoder_int8 and n_loaded > 0:
+            # the W8A8 encoder (kernel K6; the JAX package's also needs
+            # mesh=None, and the port has no mesh); model.encode tells its
+            # params apart, so every path that encodes picks it up
+            params["encoder"] = prepare_encoder_int8(cfg, params["encoder"])
         self.params = params
         self.vocab = vocab
         self.filters = filters
@@ -171,16 +178,18 @@ class WhisperContext:
     @classmethod
     def from_buffer(cls, buf: bytes, dtype: torch.dtype = torch.bfloat16,
                     decoder_int8: bool = False,
-                    device: str | torch.device = "cuda") -> "WhisperContext":
+                    device: str | torch.device = "cuda",
+                    encoder_int8: bool = False) -> "WhisperContext":
         """whisper_init_from_buffer (include/whisper.h:133)."""
         return cls.from_file(buf, dtype=dtype, decoder_int8=decoder_int8,
-                             device=device)
+                             device=device, encoder_int8=encoder_int8)
 
     @classmethod
     def from_file(cls, path: str | Path | bytes,
                   dtype: torch.dtype = torch.bfloat16,
                   decoder_int8: bool = False,
-                  device: str | torch.device = "cuda") -> "WhisperContext":
+                  device: str | torch.device = "cuda",
+                  encoder_int8: bool = False) -> "WhisperContext":
         """A ggml-bin checkpoint, from a path or its bytes."""
         dev = _resolve_device(device)
         if isinstance(path, (bytes, bytearray, memoryview)):
@@ -201,13 +210,15 @@ class WhisperContext:
         else:
             params = M.params_from_checkpoint(ck, dtype=dtype)
         return cls(cfg, params, vocab, ck.mel_filters, ck.n_loaded, dtype,
-                   ck.hparams.model_type, decoder_int8=decoder_int8, device=dev)
+                   ck.hparams.model_type, decoder_int8=decoder_int8, device=dev,
+                   encoder_int8=encoder_int8)
 
     @classmethod
     def from_preset(cls, name: str, seed: int = 0,
                     dtype: torch.dtype = torch.bfloat16,
                     decoder_int8: bool = False,
-                    device: str | torch.device = "cuda") -> "WhisperContext":
+                    device: str | torch.device = "cuda",
+                    encoder_int8: bool = False) -> "WhisperContext":
         """Random-weight real-shape model, the same weights as the JAX
         package's from_preset with the same seed."""
         cfg = M.PRESETS[name]
@@ -218,7 +229,8 @@ class WhisperContext:
         vocab = tok_mod.build_vocab(tokens, cfg.n_vocab)
         filters = _synthetic_mel_filters(cfg.n_mels)
         return cls(cfg, params, vocab, filters, n_loaded=1, dtype=dtype,
-                   model_type=name, decoder_int8=decoder_int8, device=dev)
+                   model_type=name, decoder_int8=decoder_int8, device=dev,
+                   encoder_int8=encoder_int8)
 
     _MEGA_WEIGHTS = ("qkv_w", "o_w", "cq_w", "co_w", "mlp0_w", "mlp1_w")
 

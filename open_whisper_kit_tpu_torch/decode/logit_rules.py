@@ -208,5 +208,5 @@ def sample_topk(rc: RuleConfig, k: int, logits, logprobs, probs):
 
 def compute_no_speech_prob(logits: torch.Tensor, token_nosp: int) -> torch.Tensor:
     """softmax prob of the no-speech token from *unfiltered* logits
-    (whisper.cpp:7187-7196); logits (V,)."""
-    return torch.exp(torch.log_softmax(logits.float(), dim=-1)[token_nosp])
+    (whisper.cpp:7187-7196); logits (V,), or (B, V) for one per row."""
+    return torch.exp(torch.log_softmax(logits.float(), dim=-1)[..., token_nosp])

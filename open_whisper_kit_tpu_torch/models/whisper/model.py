@@ -264,9 +264,14 @@ def params_from_jax(tree: dict, *, device: str | torch.device) -> Params:
 
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
     """x @ w with f32 accumulation, result in x's dtype; quantized planes
-    go through qmatmul (kernels K3/K4 on the card)."""
+    go through qmatmul (kernels K3/K4 on the card). Mixed dtypes (the W8A8
+    encoder's bf16 output against f32 weights) multiply in the wider one,
+    as jnp.dot promotes."""
     if isinstance(w, QuantPlanes):
         return qmatmul(x, w).to(x.dtype)
+    if x.dtype != w.dtype:
+        t = torch.promote_types(x.dtype, w.dtype)
+        return torch.matmul(x.to(t), w.to(t)).to(x.dtype)
     return torch.matmul(x, w).to(x.dtype)
 
 
@@ -333,7 +338,12 @@ def encode(cfg: WhisperConfig, enc: Params, mel: torch.Tensor) -> torch.Tensor:
     """mel (B, 2*n_ctx, n_mels) -> encoder output (B, n_ctx, n_state).
 
     conv1(s1)+gelu, conv2(s2)+gelu (gelu on the f32 conv result, then cast),
-    + positional embedding, pre-LN blocks, final layernorm."""
+    + positional embedding, pre-LN blocks, final layernorm. W8A8 params
+    (`ops.encoder_int8.prepare_encoder_int8`, told apart by their int8
+    `qkv_q` planes) go to `encode_int8`, as the JAX package routes them."""
+    if "qkv_q" in enc["blocks"]:
+        from ...ops.encoder_int8 import encode_int8
+        return encode_int8(cfg, enc, mel)
     dtype = enc["conv1_w"].dtype
     x = mel.to(dtype)
     x = conv1d_mm(x, enc["conv1_w"], 1)
@@ -383,11 +393,21 @@ def encode_with_cross_kv(cfg: WhisperConfig, enc: Params, dec: Params,
 
 def init_kv_cache(cfg: WhisperConfig, n_beams: int,
                   dtype: torch.dtype = torch.bfloat16, *,
-                  device: str | torch.device):
-    """Static self-attention cache, natural layout (L, B, n_text_ctx, S)."""
-    shape = (cfg.n_text_layer, n_beams, cfg.n_text_ctx, cfg.n_text_state)
+                  device: str | torch.device, width: int | None = None):
+    """Static self-attention cache, natural layout (L, B, width, S); `width`
+    defaults to n_text_ctx. A decode that never passes position `width`
+    may allocate narrower: the masked columns add exact zeros to the
+    softmax (see widen_kv_cache)."""
+    shape = (cfg.n_text_layer, n_beams, width or cfg.n_text_ctx, cfg.n_text_state)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def widen_kv_cache(kv: torch.Tensor, width: int) -> torch.Tensor:
+    """Zero-pad a (L, B, C, S) cache on the position axis to `width` (the
+    stage change of a staged-width decode loop)."""
+    C = kv.shape[2]
+    return kv if C >= width else F.pad(kv, (0, 0, 0, width - C))
 
 
 def reorder_kv(kv_k: torch.Tensor, kv_v: torch.Tensor, src: torch.Tensor):

@@ -1,9 +1,11 @@
-"""The decode-step kernels: K2, the whole per-token decoder in one call,
-and K7, the same step for B <= 8 beams through one weight stream.
+"""The decode-step kernels: K2, the whole per-token decoder in one call;
+K7, the same step for B <= 8 beams through one weight stream; K8, the
+same for B <= 8 independent streams (batched serving).
 
 Port of open_whisper_kit_tpu/ops/decode_megakernel.py: the greedy one-row
-`mega_decode_step` and the beam-search `mega_decode_step_beam` (the
-batched-stream and speculative-verify variants are not ported yet). One
+`mega_decode_step`, the beam-search `mega_decode_step_beam` and the
+batched-stream `mega_decode_step_batch` (the speculative-verify variant is
+not ported yet). One
 step takes the (R, S) bf16 token plus position rows and runs every layer
 (layernorm, fused QKV with the new K/V rows written at `kv_head`,
 self-attention, cross-attention, the tanh-GELU MLP), the final layernorm
@@ -37,6 +39,13 @@ kernel takes it as the 0/-inf bias `beam_attn_bias` builds, which the plain
 version consumes as JAX does; the CUDA kernel reads the table itself. The
 self-attention is an online softmax over 128-row time blocks, as the TPU
 kernel runs it.
+
+`mega_decode_step_batch` (csrc/mega_batch.cu on CUDA, `mega_decode_step_
+batch_plain` on the CPU) takes B streams on the same time-major
+self-cache with the identity lineage (stream b owns slot b; the CUDA
+kernel needs no table) and a per-stream (L, B, Ta, S) cross-KV, which it
+attends with the TPU kernel's chunked online softmax over 256-row key
+chunks.
 """
 
 from __future__ import annotations
@@ -306,17 +315,29 @@ def _ln16(x16, w, b, eps):
     return layer_norm(x16.float(), w, b, eps).to(torch.bfloat16)
 
 
+def _cross_scale(cfg) -> float:
+    """The cross scores' scale dh^-0.25, as the f32 the TPU kernel uses."""
+    return float(np.float32(float(cfg.d_text_head) ** -0.25))
+
+
+def _shared_cross(cfg, xk: torch.Tensor, xv: torch.Tensor):
+    """cross_attend for rows that share one (L, Ta, S) cross-KV (K2, K7):
+    full-row softmax over the Ta keys."""
+    return lambda il, cq: _attend(cq, xk[il], xv[il], xk.shape[1], _cross_scale(cfg),
+                                  cfg.n_text_head)
+
+
 def _step_rows_plain(cfg, mp: MegaParams, x0: torch.Tensor, self_attend,
-                     xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+                     cross_attend) -> torch.Tensor:
     """The decoder step for the R rows of x0, each row alone, as the TPU
     kernel body rounds it; `self_attend(il, q, k, v)` writes the layer's
-    new K/V rows and returns the (R, S) bf16 self-attention output.
+    new K/V rows and returns the (R, S) bf16 self-attention output,
+    `cross_attend(il, cq)` the (R, S) bf16 cross-attention output.
     Returns the (R, V) f32 logits."""
     S, H, L = cfg.n_text_state, cfg.n_text_head, cfg.n_text_layer
     dh = S // H
     eps = float(cfg.eps)
     kq16 = torch.tensor(float(dh) ** -0.25, dtype=torch.bfloat16, device=x0.device)
-    cross_scale = float(np.float32(float(dh) ** -0.25))
     bias = lambda name, il: getattr(mp, name)[il][None]       # noqa: E731
     x = x0.to(torch.bfloat16)
     for il in range(L):
@@ -328,7 +349,7 @@ def _step_rows_plain(cfg, mp: MegaParams, x0: torch.Tensor, self_attend,
 
         h16 = _ln16(x, mp.lnw[3 * il + 1], mp.lnb[3 * il + 1], eps)
         cq = _matvec(h16, mp.cq_w, il).to(torch.bfloat16) + bias("cq_b", il)
-        a16 = _attend(cq, xk[il], xv[il], xk.shape[1], cross_scale, H)
+        a16 = cross_attend(il, cq)
         x = x + (_matvec(a16, mp.co_w, il).to(torch.bfloat16) + bias("co_b", il))
 
         h16 = _ln16(x, mp.lnw[3 * il + 2], mp.lnb[3 * il + 2], eps)
@@ -350,7 +371,7 @@ def mega_decode_step_plain(cfg, mp: MegaParams, x0: torch.Tensor,
         kv_k[il, head] = k[0]
         kv_v[il, head] = v[0]
         return _attend(q, kv_k[il], kv_v[il], head + 1, 1.0, cfg.n_text_head)
-    return _step_rows_plain(cfg, mp, x0, self_attend, xk, xv), kv_k, kv_v
+    return _step_rows_plain(cfg, mp, x0, self_attend, _shared_cross(cfg, xk, xv)), kv_k, kv_v
 
 
 def mega_decode_step_beam_plain(cfg, mp: MegaParams, x0: torch.Tensor,
@@ -369,7 +390,63 @@ def mega_decode_step_beam_plain(cfg, mp: MegaParams, x0: torch.Tensor,
         kv_k[il, head * B:(head + 1) * B] = k
         kv_v[il, head * B:(head + 1) * B] = v
         return _attend_beams(q, kv_k[il], kv_v[il], head, attn_bias, cfg.n_text_head)
-    return _step_rows_plain(cfg, mp, x0, self_attend, xk, xv), kv_k, kv_v
+    return _step_rows_plain(cfg, mp, x0, self_attend, _shared_cross(cfg, xk, xv)), kv_k, kv_v
+
+
+TAC = 256         # cross-attention key rows per chunk of the batch step
+
+
+def _cross_chunked(q16: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float, n_head: int) -> torch.Tensor:
+    """(B, S) bf16 queries, stream b against its own natural (Ta, S) keys
+    k[b] / values v[b]: the TPU kernel's chunked online softmax over
+    TAC-row key chunks in order, m from -1e30, per chunk mn = max(m,
+    max s), a = exp(m - mn), e = bf16(exp(s - mn)), l = l*a + sum(e),
+    o = o*a + e.V in f32; bf16(o / l). Keys past Ta, which the TPU kernel
+    pads and scores -1e30, add exact zeros, so the last chunk is cut."""
+    B, S = q16.shape
+    Ta, dh = k.shape[1], S // n_head
+    qh = q16.float().reshape(B, n_head, 1, dh)
+    m = torch.full((B, n_head, 1, 1), -1e30, device=q16.device)
+    l = torch.zeros(B, n_head, 1, 1, device=q16.device)
+    o = torch.zeros(B, n_head, 1, dh, device=q16.device)
+    for t0 in range(0, Ta, TAC):
+        kc = k[:, t0:t0 + TAC].float().reshape(B, -1, n_head, dh).transpose(1, 2)
+        vc = v[:, t0:t0 + TAC].float().reshape(B, -1, n_head, dh).transpose(1, 2)
+        sc = (qh @ kc.transpose(-1, -2)) * scale                     # (B, H, 1, c)
+        mn = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        a = torch.exp(m - mn)
+        e = torch.exp(sc - mn).to(torch.bfloat16).float()
+        l = l * a + e.sum(dim=-1, keepdim=True)
+        o = o * a + e @ vc
+        m = mn
+    return (o / l).reshape(B, S).to(torch.bfloat16)
+
+
+def mega_decode_step_batch_plain(cfg, mp: MegaParams, x0: torch.Tensor,
+                                 kv_k: torch.Tensor, kv_v: torch.Tensor, kv_head,
+                                 xk: torch.Tensor, xv: torch.Tensor):
+    """K8's function in plain torch for B > 1 independent streams, the
+    kernel's reference (and the CPU path): the TPU kernel's body with B
+    rows, the identity lineage (stream b owns slot b at every time: its
+    bias `beam_attn_bias(arange(B) per time, kv_head, Tc)`), the blocked
+    self-attention and each stream's chunked cross-attention over its own
+    (Ta, S) cross-KV. Same arguments and results as
+    `mega_decode_step_batch`."""
+    B = x0.shape[0]
+    head = int(kv_head)
+    Tc = kv_k.shape[1] // B
+    origin = torch.arange(B, device=x0.device)[:, None].expand(B, Tc)
+    attn_bias = beam_attn_bias(origin, head, Tc)
+
+    def self_attend(il, q, k, v):
+        kv_k[il, head * B:(head + 1) * B] = k
+        kv_v[il, head * B:(head + 1) * B] = v
+        return _attend_beams(q, kv_k[il], kv_v[il], head, attn_bias, cfg.n_text_head)
+
+    def cross_attend(il, cq):
+        return _cross_chunked(cq, xk[il], xv[il], _cross_scale(cfg), cfg.n_text_head)
+    return _step_rows_plain(cfg, mp, x0, self_attend, cross_attend), kv_k, kv_v
 
 
 # -- the kernel ----------------------------------------------------------------
@@ -377,12 +454,16 @@ def mega_decode_step_beam_plain(cfg, mp: MegaParams, x0: torch.Tensor,
 _P = ctypes.c_void_p
 
 
-_ENTRIES = {"mega_step": "owk_mega_step", "mega_beam": "owk_mega_beam"}
+_ENTRIES = {"mega_step": "owk_mega_step", "mega_beam": "owk_mega_beam",
+            "mega_batch": "owk_mega_batch"}
+_WHAT = {"mega_step": "mega_decode_step", "mega_beam": "mega_decode_step_beam",
+         "mega_batch": "mega_decode_step_batch"}
 
 
 @functools.cache
 def _kernel_lib(name: str) -> ctypes.CDLL:
-    """csrc/<name>.cu built and loaded: mega_step (K2) or mega_beam (K7)."""
+    """csrc/<name>.cu built and loaded: mega_step (K2), mega_beam (K7) or
+    mega_batch (K8)."""
     lib = _build.load(name)
     step = getattr(lib, _ENTRIES[name])
     step.argtypes = [ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int),
@@ -441,8 +522,9 @@ def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tens
             origin: torch.Tensor | None = None) -> torch.Tensor:
     """Check a step's arguments on the card and launch csrc/<kernel>.cu on
     the current stream: R = x0's rows, self-cache (L, Tc * R, S), K7's
-    origin table last. Returns the (R, V) f32 logits; raises if a launch fails."""
-    what = {"mega_step": "mega_decode_step", "mega_beam": "mega_decode_step_beam"}[kernel]
+    origin table last; the cross-KV (L, Ta, S), or K8's per-stream
+    (L, R, Ta, S). Returns the (R, V) f32 logits; raises if a launch fails."""
+    what = _WHAT[kernel]
     dev = x0.device
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
@@ -451,7 +533,8 @@ def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tens
     if S % 128 or S // H != 64:
         raise ValueError(f"{what}: S={S} with {H} heads; the kernel "
                          "takes S % 128 == 0 and 64-wide heads")
-    Ta, Vp = xk.shape[1], mp.vp
+    per_stream = kernel == "mega_batch"
+    Ta, Vp = xk.shape[-2], mp.vp
     if Vp % 64 or Vp < V:
         raise ValueError(f"{what}: vocab plane width {Vp}")
     x0b = x0.to(torch.bfloat16).contiguous()
@@ -459,7 +542,8 @@ def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tens
     for name, t in (("kv_k", kv_k), ("kv_v", kv_v)):
         _check_tensor(f"{what}: {name}", t, torch.bfloat16, (L, Tc * R, S), dev)
     for name, t in (("xk", xk), ("xv", xv)):
-        _check_tensor(f"{what}: {name}", t, torch.bfloat16, (L, Ta, S), dev)
+        _check_tensor(f"{what}: {name}", t, torch.bfloat16,
+                      (L, R, Ta, S) if per_stream else (L, Ta, S), dev)
     head = torch.as_tensor(kv_head, device=dev).to(torch.int64).reshape(())
     _check_tensor(f"{what}: lnw", mp.lnw, torch.bfloat16, (3 * L + 1, S), dev)
     _check_tensor(f"{what}: lnb", mp.lnb, torch.bfloat16, (3 * L + 1, S), dev)
@@ -479,7 +563,7 @@ def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tens
                             None if name == "teT" else L, dev)
         kinds.append(_KINDS[_kind(w)])
     logits = torch.empty(R, Vp, dtype=torch.float32, device=dev)
-    dims = [L, S, H, Tc, Ta, Vp, *kinds] + ([R] if origin is not None else [])
+    dims = [L, S, H, Tc, Ta, Vp, *kinds] + ([R] if R > 1 else [])
     ws = _workspace(kernel, dims, dev)
     ptrs += [kv_k.data_ptr(), kv_v.data_ptr(), xk.data_ptr(), xv.data_ptr(),
              logits.data_ptr(), ws.data_ptr()]
@@ -566,3 +650,45 @@ def mega_decode_step_beam(cfg, mp: MegaParams, x0: torch.Tensor,
 
 
 mega_decode_step_beam.launches = 0
+
+
+def mega_decode_step_batch(cfg, mp: MegaParams, x0: torch.Tensor,
+                           kv_k: torch.Tensor, kv_v: torch.Tensor, kv_head,
+                           xk: torch.Tensor, xv: torch.Tensor):
+    """Kernel K8: one greedy decode step for B <= 8 independent streams
+    (batched serving), the streams riding one weight stream, each with its
+    own cross-KV.
+
+    x0 (B, S) bf16 per-stream token + position rows for position kv_head
+    (the streams advance in lockstep); kv_k/kv_v (L, Tc * B, S) bf16
+    row-flat time-major self-cache (row t * B + b is stream b at time t),
+    stream b's new K/V row written in place at row kv_head * B + b;
+    kv_head a 0-d integer tensor on x0's device or an int; xk/xv
+    (L, B, Ta, S) bf16 per-stream cross-KV, xk pre-scaled by dh^-0.25
+    (natural layout, not padded: the TPU kernel's padding to 256-row
+    chunks adds exact zeros). Returns (logits (B, V) f32, kv_k, kv_v). One
+    stream delegates to K2 (`mega_decode_step`), as the JAX package does.
+
+    CPU tensors take `mega_decode_step_batch_plain`; CUDA tensors launch
+    csrc/mega_batch.cu on the current stream or raise. `launches` counts
+    steps of B > 1 run on the card."""
+    B = x0.shape[0]
+    if x0.dim() != 2 or not 1 <= B <= 8:
+        raise ValueError(f"mega_decode_step_batch: x0 {tuple(x0.shape)}; 1 to 8 rows")
+    if xk.dim() != 4 or xk.shape[1] != B:
+        raise ValueError(f"mega_decode_step_batch: cross-KV {tuple(xk.shape)} is not "
+                         f"(L, {B}, Ta, S)")
+    if B == 1:
+        return mega_decode_step(cfg, mp, x0, kv_k, kv_v, kv_head, xk[:, 0], xv[:, 0])
+    if kv_k.shape[1] % B:
+        raise ValueError(f"mega_decode_step_batch: cache rows {kv_k.shape[1]} are not "
+                         f"a multiple of {B} streams")
+    if x0.device.type == "cpu":
+        return mega_decode_step_batch_plain(cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv)
+    logits = _launch("mega_batch", cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv,
+                     kv_k.shape[1] // B)
+    mega_decode_step_batch.launches += 1
+    return logits, kv_k, kv_v
+
+
+mega_decode_step_batch.launches = 0

@@ -21,18 +21,19 @@ NARROW = (51864, 1500, 128, 2, 2, 448, 128, 2, 2, 80)
 NARROW_TS = (51864, 1500, 128, 2, 2, 448, 128, 2, 3, 80)
 
 
-def contexts(args, seed: int = 0):
-    """(jax_ctx, port_ctx) over the same seed-`seed` f32 weights."""
+def contexts(args, seed: int = 0, **kw):
+    """(jax_ctx, port_ctx) over the same seed-`seed` f32 weights; `kw`
+    (encoder_int8) goes to both contexts."""
     jcfg = M.WhisperConfig(*args)
     params = M.init_params(jcfg, seed=seed, dtype=jnp.float32, device=False)
     tokens = [b"<%d>" % i for i in range(min(jcfg.n_vocab, 50257))]
     filters = JF._synthetic_mel_filters(jcfg.n_mels)
     jctx = JF.WhisperContext(jcfg, params, JTOK.build_vocab(tokens, jcfg.n_vocab),
-                             filters, n_loaded=1, dtype=jnp.float32)
+                             filters, n_loaded=1, dtype=jnp.float32, **kw)
     tparams = TM.params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
     tctx = TF.WhisperContext(TM.WhisperConfig(*args), tparams,
                              TTOK.build_vocab(tokens, jcfg.n_vocab), filters,
-                             n_loaded=1, dtype=torch.float32, device="cpu")
+                             n_loaded=1, dtype=torch.float32, device="cpu", **kw)
     return jctx, tctx
 
 

@@ -184,6 +184,10 @@ def test_gguf_and_unported_options_raise(tmp_path):
     path.write_bytes(b"GGUF" + bytes(60))
     with pytest.raises(NotImplementedError, match="GGUF"):
         TF.WhisperContext.from_file(path, device="cpu")
-    for kw in ({"encoder_int8": True}, {"mesh": object()}, {"draft_preset": "tiny"}):
+    for kw in ({"mesh": object()}, {"draft_preset": "tiny"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             Transcriber(model_path=path, device="cpu", **kw)
+    # encoder_int8 is ported; VAD on full_parallel is not
+    tr = Transcriber(preset="tiny.en", dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="VAD .* not ported"):
+        tr.full_parallel(FullParams(print_progress=False, vad=True), audio(4, 0), 2)

@@ -1,5 +1,5 @@
-"""The port on a CUDA card: kernels K1, K2, K3, K4, K5 and K7 against
-their plain versions, the device token loops (greedy and beam) on the card
+"""The port on a CUDA card: kernels K1, K2, K3, K4, K5, K6, K7 and K8
+against their plain versions, the device token loops (greedy and beam) on the card
 against the same loops on the CPU, and a narrow q8_0 checkpoint's transcript
 on the card and the CPU.
 
@@ -382,3 +382,82 @@ def test_decode_segment_beam_cuda_matches_cpu(cuda):
         for key in ("tokens", "result_len", "n_valid", "seek_delta", "completed", "failed"):
             np.testing.assert_array_equal(rg[key], rc[key], err_msg=f"{key}, beam {b}")
         np.testing.assert_allclose(rg["p"], rc["p"], atol=1e-4)
+
+
+@pytest.mark.parametrize("M,K,N,dtype", [
+    (1536, 1280, 3840, torch.bfloat16), (300, 5120, 1280, torch.bfloat16),
+    (13, 32, 72, torch.float32), (40, 2176, 64, torch.bfloat16), (130, 1280, 1280, torch.float32)])
+def test_w8a8_kernel_matches_plain(cuda, M, K, N, dtype, monkeypatch):
+    """K6 against its plain version, bit for bit: turbo encoder shapes, the
+    padding case (13 x 72, K = 32), wide K, f32 input, rows past a tile
+    edge; an all-zero row gives zeros. One launch per call, never the
+    plain version."""
+    from open_whisper_kit_tpu_torch.ops import encoder_int8 as E8
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    x[1] = 0
+    w = torch.randn(K, N, generator=g, device=cuda) * K ** -0.5
+    wq, ws = E8.quantize_w_cols(w)
+    wq_t = wq.t().contiguous()
+    ref = E8.w8a8_mm_plain(x, wq_t, ws)
+    before = E8.w8a8_mm.launches
+    with monkeypatch.context() as m:
+        m.setattr(E8, "w8a8_mm_plain", None)
+        got = E8.w8a8_mm(x, wq_t, ws)
+    torch.cuda.synchronize()
+    assert E8.w8a8_mm.launches == before + 1
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    n_diff = int((got.float() != ref.float()).sum())
+    assert n_diff == 0, f"{n_diff} of {got.numel()} values differ"
+    assert not got[1].any()
+
+
+@pytest.mark.parametrize("mode", ["none", "all", "int4"])
+def test_mega_batch_kernel_matches_plain(cuda, mode, monkeypatch):
+    """K8 against its plain version at S=256, 4 heads, 3 layers, vocabulary
+    640, 600 audio positions (three 256-row cross chunks, the last partial),
+    a 300-row cache, B = 3 streams with distinct cross-KV: steps at heads
+    0-1, 126-129 and 254-257 from the same caches (random history below
+    the head): logits within 2e-2 of max|ref|, the argmax rule of K7's
+    test, the written rows within 1e-2 of their max; one launch per step,
+    never the plain version."""
+    cfg = TM.WhisperConfig(640, 600, 256, 4, 2, 300, 256, 4, 3, 80)
+    params = TM.init_params(cfg, seed=5, dtype=torch.bfloat16, device=cuda)
+    dec = TM.prepare_decoder(params["decoder"])
+    mp = MK.prepare_mega(cfg, dec, quant=mode)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    L, S, Tc, Ta, B = 3, 256, 300, 600, 3
+    xk, xv = ((torch.randn(L, B, Ta, S, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    hist = (torch.randn(2, L, Tc * B, S, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    steps = []
+    for head in (0, 1, 126, 127, 128, 129, 254, 255, 256, 257):
+        caches = [hist[c % 2].clone() for c in range(4)]
+        for c in caches:
+            c[:, head * B:] = 0
+        toks = torch.randint(0, 640, (B,), generator=g, device=cuda)
+        x0 = (dec["te"][toks] + dec["pe"][head]).to(torch.bfloat16)
+        ht = torch.tensor(head, device=cuda)
+        ref, _, _ = MK.mega_decode_step_batch_plain(cfg, mp, x0, caches[0], caches[1], ht,
+                                                    xk, xv)
+        before = MK.mega_decode_step_batch.launches
+        with monkeypatch.context() as m:
+            m.setattr(MK, "mega_decode_step_batch_plain", None)
+            got, _, _ = MK.mega_decode_step_batch(cfg, mp, x0, caches[2], caches[3], ht,
+                                                  xk, xv)
+        torch.cuda.synchronize()
+        assert MK.mega_decode_step_batch.launches == before + 1
+        assert got.shape == ref.shape == (B, 640) and bool(torch.isfinite(got).all())
+        m_ = ref.abs().max().item()
+        pick = got.argmax(1)
+        gap = ref.max(1).values - ref.gather(1, pick[:, None])[:, 0]
+        steps.append((head, (got - ref).abs().max().item() / m_,
+                      int((pick != ref.argmax(1)).sum()), gap.max().item() / m_))
+        rows = slice(head * B, (head + 1) * B)
+        for r, k in ((caches[0], caches[2]), (caches[1], caches[3])):
+            _close(k[:, rows].float(), r[:, rows].float(), 1e-2)
+            assert torch.equal(k[:, :head * B], r[:, :head * B])
+            assert not k[:, (head + 1) * B:].any()
+    print(f"K8 {mode}: (head, max|err| / max|ref|, argmax flips, plain gap / max|ref|) "
+          f"{[(h, f'{e:.2e}', n, f'{g:.1e}') for h, e, n, g in steps]}")
+    assert all(e <= 2e-2 and g <= 1e-2 for _, e, _, g in steps), steps
