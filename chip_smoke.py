@@ -5,7 +5,7 @@
 
 Phases, each gated; any failure exits non-zero before the result lines:
   1. torch / CUDA versions and the card's name and power limit;
-  2. build kernels K1 (csrc/mha_packed.cu), K2 (mega_step.cu), K3
+  2. build kernels K1 (csrc/mha_packed.cu), K2 (mega_step.cu, 1-8 rows), K3
      (qmm.cu), K4 (qmm4.cu), K5 (ffn_int8.cu), K6 (w8a8.cu), K7
      (mega_beam.cu) and K8 (mega_batch.cu) with nvcc, one process per
      source, all at once, timed;
@@ -34,7 +34,14 @@ Phases, each gated; any failure exits non-zero before the result lines:
      logits lie within 1e-2 of max|ref|, K7_ARGMAX_GAP, the new cache rows
      of layer 0 within one bf16 step), the step time at head 258 against
      the plain step, the decode_impl step over 5 beams and five K2 steps
-     on the same weights (the yardsticks), and the bound;
+     on the same weights (the yardsticks), and the bound; K2's speculative
+     verify rows (R = 5 and 8, the verify passes of gamma = 4 and 7) at the
+     same width in the four modes on a cache of n_text_ctx + 11 rows: one
+     R-row step bit-equal to R one-row K2 steps at heads 126, 448 - R and
+     Tc - 8 on the same cache, and at the first two also on a 448-row cache
+     (the greedy loop's), logits and cache rows; within K2_TOL of the plain
+     R-row step; the step time at head 258 against R one-row K2 steps, the
+     plain step and the decode_impl step at T = R, and the bound;
   4. Transcriber(preset="large-v3-turbo", bf16, cuda, seed 0) answers 30 s
      and 65 s of seeded synthetic audio; K1's launch count must be exactly
      32 (encoder layers) per encoder pass;
@@ -98,7 +105,22 @@ Phases, each gated; any failure exits non-zero before the result lines:
      transcribe_batched (token ids equal, at least 100) and the bf16 q8_0
      checkpoint's transcribe_batch with megakernel="int8" (K8 on the card,
      its plain version on the CPU), token ids equal on audio seed 5 (148
-     tokens), the first differing token of seed 4 printed.
+     tokens), the first differing token of seed 4 printed;
+ 16. speculative greedy decoding at full width: the q8_0 checkpoint
+     (Transcriber(model_path=..., draft_model_path=...)) serves 30 s and
+     65 s greedily with K2, then with a q4_0 draft of its own seed-0 tensors
+     (gamma 4) and a q8_0 draft of seed-1 tensors (gamma 7), K2 int8 for the
+     draft steps and the verify passes (temperature_inc = 0): each
+     transcript equal to K2 greedy's token for token, launch counts exact
+     (per round gamma + 1 one-row K2 steps and one K2 call at gamma + 1
+     rows, verify passes between the live rounds and POLL - 1 more a
+     window, prompt ingest through decode_impl, K1/K3/K5 per encoder pass
+     and decode_impl call); acceptance, rounds and ms per sampled token
+     beside greedy's; the verify launches go to the kernels line as
+     mega_decode_step_verify;
+ 17. narrow speculative decoding on the card against the CPU: bf16 q8_0
+     with a q4_0 draft, megakernel="int8", gamma 4, 35 s: token ids equal
+     (148), and on the card equal to K2 greedy.
 Phases 11-13 run right after phase 3, with the other kernel checks.
 Every phase prints ms per sampled token beside its RTF. The last three lines are the kernels JSON, the nvidia-smi name/power line
 and {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -358,12 +380,14 @@ def turbo_decoder(torch, TM, Q, cfg, mode):
 
 
 def k2_bytes_ops(MK, mp, cfg, n_keys: int, Ta: int, rows: int = 1,
-                 cross_streams: int = 1) -> tuple[int, int]:
+                 cross_streams: int = 1, self_shared: bool = False) -> tuple[int, int]:
     """Bytes a step over `rows` rows must move (every plane on its logical
     columns with its scales, biases and layernorm rows, the cross-KV (one,
-    or one per stream: `cross_streams`), the self-KV rows each row attends,
-    x0 and the logits, each once) and its operations (2 per weight per row,
-    and QK^T and P.V over the self and cross keys per row)."""
+    or one per stream: `cross_streams`), the self-KV rows each row attends
+    (`self_shared`: the rows are consecutive tokens of one stream, whose
+    n_keys rows are read once for all), x0 and the logits, each once) and
+    its operations (2 per weight per row, and QK^T and P.V over the self
+    and cross keys per row)."""
     L, S, V = cfg.n_text_layer, cfg.n_text_state, cfg.n_vocab
     moved, weights = 0, 0
     for name in MK.WEIGHTS:
@@ -377,7 +401,8 @@ def k2_bytes_ops(MK, mp, cfg, n_keys: int, Ta: int, rows: int = 1,
         weights += K * N * (1 if name == "teT" else L)
     moved += sum(getattr(mp, n).numel() * 2 for n in (
         "qkv_b", "o_b", "cq_b", "co_b", "mlp0_b", "mlp1_b", "lnw", "lnb"))
-    moved += L * 2 * (cross_streams * Ta + rows * n_keys) * S * 2 + rows * (S * 2 + V * 4)
+    self_rows = n_keys if self_shared else rows * n_keys
+    moved += L * 2 * (cross_streams * Ta + self_rows) * S * 2 + rows * (S * 2 + V * 4)
     ops = rows * (2 * weights + L * 4 * (n_keys + Ta) * S)
     return moved, ops
 
@@ -601,6 +626,134 @@ def phase_k7(torch, TM, MK, Q):
               f"{y_ms * 1e3:.1f} us, {B} K2 steps {k2_ms * 1e3:.1f} us, bound "
               f"{b_ms * 1e3:.1f} us ({b_by}, {moved / 1e6:.1f} MB)", flush=True)
         del dec, ydec, mp, kk, kv, pk, pv, nk, nv, k2c
+        torch.cuda.empty_cache()
+    del l2_flush, hist, xk, xv
+    torch.cuda.empty_cache()
+    return out
+
+
+# K2's verify rows in phase 3: R = 5 and 8, the verify passes of gamma = 4
+# and 7, on a cache of n_text_ctx + K2V_PAD rows (the speculative loop's
+# n_text_ctx + gamma + 4 at gamma = 7)
+K2V_ROWS = (5, 8)
+K2V_PAD = 7 + 4
+K2V_TIMED_HEAD = 258
+
+
+def phase_k2_verify(torch, TM, MK, Q):
+    """K2's speculative verify rows at large-v3-turbo width in each mode, R
+    in K2V_ROWS: from a cache of Tc = n_text_ctx + K2V_PAD rows (the
+    speculative loop's) holding `head` rows of random history, one R-row
+    step against R one-row K2 steps at head, head + 1, ... on the same
+    cache (logits and every cache row bit for bit), against R one-row steps
+    on an n_text_ctx-row cache (the greedy loop's; logits and rows bit for
+    bit) where the rows fit there, and against the plain R-row step (logits
+    and the new cache rows within K2_TOL of max|ref|), at heads 126,
+    n_text_ctx - R and Tc - 8; times at head K2V_TIMED_HEAD of the R-row step, the plain
+    step, R one-row K2 steps and the decode_impl step at T = R (the
+    yardsticks; no single library call computes a step) with a cold L2
+    cache; the bound. Returns {(mode, R): row}."""
+    cfg = TM.WhisperConfig(*TURBO)
+    L, S, Ta = cfg.n_text_layer, cfg.n_text_state, cfg.n_audio_ctx
+    Tc = cfg.n_text_ctx + K2V_PAD
+    g = torch.Generator(device="cuda").manual_seed(3)
+    xk, xv = ((torch.randn(L, 1, Ta, S, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    hist = (torch.randn(2, L, 1, Tc, S, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    pos_max = torch.tensor(cfg.n_text_ctx - 1, device="cuda")
+    out = {}
+    for mode in K2_MODES:
+        dec, ydec = turbo_decoder(torch, TM, Q, cfg, mode)
+        mp = MK.prepare_mega(cfg, ydec if mode in ("logits", "all") else dec, quant=mode)
+
+        def rows_at(head, R):
+            # token + position rows; positions past the table clamp, as JAX's gather
+            toks = torch.randint(0, cfg.n_vocab, (R,), generator=g, device="cuda")
+            pos = torch.minimum(head + torch.arange(R, device="cuda"), pos_max)
+            return (dec["te"][toks] + dec["pe"].index_select(0, pos)).to(torch.bfloat16)
+
+        def caches(head):
+            c = hist.clone()
+            c[:, :, :, head:] = 0
+            return c[0], c[1]
+        n_ctx = cfg.n_text_ctx
+
+        def one_row_steps(x0, head, k, v):
+            return torch.cat([MK.mega_decode_step(
+                cfg, mp, x0[r:r + 1], k[:, 0], v[:, 0], torch.tensor(head + r, device="cuda"),
+                xk[:, 0], xv[:, 0])[0] for r in range(x0.shape[0])])
+        for R in K2V_ROWS:
+            err = ref_max = cache_err = 0.0
+            heads = (126, n_ctx - R, Tc - 8)
+            for head in heads:
+                ht = torch.tensor(head, device="cuda")
+                x0 = rows_at(head, R)
+                (vk, vv), (sk, sv), (pk, pv) = caches(head), caches(head), caches(head)
+                got, _, _ = MK.mega_decode_step(cfg, mp, x0, vk[:, 0], vv[:, 0], ht,
+                                                xk[:, 0], xv[:, 0])
+                seq = one_row_steps(x0, head, sk, sv)
+                ref, _, _ = MK.mega_decode_step_plain(cfg, mp, x0, pk[:, 0], pv[:, 0], ht,
+                                                      xk[:, 0], xv[:, 0])
+                if head + R <= n_ctx:   # the greedy loop's cache
+                    gk, gv = (c[:, :, :n_ctx].contiguous() for c in caches(head))
+                    greedy = one_row_steps(x0, head, gk, gv)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()) and got.shape == ref.shape
+                      == (R, cfg.n_vocab), f"K2 verify {mode} R={R}: non-finite or "
+                      "misshapen logits")
+                check(torch.equal(got, seq) and torch.equal(vk, sk) and torch.equal(vv, sv),
+                      f"K2 verify {mode} R={R} head {head}: not bit-equal to {R} one-row "
+                      f"K2 steps (logits max|diff| {(got - seq).abs().max().item():.3e})")
+                if head + R <= n_ctx:
+                    check(torch.equal(got, greedy) and torch.equal(vk[:, :, :n_ctx], gk)
+                          and torch.equal(vv[:, :, :n_ctx], gv),
+                          f"K2 verify {mode} R={R} head {head}: not bit-equal to {R} "
+                          f"one-row K2 steps on a {n_ctx}-row cache (logits max|diff| "
+                          f"{(got - greedy).abs().max().item():.3e})")
+                e, m = (got - ref).abs().max().item(), ref.abs().max().item()
+                check(e <= K2_TOL * m, f"K2 verify {mode} R={R} head {head}: logits differ "
+                      f"from the plain version: {e:.3e} > {K2_TOL} * {m:.3e}")
+                err, ref_max = max(err, e), max(ref_max, m)
+                rows = slice(head, min(head + R, Tc))
+                for a, b in ((vk, pk), (vv, pv)):
+                    ra, rb = a[:, 0, rows].float(), b[:, 0, rows].float()
+                    cache_err = max(cache_err, ((ra - rb).abs().max() / rb.abs().max()).item())
+                    check(torch.equal(a[:, :, :head], b[:, :, :head]),
+                          f"K2 verify {mode}: history rows changed")
+            check(cache_err <= K2_TOL, f"K2 verify {mode} R={R}: new cache rows differ "
+                  f"from the plain version ({cache_err:.3e} of their max)")
+            head = K2V_TIMED_HEAD
+            ht = torch.tensor(head, device="cuda")
+            x0 = rows_at(head, R)
+            (vk, vv), (pk, pv) = caches(head), caches(head)
+            tok = torch.randint(0, cfg.n_vocab, (1, R), generator=g, device="cuda")
+            k_ms = cuda_ms(torch, lambda: MK.mega_decode_step(
+                cfg, mp, x0, vk[:, 0], vv[:, 0], ht, xk[:, 0], xv[:, 0]), flush=l2_flush)
+
+            s_ms = cuda_ms(torch, lambda: one_row_steps(x0, head, vk, vv), flush=l2_flush)
+            p_ms = cuda_ms(torch, lambda: MK.mega_decode_step_plain(
+                cfg, mp, x0, pk[:, 0], pv[:, 0], ht, xk[:, 0], xv[:, 0]), flush=l2_flush)
+            y_ms = cuda_ms(torch, lambda: TM.decode_impl(cfg, ydec, tok, pk, pv, ht, xk, xv),
+                           flush=l2_flush)
+            moved, ops = k2_bytes_ops(MK, mp, cfg, head + R, Ta, rows=R, self_shared=True)
+            b_ms, b_by = bound(moved, ops)
+            out[(mode, R)] = {
+                "mode": mode, "rows": R, "heads": list(heads), "cache_rows": Tc,
+                "timed_head": head, "bit_equal_to_one_row_steps": True,
+                "max_abs_err": err, "max_ref": ref_max, "cache_rel_err": cache_err,
+                "ms": k_ms, "plain_ms": p_ms, "one_row_steps_ms": s_ms,
+                "decode_impl_ms": y_ms, "library_ms": None, "bound_ms": b_ms,
+                "bound_by": b_by, "bytes": moved}
+            print(f"[3] K2 verify {mode}, R={R}: bit-equal to {R} one-row K2 steps at heads "
+                  f"{', '.join(map(str, heads))} (cache {Tc} rows; and on a {n_ctx}-row "
+                  f"cache at heads {heads[0]} and {heads[1]}); logits max|err| against the plain "
+                  f"version {err:.3e} (max|ref| {ref_max:.3e}), cache rows {cache_err:.3e} "
+                  f"of max; at head {head}: step {k_ms * 1e3:.1f} us, {R} one-row steps "
+                  f"{s_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, decode_impl T={R} "
+                  f"{y_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}, "
+                  f"{moved / 1e6:.1f} MB)", flush=True)
+        del dec, ydec, mp
         torch.cuda.empty_cache()
     del l2_flush, hist, xk, xv
     torch.cuda.empty_cache()
@@ -1149,6 +1302,139 @@ def witness_k7(torch, tr, FullParams, DB) -> None:
     print(line, flush=True)
 
 
+# the drafts of phase 16: (tag, checkpoint file, gamma); (a) the target's
+# own seed-0 tensors as q4_0, the closest draft there is without real
+# weights; (b) seed-1 tensors as q8_0, whose proposals the target rejects,
+# with the most verify rows K2 takes (gamma + 1 = 8)
+SPEC_DRAFTS = (("a", "draft-q4_0-seed0.bin", 4), ("b", "draft-q8_0-seed1.bin", 7))
+
+
+def phase_speculative(torch, Transcriber, TF, FullParams, mods, tmp) -> int:
+    """Speculative greedy decoding at full large-v3-turbo width: the q8_0
+    target (K2 int8 by itself) serves 30 s and 65 s greedily, then with
+    each of SPEC_DRAFTS attached (Transcriber(model_path=...,
+    draft_model_path=...), then set_draft), temperature_inc = 0. Each
+    transcript must equal the target's K2-greedy one token for token; the
+    launch counts are exact: every round gamma + 1 one-row K2 draft steps
+    and one K2 verify pass at gamma + 1 rows, as many verify passes as live
+    rounds plus at most POLL - 1 masked ones a window, every window's
+    prompt ingest (both models) one decode_impl call, no decode_impl call
+    in a round. Prints acceptance, rounds and ms per sampled token beside
+    greedy's. Returns the verify passes' launches."""
+    A, Q, MK, TM, DL, DB = mods.A, mods.Q, mods.MK, mods.TM, mods.DL, mods.DB
+    from open_whisper_kit_tpu_torch.decode import device_speculative as DS
+    target = tmp / "ggml-large-v3-turbo-q8_0.bin"
+    requests = ((30.0, 30), (65.0, 65))
+
+    def run(tr, p, secs, seed):
+        reset_counts(A, Q, MK)
+        with CallCounter(TM, DL, DB) as calls:
+            t0 = time.perf_counter()
+            res = tr.transcribe(audio(secs, seed), p)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ids = [t.id for s in res.segments for t in s.tokens]
+        return res, ids, wall, calls, dict(MK.mega_decode_step.launches_by_rows)
+
+    tr = Transcriber(model_path=target, draft_model_path=tmp / SPEC_DRAFTS[0][1],
+                     dtype=torch.bfloat16)
+    greedy = {}
+    p = greedy_params(FullParams)
+    for secs, seed in requests:
+        res, ids, wall, _, _ = run(tr, p, secs, seed)
+        greedy[secs] = ids, wall / max(res.timings.n_sample, 1) * 1e3
+        check(len(ids) > 0, f"q8_0 greedy {secs:.0f} s: no tokens")
+        print(f"[16] q8_0 greedy, {secs:.0f} s, K2 auto: sampled tokens "
+              f"{res.timings.n_sample}, emitted {len(ids)}, wall {wall:.3f} s, "
+              f"{greedy[secs][1]:.2f} ms per sampled token", flush=True)
+    n_verify = 0
+    for tag, name, gamma in SPEC_DRAFTS:
+        if tag != SPEC_DRAFTS[0][0]:
+            tr.ctx.set_draft(TF.WhisperContext.from_file(tmp / name, dtype=torch.bfloat16,
+                                                         device="cuda"))
+        ps = dataclasses.replace(p, speculative=gamma)
+        check(tr.ctx.mega_mode(ps) == "all" and tr.ctx.draft.mega_mode(ps, draft=True)
+              == "all", f"draft ({tag}): K2 not selected for the draft steps and the verify")
+        for secs, seed in requests:
+            res, ids, wall, calls, rows = run(tr, ps, secs, seed)
+            tm = res.timings
+            n_win = tm.n_encode // 2
+            rounds = tm.n_decode - n_win
+            verify, one = rows.get(gamma + 1, 0), rows.get(1, 0)
+            same = ids == greedy[secs][0]
+            first = next((i for i, (a, b) in enumerate(zip(ids, greedy[secs][0])) if a != b),
+                         None)
+            ms_tok = wall / max(tm.n_sample, 1) * 1e3
+            print(f"[16] draft ({tag}) {name}, gamma {gamma}, {secs:.0f} s: windows {n_win}, "
+                  f"sampled tokens {tm.n_sample}, emitted {len(ids)}, rounds {rounds} "
+                  f"({tm.n_sample / max(rounds, 1):.2f} tokens a round), accepted "
+                  f"{tm.n_spec_accepted} of {rounds * gamma} proposals "
+                  f"({tm.n_spec_accepted / max(rounds * gamma, 1):.1%}); K2 launches: "
+                  f"{one} one-row, {verify} at {gamma + 1} rows, all {rows}; decode_impl "
+                  f"calls {calls.dec}, encoder passes {calls.enc}; wall {wall:.3f} s, "
+                  f"{ms_tok:.2f} ms per sampled token (greedy {greedy[secs][1]:.2f}); "
+                  f"transcript equals K2 greedy {same}"
+                  + ("" if same else f" (first differing token {first})"), flush=True)
+            check(same and len(ids) > 0, f"draft ({tag}) {secs:.0f} s: the speculative "
+                  "transcript differs from K2 greedy")
+            check(set(rows) <= {1, gamma + 1} and one == (gamma + 1) * verify
+                  and rounds <= verify <= rounds + (DS.POLL - 1) * n_win,
+                  f"draft ({tag}) {secs:.0f} s: K2 launches {rows} for {rounds} rounds "
+                  f"over {n_win} windows")
+            check(calls.enc == 2 * n_win and calls.dec == 2 * n_win
+                  and A.mha_packed.launches == TURBO_LAYERS * calls.enc
+                  and Q.qmm.launches == calls.enc * (TURBO_LAYERS * 6 + 4 * 2)
+                  + calls.dec * 4 * 4 and Q.ffn_int8.launches == calls.dec * 4,
+                  f"draft ({tag}) {secs:.0f} s: encoder / decode_impl launches off "
+                  f"prediction (encoder {calls.enc}, decode_impl {calls.dec}, K1 "
+                  f"{A.mha_packed.launches}, K3 {Q.qmm.launches}, K5 {Q.ffn_int8.launches})")
+            n_verify += verify
+    del tr
+    torch.cuda.empty_cache()
+    return n_verify
+
+
+# audio seed of the narrow speculative comparison (phase 17): its CPU
+# transcript with megakernel="int8" stays the same when the input is scaled
+# by 1 +- 2^-20, 2^-16 or 2^-13 (of seeds 0-7, only 4 and 7 hold all six)
+SPEC_NARROW_SEED = 4
+
+
+def phase_narrow_speculative(torch, TF, FullParams, mods, q8_path, hp, tokens) -> None:
+    """Narrow bf16 q8_0 target with a q4_0 draft of the same tensors,
+    megakernel="int8", gamma = 4, 35 s: draft steps K2 at one row and verify
+    passes K2 at five rows on the card, their plain versions on the CPU;
+    token ids equal, at least 100, and on the card equal to K2 greedy."""
+    W, MK = mods.W, mods.MK
+    draft_path = q8_path.with_name("narrow-q4_0-draft.bin")
+    W.write_checkpoint(draft_path, hp, TF._synthetic_mel_filters(80), tokens,
+                       W.random_reference_tensors(hp, seed=0), wtype=W.TYPE_FOR_NAME["q4_0"])
+    p = greedy_params(FullParams)
+    p.megakernel = "int8"
+    ps = dataclasses.replace(p, speculative=4)
+    samples = audio(35.0, SPEC_NARROW_SEED)
+    ids = {}
+    for dev in ("cuda", "cpu"):
+        c = TF.WhisperContext.from_file(q8_path, dtype=torch.bfloat16, device=dev)
+        c.set_draft(TF.WhisperContext.from_file(draft_path, dtype=torch.bfloat16, device=dev))
+        MK.mega_decode_step.launches_by_rows.clear()
+        r = TF.whisper_full(c, ps, samples)
+        ids[dev] = [t.id for s in r.segments for t in s.tokens]
+        if dev == "cuda":
+            rows = dict(MK.mega_decode_step.launches_by_rows)
+            check(rows.get(5, 0) > 0 and rows.get(1, 0) == 5 * rows[5],
+                  f"narrow speculative on cuda: K2 launches {rows}")
+            c.draft = None
+            g = TF.whisper_full(c, p, samples)
+            greedy = [t.id for s in g.segments for t in s.tokens]
+    same = ids["cuda"] == ids["cpu"]
+    print(f"[17] narrow bf16 q8_0 + q4_0 draft, gamma 4, megakernel='int8', audio seed "
+          f"{SPEC_NARROW_SEED}: tokens {len(ids['cuda'])}, token ids cuda == cpu {same}, "
+          f"cuda == K2 greedy {ids['cuda'] == greedy}, K2 launches on cuda {rows}", flush=True)
+    check(same and len(ids["cuda"]) >= 100 and ids["cuda"] == greedy,
+          "narrow speculative: cuda and cpu differ, too few tokens, or not K2 greedy's")
+
+
 def profile_request(torch, tr, FullParams, secs, seed, tag, beam_size=0) -> None:
     """One request (greedy, or beam search with `beam_size`) under
     torch.profiler (profile_call)."""
@@ -1193,6 +1479,7 @@ def profile_call(torch, tag, label, run) -> None:
 
 def reset_counts(A, Q, MK, E8=None) -> None:
     A.mha_packed.launches = MK.mega_decode_step.launches = 0
+    MK.mega_decode_step.launches_by_rows.clear()
     MK.mega_decode_step_beam.launches = MK.mega_decode_step_batch.launches = 0
     Q.qmm.launches = Q.qmm4.launches = Q.ffn_int8.launches = 0
     if E8 is not None:
@@ -1269,7 +1556,7 @@ def main(profiling: bool = False) -> int:
     import types
     import numpy as np
     mods = types.SimpleNamespace(A=A, Q=Q, MK=MK, E8=E8, TB=TB, TM=TM, DL=DL, DB=DB,
-                                 mel_mod=mel_mod, np=np)
+                                 mel_mod=mel_mod, np=np, W=W)
 
     phase_t = {}
     t_start = time.perf_counter()
@@ -1304,6 +1591,7 @@ def main(profiling: bool = False) -> int:
     phase_k1(torch, A, torch.float32, 128, False, 1e-4, 1)
     quant = phase_quant_kernels(torch, Q)
     k2 = phase_k2(torch, TM, MK, Q)
+    k2v = phase_k2_verify(torch, TM, MK, Q)
     k7 = phase_k7(torch, TM, MK, Q)
     done("3")
 
@@ -1376,9 +1664,18 @@ def main(profiling: bool = False) -> int:
         tensors = W.random_reference_tensors(hp, seed=0)
         W.write_checkpoint(path, hp, TF._synthetic_mel_filters(128), tokens, tensors,
                            wtype=W.TYPE_FOR_NAME["q8_0"])
-        del tensors
         print(f"[6] q8_0 large-v3-turbo checkpoint written in "
               f"{time.perf_counter() - t0:.1f} s ({path.stat().st_size / 1e6:.0f} MB)",
+              flush=True)
+        # phase 16's drafts: the same tensors as q4_0, and seed-1 tensors as q8_0
+        t0 = time.perf_counter()
+        W.write_checkpoint(tmp / SPEC_DRAFTS[0][1], hp, TF._synthetic_mel_filters(128),
+                           tokens, tensors, wtype=W.TYPE_FOR_NAME["q4_0"])
+        del tensors
+        W.write_checkpoint(tmp / SPEC_DRAFTS[1][1], hp, TF._synthetic_mel_filters(128),
+                           tokens, W.random_reference_tensors(hp, seed=1),
+                           wtype=W.TYPE_FOR_NAME["q8_0"])
+        print(f"[6] the two draft checkpoints written in {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
         tr = Transcriber(model_path=path, dtype=torch.bfloat16)
@@ -1640,12 +1937,22 @@ def main(profiling: bool = False) -> int:
         # ---- 15. narrow batched serving: cuda against cpu ----
         phase_narrow_batched(torch, TF, TM, tok_mod, FullParams, mods, path, tokens)
         done("15")
+
+        # ---- 16. speculative greedy decoding at full width ----
+        launches["mega_decode_step_verify"] = phase_speculative(
+            torch, Transcriber, TF, FullParams, mods, tmp)
+        done("16")
+
+        # ---- 17. narrow speculative decoding: cuda against cpu ----
+        phase_narrow_speculative(torch, TF, FullParams, mods, path, hp, tokens)
+        done("17")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     head = {"qmm": 0, "qmm4": 0, "ffn_int8": 0}   # the row each headline takes
     replaces = {"mha_packed": "open_whisper_kit_tpu/ops/attention.py:70",
                 "mega_decode_step": "open_whisper_kit_tpu/ops/decode_megakernel.py:1128",
+                "mega_decode_step_verify": "open_whisper_kit_tpu/ops/decode_megakernel.py:1128",
                 "mega_decode_step_beam": "open_whisper_kit_tpu/ops/decode_megakernel.py:1309",
                 "mega_decode_step_batch": "open_whisper_kit_tpu/ops/decode_megakernel.py:1471",
                 "w8a8_mm": "open_whisper_kit_tpu/ops/encoder_int8.py:129",
@@ -1654,6 +1961,8 @@ def main(profiling: bool = False) -> int:
                 "ffn_int8": "open_whisper_kit_tpu/ops/quant_matmul.py:385"}
     rows = [{"name": "mha_packed", **k1},
             {"name": "mega_decode_step", **k2["all"], "modes": list(k2.values())},
+            {"name": "mega_decode_step_verify", **k2v[("all", 5)],
+             "modes": list(k2v.values())},
             {"name": "mega_decode_step_beam", **k7["all"], "modes": list(k7.values())},
             {"name": "mega_decode_step_batch", **k8["all"], "modes": list(k8.values())},
             {"name": "w8a8_mm", **next(r for r in k6 if r["shape"].startswith(K6_HEADLINE)),
@@ -1662,7 +1971,8 @@ def main(profiling: bool = False) -> int:
         rows.append({"name": name, **{k: v for k, v in quant[name][i].items()
                                       if k != "shape"},
                      "shape": quant[name][i]["shape"], "shapes": quant[name]})
-    stems = {"mega_decode_step": "mega_step", "mega_decode_step_beam": "mega_beam",
+    stems = {"mega_decode_step": "mega_step", "mega_decode_step_verify": "mega_step",
+             "mega_decode_step_beam": "mega_beam",
              "mega_decode_step_batch": "mega_batch", "w8a8_mm": "w8a8"}
     for r in rows:
         stem = stems.get(r["name"], r["name"])

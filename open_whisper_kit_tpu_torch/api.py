@@ -42,14 +42,12 @@ class Transcriber:
         projection. `encoder_int8`: the W8A8 encoder stack (kernel K6;
         q8_0-class error), for every entry point. Runs on the card unless
         `device` asks for the CPU; raises when CUDA is missing.
-        Multi-device meshes and draft models are not ported yet."""
-        unported = {"mesh": mesh is not None,
-                    "draft models": draft_model_path is not None
-                    or draft_preset is not None}
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(f"{name} is not ported to the "
-                                          "PyTorch package yet")
+        `draft_model_path` / `draft_preset`: a smaller model with the same
+        vocabulary, loaded on the same device with the same dtype, for
+        speculative greedy decoding (FullParams.speculative = gamma).
+        Multi-device meshes are not ported yet."""
+        if mesh is not None:
+            raise NotImplementedError("mesh is not ported to the PyTorch package yet")
         if model_path is not None:
             self.ctx = WhisperContext.from_file(
                 str(model_path), dtype=dtype, decoder_int8=decoder_int8,
@@ -60,13 +58,21 @@ class Transcriber:
                 device=device, encoder_int8=encoder_int8)
         else:
             raise ValueError("model_path or preset required")
+        if draft_model_path is not None:
+            self.ctx.set_draft(WhisperContext.from_file(
+                str(draft_model_path), dtype=dtype, device=self.ctx.device))
+        elif draft_preset is not None:
+            self.ctx.set_draft(WhisperContext.from_preset(
+                draft_preset, dtype=dtype, device=self.ctx.device))
 
     def full(self, params: FullParams, samples: np.ndarray,
              generator: torch.Generator | None = None) -> TranscribeResult:
         """whisper_full: transcribe raw 16 kHz mono f32 samples, greedily
         or, with `FullParams(strategy=SamplingStrategy.BEAM_SEARCH,
         beam_search=BeamSearchParams(beam_size=...))` (FullParams.
-        beam_default() is whisper.cpp's beam 5), by beam search."""
+        beam_default() is whisper.cpp's beam 5), by beam search; with a
+        draft model and `FullParams(speculative=gamma)`, greedily by draft
+        proposals and verify passes (the same transcript)."""
         return _full.whisper_full(self.ctx, params, samples, generator)
 
     def detect_language(self, samples: np.ndarray, offset_ms: int = 0):

@@ -177,8 +177,9 @@ extern "C" long long owk_mega_batch_workspace(const int* dims) {
 // One batched decoder step. p: as mega::Step with kv_k, kv_v (L, Tc * B, S)
 // row-flat time-major, xk, xv (L, B, Ta, S) per stream and logits out
 // (B, Vp). dims: L, S, H, Tc (per stream), Ta, Vp, the seven kinds (0 dense,
-// 1 int8, 2 int4), B. Returns the first nonzero cudaError_t of the
-// launches, or 0 (cudaErrorInvalidValue for B outside 2..8).
+// 1 int8, 2 int4), B, Tp (K2's self-attention plan; not used here).
+// Returns the first nonzero cudaError_t of the launches, or 0
+// (cudaErrorInvalidValue for B outside 2..8).
 extern "C" int owk_mega_batch(void* const* p, const int* dims, float eps,
                               float kq, float cross_scale, void* stream) {
   switch (dims[13]) {

@@ -84,8 +84,9 @@ extern "C" long long owk_mega_beam_workspace(const int* dims) {
 // row-flat time-major and logits out (B, Vp), then p[30] the (B, Tc) int64
 // origin table.
 // dims: L, S, H, Tc (per beam), Ta, Vp, the seven kinds (0 dense, 1 int8,
-// 2 int4), B. Returns the first nonzero cudaError_t of the launches, or 0
-// (cudaErrorInvalidValue for B outside 2..8).
+// 2 int4), B, Tp (K2's self-attention plan; not used here). Returns the
+// first nonzero cudaError_t of the launches, or 0 (cudaErrorInvalidValue for
+// B outside 2..8).
 extern "C" int owk_mega_beam(void* const* p, const int* dims, float eps,
                              float kq, float cross_scale, void* stream) {
   switch (dims[13]) {

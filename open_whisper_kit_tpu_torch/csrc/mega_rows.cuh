@@ -3,9 +3,10 @@
 // stream: the split-K GEMV (layernorm prologue; bias, residual, GELU, QKV
 // and logits epilogues), the full-row softmax attention against a shared
 // key/value set (cross-attention, and K2's self-attention at R = 1), the
-// workspace layout and the launch helpers. Used by mega_step.cu (K2, R = 1)
-// and mega_beam.cu (K7, R = B beams); R is a template parameter, so a later
-// multi-row step (the speculative verify pass) takes the same GEMV.
+// workspace layout and the launch helpers. Used by mega_step.cu (K2: R = 1,
+// or R consecutive tokens of one stream in the speculative verify pass),
+// mega_beam.cu (K7, R = B beams) and mega_batch.cu (K8, R = B streams); R is
+// a template parameter.
 //
 // Rounding points, per row, as the TPU kernel body (open_whisper_kit_tpu/
 // ops/decode_megakernel.py::_make_kernel): layernorm with f32 statistics
@@ -27,6 +28,14 @@
 // Each block recomputes the layernorm of its R input rows in shared memory.
 //
 // attend_kernel<R>: one head per blockIdx.x, keys split over blockIdx.y.
+// Against K2's self-cache (`head` set) the rows are consecutive positions:
+// row r sees keys [0, head + r] (capped at the cache's rows), the R = 1
+// step's keys at position head + r. The key chunk depends on min(Tc,
+// n_text_ctx) only (Dims::Tp), not on R, so a chunk that lies wholly past a
+// row's limit contributes max -inf and sum 0 for that row, as it does in
+// the R = 1 launch (also on a cache of other rows, whose extra chunks lie
+// past every limit), and each row's sums run in the R = 1 launch's order:
+// every row is bit-identical to the one-row step at its position.
 // Pass one: each block scores its keys for the R rows (f32, written to a
 // scratch row per row) and keeps its chunk's max and sum of exponentials;
 // it also asks L2 for its keys' V rows. The last block of the head to
@@ -80,8 +89,10 @@ struct Gemv {
   bf16* out;            // R rows: q / cq (stride S), gelu (stride N), residual (stride S)
   float* out_f32;       // R rows of logits (stride N)
   bf16* kk;             // this layer's self-cache; row r's new K/V goes to
-  bf16* vv;             //   cache row head * R + r (QKV epilogue)
+  bf16* vv;             //   cache row head * head_stride + r (QKV epilogue)
   const long long* head;
+  int head_stride;      // R: K7/K8's row-flat cache; 1: K2's natural one
+  long long cache_rows; // rows of kk/vv: a row at or past it is not written
   int S;
   float kq;             // bf16(dh^-0.25) as f32
   float* part;          // (splits, R, N) partial sums
@@ -109,13 +120,13 @@ __device__ __forceinline__ void epilogue(const Gemv& g, int row, int n, float v)
   switch (g.epi) {
     case kEpiQKV: {
       const int S = g.S;
-      const size_t cache_row = ((size_t)(*g.head) * R + row) * S;
-      if (n < 2 * S) {
-        const bf16 r = __float2bfloat16(t * g.kq);
-        if (n < S) g.out[(size_t)row * S + n] = r;
-        else g.kk[cache_row + (n - S)] = r;
-      } else {
-        g.vv[cache_row + (n - 2 * S)] = __float2bfloat16(t);
+      const long long crow = (*g.head) * g.head_stride + row;
+      if (n < S) {
+        g.out[(size_t)row * S + n] = __float2bfloat16(t * g.kq);
+      } else if (crow < g.cache_rows) {
+        const size_t at = (size_t)crow * S;
+        if (n < 2 * S) g.kk[at + (n - S)] = __float2bfloat16(t * g.kq);
+        else g.vv[at + (n - 2 * S)] = __float2bfloat16(t);
       }
       break;
     }
@@ -306,8 +317,9 @@ struct Attn {
   const bf16* q;        // R rows (S) bf16
   const bf16* k;        // (T, S) natural layout, shared by the R rows
   const bf16* v;
-  const long long* head;  // K2's self-attention: keys [0, *head + 1); else null
-  int n_valid;          // otherwise keys [0, n_valid)
+  const long long* head;  // K2's self-attention: row r keys [0, *head + 1 + r)
+                          //   capped at n_valid (the cache rows); else null
+  int n_valid;          // otherwise keys [0, n_valid) for every row
   int S, chunk, tmax;
   float scale;
   float* scores;        // (R, H, tmax)
@@ -327,7 +339,11 @@ __global__ void __launch_bounds__(kThreads) attend_kernel(Attn a) {
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int h = blockIdx.x, c = blockIdx.y, S = a.S, H = gridDim.x;
-  const int n_valid = a.head != nullptr ? (int)(*a.head) + 1 : a.n_valid;
+  int nv[R];  // each row's keys
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    nv[r] = a.head != nullptr ? (int)min(*a.head + 1 + r, (long long)a.n_valid) : a.n_valid;
+  const int n_valid = nv[R - 1];  // the most any row sees
   const int t0 = c * a.chunk;
   const int t1 = min(t0 + a.chunk, n_valid);
   if (tid < kDH)
@@ -356,9 +372,9 @@ __global__ void __launch_bounds__(kThreads) attend_kernel(Attn a) {
       asm volatile("prefetch.global.L2 [%0];" ::"l"(a.v + (size_t)t * S + h * kDH));
   }
   __syncthreads();
-  const int nt = max(t1 - t0, 0);
 #pragma unroll 1
   for (int r = 0; r < R; ++r) {
+    const int nt = max(min(t0 + a.chunk, nv[r]) - t0, 0);
     float m = -INFINITY;
     for (int i = tid; i < nt; i += kThreads) m = fmaxf(m, sc_sh[r][i]);
     for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
@@ -407,6 +423,7 @@ __global__ void __launch_bounds__(kThreads) attend_kernel(Attn a) {
     unpack8(*reinterpret_cast<const uint4*>(a.v + (size_t)t * S + h * kDH + tx * kCols), f);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
+      if (t >= nv[r]) continue;
       const float p = bround(
           expf(__ldcg(a.scores + ((size_t)r * H + h) * a.tmax + t) - mrow[r]) / lrow[r]);
 #pragma unroll
@@ -441,8 +458,10 @@ inline void plan_gemv(int rows, int N, int* splits, int* chunk) {
   *splits = cdiv(rows, *chunk);
 }
 
-inline void plan_attend(int T, int H, int* splits, int* chunk) {
-  int c = cdiv(T, cdiv(kTargetBlocks, H));
+// (splits, keys per split) for T keys; the chunk comes from `Tp` keys (Tp
+// <= T), the splits cover all T
+inline void plan_attend(int T, int H, int* splits, int* chunk, int Tp = 0) {
+  int c = cdiv(Tp > 0 ? Tp : T, cdiv(kTargetBlocks, H));
   c = std::min(std::max(cdiv(c, kQK) * kQK, kQK), kMaxChunk);
   *chunk = c;
   *splits = cdiv(T, c);
@@ -451,12 +470,19 @@ inline void plan_attend(int T, int H, int* splits, int* chunk) {
 struct Dims {
   int L, S, H, Tc, Ta, Vp;
   int kind[7];  // qkv, o, cq, co, mlp0, mlp1, logits
+  // K2's self-attention plans its key chunk from Tp = min(Tc, n_text_ctx)
+  // rows: the speculative loop's cache is n_text_ctx + gamma + 4 rows, the
+  // greedy loop's n_text_ctx, and with one chunk size the two split every
+  // row's keys alike, so a verify row is bit-identical to the greedy step
+  int Tp;
 };
 
+// dims: L, S, H, Tc, Ta, Vp, the seven kinds, R, Tp
 inline Dims read_dims(const int* v) {
   Dims d;
   d.L = v[0]; d.S = v[1]; d.H = v[2]; d.Tc = v[3]; d.Ta = v[4]; d.Vp = v[5];
   for (int f = 0; f < 7; ++f) d.kind[f] = v[6 + f];
+  d.Tp = v[14];
   return d;
 }
 
@@ -479,14 +505,16 @@ inline size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }
 // where it matters: the counters)
 inline Layout layout(const Dims& d, int R) {
   size_t part = 0;
+  int n_counters = d.H;  // one per attention head, and per GEMV column tile
   for (int f = 0; f < 7; ++f) {
     int K, N, ks, chunk;
     field_kn(d, f, &K, &N);
     plan_gemv(d.kind[f] == kInt4 ? K / 2 : K, N, &ks, &chunk);
     if (ks > 1) part = std::max(part, (size_t)ks * R * N);
+    n_counters = std::max(n_counters, N / kBN);
   }
   int ks_self, ks_cross, chunk;
-  plan_attend(d.Tc, d.H, &ks_self, &chunk);
+  plan_attend(d.Tc, d.H, &ks_self, &chunk, d.Tp);
   plan_attend(d.Ta, d.H, &ks_cross, &chunk);
   const int tmax = std::max(d.Tc, d.Ta);
   Layout o;
@@ -498,7 +526,7 @@ inline Layout layout(const Dims& d, int R) {
   o.part = at; at = align256(at + part * 4);
   o.scores = at; at = align256(at + (size_t)R * d.H * tmax * 4);
   o.stats = at; at = align256(at + (size_t)d.H * std::max(ks_self, ks_cross) * R * 2 * 4);
-  o.counters = at; at = align256(at + (size_t)std::max(d.Vp / kBN, d.H) * 4);
+  o.counters = at; at = align256(at + (size_t)n_counters * 4);
   o.total = at;
   return o;
 }
@@ -518,10 +546,15 @@ struct Step {
   float *part, *scores, *stats;
   unsigned* counters;
   const long long* head;
+  int head_stride;  // cache row of row r: head * head_stride + r
 
-  Step(void* const* p_, const int* dims, float eps_, float kq_, void* stream)
+  // natural: K2's (L, Tc, S) self-cache; otherwise K7/K8's row-flat
+  // (L, Tc * R, S)
+  Step(void* const* p_, const int* dims, float eps_, float kq_, void* stream,
+       bool natural = false)
       : d(read_dims(dims)), lay(layout(d, R)), p(p_),
-        st(static_cast<cudaStream_t>(stream)), eps(eps_), kq(kq_) {
+        st(static_cast<cudaStream_t>(stream)), eps(eps_), kq(kq_),
+        head_stride(natural ? 1 : R) {
     unsigned char* ws = static_cast<unsigned char*>(p[29]);
     xres = reinterpret_cast<bf16*>(ws + lay.xres);
     qb = reinterpret_cast<bf16*>(ws + lay.qb);
@@ -569,29 +602,32 @@ struct Step {
     g.kind = kind; g.K = K; g.N = N; g.chunk = chunk; g.epi = epi;
     g.bias = f < 6 ? static_cast<const bf16*>(p[4 + f]) + (size_t)il * N : nullptr;
     g.out = out; g.out_f32 = out_f32; g.kk = kk; g.vv = vv; g.head = head;
+    g.head_stride = head_stride;
+    g.cache_rows = (long long)d.Tc * head_stride;
     g.S = S; g.kq = kq; g.part = part; g.counters = counters;
     const size_t smem = (size_t)R * K * 2;
     if (smem > kStaticSmem) {
       // the R input rows of the widest K (mlp1, 4S) exceed the default
-      // dynamic shared memory of a block; allow them once per row count
-      static size_t allowed = 0;
-      if (smem > allowed) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            gemv_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-        allowed = smem;
-      }
+      // dynamic shared memory of a block: allow them, at every launch. No
+      // "already allowed" flag: a function-local static of this template
+      // is one object for the whole process (GNU unique symbol), shared by
+      // every kernel library that includes this header, while each
+      // library's gemv_kernel<R> needs the attribute set on itself
+      const cudaError_t e = cudaFuncSetAttribute(
+          gemv_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
     }
     gemv_kernel<R><<<dim3(N / kBN, ks), kThreads, smem, st>>>(g);
     return (int)cudaGetLastError();
   }
 
-  // the R query rows in `q` against keys [0, T) (or [0, *head + 1) when
-  // `self_head`) of natural (T, S) k/v, full-row softmax; out -> ab
+  // the R query rows in `q` against keys [0, T) (when `self_head`, row r
+  // against [0, min(*head + 1 + r, T)): K2's self-cache) of natural (T, S)
+  // k/v, full-row softmax; out -> ab
   int attend(const bf16* q, const bf16* k, const bf16* v, int T, bool self_head,
              float scale) const {
     int ks, chunk;
-    plan_attend(T, d.H, &ks, &chunk);
+    plan_attend(T, d.H, &ks, &chunk, self_head ? d.Tp : 0);
     Attn a;
     a.q = q; a.k = k; a.v = v;
     a.head = self_head ? head : nullptr;

@@ -76,9 +76,10 @@ def machine_step(ms: MachineState, tok, i, *, token_beg, token_eot,
                  stub: bool = False):
     """One token through the whisper.cpp:7355-7459 state machine.
 
-    `tok` (0-d tensor) was just sampled at segment-token index `i` (int).
-    `seek` may be an int or a 0-d tensor. Returns (new MachineState,
-    completed, failed)."""
+    `tok` (0-d tensor) was just sampled at segment-token index `i` (an int,
+    or a 0-d tensor in the speculative loop, whose index lives on the
+    device). `seek` may be an int or a 0-d tensor. Returns (new
+    MachineState, completed, failed)."""
     delta_min = 10
     is_ts_tok = tok >= token_beg
     gt_beg = tok > token_beg
@@ -91,7 +92,7 @@ def machine_step(ms: MachineState, tok, i, *, token_beg, token_eot,
     has_ts = ms.has_ts | take_ts
 
     end_hit = ((tok == token_eot)
-               | bool(max_tokens > 0 and i >= max_tokens)
+               | ((i >= max_tokens) if max_tokens > 0 else False)
                | (has_ts & (seek + seek_delta + delta_min >= seek_end)))
     end_hit = end_hit & ~ts_fail
     at_audio_end = seek + seek_delta + delta_min >= seek_end
@@ -110,7 +111,7 @@ def machine_step(ms: MachineState, tok, i, *, token_beg, token_eot,
         completed = completed | ~failed
 
     # repetition-loop bail-out at the last step (whisper.cpp:7440-7445)
-    rep_fail = (bool(i == n_max - 1) & ~completed & ~failed
+    rep_fail = ((i == n_max - 1) & ~completed & ~failed
                 & ((result_len == 0) | (seek_delta < CHUNK_FRAMES // 2)))
     failed = failed | rep_fail
 

@@ -1,13 +1,15 @@
 """Multi-window decode: up to K 30 s windows per call (port of
-open_whisper_kit_tpu/decode/device_windows.py, greedy mode with or without
-the decode-step kernel K2, and beam mode with or without the beam-step
-kernel K7; the speculative and int8 cross-KV modes are not ported yet).
+open_whisper_kit_tpu/decode/device_windows.py: greedy mode with or without
+the decode-step kernel K2, beam mode with or without the beam-step kernel
+K7, and speculative mode; the int8 cross-KV mode is not ported yet).
 
 Each window runs on the device: encoder + cross-KV, the prompt build from
 the right-aligned rolling context, the segment decode (greedy:
 device_loop.segment_core; beam: device_beam.decode_segment_beam followed
 by whisper_rank over the beams -- the entropy gate, the length penalty and
-the best score -- on the device), the quality gates (avg-logprob /
+the best score -- on the device; speculative: the draft model's encoder
+pass over its own mel of the same window, then device_speculative.
+speculative_core), the quality gates (avg-logprob /
 entropy / no-speech, whisper.cpp:7545-7605), the rolling-context update
 (whisper.cpp:7625-7636) and the seek advance. The host reads one small
 control pair per window (fallback flag, next seek) to decide whether to go
@@ -35,6 +37,7 @@ from ..ops.decode_megakernel import MegaParams
 from . import logit_rules as LR
 from .device_beam import decode_segment_beam
 from .device_loop import CHUNK_FRAMES, HostReads, SegmentResult, segment_core
+from .device_speculative import speculative_core
 
 DELTA_MIN = 10  # 100 ms in 10 ms frames
 
@@ -61,6 +64,23 @@ class WindowsResult:
     next_seek: int            # seek after the last decoded window
     past_buf: torch.Tensor    # (P,) long right-aligned rolling context
     past_len: torch.Tensor    # 0-d long
+    n_rounds: torch.Tensor    # 0-d long: speculative verify passes (0 otherwise)
+    n_accepted: torch.Tensor  # 0-d long: accepted draft tokens
+
+
+@dataclasses.dataclass
+class Draft:
+    """The draft model of speculative mode: its config, encoder and decoder
+    params, whole-audio mel (its own filters), the lookahead gamma, and the
+    kernel K2's params for the draft steps (`dmega`) and the verify pass
+    (`tmega`, the target's), each or None."""
+    cfg: M.WhisperConfig
+    enc_params: M.Params
+    dec_params: M.Params
+    mel_data: torch.Tensor
+    gamma: int
+    dmega: MegaParams | None = None
+    tmega: MegaParams | None = None
 
 
 def _entropy_last32(tokens: torch.Tensor, result_len: torch.Tensor) -> torch.Tensor:
@@ -126,8 +146,11 @@ def decode_windows(cfg: M.WhisperConfig, rc: LR.RuleConfig,
                    window_frames: int = 2 * 1500,
                    fallback_available: bool = True,
                    mega: MegaParams | None = None,
-                   beam_size: int = 0) -> WindowsResult:
-    """Decode up to K windows, greedily or (beam_size > 1) by beam search.
+                   beam_size: int = 0, draft: Draft | None = None) -> WindowsResult:
+    """Decode up to K windows, greedily, by beam search (beam_size > 1) or
+    speculatively (`draft`: each window's draft encoder pass and
+    speculative_core; the result's n_rounds and n_accepted count its verify
+    passes and accepted draft tokens).
 
     mel_data (n_pad, n_mels) whole-audio mel on the device, zero past n_len;
     past_buf (P,) right-aligned rolling prompt context on the device.
@@ -155,7 +178,8 @@ def decode_windows(cfg: M.WhisperConfig, rc: LR.RuleConfig,
         no_speech_prob=zf(K), avg_logprobs=zf(K),
         is_no_speech=torch.zeros(K, dtype=torch.bool, device=dev),
         n_done=0, fallback=False, next_seek=seek0,
-        past_buf=past_buf, past_len=torch.tensor(past_len0, device=dev))
+        past_buf=past_buf, past_len=torch.tensor(past_len0, device=dev),
+        n_rounds=zl(), n_accepted=zl())
 
     seek = seek0
     past_len = out.past_len
@@ -195,7 +219,19 @@ def decode_windows(cfg: M.WhisperConfig, rc: LR.RuleConfig,
             prompt = torch.cat([init_arr, zl(T_pad - n_init)])
 
         # ---- segment decode ----
-        if beam_size > 1:
+        n_rounds_w = n_acc_w = None
+        if draft is not None:
+            dwindow = draft.mel_data[i0:i0 + window_frames]
+            _deo, dxk, dxv = M.encode_with_cross_kv(draft.cfg, draft.enc_params,
+                                                    draft.dec_params, dwindow[None])
+            seg, n_acc_w, n_rounds_w = speculative_core(
+                cfg, draft.cfg, rc, dec_params, draft.dec_params, prompt[None], xk, xv,
+                dxk, dxv, base_mask, init_mask, t_real, token_nosp, seek, seek_end,
+                n_max=n_max, reads=reads, gamma=draft.gamma, max_tokens=max_tokens,
+                single_segment=False, no_timestamps=no_timestamps,
+                cache_dtype=cache_dtype, dmega=draft.dmega, tmega=draft.tmega)
+            full_len = seg.n_tokens
+        elif beam_size > 1:
             bres = decode_segment_beam(
                 cfg, rc, dec_params, prompt[None], xk, xv, base_mask, init_mask,
                 (t_real, token_nosp, seek, seek_end), beam_size=beam_size,
@@ -263,6 +299,9 @@ def decode_windows(cfg: M.WhisperConfig, rc: LR.RuleConfig,
         out.no_speech_prob[w] = nsp
         out.avg_logprobs[w] = avg_lp
         out.is_no_speech[w] = is_nsp
+        if n_rounds_w is not None:
+            out.n_rounds += n_rounds_w
+            out.n_accepted += n_acc_w
         seek += seek_delta_h
         w += 1
 
@@ -280,7 +319,8 @@ def pack_windows_result(res: WindowsResult) -> torch.Tensor:
         res.n_tokens.float(), res.result_len.float(), res.seek.float(),
         res.seek_delta.float(), res.no_speech_prob, res.avg_logprobs,
         res.is_no_speech.float()]).reshape(-1)
-    return torch.cat([mats, per_w, res.past_len.float().reshape(1)])
+    return torch.cat([mats, per_w, torch.stack([res.past_len, res.n_rounds,
+                                                res.n_accepted]).float()])
 
 
 def unpack_windows_result(flat: np.ndarray, res: WindowsResult, K: int,
@@ -297,4 +337,4 @@ def unpack_windows_result(flat: np.ndarray, res: WindowsResult, K: int,
         no_speech_prob=pw[4], avg_logprobs=pw[5],
         is_no_speech=pw[6].astype(bool),
         n_done=res.n_done, fallback=res.fallback, next_seek=res.next_seek,
-        past_len=int(flat[-1]))
+        past_len=int(flat[-3]), n_rounds=int(flat[-2]), n_accepted=int(flat[-1]))

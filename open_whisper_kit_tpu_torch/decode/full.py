@@ -1,10 +1,11 @@
 """The transcription loop: windows, temperature fallback, segments.
 
-Port of open_whisper_kit_tpu/decode/full.py (greedy decoding and beam
-search). Host-side control flow mirrors whisper_full_with_state
-(src/whisper.cpp:6827-7800); the encoder, the greedy and beam token loops
-and the multi-window loop run on the context's device
-(decode/device_loop.py, decode/device_beam.py, decode/device_windows.py).
+Port of open_whisper_kit_tpu/decode/full.py (greedy decoding, beam search
+and speculative greedy decoding). Host-side control flow mirrors
+whisper_full_with_state (src/whisper.cpp:6827-7800); the encoder, the
+greedy, beam and speculative token loops and the multi-window loop run on
+the context's device (decode/device_loop.py, decode/device_beam.py,
+decode/device_speculative.py, decode/device_windows.py).
 Temperature-fallback windows with t > 0 run the host-stepped sampled loop,
 and `use_device_loops=False` the host-stepped greedy or beam loop (the
 beam merge on the host, _beam_expand_and_merge), one host read per token.
@@ -21,12 +22,17 @@ K7, when `WhisperContext.mega_params` picks a mode, as the JAX package
 does: by itself for a bf16 decoder whose matmul weights are all int8
 planes on the card, and in every mode `FullParams.megakernel` asks for (on
 the CPU through the kernels' plain versions); otherwise, and always in the
-host-stepped loops, `decode_impl`.
+host-stepped loops, `decode_impl`. With a draft model attached
+(`WhisperContext.set_draft`) and `FullParams.speculative` = gamma > 0,
+greedy t = 0 windows of a loaded model decode speculatively: gamma draft
+steps and one (gamma + 1)-row target verify pass a round (K2 at gamma + 1
+rows when the target's mode policy picks K2 and gamma + 1 <= 8), with the
+same output as greedy decoding.
 
 Not ported yet, and refused with NotImplementedError: grammars, VAD,
-token-level and DTW timestamps, speculative decoding,
-`ref_sampling`, int8 cross-KV, GGUF checkpoints, and the
-abort / logits-filter callbacks (they need a host poll every token).
+token-level and DTW timestamps, `ref_sampling`, int8 cross-KV, GGUF
+checkpoints, and the abort / logits-filter callbacks (they need a host
+poll every token).
 """
 
 from __future__ import annotations
@@ -91,6 +97,7 @@ class Timings:
     n_encode: int = 0
     n_decode: int = 0
     n_sample: int = 0
+    n_spec_accepted: int = 0   # draft tokens accepted (speculative decoding)
 
 
 @dataclasses.dataclass
@@ -174,6 +181,27 @@ class WhisperContext:
         self.reads = HostReads()
         self._mask_cache: dict = {}
         self._mega = None         # (decoder, mode, MegaParams), built lazily
+        self.draft: WhisperContext | None = None   # speculative decoding's draft
+
+    def set_draft(self, draft: "WhisperContext") -> None:
+        """Attach a (smaller) draft model for speculative greedy decoding
+        (decode/device_speculative.py; on with FullParams.speculative). The
+        draft must share the target's vocabulary, dtype and audio context."""
+        if (draft.vocab.n_vocab != self.vocab.n_vocab
+                or draft.vocab.token_beg != self.vocab.token_beg
+                or draft.vocab.token_eot != self.vocab.token_eot):
+            raise ValueError("draft model vocabulary does not match the target's "
+                             f"({draft.vocab.n_vocab} vs {self.vocab.n_vocab})")
+        if draft.dtype != self.dtype:
+            raise ValueError("draft must be loaded with the target's dtype")
+        if draft.cfg.n_audio_ctx != self.cfg.n_audio_ctx:
+            # the fused window loop slices the draft's mel with the target's
+            # window length
+            raise ValueError("draft audio context does not match the target's "
+                             f"({draft.cfg.n_audio_ctx} vs {self.cfg.n_audio_ctx})")
+        if draft.device != self.device:
+            raise ValueError(f"draft is on {draft.device}, the target on {self.device}")
+        self.draft = draft
 
     @classmethod
     def from_buffer(cls, buf: bytes, dtype: torch.dtype = torch.bfloat16,
@@ -234,10 +262,14 @@ class WhisperContext:
 
     _MEGA_WEIGHTS = ("qkv_w", "o_w", "cq_w", "co_w", "mlp0_w", "mlp1_w")
 
-    def mega_mode(self, p: FullParams, on_card: bool | None = None) -> str | None:
+    def mega_mode(self, p: FullParams, on_card: bool | None = None,
+                  draft: bool = False) -> str | None:
         """The prepare_mega mode the decode-step kernel K2 runs in for `p`,
         or None for decode_impl. `on_card` (default: this context's device
-        is CUDA) stands for the JAX package's "on an accelerator".
+        is CUDA) stands for the JAX package's "on an accelerator"; `draft`
+        resolves the mode of this context as the draft model of speculative
+        decoding, whose cross-KV is never int8, so `cross_kv_int8` does not
+        exclude it.
 
         * megakernel=None (auto): on the card, "all" when every decoder
           matmul weight is an int8 QuantLinear plane (q8_0/q5_0/q4_0
@@ -252,6 +284,7 @@ class WhisperContext:
         blocks = self.params["decoder"]["blocks"]
         on_card = self.device.type == "cuda" if on_card is None else on_card
         structural = (self.dtype == torch.bfloat16 and "qkv_w" in blocks
+                      and (draft or not p.cross_kv_int8)
                       and self.cfg.n_text_state % 128 == 0)
         if not structural or not (on_card or p.megakernel in (True, "int8", "int4")):
             return None
@@ -266,10 +299,10 @@ class WhisperContext:
             return "logits" if "te_logits" in self.params["decoder"] else "none"
         return None                              # auto: dense stays on decode_impl
 
-    def mega_params(self, p: FullParams) -> MK.MegaParams | None:
-        """MegaParams for `mega_mode(p)`, prepared once per decoder and
-        mode, or None."""
-        mode = self.mega_mode(p)
+    def mega_params(self, p: FullParams, draft: bool = False) -> MK.MegaParams | None:
+        """MegaParams for `mega_mode(p, draft=draft)`, prepared once per
+        decoder and mode, or None."""
+        mode = self.mega_mode(p, draft=draft)
         if mode is None:
             return None
         dec = self.params["decoder"]
@@ -358,7 +391,6 @@ def _refuse_unported(p: FullParams) -> None:
         "VAD (vad=True)": p.vad,
         "token_timestamps": p.token_timestamps,
         "dtw_token_timestamps": p.dtw_token_timestamps,
-        "speculative decoding (speculative > 0)": p.speculative > 0,
         "ref_sampling": p.ref_sampling,
         "cross_kv_int8": p.cross_kv_int8,
         "abort_callback (per-token host polling)": p.abort_callback is not None,
@@ -466,11 +498,26 @@ def whisper_full(ctx: WhisperContext, p: FullParams, samples: np.ndarray,
     base_mask, init_mask = ctx.rule_masks(
         dataclasses.replace(p, no_timestamps=no_timestamps))
 
+    # speculative decoding only ever runs on the t = 0 single-decoder greedy
+    # path of a loaded model, with no grammar or host callbacks (the JAX
+    # package's gate); elsewhere the draft's encoder passes would be wasted
+    speculating = (p.speculative > 0 and ctx.draft is not None
+                   and p.use_device_loops and ctx.n_loaded > 0
+                   and p.strategy == SamplingStrategy.GREEDY
+                   and p.temperature <= 0
+                   and p.grammar_rules is None
+                   and p.abort_callback is None
+                   and p.logits_filter_callback is None)
+    draft_mel = None
+    if speculating:
+        draft_mel = mel_mod.log_mel_spectrogram(np.asarray(samples, np.float32),
+                                                ctx.draft.filters, device=ctx.device)
+
     if _multiwindow_eligible(ctx, p, temperatures, audio_ctx):
         _run_device_windows(
             ctx, p, result, mel, rc, temperatures, seek_start, seek_end,
             prompt_past1, prompt_init, max_prompt_ctx, no_timestamps,
-            base_mask, init_mask, generator)
+            base_mask, init_mask, generator, draft_mel=draft_mel)
         return result
 
     seek = seek_start
@@ -485,6 +532,11 @@ def whisper_full(ctx: WhisperContext, p: FullParams, samples: np.ndarray,
 
         t0 = time.perf_counter()
         _enc_out, xk, xv = ctx.encode_window(mel.data, seek, audio_ctx)
+        dxkv = None
+        if speculating:
+            _, dxk, dxv = ctx.draft.encode_window(draft_mel.data, seek, 0)
+            dxkv = (dxk, dxv)
+            timings.n_encode += 1        # the draft's encoder pass
         timings.t_encode_ms += (time.perf_counter() - t0) * 1e3
         timings.n_encode += 1
 
@@ -496,7 +548,7 @@ def whisper_full(ctx: WhisperContext, p: FullParams, samples: np.ndarray,
         best_decoder_id, decoders, no_speech_prob, prompt = _decode_window_host(
             ctx, p, rc, temperatures, seek, seek_end, xk, xv,
             prompt_past0, prompt_past1, max_prompt_ctx, prompt_init,
-            no_timestamps, base_mask, init_mask, timings, generator)
+            no_timestamps, base_mask, init_mask, timings, generator, dxkv=dxkv)
 
         # ---- segment emission (whisper.cpp:7608-7772) ----
         best = decoders[best_decoder_id]
@@ -554,10 +606,12 @@ def _run_device_windows(ctx: WhisperContext, p: FullParams,
                         temperatures, seek_start: int, seek_end: int,
                         prompt_past1: list[int], prompt_init: list[int],
                         max_prompt_ctx: int, no_timestamps: bool,
-                        base_mask, init_mask, generator) -> None:
+                        base_mask, init_mask, generator, draft_mel=None) -> None:
     """Drive the transcription through the multi-window device loop
     (decode/device_windows.py); fall out to the host temperature schedule
-    only for windows that trip a quality gate."""
+    only for windows that trip a quality gate. `draft_mel` (speculative
+    decoding): the draft model's whole-audio mel; greedy windows then
+    decode by draft proposals and verify passes."""
     from . import device_windows as DW
     cfg = ctx.cfg
     vocab = ctx.vocab
@@ -569,6 +623,12 @@ def _run_device_windows(ctx: WhisperContext, p: FullParams,
     fscal = [p.logprob_thold, p.entropy_thold, p.no_speech_thold, p.length_penalty]
     beam_size = (p.beam_search.beam_size
                  if p.strategy == SamplingStrategy.BEAM_SEARCH else 0)
+    gamma = int(p.speculative) if draft_mel is not None and beam_size == 0 else 0
+    draft = None
+    if gamma > 0:
+        dctx = ctx.draft
+        draft = DW.Draft(dctx.cfg, dctx.params["encoder"], dctx.params["decoder"],
+                         draft_mel.data, gamma, *_speculative_mega(ctx, p, gamma))
 
     def upload_past(past_list: list[int]):
         past_list = past_list[-P:] if P > 0 else []
@@ -596,21 +656,25 @@ def _run_device_windows(ctx: WhisperContext, p: FullParams,
             no_timestamps=no_timestamps, stub=ctx.n_loaded == 0,
             window_frames=2 * cfg.n_audio_ctx,
             fallback_available=fallback_available,
-            mega=ctx.mega_params(p), beam_size=beam_size)
+            mega=None if gamma else ctx.mega_params(p), beam_size=beam_size,
+            draft=draft)
         r = DW.unpack_windows_result(
             ctx.reads.fetch(DW.pack_windows_result(res)), res, K, n_max)
         past_buf = res.past_buf        # stays on the device for the next call
         # one call covers encode+decode of n_done windows; bucket the wall
-        # time under decode, count every encoder pass, the in-loop pass of
-        # a window handed to the fallback included
+        # time under decode, count every encoder pass (the draft's too), the
+        # in-loop pass of a window handed to the fallback included
         timings.t_decode_ms += (time.perf_counter() - t0) * 1e3
         n_done = r["n_done"]
-        timings.n_encode += n_done + int(r["fallback"])
+        timings.n_encode += (n_done + int(r["fallback"])) * (2 if gamma else 1)
+        timings.n_spec_accepted += r["n_accepted"]
+        # speculative: target passes = per-window prompt ingest + verify rounds
+        timings.n_decode += r["n_rounds"]
 
         for w in range(n_done):
             rl = r["result_len"][w]
             n_tok = int(r["n_tokens"][w])
-            timings.n_decode += n_tok + 1
+            timings.n_decode += n_tok + 1 if gamma == 0 else 1
             timings.n_sample += n_tok
             tokens_cur = [
                 TokenData(int(r["tokens"][w, k]), int(r["tid"][w, k]),
@@ -698,6 +762,47 @@ def _device_greedy_window(ctx, p, rc, decoders, prompt, xk, xv,
     timings.t_decode_ms += (time.perf_counter() - t0) * 1e3
     timings.n_decode += n_tok + 1
     timings.n_sample += n_tok
+    return r["no_speech_prob"]
+
+
+def _speculative_mega(ctx, p: FullParams, gamma: int):
+    """(dmega, tmega): K2's params for the draft's steps and for the verify
+    pass, each None for decode_impl; K2 takes gamma + 1 <= 8 verify rows."""
+    return (ctx.draft.mega_params(p, draft=True),
+            ctx.mega_params(p) if gamma + 1 <= 8 else None)
+
+
+def _device_speculative_window(ctx, p, rc, decoders, prompt, xk, xv, dxkv,
+                               base_mask, init_mask, seek, seek_end,
+                               no_timestamps, timings) -> float:
+    """One window through the speculative loop (draft proposals and
+    multi-token verify passes, decode/device_speculative.py); fills
+    decoders[0], returns no_speech_prob."""
+    from . import device_loop as DL
+    from . import device_speculative as DS
+    cfg, vocab = ctx.cfg, ctx.vocab
+    t0 = time.perf_counter()
+    toks, T_real = _pad_prompt(cfg, prompt, ctx.device)
+    n_max = cfg.n_text_ctx // 2 - 4
+    gamma = int(p.speculative)
+    dxk, dxv = dxkv
+    dmega, tmega = _speculative_mega(ctx, p, gamma)
+    res, n_acc, n_rounds = DS.decode_segment_speculative(
+        cfg, ctx.draft.cfg, rc, ctx.params["decoder"], ctx.draft.params["decoder"], toks,
+        xk, xv, dxk, dxv, base_mask, init_mask, (T_real, vocab.token_nosp, seek, seek_end),
+        n_max=n_max, reads=ctx.reads, gamma=gamma, max_tokens=p.max_tokens,
+        single_segment=p.single_segment, no_timestamps=no_timestamps,
+        cache_dtype=ctx.dtype, dmega=dmega, tmega=tmega)
+    flat = ctx.reads.fetch(torch.cat([DL.pack_segment_result(res),
+                                      torch.stack([n_acc, n_rounds]).float()]))
+    r = DL.unpack_segment_result(flat[:-2], n_max)
+    n_tok = r["n_tokens"]
+    _fill_decoder(decoders[0], r, n_tok)
+    timings.t_decode_ms += (time.perf_counter() - t0) * 1e3
+    # target passes: the prompt ingest and one verify pass a round
+    timings.n_decode += int(flat[-1]) + 1
+    timings.n_sample += n_tok
+    timings.n_spec_accepted += int(flat[-2])
     return r["no_speech_prob"]
 
 
@@ -864,9 +969,11 @@ def _decode_window_host(ctx: WhisperContext, p: FullParams, rc,
                         prompt_past0: list[int], prompt_past1: list[int],
                         max_prompt_ctx: int, prompt_init: list[int],
                         no_timestamps: bool, base_mask, init_mask,
-                        timings: Timings, generator):
+                        timings: Timings, generator, dxkv=None):
     """Temperature-fallback decode of ONE 30 s window (the body of the
     reference's `for (int it = 0; ...)` loop, whisper.cpp:7069-7605).
+    `dxkv`: the draft's (xk, xv) for this window when decoding
+    speculatively.
 
     Returns (best_decoder_id, decoders, no_speech_prob, prompt)."""
     vocab = ctx.vocab
@@ -901,7 +1008,13 @@ def _decode_window_host(ctx: WhisperContext, p: FullParams, rc,
         prompt.extend(prompt_init)
 
         on_device = p.use_device_loops and t_cur < 1e-6
-        if on_device and beam_mode and n_dec_cur > 1:
+        # speculative greedy: draft proposals + one multi-token verify pass
+        # a round; the same output as the greedy loop
+        if on_device and n_dec_cur == 1 and dxkv is not None:
+            no_speech_prob = _device_speculative_window(
+                ctx, p, rc, decoders, prompt, xk, xv, dxkv, base_mask, init_mask,
+                seek, seek_end, no_timestamps, timings)
+        elif on_device and beam_mode and n_dec_cur > 1:
             no_speech_prob = _device_beam_window(
                 ctx, p, rc, decoders, prompt, xk, xv, base_mask, init_mask,
                 seek, seek_end, no_timestamps, timings)

@@ -455,7 +455,10 @@ def decode_impl(cfg: WhisperConfig, dec: Params, tokens: torch.Tensor,
     kqscale = float(cfg.d_text_head) ** -0.25
     positions = torch.as_tensor(kv_head, device=dev).long() + torch.arange(T, device=dev)
 
-    x = dec["te"][tokens].to(dtype) + dec["pe"][positions][None].to(dtype)
+    # positions past the table take its last row, as JAX's gather clamps
+    # (the speculative verify pass may run a few rows past n_text_ctx)
+    pe = dec["pe"].index_select(0, positions.clamp(max=dec["pe"].shape[0] - 1))
+    x = dec["te"][tokens].to(dtype) + pe[None].to(dtype)
 
     # causal-with-cache mask: token at global pos p attends kv cols <= p
     mask = torch.where(torch.arange(C, device=dev)[None, :] <= positions[:, None],

@@ -2,14 +2,14 @@
 K7, the same step for B <= 8 beams through one weight stream; K8, the
 same for B <= 8 independent streams (batched serving).
 
-Port of open_whisper_kit_tpu/ops/decode_megakernel.py: the greedy one-row
-`mega_decode_step`, the beam-search `mega_decode_step_beam` and the
-batched-stream `mega_decode_step_batch` (the speculative-verify variant is
-not ported yet). One
-step takes the (R, S) bf16 token plus position rows and runs every layer
-(layernorm, fused QKV with the new K/V rows written at `kv_head`,
-self-attention, cross-attention, the tanh-GELU MLP), the final layernorm
-and the vocab projection to f32 logits.
+Port of open_whisper_kit_tpu/ops/decode_megakernel.py: `mega_decode_step`
+for one token or, in the speculative verify pass, R <= 8 consecutive
+tokens of one stream; the beam-search `mega_decode_step_beam` and the
+batched-stream `mega_decode_step_batch`. One step takes the (R, S) bf16
+token plus position rows and runs every layer (layernorm, fused QKV with
+the new K/V rows written at `kv_head`, self-attention, cross-attention,
+the tanh-GELU MLP), the final layernorm and the vocab projection to f32
+logits.
 
 Each weight field is dense bf16, int8 `QPlanes` (per-32-row f32 scales) or
 split-half int4 `Q4Planes` (bf16 scales), chosen by `prepare_mega`:
@@ -209,27 +209,37 @@ def prepare_mega(cfg, dec, quant: str = "none") -> MegaParams:
 
 # -- the plain version -------------------------------------------------------
 
-def _matvec(x16: torch.Tensor, w, il: int | None) -> torch.Tensor:
-    """x16 (1, K) bf16 @ field plane (layer il) -> (1, N) f32: each weight
-    dequantized in f32 and rounded to bf16, every product exact, f32 sums."""
+def _matvec(x16: torch.Tensor, w, il: int | None, rowwise: bool = False) -> torch.Tensor:
+    """x16 (R, K) bf16 @ field plane (layer il) -> (R, N) f32: each weight
+    dequantized in f32 and rounded to bf16, every product exact, f32 sums.
+    `rowwise`: one product per row, each the one-row product bit for bit
+    (a CPU matmul may block its sums by the row count)."""
     if il is not None:
         w = type(w)(qs=w.qs[il], sc=w.sc[il]) if _kind(w) else w[il]
     x = x16.float()
     kind = _kind(w)
     if kind is None:
-        return x @ w.float()
-    if kind == "int8":
+        planes = (w.float(),)
+    elif kind == "int8":
         K, N = w.qs.shape
-        w16 = (w.qs.float().reshape(K // QK, QK, N) * w.sc[:, None, :].float()
-               ).reshape(K, N).to(torch.bfloat16)
-        return x @ w16.float()
-    K2, N = w.qs.shape
-    q = w.qs.to(torch.int32)
-    sc = w.sc.float().reshape(2, K2 // QK, 1, N)
-    lo = (((q & 0x0F) - 8).float().reshape(K2 // QK, QK, N) * sc[0]).reshape(K2, N)
-    hi = (((q >> 4) - 8).float().reshape(K2 // QK, QK, N) * sc[1]).reshape(K2, N)
-    return (x[:, :K2] @ lo.to(torch.bfloat16).float()
-            + x[:, K2:] @ hi.to(torch.bfloat16).float())
+        planes = ((w.qs.float().reshape(K // QK, QK, N) * w.sc[:, None, :].float()
+                   ).reshape(K, N).to(torch.bfloat16).float(),)
+    else:
+        K2, N = w.qs.shape
+        q = w.qs.to(torch.int32)
+        sc = w.sc.float().reshape(2, K2 // QK, 1, N)
+        lo = (((q & 0x0F) - 8).float().reshape(K2 // QK, QK, N) * sc[0]).reshape(K2, N)
+        hi = (((q >> 4) - 8).float().reshape(K2 // QK, QK, N) * sc[1]).reshape(K2, N)
+        planes = (lo.to(torch.bfloat16).float(), hi.to(torch.bfloat16).float())
+
+    def product(x):
+        if len(planes) == 1:
+            return x @ planes[0]
+        K2 = planes[0].shape[0]
+        return x[:, :K2] @ planes[0] + x[:, K2:] @ planes[1]
+    if rowwise:
+        return torch.cat([product(x[r:r + 1]) for r in range(x.shape[0])])
+    return product(x)
 
 
 def _attend(q16: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int,
@@ -328,50 +338,69 @@ def _shared_cross(cfg, xk: torch.Tensor, xv: torch.Tensor):
 
 
 def _step_rows_plain(cfg, mp: MegaParams, x0: torch.Tensor, self_attend,
-                     cross_attend) -> torch.Tensor:
+                     cross_attend, rowwise: bool = False) -> torch.Tensor:
     """The decoder step for the R rows of x0, each row alone, as the TPU
     kernel body rounds it; `self_attend(il, q, k, v)` writes the layer's
     new K/V rows and returns the (R, S) bf16 self-attention output,
     `cross_attend(il, cq)` the (R, S) bf16 cross-attention output.
+    `rowwise`: every matmul and layernorm one row at a time (see _matvec).
     Returns the (R, V) f32 logits."""
     S, H, L = cfg.n_text_state, cfg.n_text_head, cfg.n_text_layer
     dh = S // H
     eps = float(cfg.eps)
     kq16 = torch.tensor(float(dh) ** -0.25, dtype=torch.bfloat16, device=x0.device)
     bias = lambda name, il: getattr(mp, name)[il][None]       # noqa: E731
+
+    mm = functools.partial(_matvec, rowwise=rowwise)
+
+    def ln(x, w, b, eps):
+        if rowwise:
+            return torch.cat([_ln16(x[r:r + 1], w, b, eps) for r in range(x.shape[0])])
+        return _ln16(x, w, b, eps)
     x = x0.to(torch.bfloat16)
     for il in range(L):
-        h16 = _ln16(x, mp.lnw[3 * il], mp.lnb[3 * il], eps)
-        qkv = _matvec(h16, mp.qkv_w, il).to(torch.bfloat16) + bias("qkv_b", il)
+        h16 = ln(x, mp.lnw[3 * il], mp.lnb[3 * il], eps)
+        qkv = mm(h16, mp.qkv_w, il).to(torch.bfloat16) + bias("qkv_b", il)
         q = qkv[:, :S] * kq16
         a16 = self_attend(il, q, qkv[:, S:2 * S] * kq16, qkv[:, 2 * S:])
-        x = x + (_matvec(a16, mp.o_w, il).to(torch.bfloat16) + bias("o_b", il))
+        x = x + (mm(a16, mp.o_w, il).to(torch.bfloat16) + bias("o_b", il))
 
-        h16 = _ln16(x, mp.lnw[3 * il + 1], mp.lnb[3 * il + 1], eps)
-        cq = _matvec(h16, mp.cq_w, il).to(torch.bfloat16) + bias("cq_b", il)
+        h16 = ln(x, mp.lnw[3 * il + 1], mp.lnb[3 * il + 1], eps)
+        cq = mm(h16, mp.cq_w, il).to(torch.bfloat16) + bias("cq_b", il)
         a16 = cross_attend(il, cq)
-        x = x + (_matvec(a16, mp.co_w, il).to(torch.bfloat16) + bias("co_b", il))
+        x = x + (mm(a16, mp.co_w, il).to(torch.bfloat16) + bias("co_b", il))
 
-        h16 = _ln16(x, mp.lnw[3 * il + 2], mp.lnb[3 * il + 2], eps)
-        pre = (_matvec(h16, mp.mlp0_w, il).to(torch.bfloat16) + bias("mlp0_b", il))
+        h16 = ln(x, mp.lnw[3 * il + 2], mp.lnb[3 * il + 2], eps)
+        pre = (mm(h16, mp.mlp0_w, il).to(torch.bfloat16) + bias("mlp0_b", il))
         g = torch.nn.functional.gelu(pre.float(), approximate="tanh").to(torch.bfloat16)
-        x = x + (_matvec(g, mp.mlp1_w, il).to(torch.bfloat16) + bias("mlp1_b", il))
-    xf = _ln16(x, mp.lnw[3 * L], mp.lnb[3 * L], eps)
-    return _matvec(xf, mp.teT, None)[:, :cfg.n_vocab]
+        x = x + (mm(g, mp.mlp1_w, il).to(torch.bfloat16) + bias("mlp1_b", il))
+    xf = ln(x, mp.lnw[3 * L], mp.lnb[3 * L], eps)
+    return mm(xf, mp.teT, None)[:, :cfg.n_vocab]
 
 
 def mega_decode_step_plain(cfg, mp: MegaParams, x0: torch.Tensor,
                            kv_k: torch.Tensor, kv_v: torch.Tensor, kv_head,
                            xk: torch.Tensor, xv: torch.Tensor):
     """K2's function in plain torch, the kernel's reference (and the CPU
-    path). Same arguments and results as `mega_decode_step`."""
-    head = int(kv_head)
+    path). Same arguments and results as `mega_decode_step`. Every layer
+    writes all R rows' K/V, then row r attends rows up to kv_head + r; each
+    row's products, layernorms and attention run alone, so R rows equal R
+    sequential one-row calls bit for bit. A row at or past the cache's Tc
+    rows writes nothing and attends all Tc."""
+    head, Tc = int(kv_head), kv_k.shape[1]
+    R = x0.shape[0]
+    keep = max(min(R, Tc - head), 0)
+    cross = _shared_cross(cfg, xk, xv)
 
     def self_attend(il, q, k, v):
-        kv_k[il, head] = k[0]
-        kv_v[il, head] = v[0]
-        return _attend(q, kv_k[il], kv_v[il], head + 1, 1.0, cfg.n_text_head)
-    return _step_rows_plain(cfg, mp, x0, self_attend, _shared_cross(cfg, xk, xv)), kv_k, kv_v
+        kv_k[il, head:head + keep] = k[:keep]
+        kv_v[il, head:head + keep] = v[:keep]
+        return torch.cat([_attend(q[r:r + 1], kv_k[il], kv_v[il], min(head + r + 1, Tc), 1.0,
+                                  cfg.n_text_head) for r in range(R)])
+
+    def cross_rows(il, cq):
+        return torch.cat([cross(il, cq[r:r + 1]) for r in range(R)])
+    return _step_rows_plain(cfg, mp, x0, self_attend, cross_rows, rowwise=True), kv_k, kv_v
 
 
 def mega_decode_step_beam_plain(cfg, mp: MegaParams, x0: torch.Tensor,
@@ -521,9 +550,10 @@ def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tens
             kv_v: torch.Tensor, kv_head, xk: torch.Tensor, xv: torch.Tensor, Tc: int,
             origin: torch.Tensor | None = None) -> torch.Tensor:
     """Check a step's arguments on the card and launch csrc/<kernel>.cu on
-    the current stream: R = x0's rows, self-cache (L, Tc * R, S), K7's
-    origin table last; the cross-KV (L, Ta, S), or K8's per-stream
-    (L, R, Ta, S). Returns the (R, V) f32 logits; raises if a launch fails."""
+    the current stream: R = x0's rows, self-cache (L, Tc, S) for K2, the
+    row-flat (L, Tc * R, S) for K7 and K8, K7's origin table last; the
+    cross-KV (L, Ta, S), or K8's per-stream (L, R, Ta, S). Returns the
+    (R, V) f32 logits; raises if a launch fails."""
     what = _WHAT[kernel]
     dev = x0.device
     if dev.type != "cuda":
@@ -539,8 +569,9 @@ def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tens
         raise ValueError(f"{what}: vocab plane width {Vp}")
     x0b = x0.to(torch.bfloat16).contiguous()
     _check_tensor(f"{what}: x0", x0b, torch.bfloat16, (R, S), dev)
+    cache_rows = Tc if kernel == "mega_step" else Tc * R
     for name, t in (("kv_k", kv_k), ("kv_v", kv_v)):
-        _check_tensor(f"{what}: {name}", t, torch.bfloat16, (L, Tc * R, S), dev)
+        _check_tensor(f"{what}: {name}", t, torch.bfloat16, (L, cache_rows, S), dev)
     for name, t in (("xk", xk), ("xv", xv)):
         _check_tensor(f"{what}: {name}", t, torch.bfloat16,
                       (L, R, Ta, S) if per_stream else (L, Ta, S), dev)
@@ -563,7 +594,9 @@ def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tens
                             None if name == "teT" else L, dev)
         kinds.append(_KINDS[_kind(w)])
     logits = torch.empty(R, Vp, dtype=torch.float32, device=dev)
-    dims = [L, S, H, Tc, Ta, Vp, *kinds] + ([R] if R > 1 else [])
+    # the last: the rows K2 plans its self-attention key chunks from (see
+    # csrc/mega_rows.cuh Dims::Tp)
+    dims = [L, S, H, Tc, Ta, Vp, *kinds, R, min(Tc, cfg.n_text_ctx)]
     ws = _workspace(kernel, dims, dev)
     ptrs += [kv_k.data_ptr(), kv_v.data_ptr(), xk.data_ptr(), xv.data_ptr(),
              logits.data_ptr(), ws.data_ptr()]
@@ -583,30 +616,35 @@ def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tens
 def mega_decode_step(cfg, mp: MegaParams, x0: torch.Tensor,
                      kv_k: torch.Tensor, kv_v: torch.Tensor, kv_head,
                      xk: torch.Tensor, xv: torch.Tensor):
-    """Kernel K2: one decode step for one token.
+    """Kernel K2: one decode step for R <= 8 consecutive tokens of one
+    stream (R = 1: the greedy step; R > 1: the speculative verify pass).
 
-    x0 (1, S) bf16 token + position row for position kv_head; kv_k/kv_v
-    (L, Tc, S) bf16 self-cache, written in place at row kv_head; kv_head a
-    0-d integer tensor on x0's device (the kernel reads it there, so a step
-    never waits on the host) or an int; xk/xv (L, Ta, S) bf16 cross-KV, xk
-    pre-scaled by dh^-0.25. Returns (logits (1, V) f32, kv_k, kv_v).
+    x0 (R, S) bf16 token + position rows for positions kv_head ..
+    kv_head + R - 1; kv_k/kv_v (L, Tc, S) bf16 self-cache, written in place
+    at those rows (a row at or past Tc is not written; the kernel checks
+    on the card, where kv_head lives); kv_head a 0-d integer tensor on
+    x0's device (the kernel reads it there, so a step never waits on the
+    host) or an int; xk/xv (L, Ta, S) bf16 cross-KV, xk pre-scaled by
+    dh^-0.25. Row r attends the cache rows up to kv_head + r: the rows
+    before it and its own, not those after. Returns (logits (R, V) f32,
+    kv_k, kv_v); each row equals a one-row step at its position.
 
     CPU tensors take `mega_decode_step_plain`; CUDA tensors launch
     csrc/mega_step.cu on the current stream or raise. `launches` counts
-    steps run on the card. More than one row (the speculative verify pass)
-    is not ported yet."""
-    if x0.dim() != 2 or x0.shape[0] != 1:
-        raise NotImplementedError(
-            f"mega_decode_step: {tuple(x0.shape)} rows; the multi-row verify "
-            "pass of speculative decoding is not ported to the PyTorch package yet")
+    steps run on the card, `launches_by_rows` the same by R."""
+    if x0.dim() != 2 or not 1 <= x0.shape[0] <= 8:
+        raise ValueError(f"mega_decode_step: x0 {tuple(x0.shape)}; 1 to 8 rows")
     if x0.device.type == "cpu":
         return mega_decode_step_plain(cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv)
     logits = _launch("mega_step", cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv, kv_k.shape[1])
+    R, counts = x0.shape[0], mega_decode_step.launches_by_rows
     mega_decode_step.launches += 1
+    counts[R] = counts.get(R, 0) + 1
     return logits, kv_k, kv_v
 
 
 mega_decode_step.launches = 0
+mega_decode_step.launches_by_rows = {}
 
 
 def mega_decode_step_beam(cfg, mp: MegaParams, x0: torch.Tensor,

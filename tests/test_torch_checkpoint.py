@@ -184,10 +184,23 @@ def test_gguf_and_unported_options_raise(tmp_path):
     path.write_bytes(b"GGUF" + bytes(60))
     with pytest.raises(NotImplementedError, match="GGUF"):
         TF.WhisperContext.from_file(path, device="cpu")
-    for kw in ({"mesh": object()}, {"draft_preset": "tiny"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Transcriber(model_path=path, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Transcriber(model_path=path, device="cpu", mesh=object())
     # encoder_int8 is ported; VAD on full_parallel is not
     tr = Transcriber(preset="tiny.en", dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="VAD .* not ported"):
         tr.full_parallel(FullParams(print_progress=False, vad=True), audio(4, 0), 2)
+
+
+def test_transcriber_draft_model_path(ckpts):
+    """Transcriber(draft_model_path=...) attaches the draft checkpoint (it
+    raised before the port had speculative decoding): its own int8 planes,
+    the target's device and dtype."""
+    tr = Transcriber(model_path=ckpts["q8_0"], draft_model_path=ckpts["q5_0"],
+                     dtype=torch.float32, device="cpu")
+    draft = tr.ctx.draft
+    assert draft is not None and draft.n_loaded > 0
+    assert draft.dtype == torch.float32 and draft.device == tr.ctx.device
+    assert isinstance(draft.params["decoder"]["blocks"]["qkv_w"], TQ.QuantLinear)
+    assert not torch.equal(draft.params["decoder"]["blocks"]["qkv_w"].qs,
+                           tr.ctx.params["decoder"]["blocks"]["qkv_w"].qs)

@@ -1,7 +1,8 @@
-"""The port on a CUDA card: kernels K1, K2, K3, K4, K5, K6, K7 and K8
-against their plain versions, the device token loops (greedy and beam) on the card
-against the same loops on the CPU, and a narrow q8_0 checkpoint's transcript
-on the card and the CPU.
+"""The port on a CUDA card: kernels K1, K2 (one row and the speculative
+verify rows), K3, K4, K5, K6, K7 and K8 against their plain versions, the
+device token loops (greedy, beam and speculative) on the card against the
+same loops on the CPU, and a narrow q8_0 checkpoint's transcript on the
+card and the CPU.
 
 Every test here needs a GPU and skips without one. The file imports no jax,
 so it also runs where the JAX package is not installed:
@@ -251,6 +252,141 @@ def test_mega_step_kernel_matches_plain(cuda, mode):
     for r, k in ((caches[0], caches[2]), (caches[1], caches[3])):
         _close(k[:, :5].float(), r[:, :5].float(), 1e-2)
         assert not k[:, 5:].any()
+
+
+@pytest.mark.parametrize("R", [2, 5, 8])
+@pytest.mark.parametrize("mode", ["none", "logits", "all", "int4"])
+def test_mega_step_verify_rows(cuda, mode, R, monkeypatch):
+    """K2's speculative verify rows at the narrow config of the K2 test on a
+    cache of 64 + 11 rows (the loop's n_text_ctx + gamma + 4): from random
+    history at heads 9 and Tc - R, one R-row launch is bit-equal to R
+    one-row launches at head, head + 1, ... (logits and every cache row),
+    at head 9 also to one-row launches on a 64-row cache (the greedy
+    loop's), and within 2e-2 of max|ref| of the plain R-row step, with its argmax
+    except at a near tie; the wrapper never takes the plain version on the
+    card, and counts the launch under its row count."""
+    cfg = TM.WhisperConfig(640, 48, 256, 4, 2, 64, 256, 4, 3, 80)
+    params = TM.init_params(cfg, seed=5, dtype=torch.bfloat16, device=cuda)
+    dec = TM.prepare_decoder(params["decoder"])
+    if mode == "logits":
+        dec = TM.quantize_decoder_int8(dec)
+    mp = MK.prepare_mega(cfg, dec, quant=mode)
+    g = torch.Generator(device=cuda).manual_seed(10 + R)
+    L, S, Tc, Ta = 3, 256, 64 + 11, 48
+    xk, xv = ((torch.randn(L, Ta, S, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    hist = (torch.randn(2, L, Tc, S, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    for head in (9, Tc - R):
+        caches = [hist[c % 2].clone() for c in range(6)]
+        for c in caches:
+            c[:, head:] = 0
+        toks = torch.randint(0, 640, (R,), generator=g, device=cuda)
+        pos = (head + torch.arange(R, device=cuda)).clamp(max=cfg.n_text_ctx - 1)
+        x0 = (dec["te"][toks] + dec["pe"][pos]).to(torch.bfloat16)
+        ht = torch.tensor(head, device=cuda)
+        ref, _, _ = MK.mega_decode_step_plain(cfg, mp, x0, caches[0], caches[1], ht, xk, xv)
+        before = (MK.mega_decode_step.launches, MK.mega_decode_step.launches_by_rows.get(R, 0))
+        with monkeypatch.context() as m:
+            m.setattr(MK, "mega_decode_step_plain", None)
+            got, _, _ = MK.mega_decode_step(cfg, mp, x0, caches[2], caches[3], ht, xk, xv)
+            seq = torch.cat([MK.mega_decode_step(cfg, mp, x0[r:r + 1], caches[4], caches[5],
+                                                 ht + r, xk, xv)[0] for r in range(R)])
+            if head + R <= cfg.n_text_ctx:
+                gk, gv = (hist[c, :, :cfg.n_text_ctx].clone() for c in range(2))
+                gk[:, head:] = gv[:, head:] = 0
+                greedy = torch.cat([MK.mega_decode_step(cfg, mp, x0[r:r + 1], gk, gv, ht + r,
+                                                        xk, xv)[0] for r in range(R)])
+                torch.cuda.synchronize()
+                assert torch.equal(got, greedy), (head, (got - greedy).abs().max().item())
+                assert torch.equal(caches[2][:, :cfg.n_text_ctx], gk)
+        torch.cuda.synchronize()
+        assert MK.mega_decode_step.launches == before[0] + 1 + R * (2 if head == 9 else 1)
+        assert MK.mega_decode_step.launches_by_rows[R] == before[1] + 1
+        assert got.shape == ref.shape == (R, 640) and bool(torch.isfinite(got).all())
+        assert torch.equal(got, seq), (head, (got - seq).abs().max().item())
+        assert torch.equal(caches[2], caches[4]) and torch.equal(caches[3], caches[5])
+        _close(got, ref, 2e-2)
+        pick = got.argmax(1)
+        gap = ref.max(1).values - ref.gather(1, pick[:, None])[:, 0]
+        assert bool((gap <= 1e-2 * ref.abs().max()).all()), gap
+        rows = slice(head, head + R)
+        for r, k in ((caches[0], caches[2]), (caches[1], caches[3])):
+            _close(k[:, rows].float(), r[:, rows].float(), 1e-2)
+            assert torch.equal(k[:, :head], r[:, :head])
+
+
+def test_wide_rows_in_every_kernel_library(cuda):
+    """K2 at five verify rows, then K7 with five beams and K8 with five
+    streams, at turbo width (S = 1280, so five rows of mlp1's 4S input pass
+    the default 48 KB of dynamic shared memory) with a 640-word vocabulary,
+    one layer: each library's GEMV must be allowed its own shared memory (a
+    flag shared across the libraries once let K7 launch without it and
+    fail), and the workspace must hold a split counter for each of mlp0's
+    80 column tiles (it was sized by the vocabulary plane's 10, and the
+    counters ran past it). Each step within 2e-2 of max|ref| of its plain
+    version."""
+    cfg = TM.WhisperConfig(640, 48, 1280, 20, 2, 64, 1280, 20, 1, 80)
+    params = TM.init_params(cfg, seed=5, dtype=torch.bfloat16, device=cuda)
+    dec = TM.prepare_decoder(params["decoder"])
+    mp = MK.prepare_mega(cfg, dec, quant="all")
+    g = torch.Generator(device=cuda).manual_seed(12)
+    R, L, S, Tc, Ta = 5, 1, 1280, 64, 48
+    xk, xv = ((torch.randn(L, R, Ta, S, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    x0 = (dec["te"][torch.arange(R, device=cuda) * 7] + dec["pe"][3]).to(torch.bfloat16)
+    head = torch.tensor(3, device=cuda)
+    origin = torch.arange(R, device=cuda)[:, None].expand(R, Tc).contiguous()
+    steps = (
+        (MK.mega_decode_step, MK.mega_decode_step_plain, Tc, (xk[:, 0], xv[:, 0]), ()),
+        (MK.mega_decode_step_beam, MK.mega_decode_step_beam_plain, Tc * R,
+         (xk[:, 0], xv[:, 0]), (origin,)),
+        (MK.mega_decode_step_batch, MK.mega_decode_step_batch_plain, Tc * R, (xk, xv), ()))
+    errs = {}
+    for kernel, plain, rows, cross, extra in steps:
+        caches = [torch.zeros(L, rows, S, dtype=torch.bfloat16, device=cuda) for _ in range(4)]
+        ref, _, _ = plain(cfg, mp, x0, caches[0], caches[1], head, *cross, *extra)
+        got, _, _ = kernel(cfg, mp, x0, caches[2], caches[3], head, *cross, *extra)
+        torch.cuda.synchronize()
+        errs[kernel.__name__] = ((got - ref).abs().max() / ref.abs().max()).item()
+    assert all(e <= 2e-2 for e in errs.values()), errs
+
+
+def test_speculative_whisper_full_cuda_matches_cpu(cuda, tmp_path):
+    """Speculative greedy decoding (gamma = 4) on a narrow bf16 q8_0
+    checkpoint with a q4_0 draft of the same tensors and megakernel="int8":
+    draft steps run K2 at one row and verify passes K2 at five rows on the
+    card, their plain versions on the CPU. 35 s over two windows: the same
+    token ids on both, at least 100 of them, and on the card the same as
+    K2 greedy. Audio seed 4: its CPU transcript stays the same when the
+    input is scaled by 1 +- 2^-20, 2^-16 or 2^-13."""
+    hp = TW.WhisperHParams(51864, 1500, 128, 2, 2, 448, 128, 2, 3, 80, ftype=1, qntvr=0)
+    tensors = TW.random_reference_tensors(hp, seed=0)
+    paths = {}
+    for q in ("q8_0", "q4_0"):
+        paths[q] = tmp_path / f"narrow-{q}.bin"
+        TW.write_checkpoint(paths[q], hp, TF._synthetic_mel_filters(80),
+                            [b"<%d>" % i for i in range(50257)], tensors,
+                            wtype=TW.TYPE_FOR_NAME[q])
+    samples = (np.random.default_rng(4).standard_normal(16000 * 35)
+               .astype(np.float32) * 0.1)
+    p = FullParams(print_progress=False, megakernel="int8", speculative=4)
+    p.temperature_inc = 0
+    ids = {}
+    for dev in ("cuda", "cpu"):
+        ctx = TF.WhisperContext.from_file(paths["q8_0"], dtype=torch.bfloat16, device=dev)
+        ctx.set_draft(TF.WhisperContext.from_file(paths["q4_0"], dtype=torch.bfloat16,
+                                                  device=dev))
+        verify = MK.mega_decode_step.launches_by_rows.get(5, 0)
+        res = TF.whisper_full(ctx, p, samples)
+        ids[dev] = [t.id for s in res.segments for t in s.tokens]
+        if dev == "cuda":
+            assert MK.mega_decode_step.launches_by_rows.get(5, 0) > verify
+            assert res.timings.n_spec_accepted > 0
+            ctx.draft = None
+            greedy = TF.whisper_full(ctx, FullParams(print_progress=False, megakernel="int8",
+                                                     temperature_inc=0.0), samples)
+            assert [t.id for s in greedy.segments for t in s.tokens] == ids[dev]
+    assert ids["cuda"] == ids["cpu"] and len(ids["cpu"]) >= 100
 
 
 # the K7 steps below: (head, the sources each step's beams continue, None

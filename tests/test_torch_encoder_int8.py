@@ -176,11 +176,15 @@ def test_whisper_full_int8_encoder_matches_jax(narrow_int8):
 
 def test_transcriber_encoder_int8():
     """Transcriber(encoder_int8=True) builds the W8A8 encoder (it raised
-    before the port had it); meshes and draft models still raise."""
-    tr = Transcriber(preset="tiny", dtype=torch.float32, device="cpu", encoder_int8=True)
+    before the port had it); a draft preset is loaded as the JAX package
+    loads it, dense, with the target's dtype; meshes still raise."""
+    tr = Transcriber(preset="tiny", dtype=torch.float32, device="cpu", encoder_int8=True,
+                     draft_preset="tiny")
     b = tr.ctx.params["encoder"]["blocks"]
     assert b["qkv_q"].dtype == torch.int8 and b["qkv_q"].shape == (4, 3 * 384, 384)
     assert "q_w" not in b
-    for kw in ({"mesh": object()}, {"draft_preset": "tiny"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Transcriber(preset="tiny", device="cpu", encoder_int8=True, **kw)
+    draft = tr.ctx.draft
+    assert draft.dtype == torch.float32 and draft.device == tr.ctx.device
+    assert "q_w" in draft.params["encoder"]["blocks"]
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Transcriber(preset="tiny", device="cpu", encoder_int8=True, mesh=object())

@@ -91,7 +91,7 @@ def test_host_stepped_greedy_matches_jax(narrow):
     ("strategy+ref_sampling", (SamplingStrategy.BEAM_SEARCH, True)),
     ("grammar_rules", "root ::= \"a\""),
     ("vad", True), ("token_timestamps", True), ("dtw_token_timestamps", True),
-    ("speculative", 2), ("ref_sampling", True), ("cross_kv_int8", True),
+    ("ref_sampling", True), ("cross_kv_int8", True),
     ("abort_callback", lambda: False),
     ("logits_filter_callback", lambda *a: None),
 ])

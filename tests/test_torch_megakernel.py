@@ -247,15 +247,102 @@ def test_decode_segment_mega_matches_plain_and_jax():
 
 
 def test_mega_step_refuses_verify_rows():
+    """More than eight rows (the TPU kernel's sublane rows) are refused, and
+    prepare_mega refuses quantized planes outside quant='all'."""
     jdec, tdec = _decoders(0)
     tmp = TMK.prepare_mega(TCFG, tdec)
     L, S, Tc, Ta = CFG.n_text_layer, CFG.n_text_state, CFG.n_text_ctx, CFG.n_audio_ctx
     z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)   # noqa: E731
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TMK.mega_decode_step(TCFG, tmp, z(2, S), z(L, Tc, S), z(L, Tc, S), 0,
+    with pytest.raises(ValueError, match="1 to 8 rows"):
+        TMK.mega_decode_step(TCFG, tmp, z(9, S), z(L, Tc, S), z(L, Tc, S), 0,
                              z(L, Ta, S), z(L, Ta, S))
     with pytest.raises(ValueError, match="quant='all'"):
         TMK.prepare_mega(TCFG, TM.quantize_decoder_int8(tdec, scope="all"))
+
+
+def _verify_inputs(quant, head0, R, seed=3):
+    """JAX's own verify-row case (tests/test_decode_megakernel.py::
+    _verify_vs_sequential): a cache holding head0 rows of random history,
+    R token + position rows from head0 on; JAX's arrays and the port's."""
+    rng = np.random.default_rng(seed)
+    jdec, tdec = _decoders(seed)
+    jmp = JMK.prepare_mega(CFG, jdec, quant=quant)
+    tmp = TMK.prepare_mega(TCFG, tdec, quant=quant)
+    enc_out = jnp.asarray(rng.standard_normal((1, CFG.n_audio_ctx, CFG.n_audio_state)),
+                          jnp.bfloat16)
+    xk, xv = M.cross_kv(CFG, jdec, enc_out)
+    jxk, jxv = _hm_to_nat(xk), _hm_to_nat(xv)
+    L, S, Tc = CFG.n_text_layer, CFG.n_text_state, CFG.n_text_ctx
+    toks = jnp.asarray(rng.integers(0, CFG.n_vocab, R), jnp.int32)
+    hist = jnp.asarray(rng.standard_normal((L, head0, S)), jnp.bfloat16)
+    base_k = jnp.zeros((L, Tc, S), jnp.bfloat16).at[:, :head0].set(hist)
+    base_v = jnp.zeros((L, Tc, S), jnp.bfloat16).at[:, :head0].set(hist * .5)
+    x0 = (jdec["te"][toks] + jdec["pe"][head0 + jnp.arange(R)]).astype(jnp.bfloat16)
+    return (jmp, x0, base_k, base_v, jxk, jxv), (tmp, _t(x0), _t(base_k), _t(base_v),
+                                                 _t(jxk), _t(jxv))
+
+
+VERIFY_CASES = [("none", 9, 5), ("all", CFG.n_text_ctx - 8, 8)]
+
+
+@pytest.mark.parametrize("quant,head0,R", VERIFY_CASES)
+def test_plain_verify_rows_match_jax_kernel(quant, head0, R):
+    """The plain R-row step (the speculative verify pass) against JAX's
+    mega_decode_step with R rows (interpret=True, compiled with _EXACT), on
+    JAX's own two verify cases: logits within 1e-2 of max|ref| with equal
+    argmax per row, the R written cache rows within 1e-2 of their max, the
+    other rows unchanged."""
+    (jmp, x0, bk, bv, jxk, jxv), (tmp, tx0, tk, tv, txk, txv) = _verify_inputs(
+        quant, head0, R)
+    step = _exact(JMK.mega_decode_step, CFG, jmp, x0, bk, bv, jnp.int32(head0), jxk, jxv,
+                  interpret=True)
+    tk0, tv0 = tk.clone(), tv.clone()
+    ref, nk, nv = step(jmp, x0, bk, bv, jnp.int32(head0), jxk, jxv)
+    got, tk, tv = TMK.mega_decode_step(TCFG, tmp, tx0, tk, tv, torch.tensor(head0), txk, txv)
+    r, g = np.asarray(ref), got.numpy()
+    assert g.shape == r.shape == (R, CFG.n_vocab)
+    scale = np.abs(r).max()
+    np.testing.assert_allclose(g / scale, r / scale, atol=1e-2)
+    assert (g.argmax(1) == r.argmax(1)).all()
+    rows = slice(head0, head0 + R)
+    for ref_c, got_c, before in ((nk, tk, tk0), (nv, tv, tv0)):
+        ref_c = np.asarray(ref_c, np.float32)[:, rows]
+        s = np.abs(ref_c).max()
+        np.testing.assert_allclose(got_c[:, rows].float().numpy() / s, ref_c / s, atol=1e-2)
+        assert torch.equal(got_c[:, :head0], before[:, :head0])
+        assert torch.equal(got_c[:, head0 + R:], before[:, head0 + R:])
+
+
+@pytest.mark.parametrize("quant,head0,R", VERIFY_CASES + [("int4", 20, 3)])
+def test_plain_verify_rows_equal_sequential_steps(quant, head0, R):
+    """The plain R-row step equals R sequential one-row plain steps at
+    kv_head, kv_head + 1, ... bit for bit, logits and cache alike (the
+    property that makes speculative output equal greedy output in bf16)."""
+    _, (tmp, x0, tk, tv, xk, xv) = _verify_inputs(quant, head0, R)
+    sk, sv = tk.clone(), tv.clone()
+    seq = []
+    for r in range(R):
+        lg, sk, sv = TMK.mega_decode_step(TCFG, tmp, x0[r:r + 1], sk, sv,
+                                          torch.tensor(head0 + r), xk, xv)
+        seq.append(lg)
+    ver, tk, tv = TMK.mega_decode_step(TCFG, tmp, x0, tk, tv, torch.tensor(head0), xk, xv)
+    assert torch.equal(ver, torch.cat(seq))
+    assert torch.equal(tk, sk) and torch.equal(tv, sv)
+
+
+def test_plain_verify_rows_past_cache_end():
+    """Rows at or past the cache's last row write nothing and attend every
+    cached row, as the kernel's device-side bound does."""
+    Tc = CFG.n_text_ctx
+    _, (tmp, x0, tk, tv, xk, xv) = _verify_inputs("none", Tc - 8, 8)
+    short_k, short_v = tk[:, :Tc - 5].clone(), tv[:, :Tc - 5].clone()
+    lg, short_k, short_v = TMK.mega_decode_step(TCFG, tmp, x0, short_k, short_v,
+                                                torch.tensor(Tc - 8), xk, xv)
+    full, tk, tv = TMK.mega_decode_step(TCFG, tmp, x0[:3], tk, tv, torch.tensor(Tc - 8),
+                                        xk, xv)
+    assert torch.equal(lg[:3], full)
+    assert torch.equal(short_k, tk[:, :Tc - 5]) and torch.equal(short_v, tv[:, :Tc - 5])
+    assert torch.isfinite(lg).all()
 
 
 # a narrow bf16 q8_0 checkpoint: S = 128 (two 64-wide heads), three decoder
