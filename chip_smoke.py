@@ -7,8 +7,8 @@ Phases, each gated; any failure exits non-zero before the result lines:
   1. torch / CUDA versions and the card's name and power limit;
   2. build kernels K1 (csrc/mha_packed.cu), K2 (mega_step.cu, 1-8 rows), K3
      (qmm.cu), K4 (qmm4.cu), K5 (ffn_int8.cu), K6 (w8a8.cu), K7
-     (mega_beam.cu) and K8 (mega_batch.cu) with nvcc, one process per
-     source, all at once, timed;
+     (mega_beam.cu), K8 (mega_batch.cu) and K9a/K9b (cross_q8.cu) with
+     nvcc, one process per source, all at once, timed;
   3. K1 against its plain torch version on the card: bf16 at the
      large-v3-turbo encoder shape (B=1, T=1536, S=1280, n_valid=1500,
      gate max|err| <= 1e-2 * max|ref|) and the narrow f32 shape (S=128,
@@ -105,7 +105,10 @@ Phases, each gated; any failure exits non-zero before the result lines:
      transcribe_batched (token ids equal, at least 100) and the bf16 q8_0
      checkpoint's transcribe_batch with megakernel="int8" (K8 on the card,
      its plain version on the CPU), token ids equal on audio seed 5 (148
-     tokens), the first differing token of seed 4 printed;
+     tokens), the first differing token of seed 4 printed; then, for seeds 4
+     and 5, the first-step logits of the card's prompt ingest from the
+     CPU's encoder output, copied over, against the CPU's, beside the whole
+     card path's (ingest_split);
  16. speculative greedy decoding at full width: the q8_0 checkpoint
      (Transcriber(model_path=..., draft_model_path=...)) serves 30 s and
      65 s greedily with K2, then with a q4_0 draft of its own seed-0 tensors
@@ -120,8 +123,34 @@ Phases, each gated; any failure exits non-zero before the result lines:
      mega_decode_step_verify;
  17. narrow speculative decoding on the card against the CPU: bf16 q8_0
      with a q4_0 draft, megakernel="int8", gamma 4, 35 s: token ids equal
-     (148), and on the card equal to K2 greedy.
-Phases 11-13 run right after phase 3, with the other kernel checks.
+     (148), and on the card equal to K2 greedy;
+ 18. K9b (cross_attention_q8) and K9a (cross_attention_q8_nat) against
+     their plain versions at large-v3-turbo width (20 heads, 1500 audio
+     positions, bf16, gate 1e-2 of max|ref|): K9b for one row, five rows
+     over one shared plane and eight streams, K9a for eight streams on
+     1504-row slabs with ta_valid = 1500; and a narrow f32 shape (gate 1e-5);
+     kernel, plain and SDPA over the float cross-KV that int8 replaces
+     (CUDA events, cold L2, median of 20), and the byte bound;
+ 19. int8 cross-KV on the q8_0 checkpoint (cross_kv_int8=True,
+     temperature_inc = 0): greedy 30 s and 65 s (the K-window loop), 30 s
+     with device_windows=1, beam 5 on 30 s, each beside the same request
+     with float cross-KV and megakernel=False (ms per sampled token);
+     launch counts exact: K9b 4 per one-row decode_impl call, K2 and K7
+     never, K3/K5/K1 as phase 6's megakernel=False request;
+ 20. (inside phase 14) transcribe_batch of 8 x 30 s with the W8A8 encoder
+     and cross_kv_int8 (megakernel="int8" asked): K8 never, K9b 4 per
+     one-row decode_impl call (every lockstep step), K6 128 per encoder
+     pass; audio s per s and ms per lockstep step beside megakernel=False
+     with float cross-KV;
+ 21. K9a on its path: 8 decode_impl steps at B = 8 on the q8_0 decoder
+     over QuantKVNat planes against the same steps over QuantKV planes of
+     the same cross-KV: logits within 5e-3 of max|ref|, 4 K9a launches per
+     step;
+ 22. narrow f32 (3 decoder layers) with cross_kv_int8 on the card against
+     the CPU: greedy 35 s, beam 3 on 40 s, transcribe_batched of 60 s in 2
+     chunks: token ids equal, at least 100 each, K9b launched on the card.
+Phases 11-13 and 18 run right after phase 3, with the other kernel checks;
+19 and 21 right after 6, on its checkpoint.
 Every phase prints ms per sampled token beside its RTF. The last three lines are the kernels JSON, the nvidia-smi name/power line
 and {"ok": true, "device": {...}}. Imports nothing of JAX.
 
@@ -152,7 +181,7 @@ NARROW = (51864, 1500, 128, 2, 2, 448, 128, 2, 2, 80)
 NARROW_Q = (51864, 1500, 128, 2, 2, 448, 128, 2, 3, 80)   # 3 decoder layers
 TURBO = (51866, 1500, 1280, 20, 32, 448, 1280, 20, 4, 128)
 KERNELS = ("mha_packed", "mega_step", "qmm", "qmm4", "ffn_int8", "mega_beam", "w8a8",
-           "mega_batch")
+           "mega_batch", "cross_q8")
 SRC = "open_whisper_kit_tpu_torch/csrc/"
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over HBM bandwidth and its operations over the
@@ -178,17 +207,25 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
+def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None,
+            queued: bool = False) -> float:
     """Median device time of fn() in ms over `reps` launches. `flush`, a
     tensor larger than the L2 cache, is overwritten before each timed
     launch (outside the timed span), so fn reads its inputs from HBM as a
-    caller streaming many weights does."""
+    caller streaming many weights does. The span starts when the card
+    reaches it: a call whose host side (the wrapper's checks, allocations
+    and launches) outlasts its kernels is timed with that host time in it.
+    `queued` puts a 1 ms spin on the card before the span, so the host
+    has issued fn's launches before the span starts: the span then holds
+    the kernels and the gaps between them only."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        if queued:
+            torch.cuda._sleep(2_000_000)     # about 1 ms at the H100's clock
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -977,7 +1014,8 @@ class BeamWitness:
 
 
 class CallCounter:
-    """Counts calls of the model's encoder pass and decoder forward, and the
+    """Counts calls of the model's encoder pass and decoder forward (`dec1`:
+    those over one token row), and the
     token loops' calls of the K2, K7 and K8 steps, while it is installed (each
     is looked up on its module at call time; the loops' views of the kernel
     module are swapped for one that counts, so the wrappers' own counters
@@ -985,7 +1023,7 @@ class CallCounter:
 
     def __init__(self, TM, DL, DB, TB=None):
         self.TM, self.DL, self.DB, self.TB = TM, DL, DB, TB
-        self.enc = self.dec = self.mega = self.beam = self.batch = 0
+        self.enc = self.dec = self.dec1 = self.mega = self.beam = self.batch = 0
         self._orig = (TM.encode_with_cross_kv, TM.decode_impl, DL.MK)
 
     def __enter__(self):
@@ -998,6 +1036,7 @@ class CallCounter:
 
         def decode(*a, **k):
             self.dec += 1
+            self.dec1 += (a[2] if len(a) > 2 else k["tokens"]).shape[1] == 1
             return dec(*a, **k)
 
         class CountingMK:
@@ -1059,20 +1098,24 @@ class RoundClock:
         self.TB._make_batch_step = self._make
 
 
-def serve_batch(torch, tr, FullParams, mods, tag, what, megakernel, enc_ms, int8_encoder):
+def serve_batch(torch, tr, FullParams, mods, tag, what, megakernel, enc_ms, int8_encoder,
+                cross_kv_int8=False):
     """One batched request: `what` "batch" (transcribe_batch of 8 x 30 s)
     or "parallel" (full_parallel of 240 s over 8 chunks), greedy with
     temperature_inc = 0. Checks the launch counts: K6 128 and K1 32 per
     encoder pass (K6 0 with the dense encoder), K8 once per lockstep step
-    the loop issues (0 with megakernel=False), K7 never, K2 only in chunks
-    whose quality gates sent them to whisper_full. Prints audio seconds per
-    second, encoder ms per round (`enc_ms`, timed apart) and ms per
-    lockstep step (the rounds' wall less their encoder passes, over the
-    steps in which a stream was running). Returns (launches, results)."""
-    A, Q, MK, E8, TB = mods.A, mods.Q, mods.MK, mods.E8, mods.TB
+    the loop issues (0 with megakernel=False or `cross_kv_int8`), K9b
+    n_text_layer per one-row decode_impl call with `cross_kv_int8` (else
+    0), K7 never, K2 only in chunks whose quality gates sent them to
+    whisper_full. Prints audio seconds per second, encoder ms per round
+    (`enc_ms`, timed apart) and ms per lockstep step (the rounds' wall less
+    their encoder passes, over the steps in which a stream was running).
+    Returns (launches, results, (audio s per s, ms per lockstep step))."""
+    A, Q, MK, E8, XQ, TB = mods.A, mods.Q, mods.MK, mods.E8, mods.XQ, mods.TB
     p = greedy_params(FullParams)
     p.megakernel = megakernel
-    reset_counts(A, Q, MK, E8)
+    p.cross_kv_int8 = cross_kv_int8
+    reset_counts(A, Q, MK, E8, XQ)
     files = [audio(30.0, 500 + b) for b in range(8)]
     with CallCounter(mods.TM, mods.DL, mods.DB, TB) as calls, RoundClock(TB) as clock:
         t0 = time.perf_counter()
@@ -1090,19 +1133,27 @@ def serve_batch(torch, tr, FullParams, mods, tag, what, megakernel, enc_ms, int8
     got = {"w8a8_mm": E8.w8a8_mm.launches, "mha_packed": A.mha_packed.launches,
            "mega_decode_step_batch": MK.mega_decode_step_batch.launches,
            "mega_decode_step": MK.mega_decode_step.launches,
-           "mega_decode_step_beam": MK.mega_decode_step_beam.launches}
+           "mega_decode_step_beam": MK.mega_decode_step_beam.launches,
+           "cross_attention_q8": XQ.cross_attention_q8.launches}
     print(f"[{tag}] {what} 240 s audio, {'W8A8' if int8_encoder else 'dense'} encoder, "
-          f"megakernel={megakernel!r}: wall {wall:.3f} s, {240.0 / wall:.1f} audio s per s; "
+          f"megakernel={megakernel!r}, cross_kv_int8={cross_kv_int8}: wall {wall:.3f} s, "
+          f"{240.0 / wall:.1f} audio s per s; "
           f"rounds {rounds}, lockstep steps {steps} ({loop_ms / max(steps, 1):.2f} ms per "
           f"step), encoder {enc_ms:.1f} ms per round; chunks sent to whisper_full "
           f"{fell_back}; encoder passes {calls.enc}, K8 steps {calls.batch}, K2 steps "
-          f"{calls.mega}; launches {got}; emitted tokens {n_tok}", flush=True)
+          f"{calls.mega}, one-row decode_impl calls {calls.dec1}; launches {got}; emitted "
+          f"tokens {n_tok}", flush=True)
     check(rounds > 0 and n_tok > 0, f"{tag}: no lockstep round or no tokens")
     n_layer = tr.ctx.cfg.n_audio_layer
     check(got["w8a8_mm"] == (4 * n_layer * calls.enc if int8_encoder else 0)
           and got["mha_packed"] == n_layer * calls.enc,
           f"{tag}: K6/K1 launches {got} for {calls.enc} encoder passes")
-    on = megakernel in (True, "int8", "int4")
+    on = megakernel in (True, "int8", "int4") and not cross_kv_int8
+    n_layer_dec = tr.ctx.cfg.n_text_layer
+    check(got["cross_attention_q8"] == (n_layer_dec * calls.dec1 if cross_kv_int8 else 0)
+          and (calls.dec1 >= steps - rounds or not cross_kv_int8),
+          f"{tag}: K9b launches {got['cross_attention_q8']} for {calls.dec1} one-row "
+          f"decode_impl calls over {steps} lockstep steps")
     check(got["mega_decode_step_batch"] == calls.batch
           and ((steps - rounds <= calls.batch <= steps + 15 * rounds) if on
                else calls.batch == 0),
@@ -1111,10 +1162,11 @@ def serve_batch(torch, tr, FullParams, mods, tag, what, megakernel, enc_ms, int8
     check(got["mega_decode_step_beam"] == 0 and got["mega_decode_step"] == calls.mega
           and (fell_back > 0 or calls.mega == 0),
           f"{tag}: K2/K7 launched outside the whisper_full fallback: {got}")
-    return got, results
+    return got, results, (240.0 / wall, loop_ms / max(steps, 1))
 
 
-def phase_batched(torch, Transcriber, FullParams, mods, q8_path, profiling=False) -> dict:
+def phase_batched(torch, Transcriber, FullParams, mods, q8_path, profiling=False,
+                  done=None) -> dict:
     """Batched serving at full large-v3-turbo width (seed-0 preset): the
     W8A8 encoder against the dense one (per-position cosine > 0.98 and
     relative error < 0.1, the JAX package's envelope), both timed on a
@@ -1123,7 +1175,11 @@ def phase_batched(torch, Transcriber, FullParams, mods, q8_path, profiling=False
     with megakernel=False (staged decode_impl), with the dense encoder;
     full_parallel of 240 s over 8 chunks; one 30 s whisper_full request
     with the W8A8 encoder; and transcribe_batch on the q8_0 checkpoint with
-    the W8A8 encoder and K8. Returns the main path's launches."""
+    the W8A8 encoder and K8. Phase 20 sits among them: transcribe_batch of
+    8 x 30 s with the W8A8 encoder and cross_kv_int8 (megakernel="int8"
+    asked: K8 stays off, K9b runs every lockstep step), beside the same
+    request with float cross-KV and megakernel=False. `done(tag)` prints a
+    phase's time. Returns the main path's launches."""
     TM, E8, TB = mods.TM, mods.E8, mods.TB
     tr = Transcriber(preset="large-v3-turbo", dtype=torch.bfloat16, seed=0)
     ctx, cfg = tr.ctx, tr.ctx.cfg
@@ -1148,14 +1204,25 @@ def phase_batched(torch, Transcriber, FullParams, mods, q8_path, profiling=False
           and cos.min().item() > 0.98 and rel < 0.1,
           "the W8A8 turbo encoder is outside the envelope of the dense one")
     ctx.params["encoder"] = enc8
-    launches, _ = serve_batch(torch, tr, FullParams, mods, "14", "batch", "int8",
-                              enc_ms["w8a8"], True)
+    launches, _, _ = serve_batch(torch, tr, FullParams, mods, "14", "batch", "int8",
+                                 enc_ms["w8a8"], True)
     if profiling:
         pb = greedy_params(FullParams)
         pb.megakernel = "int8"
         profile_call(torch, "batch8-w8a8-k8", "transcribe_batch 8 x 30 s, W8A8, K8 int8",
                      lambda: tr.transcribe_batch([audio(30.0, 500 + b) for b in range(8)], pb))
-    serve_batch(torch, tr, FullParams, mods, "14", "batch", False, enc_ms["w8a8"], True)
+    _, _, flt = serve_batch(torch, tr, FullParams, mods, "14", "batch", False, enc_ms["w8a8"],
+                            True)
+    if done is not None:
+        done("14")
+    # ---- 20. the same batch with int8 cross-KV: K9b every lockstep step ----
+    _, _, q8 = serve_batch(torch, tr, FullParams, mods, "20", "batch", "int8", enc_ms["w8a8"],
+                           True, cross_kv_int8=True)
+    print(f"[20] 8 x 30 s, W8A8 encoder: int8 cross-KV (K9b) {q8[0]:.1f} audio s per s, "
+          f"{q8[1]:.2f} ms per lockstep step; float cross-KV, megakernel=False {flt[0]:.1f} "
+          f"audio s per s, {flt[1]:.2f} ms per lockstep step", flush=True)
+    if done is not None:
+        done("20")
     serve_batch(torch, tr, FullParams, mods, "14", "parallel", "int8", enc_ms["w8a8"], True)
     reset_counts(mods.A, mods.Q, mods.MK, E8)
     res = serve(torch, tr, FullParams, 30.0, 30, "14 single-stream W8A8")
@@ -1251,6 +1318,52 @@ def phase_narrow_batched(torch, TF, TM, tok_mod, FullParams, mods, q8_path, toke
     n_tok = sum(map(len, ids["cpu"][:len(Q8_BATCH_SEEDS)]))
     check(ids["cuda"][:len(Q8_BATCH_SEEDS)] == ids["cpu"][:len(Q8_BATCH_SEEDS)]
           and n_tok >= 100, "narrow q8_0 batch with K8: cuda and cpu differ")
+    ingest_split(torch, TF, TM, TB, mods, q8_path, pq, Q8_BATCH_SHOWN + Q8_BATCH_SEEDS)
+
+
+def ingest_split(torch, TF, TM, TB, mods, q8_path, p, seeds) -> None:
+    """Where the card's first-step logits part from the CPU's on the narrow
+    bf16 q8_0 checkpoint: for each audio seed, the prompt ingest (the
+    lockstep prompt, cross-KV and decode_impl) on the card from the CPU's
+    encoder output, copied over, against the same ingest on the CPU, beside
+    the whole card path (mel, encoder, ingest) against the CPU. The first
+    difference is the ingest's share of the gap, the rest the mel's and the
+    encoder's. A seed whose transcripts agree is the yardstick."""
+    ctxs = {dev: TF.WhisperContext.from_file(q8_path, dtype=torch.bfloat16, device=dev)
+            for dev in ("cpu", "cuda")}
+    cpu, card = ctxs["cpu"], ctxs["cuda"]
+    prompt = torch.tensor([TB._init_prompt(cpu, p)])
+    frames = 2 * cpu.cfg.n_audio_ctx
+
+    def encode(ctx, samples):
+        mel = mods.mel_mod.log_mel_spectrogram(samples, ctx.filters, device=ctx.device)
+        return TM.encode(ctx.cfg, ctx.params["encoder"], mel.data[None, :frames])
+
+    def ingest(ctx, enc_out):
+        dec = ctx.params["decoder"]
+        xk, xv = TM.cross_kv(ctx.cfg, dec, enc_out)
+        kv_k, kv_v = TM.init_kv_cache(ctx.cfg, 1, dtype=ctx.dtype, device=ctx.device)
+        logits, _, _ = TM.decode_impl(ctx.cfg, dec, prompt.to(ctx.device), kv_k, kv_v, 0,
+                                      xk, xv, logits_pos=prompt.shape[1] - 1)
+        return logits[0, 0].float().cpu()
+
+    for seed in seeds:
+        samples = audio(40.0, seed)
+        enc_cpu, enc_card = encode(cpu, samples), encode(card, samples).cpu()
+        ref = ingest(cpu, enc_cpu)
+        from_cpu_enc = ingest(card, enc_cpu.to("cuda"))
+        whole = ingest(card, enc_card.to("cuda"))
+        top = torch.topk(ref, 2).values
+        gap = lambda a: (a - ref).abs().max().item()  # noqa: E731
+        print(f"[15] audio seed {seed}, first-step logits, max|ref| {ref.abs().max().item():.3e} "
+              f"(a bf16 step there {ref.abs().max().item() * 2.0 ** -8:.3e}), raw top-2 gap "
+              f"{(top[0] - top[1]).item():.3e}: card against cpu, the whole path "
+              f"{gap(whole):.3e} (encoder output max|diff| / max|ref| "
+              f"{((enc_card.float() - enc_cpu.float()).abs().max() / enc_cpu.float().abs().max()).item():.3e}); "
+              f"the ingest alone, from the cpu's encoder output {gap(from_cpu_enc):.3e}",
+              flush=True)
+        check(bool(torch.isfinite(whole).all() and torch.isfinite(from_cpu_enc).all()),
+              f"ingest split, audio seed {seed}: non-finite logits")
 
 
 def witness_k7(torch, tr, FullParams, DB) -> None:
@@ -1435,6 +1548,244 @@ def phase_narrow_speculative(torch, TF, FullParams, mods, q8_path, hp, tokens) -
           "narrow speculative: cuda and cpu differ, too few tokens, or not K2 greedy's")
 
 
+# K9 cases of phase 18: (kernel, dtype, heads, query rows B, plane batch Bk)
+# at 1500 audio positions; the turbo shapes of the main path (greedy: one
+# row; beam 5: five rows over one shared plane, batch stride 0; lockstep:
+# eight streams, each its own planes; K9a's route: eight streams on
+# 1504-row slabs, ta_valid = 1500) and a narrow f32 shape (S = 128)
+K9_CASES = [("K9b", "bf16", 20, 1, 1), ("K9b", "bf16", 20, 5, 1), ("K9b", "bf16", 20, 8, 8),
+            ("K9a", "bf16", 20, 8, 8), ("K9b", "f32", 2, 1, 1), ("K9a", "f32", 2, 8, 8)]
+K9_TA = 1500
+# gates against the plain version, relative to max|ref|: bf16 a tenth of a
+# percent past the kernels' own bf16 rounding of p * vs (JAX's K9b test
+# allows 2e-2 absolute on O(1) outputs); f32 the f32 summation order
+K9_TOL = {"bf16": 1e-2, "f32": 1e-5}
+F32_FLOP_PER_S = 67e12     # f32 outside the tensor cores (NVIDIA data sheet)
+
+
+def phase_k9(torch, TM, XQ) -> dict:
+    """K9b (cross_attention_q8) and K9a (cross_attention_q8_nat) against
+    their plain versions at K9_CASES on the same inputs (planes from
+    TM.quantize_cross_kv / quantize_cross_kv_nat of a random cross-KV), gated
+    at K9_TOL; times with the L2 cache flushed before each launch of the
+    kernel, the plain version and SDPA over the float K/V of the same shape
+    (the float cross-KV that int8 replaces: no single PyTorch call attends
+    over int8 planes with per-row scales, so library_ms stays null); the
+    bound (the live keys' planes and scales, q and out, at 3.35 TB/s).
+    Returns {"K9b": rows, "K9a": rows}."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(19)
+    l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    rows = {"K9b": [], "K9a": []}
+    for kernel, dt, H, B, Bk in K9_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        S, nat, scale = H * 64, kernel == "K9a", 64 ** -0.25
+        xk, xv = ((torch.randn(1, Bk, K9_TA, S, generator=g, device="cuda") * 0.5).to(dtype)
+                  for _ in range(2))
+        quant = TM.quantize_cross_kv_nat if nat else TM.quantize_cross_kv
+        qk, qv = quant(xk, H), quant(xv, H)
+        planes = (qk.qs[0], qk.scale[0], qv.qs[0], qv.scale[0])
+        extra = (qk.ta_valid,) if nat else ()
+        fn = XQ.cross_attention_q8_nat if nat else XQ.cross_attention_q8
+        plain = XQ.cross_attention_q8_nat_plain if nat else XQ.cross_attention_q8_plain
+        q = torch.randn(B, 1, S, generator=g, device="cuda").to(dtype)
+        ref = plain(q, *planes, H, scale, *extra)
+        got = fn(q, *planes, H, scale, *extra)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        shape = (f"B={B} over {'one shared plane' if Bk < B else f'{Bk} planes'}, H={H}, "
+                 f"Ta={K9_TA}{', Tap=%d' % planes[0].shape[1] if nat else ''}, {dt}")
+        print(f"[18] {kernel} {shape}: max|err| {err:.3e} max|ref| {ref_max:.3e} limit "
+              f"{K9_TOL[dt] * ref_max:.3e}", flush=True)
+        check(got.shape == q.shape and bool(torch.isfinite(got).all())
+              and err <= K9_TOL[dt] * ref_max,
+              f"{kernel} {shape} disagrees with its plain version")
+        # device time (launches queued behind a spin), and the call as an
+        # eager caller issues it (host side included)
+        k_ms = cuda_ms(torch, lambda: fn(q, *planes, H, scale, *extra), flush=l2_flush,
+                       queued=True)
+        c_ms = cuda_ms(torch, lambda: fn(q, *planes, H, scale, *extra), flush=l2_flush)
+        p_ms = cuda_ms(torch, lambda: plain(q, *planes, H, scale, *extra), flush=l2_flush,
+                       queued=True)
+        # the float path's attention over the same cross-KV: rows sharing a
+        # plane fold into queries, as decode_impl folds them
+        kh, vh = (x[0].view(Bk, K9_TA, H, 64).transpose(1, 2).contiguous() for x in (xk, xv))
+        qh = q.view(Bk, B // Bk, H, 64).transpose(1, 2).contiguous()
+        s_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
+                       flush=l2_flush, queued=True)
+        live = (Bk * H * K9_TA * 64, Bk * H * K9_TA * 4)     # plane and scale bytes a side
+        b_ms, b_by = bound(2 * sum(live) + 2 * nbytes(q), 4 * B * H * K9_TA * 64,
+                           BF16_FLOP_PER_S if dt == "bf16" else F32_FLOP_PER_S)
+        rows[kernel].append({"shape": shape, "max_abs_err": err, "ms": k_ms, "call_ms": c_ms,
+                             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                             "library_ms": None, "float_kv_sdpa_ms": s_ms})
+        print(f"[18]   kernel {k_ms * 1e3:.1f} us (the call with its host side {c_ms * 1e3:.1f} "
+              f"us), plain {p_ms * 1e3:.1f} us, SDPA over the float cross-KV that int8 "
+              f"replaces {s_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}) (median of 20, "
+              "cold L2; device times queued behind a spin)", flush=True)
+        del xk, xv, qk, qv, planes, q, ref, got, kh, vh, qh
+    del l2_flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+# the requests of phase 19 on the q8_0 checkpoint: (label, seconds, audio
+# seed, FullParams fields, beams)
+INT8_KV_REQUESTS = (("greedy", 30.0, 30, {}, 0), ("greedy", 65.0, 65, {}, 0),
+                    ("greedy, device_windows=1", 30.0, 30, {"device_windows": 1}, 0),
+                    ("beam 5", 30.0, 30, {}, K7_BEAMS))
+
+
+def phase_cross_int8(torch, tr, FullParams, mods) -> int:
+    """int8 cross-KV at full width on the q8_0 turbo checkpoint:
+    INT8_KV_REQUESTS with cross_kv_int8=True and megakernel left to the
+    policy (temperature_inc = 0), each beside the same request with float
+    cross-KV and megakernel=False, which takes the same decode_impl route
+    with float cross-attention. Launch counts exact: K9b n_text_layer per
+    one-row decode_impl call (none for the float request), K2 and K7 never,
+    K3 and K5 as phase 6's megakernel=False request, K1 per encoder pass.
+    Prints ms per sampled token of both. Returns the int8 requests' K9b
+    launches."""
+    A, Q, MK, XQ, TM, DL, DB = mods.A, mods.Q, mods.MK, mods.XQ, mods.TM, mods.DL, mods.DB
+    n_layer = tr.ctx.cfg.n_text_layer
+    k9b = 0
+    for label, secs, seed, kw, beams in INT8_KV_REQUESTS:
+        out = {}
+        for int8 in (True, False):
+            p = request_params(FullParams, megakernel=None if int8 else False,
+                               beam_size=beams)
+            p = dataclasses.replace(p, cross_kv_int8=int8, **kw)
+            check(tr.ctx.mega_mode(p) is None, f"{label}: a step kernel selected")
+            reset_counts(A, Q, MK, XQ=XQ)
+            with CallCounter(TM, DL, DB) as calls:
+                t0 = time.perf_counter()
+                res = tr.transcribe(audio(secs, seed), p)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            n_sample = res.timings.n_sample
+            n_tok = sum(len(s.tokens) for s in res.segments)
+            n9 = XQ.cross_attention_q8.launches
+            want_k3 = calls.enc * (TURBO_LAYERS * 6 + 4 * 2) + calls.dec * 4 * 4
+            out[int8] = wall * 1e3 / max(n_sample, 1)
+            print(f"[19] q8_0 {label}, {secs:.0f} s, cross_kv_int8={int8}: encoder passes "
+                  f"{calls.enc}, decode_impl calls {calls.dec} ({calls.dec1} one-row), sampled "
+                  f"tokens {n_sample}, emitted {n_tok}; launches K9b {n9}, K3 "
+                  f"{Q.qmm.launches} (predicted {want_k3}), K5 {Q.ffn_int8.launches}, K1 "
+                  f"{A.mha_packed.launches}, K2 {MK.mega_decode_step.launches}, K7 "
+                  f"{MK.mega_decode_step_beam.launches}; wall {wall:.3f} s, {out[int8]:.2f} "
+                  "ms per sampled token", flush=True)
+            check(n_tok > 0 and calls.dec1 > 0, f"{label}: no tokens or no one-row step")
+            check(n9 == (n_layer * calls.dec1 if int8 else 0)
+                  and XQ.cross_attention_q8_nat.launches == 0,
+                  f"{label}, cross_kv_int8={int8}: K9b launches {n9} for {calls.dec1} "
+                  "one-row decode_impl calls")
+            check(MK.mega_decode_step.launches == MK.mega_decode_step_beam.launches == 0
+                  and calls.mega == calls.beam == 0 and Q.qmm.launches == want_k3
+                  and Q.ffn_int8.launches == 4 * calls.dec and Q.qmm4.launches == 0
+                  and A.mha_packed.launches == TURBO_LAYERS * calls.enc,
+                  f"{label}, cross_kv_int8={int8}: launch counts off prediction")
+            if int8:
+                k9b += n9
+        print(f"[19] q8_0 {label}, {secs:.0f} s: {out[True]:.2f} ms per sampled token with "
+              f"int8 cross-KV (K9b), {out[False]:.2f} with float cross-KV (megakernel=False)",
+              flush=True)
+    return k9b
+
+
+K9A_STEPS = 8
+K9A_TOL = 5e-3      # JAX's tests/test_whisper_model.py QuantKVNat tolerance
+
+
+def phase_k9a_path(torch, tr, mods) -> int:
+    """K9a on its path: K9A_STEPS full-width decode_impl steps at B = 8
+    streams on the q8_0 checkpoint's decoder, once over QuantKVNat planes
+    (K9a) and once over QuantKV planes (K9b) of the same cross-KV, from the
+    same inputs (each step's token the QuantKV run's argmax): logits within
+    K9A_TOL of max|ref|, n_text_layer K9a launches per step. Returns K9a's
+    launches."""
+    TM, XQ = mods.TM, mods.XQ
+    cfg, dec = tr.ctx.cfg, tr.ctx.params["decoder"]
+    B, H, L = K8_STREAMS, cfg.n_text_head, cfg.n_text_layer
+    g = torch.Generator(device="cuda").manual_seed(21)
+    enc = torch.randn(B, cfg.n_audio_ctx, cfg.n_audio_state, generator=g,
+                      device="cuda").to(torch.bfloat16)
+    xk, xv = TM.cross_kv(cfg, dec, enc)
+    planes = {"QuantKVNat": (TM.quantize_cross_kv_nat(xk, H), TM.quantize_cross_kv_nat(xv, H)),
+              "QuantKV": (TM.quantize_cross_kv(xk, H), TM.quantize_cross_kv(xv, H))}
+    caches = {k: TM.init_kv_cache(cfg, B, dtype=torch.bfloat16, device="cuda") for k in planes}
+    tok = torch.randint(0, cfg.n_vocab, (B, 1), generator=g, device="cuda")
+    errs, n9a = [], 0
+    for step in range(K9A_STEPS):
+        logits = {}
+        for kind in ("QuantKVNat", "QuantKV"):
+            XQ.cross_attention_q8_nat.launches = XQ.cross_attention_q8.launches = 0
+            kv_k, kv_v = caches[kind]
+            out, kv_k, kv_v = TM.decode_impl(cfg, dec, tok, kv_k, kv_v, step, *planes[kind])
+            caches[kind] = kv_k, kv_v
+            torch.cuda.synchronize()
+            logits[kind] = out[:, 0].float()
+            launched = (XQ.cross_attention_q8_nat.launches, XQ.cross_attention_q8.launches)
+            check(launched == ((L, 0) if kind == "QuantKVNat" else (0, L)),
+                  f"K9a path step {step}, {kind}: launches (K9a, K9b) {launched}")
+            n9a += launched[0]
+        ref = logits["QuantKV"]
+        errs.append(((logits["QuantKVNat"] - ref).abs().max() / ref.abs().max()).item())
+        check(bool(torch.isfinite(logits["QuantKVNat"]).all()) and errs[-1] <= K9A_TOL,
+              f"K9a path step {step}: logits {errs[-1]:.3e} of max|ref| off the QuantKV run")
+        tok = ref.argmax(1)[:, None]
+    print(f"[21] {K9A_STEPS} decode_impl steps at B = {B}, q8_0 turbo decoder: QuantKVNat "
+          f"(K9a, {planes['QuantKVNat'][0].qs.shape[2]}-row slabs, ta_valid "
+          f"{planes['QuantKVNat'][0].ta_valid}) against QuantKV (K9b): logits max|diff| / "
+          f"max|ref| per step {[f'{e:.2e}' for e in errs]} (limit {K9A_TOL}); K9a launches "
+          f"{n9a}", flush=True)
+    del planes, caches, enc, xk, xv
+    torch.cuda.empty_cache()
+    return n9a
+
+
+# audio seeds of phase 22 (narrow f32, cross_kv_int8, cuda against cpu):
+# (greedy 35 s, beam 3 40 s, transcribe_batched 60 s in 2 chunks); each CPU
+# transcript stays the same when the input is scaled by 1 +- 2^-20, 2^-16
+# or 2^-13
+INT8_KV_NARROW_SEEDS = (0, 1, 0)
+
+
+def phase_narrow_cross_int8(torch, TF, TM, tok_mod, FullParams, mods, tokens) -> None:
+    """int8 cross-KV on the card against the CPU at narrow width (the f32
+    timestamp config): greedy whisper_full of 35 s, beam 3 of 40 s and
+    transcribe_batched of 60 s in 2 chunks, cross_kv_int8=True: token ids
+    equal, at least 100 each; on the card K9b launches, on the CPU none."""
+    XQ, TB = mods.XQ, mods.TB
+    cfg3 = TM.WhisperConfig(*NARROW_Q)
+    params3 = TM.init_params(cfg3, seed=0, dtype=torch.float32, device="cpu")
+    p = dataclasses.replace(greedy_params(FullParams), cross_kv_int8=True)
+    pb = dataclasses.replace(request_params(FullParams, beam_size=3), cross_kv_int8=True)
+    sg, sb, st = INT8_KV_NARROW_SEEDS
+    runs = (("greedy 35 s", lambda c: TF.whisper_full(c, p, audio(35.0, sg))),
+            ("beam 3, 40 s", lambda c: TF.whisper_full(c, pb, audio(40.0, sb))),
+            ("transcribe_batched 60 s in 2 chunks",
+             lambda c: TB.transcribe_batched(c, p, audio(60.0, st), n_chunks=2)))
+    ctxs = {dev: TF.WhisperContext(cfg3, params3, tok_mod.build_vocab(tokens, cfg3.n_vocab),
+                                   TF._synthetic_mel_filters(80), n_loaded=1,
+                                   dtype=torch.float32, device=dev) for dev in ("cuda", "cpu")}
+    for label, run in runs:
+        ids, n9 = {}, {}
+        for dev, c in ctxs.items():
+            XQ.cross_attention_q8.launches = 0
+            r = run(c)
+            ids[dev] = [t.id for s in r.segments for t in s.tokens]
+            n9[dev] = XQ.cross_attention_q8.launches
+        first = next((i for i, (a, b) in enumerate(zip(ids["cuda"], ids["cpu"])) if a != b),
+                     min(len(ids["cuda"]), len(ids["cpu"])))
+        print(f"[22] narrow f32, cross_kv_int8, {label}: tokens cuda {len(ids['cuda'])} cpu "
+              f"{len(ids['cpu'])}, equal {ids['cuda'] == ids['cpu']}, equal prefix {first}; "
+              f"K9b launches cuda {n9['cuda']} cpu {n9['cpu']}", flush=True)
+        check(ids["cuda"] == ids["cpu"] and len(ids["cpu"]) >= 100 and n9["cuda"] > 0
+              and n9["cpu"] == 0, f"narrow int8 cross-KV {label}: cuda and cpu differ, too "
+              "few tokens, or K9b not launched on the card")
+
+
 def profile_request(torch, tr, FullParams, secs, seed, tag, beam_size=0) -> None:
     """One request (greedy, or beam search with `beam_size`) under
     torch.profiler (profile_call)."""
@@ -1477,13 +1828,15 @@ def profile_call(torch, tag, label, run) -> None:
     (out / f"profile-{tag}.txt").write_text(rows.table(sort_by=sort, row_limit=40))
 
 
-def reset_counts(A, Q, MK, E8=None) -> None:
+def reset_counts(A, Q, MK, E8=None, XQ=None) -> None:
     A.mha_packed.launches = MK.mega_decode_step.launches = 0
     MK.mega_decode_step.launches_by_rows.clear()
     MK.mega_decode_step_beam.launches = MK.mega_decode_step_batch.launches = 0
     Q.qmm.launches = Q.qmm4.launches = Q.ffn_int8.launches = 0
     if E8 is not None:
         E8.w8a8_mm.launches = 0
+    if XQ is not None:
+        XQ.cross_attention_q8.launches = XQ.cross_attention_q8_nat.launches = 0
 
 
 def request_params(FullParams, greedy=True, megakernel=None, beam_size=0):
@@ -1551,11 +1904,12 @@ def main(profiling: bool = False) -> int:
     from open_whisper_kit_tpu_torch.ops import attention as A
     from open_whisper_kit_tpu_torch.ops import decode_megakernel as MK
     from open_whisper_kit_tpu_torch.ops import encoder_int8 as E8
+    from open_whisper_kit_tpu_torch.ops import experiments as XQ
     from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
     from open_whisper_kit_tpu_torch.decode import batch as TB
     import types
     import numpy as np
-    mods = types.SimpleNamespace(A=A, Q=Q, MK=MK, E8=E8, TB=TB, TM=TM, DL=DL, DB=DB,
+    mods = types.SimpleNamespace(A=A, Q=Q, MK=MK, E8=E8, XQ=XQ, TB=TB, TM=TM, DL=DL, DB=DB,
                                  mel_mod=mel_mod, np=np, W=W)
 
     phase_t = {}
@@ -1580,6 +1934,7 @@ def main(profiling: bool = False) -> int:
     MK._kernel_lib("mega_beam")
     MK._kernel_lib("mega_batch")
     E8._kernel_lib()
+    XQ._kernel_lib()
     for name in ("qmm", "qmm4", "ffn_int8"):
         Q._kernel_lib(name)
     print(f"[2] {', '.join(KERNELS)} built and loaded in "
@@ -1602,6 +1957,9 @@ def main(profiling: bool = False) -> int:
     done("12")
     k8 = phase_k8(torch, TM, MK, Q)
     done("13")
+    # ---- 18. K9b and K9a (int8 cross-KV) against their plain versions ----
+    k9 = phase_k9(torch, TM, XQ)
+    done("18")
 
     # ---- 4. turbo bf16 requests through the public entry point ----
     t0 = time.perf_counter()
@@ -1761,9 +2119,16 @@ def main(profiling: bool = False) -> int:
         if profiling:
             profile_request(torch, tr, FullParams, 30.0, 30, "q8_0")
             profile_request(torch, tr, FullParams, 30.0, 30, "q8_0-beam5", beam_size=K7_BEAMS)
+        done("6")
+
+        # ---- 19. int8 cross-KV requests on the q8_0 checkpoint (K9b) ----
+        launches["cross_attention_q8"] = phase_cross_int8(torch, tr, FullParams, mods)
+        done("19")
+        # ---- 21. K9a on its path: decode_impl over QuantKVNat planes ----
+        launches["cross_attention_q8_nat"] = phase_k9a_path(torch, tr, mods)
         del tr, blocks
         torch.cuda.empty_cache()
-        done("6")
+        done("21")
 
         # ---- 7. runtime W8 and W4 logits on the turbo preset ----
         tr = Transcriber(preset="large-v3-turbo", dtype=torch.bfloat16,
@@ -1928,11 +2293,12 @@ def main(profiling: bool = False) -> int:
               f"{len(Q8_BEAM_SEEDS)} requests", flush=True)
         done("10")
 
-        # ---- 14. batched serving at full width: the W8A8 encoder and K8 ----
+        # ---- 14 and 20. batched serving at full width: the W8A8 encoder and
+        # K8; with int8 cross-KV (K9b) ----
         got = phase_batched(torch, Transcriber, FullParams, mods,
-                            tmp / "ggml-large-v3-turbo-q8_0.bin", profiling)
+                            tmp / "ggml-large-v3-turbo-q8_0.bin", profiling, done)
         launches.update({k: got[k] for k in ("w8a8_mm", "mega_decode_step_batch")})
-        done("14")
+        done("14, the rest")
 
         # ---- 15. narrow batched serving: cuda against cpu ----
         phase_narrow_batched(torch, TF, TM, tok_mod, FullParams, mods, path, tokens)
@@ -1946,6 +2312,10 @@ def main(profiling: bool = False) -> int:
         # ---- 17. narrow speculative decoding: cuda against cpu ----
         phase_narrow_speculative(torch, TF, FullParams, mods, path, hp, tokens)
         done("17")
+
+        # ---- 22. narrow int8 cross-KV: cuda against cpu ----
+        phase_narrow_cross_int8(torch, TF, TM, tok_mod, FullParams, mods, tokens)
+        done("22")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1958,7 +2328,9 @@ def main(profiling: bool = False) -> int:
                 "w8a8_mm": "open_whisper_kit_tpu/ops/encoder_int8.py:129",
                 "qmm": "open_whisper_kit_tpu/ops/quant_matmul.py:129",
                 "qmm4": "open_whisper_kit_tpu/ops/quant_matmul.py:280",
-                "ffn_int8": "open_whisper_kit_tpu/ops/quant_matmul.py:385"}
+                "ffn_int8": "open_whisper_kit_tpu/ops/quant_matmul.py:385",
+                "cross_attention_q8": "open_whisper_kit_tpu/ops/experiments.py:155",
+                "cross_attention_q8_nat": "open_whisper_kit_tpu/ops/experiments.py:73"}
     rows = [{"name": "mha_packed", **k1},
             {"name": "mega_decode_step", **k2["all"], "modes": list(k2.values())},
             {"name": "mega_decode_step_verify", **k2v[("all", 5)],
@@ -1966,14 +2338,17 @@ def main(profiling: bool = False) -> int:
             {"name": "mega_decode_step_beam", **k7["all"], "modes": list(k7.values())},
             {"name": "mega_decode_step_batch", **k8["all"], "modes": list(k8.values())},
             {"name": "w8a8_mm", **next(r for r in k6 if r["shape"].startswith(K6_HEADLINE)),
-             "shapes": k6}]
+             "shapes": k6},
+            {"name": "cross_attention_q8", **k9["K9b"][0], "shapes": k9["K9b"]},
+            {"name": "cross_attention_q8_nat", **k9["K9a"][0], "shapes": k9["K9a"]}]
     for name, i in head.items():
         rows.append({"name": name, **{k: v for k, v in quant[name][i].items()
                                       if k != "shape"},
                      "shape": quant[name][i]["shape"], "shapes": quant[name]})
     stems = {"mega_decode_step": "mega_step", "mega_decode_step_verify": "mega_step",
              "mega_decode_step_beam": "mega_beam",
-             "mega_decode_step_batch": "mega_batch", "w8a8_mm": "w8a8"}
+             "mega_decode_step_batch": "mega_batch", "w8a8_mm": "w8a8",
+             "cross_attention_q8": "cross_q8", "cross_attention_q8_nat": "cross_q8"}
     for r in rows:
         stem = stems.get(r["name"], r["name"])
         r.update(route="cuda", source=SRC + stem + ".cu",

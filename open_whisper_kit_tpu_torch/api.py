@@ -110,7 +110,8 @@ class Transcriber:
         """Lockstep multi-file transcription: every file's windows decode
         together, the B files' encoder passes as one batch and one decoder
         step for all B per token (kernel K8 with `megakernel` True, "int8"
-        or "int4"). Greedy-t0 serving path with per-file fallback to
+        or "int4"; with `cross_kv_int8`, int8 cross-KV planes read by
+        kernel K9b instead). Greedy-t0 serving path with per-file fallback to
         whisper_full where the quality gates trip; params outside that
         envelope run the files one by one through whisper_full."""
         p = params or FullParams(print_progress=False)

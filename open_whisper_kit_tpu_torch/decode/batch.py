@@ -17,7 +17,8 @@ changes nothing recorded, and the step counter `i` stops there, so
 result per round. Each token step is one call of kernel K8
 (ops/decode_megakernel.py::mega_decode_step_batch, on the time-major
 self-cache) when `FullParams.megakernel` asks for it (True, "int8",
-"int4"; B <= 8), else one `decode_impl` over the B streams on a self-cache
+"int4"; B <= 8, float cross-KV), else one `decode_impl` over the B streams
+(with `cross_kv_int8`, its cross-attention through kernel K9b) on a self-cache
 that starts 128 positions wide and widens to 256 (then the full context)
 only when a step reaches that position: the masked columns add exact zeros
 to the softmax, so the staged run equals the full-width one.
@@ -138,6 +139,7 @@ class _StaticArgs:
     max_tokens: int
     no_timestamps: bool
     stub: bool
+    cross_kv_int8: bool = False   # int8 QuantKV cross-KV planes (kernel K9b)
     # staged self-KV widths of the decode_impl branch: the cache is only as
     # wide as the positions reached so far (128 -> 256 covers a whole
     # no-context batched decode, n_max = n_text_ctx/2 - 4); masked columns
@@ -166,6 +168,10 @@ def _make_batch_step(sa: _StaticArgs, reads: HostReads):
         B = len(seeks)
         windows = _gather_windows(mel_data, seeks, cfg.n_audio_ctx)
         _, xk, xv = M.encode_with_cross_kv(cfg, params["encoder"], dec, windows)
+        if sa.cross_kv_int8:
+            # halves the cross-KV bytes every lockstep step reads
+            xk = M.quantize_cross_kv(xk, cfg.n_text_head)
+            xv = M.quantize_cross_kv(xv, cfg.n_text_head)
 
         t_prompt = prompt.shape[1]
         prompts = prompt.expand(B, t_prompt)
@@ -311,11 +317,11 @@ def _lockstep_chunks(ctx: F.WhisperContext, p: FullParams, mel_data: torch.Tenso
     (plus window zero-pad). Returns (per-chunk segments with CHUNK-LOCAL
     timestamps, per-chunk Timings). `fallback_audio(b)` yields the chunk's
     samples for the QA-gate re-run through the single-stream driver.
-    Int8 cross-KV (`p.cross_kv_int8`, the JAX package's `cross_kv_int8`
-    argument) is not ported and raises."""
-    if p.cross_kv_int8:
-        raise NotImplementedError("cross_kv_int8 is not ported to the PyTorch "
-                                  "package yet")
+    `p.cross_kv_int8` (the JAX package's `cross_kv_int8` argument) quantizes
+    each round's cross-KV to int8 planes: the lockstep steps then run kernel
+    K9b, and K8 stays off, as in the JAX package. Options the port does not
+    have yet raise (decode/full.py::_refuse_unported)."""
+    F._refuse_unported(p)
     cfg = ctx.cfg
     vocab = ctx.vocab
     B = len(bases)
@@ -328,12 +334,13 @@ def _lockstep_chunks(ctx: F.WhisperContext, p: FullParams, mel_data: torch.Tenso
     kv_stages = _kv_stage_widths(cfg.n_text_ctx, len(prompt_init) + n_max + 1)
     sa = _StaticArgs(cfg=cfg, rc=ctx.rule_config, n_max=n_max, max_tokens=p.max_tokens,
                      no_timestamps=p.no_timestamps, stub=ctx.n_loaded == 0,
-                     kv_stages=kv_stages)
+                     cross_kv_int8=p.cross_kv_int8, kv_stages=kv_stages)
     step = _make_batch_step(sa, ctx.reads)
     # K8 on explicit opt-in only, as in the JAX package (its first-cut TPU
-    # kernel was slower than the XLA batch step, so "auto" never picks it)
+    # kernel was slower than the XLA batch step, so "auto" never picks it);
+    # it does not take int8 cross-KV planes
     mega = (ctx.mega_params(p) if p.megakernel in (True, "int8", "int4") and B <= 8
-            else None)
+            and not p.cross_kv_int8 else None)
 
     bases = np.asarray(bases, np.int64)
     seeks = bases.copy()                          # absolute frame cursors

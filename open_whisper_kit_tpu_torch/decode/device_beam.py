@@ -94,7 +94,8 @@ def decode_segment_beam(cfg: M.WhisperConfig, rc: LR.RuleConfig,
                         cache_dtype: torch.dtype = torch.bfloat16
                         ) -> BeamSegmentResult:
     """Beam-search one window on the prompt's device. prompt (1, T_pad)
-    long; xk/xv (L, 1, Ta, S) cross-KV, shared by the beams; `scalars` =
+    long; xk/xv (L, 1, Ta, S) cross-KV or batch-1 QuantKV planes, shared by
+    the beams (`mega` reads the float cross-KV only); `scalars` =
     (t_real, token_nosp, seek, seek_end): t_real and seek ints or 0-d
     tensors (the window loop keeps t_real on the device). The self-KV
     caches are allocated here. The loop runs at most n_max steps and stops

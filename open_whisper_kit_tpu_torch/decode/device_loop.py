@@ -153,10 +153,11 @@ def segment_core(cfg: M.WhisperConfig, rc: LR.RuleConfig,
     """Greedy segment decode on the prompt's device; shared by the one-window
     `decode_segment` and the K-windows loop in decode/device_windows.py.
 
-    prompt (1, T_pad) long; `t_real` a 0-d long tensor (the real prompt
-    length, so the window loop can build the prompt on the device); `seek`
-    an int or a 0-d tensor. kv_k/kv_v (L,1,n_ctx,S) are overwritten in
-    place. The loop runs at most n_max steps and stops at the first
+    prompt (1, T_pad) long; xk/xv the window's cross-KV, float or QuantKV
+    planes (`mega` reads the float cross-KV only); `t_real` a 0-d long
+    tensor (the real prompt length, so the window loop can build the prompt
+    on the device); `seek` an int or a 0-d tensor. kv_k/kv_v (L,1,n_ctx,S)
+    are overwritten in place. The loop runs at most n_max steps and stops at the first
     `reads.flag` poll (every POLL steps) after the segment ended."""
     token_beg, token_eot = rc.token_beg, rc.token_eot
     dev = prompt.device

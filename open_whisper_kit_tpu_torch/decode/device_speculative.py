@@ -79,7 +79,8 @@ def speculative_core(cfg: M.WhisperConfig, dcfg: M.WhisperConfig, rc: LR.RuleCon
     decode/device_windows.py.
 
     dec/ddec are the target's and the draft's prepared decoders, xk/xv and
-    dxk/dxv their (L, 1, Ta, S) cross-KV for this window; prompt (1, T_pad)
+    dxk/dxv their (L, 1, Ta, S) cross-KV for this window (the target's may
+    be QuantKV planes; `tmega` reads the float cross-KV only); prompt (1, T_pad)
     long; `t_real` a 0-d long tensor; `seek` an int or a 0-d tensor. Both
     models' self-caches are allocated here, n_text_ctx + gamma + 4 rows (a
     verify pass may write gamma + 1 rows past the last token). Returns

@@ -1,7 +1,7 @@
 """Multi-window decode: up to K 30 s windows per call (port of
 open_whisper_kit_tpu/decode/device_windows.py: greedy mode with or without
 the decode-step kernel K2, beam mode with or without the beam-step kernel
-K7, and speculative mode; the int8 cross-KV mode is not ported yet).
+K7, and speculative mode; any of them over an int8 cross-KV, `quant_kv`).
 
 Each window runs on the device: encoder + cross-KV, the prompt build from
 the right-aligned rolling context, the segment decode (greedy:
@@ -146,7 +146,8 @@ def decode_windows(cfg: M.WhisperConfig, rc: LR.RuleConfig,
                    window_frames: int = 2 * 1500,
                    fallback_available: bool = True,
                    mega: MegaParams | None = None,
-                   beam_size: int = 0, draft: Draft | None = None) -> WindowsResult:
+                   beam_size: int = 0, draft: Draft | None = None,
+                   quant_kv: bool = False) -> WindowsResult:
     """Decode up to K windows, greedily, by beam search (beam_size > 1) or
     speculatively (`draft`: each window's draft encoder pass and
     speculative_core; the result's n_rounds and n_accepted count its verify
@@ -158,7 +159,10 @@ def decode_windows(cfg: M.WhisperConfig, rc: LR.RuleConfig,
     past_len]. fscalars floats: [logprob_thold, entropy_thold,
     no_speech_thold] (+ length_penalty in beam mode). `mega`: token steps
     run kernel K2 (greedy, device_loop.segment_core) or K7 (beam,
-    device_beam.decode_segment_beam, cross-KV shared by the beams)."""
+    device_beam.decode_segment_beam, cross-KV shared by the beams).
+    `quant_kv`: each window's cross-KV is quantized to int8 QuantKV planes
+    after its encoder pass (the one-row decoder steps run kernel K9b; the
+    draft's cross-KV stays float), the JAX loop's `quant_kv`."""
     dev = mel_data.device
     token_nosp, token_prev, seek0, seek_start, seek_end, past_len0 = (
         int(x) for x in iscalars[:6])
@@ -196,6 +200,9 @@ def decode_windows(cfg: M.WhisperConfig, rc: LR.RuleConfig,
         window = mel_data[i0:i0 + window_frames]
         _eo, xk, xv = M.encode_with_cross_kv(cfg, enc_params, dec_params,
                                              window[None])
+        if quant_kv:
+            xk = M.quantize_cross_kv(xk, cfg.n_text_head)
+            xv = M.quantize_cross_kv(xv, cfg.n_text_head)
 
         # ---- build the prompt (whisper.cpp:7121-7148) ----
         if P > 0:

@@ -29,10 +29,16 @@ steps and one (gamma + 1)-row target verify pass a round (K2 at gamma + 1
 rows when the target's mode policy picks K2 and gamma + 1 <= 8), with the
 same output as greedy decoding.
 
+With `FullParams.cross_kv_int8` each window's cross-KV is quantized to
+int8 planes (model.QuantKV) right after its encoder pass, as the JAX
+package does, in every decode path (the one-window and K-window loops,
+beams, the host-stepped loops, the fallback's re-encode; a speculative
+draft keeps its float cross-KV): the one-row decoder steps then run kernel
+K9b (ops/experiments.py), and K2 and K7 stay off.
+
 Not ported yet, and refused with NotImplementedError: grammars, VAD,
-token-level and DTW timestamps, `ref_sampling`, int8 cross-KV, GGUF
-checkpoints, and the abort / logits-filter callbacks (they need a host
-poll every token).
+token-level and DTW timestamps, `ref_sampling`, GGUF checkpoints, and the
+abort / logits-filter callbacks (they need a host poll every token).
 """
 
 from __future__ import annotations
@@ -332,6 +338,14 @@ class WhisperContext:
         return M.encode_with_cross_kv(self.cfg, self.params["encoder"],
                                       self.params["decoder"], window[None])
 
+    def quantize_cross_kv(self, p: FullParams, xk, xv):
+        """(xk, xv) as the decoder reads them under `p`: int8 QuantKV planes
+        with `cross_kv_int8`, else the float cross-KV as it is."""
+        if not p.cross_kv_int8:
+            return xk, xv
+        H = self.cfg.n_text_head
+        return M.quantize_cross_kv(xk, H), M.quantize_cross_kv(xv, H)
+
     def rule_masks(self, p: FullParams):
         key = (p.suppress_blank, p.no_timestamps, p.tdrz_enable, p.suppress_nst,
                p.suppress_regex, p.max_initial_ts)
@@ -392,7 +406,6 @@ def _refuse_unported(p: FullParams) -> None:
         "token_timestamps": p.token_timestamps,
         "dtw_token_timestamps": p.dtw_token_timestamps,
         "ref_sampling": p.ref_sampling,
-        "cross_kv_int8": p.cross_kv_int8,
         "abort_callback (per-token host polling)": p.abort_callback is not None,
         "logits_filter_callback (per-token host polling)":
             p.logits_filter_callback is not None,
@@ -532,6 +545,7 @@ def whisper_full(ctx: WhisperContext, p: FullParams, samples: np.ndarray,
 
         t0 = time.perf_counter()
         _enc_out, xk, xv = ctx.encode_window(mel.data, seek, audio_ctx)
+        xk, xv = ctx.quantize_cross_kv(p, xk, xv)
         dxkv = None
         if speculating:
             _, dxk, dxv = ctx.draft.encode_window(draft_mel.data, seek, 0)
@@ -657,7 +671,7 @@ def _run_device_windows(ctx: WhisperContext, p: FullParams,
             window_frames=2 * cfg.n_audio_ctx,
             fallback_available=fallback_available,
             mega=None if gamma else ctx.mega_params(p), beam_size=beam_size,
-            draft=draft)
+            draft=draft, quant_kv=p.cross_kv_int8)
         r = DW.unpack_windows_result(
             ctx.reads.fetch(DW.pack_windows_result(res)), res, K, n_max)
         past_buf = res.past_buf        # stays on the device for the next call
@@ -698,6 +712,7 @@ def _run_device_windows(ctx: WhisperContext, p: FullParams,
 
             t0 = time.perf_counter()
             _enc, xk, xv = ctx.encode_window(mel.data, seek, 0)
+            xk, xv = ctx.quantize_cross_kv(p, xk, xv)
             timings.t_encode_ms += (time.perf_counter() - t0) * 1e3
             timings.n_encode += 1
             if seek > seek_start and seek + 500 >= seek_end:

@@ -20,15 +20,23 @@ compute graph and rounding points:
 * a linear may be a QuantLinear / QuantLinear4 plane (ops/quant_matmul.py):
   from a q8_0/q5_0/q4_0 checkpoint (`params_from_checkpoint`) or the
   runtime W8/W4 decoder (`quantize_decoder_int8`). `_mm` sends it to
-  kernel K3 or K4, and the decoder MLP pair of unpadded int8 planes to K5.
+  kernel K3 or K4, and the decoder MLP pair of unpadded int8 planes to K5,
+* the cross-KV may be int8 (`FullParams.cross_kv_int8`): `quantize_cross_kv`
+  turns the natural float cross-KV into JAX's head-major QuantKV planes,
+  `quantize_cross_kv_nat` into its natural QuantKVNat slabs. `decode_impl`
+  sends a one-row call over QuantKV to kernel K9b and one over QuantKVNat to
+  K9a (ops/experiments.py); a multi-row call over QuantKV (prompt ingest,
+  the speculative verify pass) takes `_attention_hm_q`, JAX's XLA einsum.
+  The JAX package sends QuantKV to that einsum at every row count.
 
-QuantKV, QuantKVNat and cross-QK collection are not ported yet.
+The int8 self-cache (`init_kv_cache_q8`) and cross-QK collection are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -36,6 +44,9 @@ import torch.nn.functional as F
 
 from ...io.ggml_whisper import WhisperCheckpoint, WhisperHParams
 from ...ops.attention import mha_full
+from ...ops.encoder_int8 import _INV127
+from ...ops.experiments import (cross_attention_q8, cross_attention_q8_nat,
+                                cross_attention_q8_plain)
 from ...ops.layers import layer_norm as _ln
 from ...ops.quant_matmul import (QuantLinear, QuantLinear4, QuantPlanes,
                                  concat_quant, fused_ffn_int8, qmatmul,
@@ -435,6 +446,63 @@ def prepare_decoder(dec: Params) -> Params:
     return out
 
 
+class QuantKV(NamedTuple):
+    """Int8 cross-KV with per-position scales in JAX's head-major layout:
+    qs (L, B, H, Ta, dh) int8, scale (L, B, H, Ta) f32. Halves the bytes
+    each decoder step reads from the cross-KV."""
+    qs: torch.Tensor
+    scale: torch.Tensor
+
+
+class QuantKVNat(NamedTuple):
+    """Int8 cross-KV in the natural layout (JAX's QuantKVNat): qs
+    (L, B, Tap, S) int8 slabs, Ta padded with zero rows to a multiple of 32;
+    scale (L, B, Hs, Tap) f32 per (head, position), H padded to a multiple
+    of 8; `ta_valid` the live positions before the pad."""
+    qs: torch.Tensor
+    scale: torch.Tensor
+    ta_valid: int
+
+
+def _quantize_head_rows(x: torch.Tensor, n_head: int):
+    """Natural (L, B, Ta, S) float -> head-major int8 (L, B, H, Ta, dh) and
+    f32 scales (L, B, H, Ta): symmetric per row over dh, scale = amax / 127,
+    q = round(x / scale) half to even, clipped to +-127, an all-zero row
+    giving zeros with scale 0 (JAX's quantize_cross_kv, bit for bit)."""
+    L, B, Ta, S = x.shape
+    x32 = x.float().reshape(L, B, Ta, n_head, S // n_head).transpose(2, 3).contiguous()
+    scale = x32.abs().amax(dim=-1) * _INV127    # a jitted amax / 127.0
+    safe = torch.where(scale == 0, 1.0, scale)
+    inv = torch.where(scale > 0, torch.ones_like(scale) / safe, 0.0)   # IEEE division
+    qs = torch.clamp(torch.round(x32 * inv[..., None]), -127, 127).to(torch.int8)
+    return qs, scale
+
+
+def quantize_cross_kv(x: torch.Tensor, n_head: int) -> QuantKV:
+    """The port's natural (L, B, Ta, S) float cross-KV -> QuantKV, equal to
+    JAX's quantize_cross_kv of the same tensor in its head-major layout."""
+    qs, scale = _quantize_head_rows(x, n_head)
+    return QuantKV(qs=qs, scale=scale)
+
+
+def quantize_cross_kv_nat(x: torch.Tensor, n_head: int) -> QuantKVNat:
+    """The natural (L, B, Ta, S) float cross-KV -> QuantKVNat with JAX's
+    pads (Ta to a multiple of 32, H to a multiple of 8): the same numbers
+    as quantize_cross_kv, laid out as JAX's quantize_cross_kv_nat."""
+    L, B, Ta, S = x.shape
+    q, scale = _quantize_head_rows(x, n_head)
+    Tap, Hs = -(-Ta // 32) * 32, -(-n_head // 8) * 8
+    qs = F.pad(q.transpose(2, 3).reshape(L, B, Ta, S), (0, 0, 0, Tap - Ta))
+    sc = F.pad(scale, (0, Tap - Ta, 0, Hs - n_head))
+    return QuantKVNat(qs=qs.contiguous(), scale=sc.contiguous(), ta_valid=Ta)
+
+
+# JAX's `_attention_hm_q` (without its self-cache mask) is K9b's plain
+# version at any row count: attention over head-major int8 K/V planes with
+# their scales folded into the scores and the probabilities
+_attention_hm_q = cross_attention_q8_plain
+
+
 def decode_impl(cfg: WhisperConfig, dec: Params, tokens: torch.Tensor,
                 kv_k: torch.Tensor, kv_v: torch.Tensor, kv_head,
                 xk: torch.Tensor, xv: torch.Tensor, logits_pos=None):
@@ -445,11 +513,15 @@ def decode_impl(cfg: WhisperConfig, dec: Params, tokens: torch.Tensor,
     Writes this call's K/V rows into kv_k/kv_v (L,B,n_ctx,S) IN PLACE and
     returns (logits (B,T,n_vocab) f32, kv_k, kv_v). `logits_pos` (int or
     0-d tensor): compute logits for that token position only, shape
-    (B,1,V). xk/xv (L, B or 1, Ta, S): with batch 1 all B rows share one
-    cross-KV. Takes `dec` after prepare_decoder (fused qkv)."""
+    (B,1,V). xk/xv (L, B or 1, Ta, S), or QuantKV / QuantKVNat planes of
+    batch B or 1: with batch 1 all B rows share one cross-KV. A QuantKVNat
+    drives one-row steps only. Takes `dec` after prepare_decoder (fused
+    qkv)."""
     dtype = kv_k.dtype
     dev = tokens.device
     B, T = tokens.shape
+    if isinstance(xk, QuantKVNat) and T != 1:
+        raise ValueError("QuantKVNat drives the single-token serving step only")
     C = kv_k.shape[2]
     S, H = cfg.n_text_state, cfg.n_text_head
     kqscale = float(cfg.d_text_head) ** -0.25
@@ -479,9 +551,20 @@ def decode_impl(cfg: WhisperConfig, dec: Params, tokens: torch.Tensor,
 
         h = _ln(x, p["cross_ln_w"], p["cross_ln_b"], cfg.eps)
         cq = _mm(h, p["cq_w"]) + p["cq_b"]
-        # a cross-KV of batch 1 serves every row: fold the rows into queries
-        ca = _attention(cq.reshape(xk.shape[1], -1, S), xk[il], xv[il], H,
-                        kqscale).reshape(B, T, S)
+        if isinstance(xk, QuantKVNat):      # kernel K9a
+            ca = cross_attention_q8_nat(cq, xk.qs[il], xk.scale[il], xv.qs[il],
+                                        xv.scale[il], H, kqscale, xk.ta_valid)
+        elif isinstance(xk, QuantKV) and T == 1:    # kernel K9b
+            ca = cross_attention_q8(cq, xk.qs[il], xk.scale[il], xv.qs[il],
+                                    xv.scale[il], H, kqscale)
+        elif isinstance(xk, QuantKV):
+            # a cross-KV of batch 1 serves every row: fold the rows into queries
+            ca = _attention_hm_q(cq.reshape(xk.qs.shape[1], -1, S), xk.qs[il],
+                                 xk.scale[il], xv.qs[il], xv.scale[il], H,
+                                 kqscale).reshape(B, T, S)
+        else:
+            ca = _attention(cq.reshape(xk.shape[1], -1, S), xk[il], xv[il], H,
+                            kqscale).reshape(B, T, S)
         x = x + _mm(ca, p["co_w"]) + p["co_b"]
 
         h = _ln(x, p["mlp_ln_w"], p["mlp_ln_b"], cfg.eps)

@@ -12,7 +12,9 @@ clamping. Two routes, as in the JAX package:
 2. **Threads** otherwise: one thread per chunk over the shared context
    (the reference's std::thread model), each running whisper_full.
 
-VAD (params.vad) is not ported yet and raises, as in whisper_full.
+`params.cross_kv_int8` reaches both routes through the params (the JAX
+package hands it to the lockstep route as an argument). VAD (params.vad)
+is not ported yet and raises, as in whisper_full.
 """
 
 from __future__ import annotations

@@ -276,16 +276,16 @@ def test_batch_q8_megakernel_int8_matches_jax(tmp_path):
 
 
 def test_unported_batch_options_raise(tiny_en):
-    """int8 cross-KV on the lockstep entry points and VAD on full_parallel
-    are not ported: they raise instead of taking another path."""
+    """Token timestamps on the lockstep entry points and VAD on
+    full_parallel are not ported: they raise instead of taking another path."""
     _, tctx = tiny_en
     tr = Transcriber.__new__(Transcriber)
     tr.ctx = tctx
     files = [audio(2, 0), audio(2, 1)]
-    with pytest.raises(NotImplementedError, match="cross_kv_int8"):
-        tr.transcribe_batch(files, FullParams(print_progress=False, cross_kv_int8=True))
-    with pytest.raises(NotImplementedError, match="cross_kv_int8"):
+    with pytest.raises(NotImplementedError, match="token_timestamps"):
+        tr.transcribe_batch(files, FullParams(print_progress=False, token_timestamps=True))
+    with pytest.raises(NotImplementedError, match="token_timestamps"):
         tr.transcribe_batched(audio(4, 0), FullParams(print_progress=False,
-                                                      cross_kv_int8=True), n_chunks=2)
+                                                      token_timestamps=True), n_chunks=2)
     with pytest.raises(NotImplementedError, match="VAD"):
         tr.full_parallel(FullParams(print_progress=False, vad=True), audio(4, 0), 2)

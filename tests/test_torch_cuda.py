@@ -1,5 +1,6 @@
 """The port on a CUDA card: kernels K1, K2 (one row and the speculative
-verify rows), K3, K4, K5, K6, K7 and K8 against their plain versions, the
+verify rows), K3, K4, K5, K6, K7, K8, K9a and K9b against their plain
+versions, the
 device token loops (greedy, beam and speculative) on the card against the
 same loops on the CPU, and a narrow q8_0 checkpoint's transcript on the
 card and the CPU.
@@ -24,6 +25,7 @@ from open_whisper_kit_tpu_torch.io import ggml_writer as TW
 from open_whisper_kit_tpu_torch.models.whisper import model as TM
 from open_whisper_kit_tpu_torch.ops import attention as A
 from open_whisper_kit_tpu_torch.ops import decode_megakernel as MK
+from open_whisper_kit_tpu_torch.ops import experiments as TE
 from open_whisper_kit_tpu_torch.ops import quant_matmul as TQ
 
 pytestmark = pytest.mark.cuda
@@ -597,3 +599,109 @@ def test_mega_batch_kernel_matches_plain(cuda, mode, monkeypatch):
     print(f"K8 {mode}: (head, max|err| / max|ref|, argmax flips, plain gap / max|ref|) "
           f"{[(h, f'{e:.2e}', n, f'{g:.1e}') for h, e, n, g in steps]}")
     assert all(e <= 2e-2 and g <= 1e-2 for _, e, _, g in steps), steps
+
+
+def _int8_cross_kv(cuda, B, H, Ta, seed, nat=False):
+    """Int8 planes of a random (1, B, Ta, H * 64) cross-KV pair, head-major
+    QuantKV or natural QuantKVNat, on the card: (kq, ks, vq, vs)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    quant = TM.quantize_cross_kv_nat if nat else TM.quantize_cross_kv
+    k, v = (quant(torch.randn(1, B, Ta, H * 64, generator=g, device=cuda) * 0.5, H)
+            for _ in range(2))
+    return k.qs[0], k.scale[0], v.qs[0], v.scale[0]
+
+
+@pytest.mark.parametrize("dtype,H,tol", [(torch.bfloat16, 20, 1e-2), (torch.float32, 2, 1e-5)])
+@pytest.mark.parametrize("kernel,B,Bk", [("K9b", 1, 1), ("K9b", 5, 1), ("K9b", 8, 8),
+                                         ("K9a", 8, 8), ("K9a", 3, 1)])
+def test_cross_q8_kernels_match_plain(cuda, kernel, B, Bk, dtype, H, tol):
+    """K9b and K9a against their plain versions on the same inputs, at
+    large-v3-turbo's 20 heads (bf16, gate 1e-2 of max|ref|) and a narrow
+    f32 shape (gate 1e-5 of max|ref|), 1500 audio positions: one stream,
+    five rows over a shared batch-1 plane (batch stride 0), eight streams;
+    K9a on a 1504-row slab with ta_valid = 1500. Each call is one launch."""
+    nat = kernel == "K9a"
+    kq, ks, vq, vs = _int8_cross_kv(cuda, Bk, H, 1500, 70 + B, nat)
+    g = torch.Generator(device=cuda).manual_seed(B)
+    q = torch.randn(B, 1, H * 64, generator=g, device=cuda).to(dtype)
+    if nat:
+        assert kq.shape[1] == 1504
+        fn, plain, extra = TE.cross_attention_q8_nat, TE.cross_attention_q8_nat_plain, (1500,)
+    else:
+        fn, plain, extra = TE.cross_attention_q8, TE.cross_attention_q8_plain, ()
+    before = fn.launches
+    out = fn(q, kq, ks, vq, vs, H, 0.125, *extra)
+    torch.cuda.synchronize()
+    ref = plain(q, kq, ks, vq, vs, H, 0.125, *extra)
+    assert fn.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    assert bool(torch.isfinite(out).all()) and err <= tol * ref.float().abs().max().item()
+
+
+def test_cross_q8_wrappers_never_take_the_plain_version_on_cuda(cuda, monkeypatch):
+    """On CUDA tensors the K9 wrappers launch their kernel (decode_impl's
+    one-row QuantKV and QuantKVNat steps too) and never reach the plain
+    versions; what the kernel cannot take raises."""
+    def boom(*a, **k):
+        raise AssertionError("plain version reached from a CUDA tensor")
+    monkeypatch.setattr(TE, "cross_attention_q8_plain", boom)
+    monkeypatch.setattr(TE, "cross_attention_q8_nat_plain", boom)
+    cfg = TM.WhisperConfig(*NARROW_TS)
+    dec = TM.prepare_decoder(TM.init_params(cfg, seed=0, dtype=torch.float32, device=cuda)[
+        "decoder"])
+    xk, xv = (torch.randn(cfg.n_text_layer, 2, 64, 128, device=cuda) for _ in range(2))
+    for quant, fn in ((TM.quantize_cross_kv, TE.cross_attention_q8),
+                      (TM.quantize_cross_kv_nat, TE.cross_attention_q8_nat)):
+        kv_k, kv_v = TM.init_kv_cache(cfg, 2, dtype=torch.float32, device=cuda)
+        before = fn.launches
+        logits, _, _ = TM.decode_impl(cfg, dec, torch.tensor([[5], [9]], device=cuda),
+                                      kv_k, kv_v, 0, quant(xk, 2), quant(xv, 2))
+        torch.cuda.synchronize()
+        assert fn.launches == before + cfg.n_text_layer
+        assert bool(torch.isfinite(logits).all())
+    kq, ks, vq, vs = _int8_cross_kv(cuda, 2, 2, 100, 3)
+    q = torch.randn(2, 1, 128, device=cuda)
+    with pytest.raises(ValueError, match="different devices"):
+        TE.cross_attention_q8(q, kq.cpu(), ks, vq, vs, 2, 0.1)
+    with pytest.raises(ValueError, match="16-byte"):
+        TE.cross_attention_q8(q, kq.flatten()[1:1 + 2 * 2 * 99 * 64].view(2, 2, 99, 64),
+                              ks[:, :, :99].contiguous(), vq[:, :, :99].contiguous(),
+                              vs[:, :, :99].contiguous(), 2, 0.1)
+    with pytest.raises(ValueError, match=r"\(B, 1, S\)"):
+        TE.cross_attention_q8(q.expand(2, 3, 128), kq, ks, vq, vs, 2, 0.1)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        TE.cross_attention_q8(q, kq.view(2, 4, 50, 64), ks.view(2, 4, 50), vq.view(2, 4, 50, 64),
+                              vs.view(2, 4, 50), 4, 0.1)
+
+
+def test_cross_kv_int8_whisper_full_cuda_matches_cpu(cuda):
+    """whisper_full with cross_kv_int8 (f32, the narrow timestamp config)
+    on the card and on the CPU, greedy on 35 s (audio seed 0) and beam 3 on
+    40 s (seed 1), two windows each: the same token ids, at least 100 of
+    them; on the card every one-row decoder step runs K9b once per layer,
+    and the ingests none. Both seeds' CPU transcripts stay the same when
+    the input is scaled by 1 +- 2^-20, 2^-16 or 2^-13."""
+    from open_whisper_kit_tpu_torch.decode.params import BeamSearchParams, SamplingStrategy
+    cfg = TM.WhisperConfig(*NARROW_TS)
+    params = TM.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    tokens = [b"<%d>" % i for i in range(50257)]
+    greedy = FullParams(print_progress=False, cross_kv_int8=True, temperature_inc=0.0)
+    beam = FullParams(print_progress=False, cross_kv_int8=True, temperature_inc=0.0,
+                      strategy=SamplingStrategy.BEAM_SEARCH,
+                      beam_search=BeamSearchParams(beam_size=3))
+    for p, secs, seed in ((greedy, 35, 0), (beam, 40, 1)):
+        samples = (np.random.default_rng(seed).standard_normal(16000 * secs)
+                   .astype(np.float32) * 0.1)
+        ids = {}
+        for dev in ("cuda", "cpu"):
+            ctx = TF.WhisperContext(cfg, params, build_vocab(tokens, cfg.n_vocab),
+                                    TF._synthetic_mel_filters(80), n_loaded=1,
+                                    dtype=torch.float32, device=dev)
+            before = TE.cross_attention_q8.launches
+            res = TF.whisper_full(ctx, p, samples)
+            ids[dev] = [t.id for s in res.segments for t in s.tokens]
+            launched = TE.cross_attention_q8.launches - before
+            assert (launched > 0 and launched % cfg.n_text_layer == 0) if dev == "cuda" \
+                else launched == 0
+        assert ids["cuda"] == ids["cpu"] and len(ids["cpu"]) >= 100

@@ -91,7 +91,7 @@ def test_host_stepped_greedy_matches_jax(narrow):
     ("strategy+ref_sampling", (SamplingStrategy.BEAM_SEARCH, True)),
     ("grammar_rules", "root ::= \"a\""),
     ("vad", True), ("token_timestamps", True), ("dtw_token_timestamps", True),
-    ("ref_sampling", True), ("cross_kv_int8", True),
+    ("ref_sampling", True),
     ("abort_callback", lambda: False),
     ("logits_filter_callback", lambda *a: None),
 ])
@@ -186,10 +186,11 @@ def test_transcriber_detect_language_and_tokenize_match_jax():
     for text in ("<12><7>", "hello world", ""):
         assert tr.tokenize(text) == jt.tokenize(text)
     assert tr.is_multilingual and tr.model_type == "tiny"
-    # an option the port does not have yet raises (encoder_int8 is ported)
-    with pytest.raises(NotImplementedError, match="cross_kv_int8 is not ported"):
+    # an option the port does not have yet raises (encoder_int8 and
+    # cross_kv_int8 are ported)
+    with pytest.raises(NotImplementedError, match=r"VAD \(vad=True\) is not ported"):
         tr.transcribe_batch([samples, samples],
-                            FullParams(print_progress=False, cross_kv_int8=True))
+                            FullParams(print_progress=False, vad=True))
 
 
 def test_transcribe_wav_path(tmp_path, narrow):
