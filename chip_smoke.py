@@ -6,9 +6,9 @@
 Phases, each gated; any failure exits non-zero before the result lines:
   1. torch / CUDA versions and the card's name and power limit;
   2. build kernels K1 (csrc/mha_packed.cu), K2 (mega_step.cu, 1-8 rows), K3
-     (qmm.cu), K4 (qmm4.cu), K5 (ffn_int8.cu), K6 (w8a8.cu), K7
-     (mega_beam.cu), K8 (mega_batch.cu) and K9a/K9b (cross_q8.cu) with
-     nvcc, one process per source, all at once, timed;
+     (qmm.cu), K4 (qmm4.cu), K5 (ffn_int8.cu), K6 and T2 (w8a8.cu), K7
+     (mega_beam.cu), K8 (mega_batch.cu), K9a/K9b (cross_q8.cu) and T1
+     (mm_bf16.cu) with nvcc, one process per source, all at once, timed;
   3. K1 against its plain torch version on the card: bf16 at the
      large-v3-turbo encoder shape (B=1, T=1536, S=1280, n_valid=1500,
      gate max|err| <= 1e-2 * max|ref|) and the narrow f32 shape (S=128,
@@ -149,16 +149,27 @@ Phases, each gated; any failure exits non-zero before the result lines:
  22. narrow f32 (3 decoder layers) with cross_kv_int8 on the card against
      the CPU: greedy 35 s, beam 3 on 40 s, transcribe_batched of 60 s in 2
      chunks: token ids equal, at least 100 each, K9b launched on the card.
-Phases 11-13 and 18 run right after phase 3, with the other kernel checks;
-19 and 21 right after 6, on its checkpoint.
+ 23. T1 (mm_bf16, the bf16 GEMM) and T2 (mm_s8, K6's s8 GEMM alone) of the
+     tensor-core probe against their plain versions at its two products,
+     (1536,1280)@(1280,5120) and (1536,5120)@(5120,1280), on the probe's
+     operands: T1 within one bf16 ulp per element (plus the f32 sum-order
+     bound where products cancel), T2 bit for bit; kernel, plain and
+     library times (cuBLAS bf16 through torch.mm with f32 out; _int_mm with
+     the scale ops), cold L2, and the bound; then the port's probe
+     (open_whisper_kit_tpu_torch.tools.bench_int8_mxu.main) at full shape,
+     the path of T1 and T2, with exact launch counts (two per chained
+     iteration per chain call).
+Phases 11-13, 18 and 23 run right after phase 3, with the other kernel
+checks; 19 and 21 right after 6, on its checkpoint.
 Every phase prints ms per sampled token beside its RTF. The last three lines are the kernels JSON, the nvidia-smi name/power line
 and {"ok": true, "device": {...}}. Imports nothing of JAX.
 
     python3 chip_smoke.py --profile
 
 also traces one 30 s greedy request on the q8_0 checkpoint, one beam-5
-request on it (K7), one greedy request on the dense preset and one
-transcribe_batch of 8 x 30 s (W8A8 encoder, K8 int8) with torch.profiler
+request on it (K7), one greedy request on the dense preset, one
+transcribe_batch of 8 x 30 s (W8A8 encoder, K8 int8) and one call of each
+of the tensor-core probe's four chains with torch.profiler
 (device busy share, top kernels; tables in chiprun_out/). It is the
 source of PERF.md's "Where the time goes".
 """
@@ -181,14 +192,12 @@ NARROW = (51864, 1500, 128, 2, 2, 448, 128, 2, 2, 80)
 NARROW_Q = (51864, 1500, 128, 2, 2, 448, 128, 2, 3, 80)   # 3 decoder layers
 TURBO = (51866, 1500, 1280, 20, 32, 448, 1280, 20, 4, 128)
 KERNELS = ("mha_packed", "mega_step", "qmm", "qmm4", "ffn_int8", "mega_beam", "w8a8",
-           "mega_batch", "cross_q8")
+           "mega_batch", "cross_q8", "mm_bf16")
 SRC = "open_whisper_kit_tpu_torch/csrc/"
-# H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
-# is the larger of its bytes over HBM bandwidth and its operations over the
-# tensor-core rate of their type (bf16; int8 for K6)
+# H100 SXM published HBM bandwidth (NVIDIA data sheet): the bound of a
+# kernel is the larger of its bytes over it and its operations over the
+# tensor-core rate of their type (bound())
 HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
-INT8_OP_PER_S = 1979e12
 
 
 class PhaseFailed(Exception):
@@ -236,9 +245,12 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None,
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float, rate: float = BF16_FLOP_PER_S) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, rate: str | float = "bf16") -> tuple[float, str]:
     """(least ms the card could take, what bounds it); `rate` the peak of
-    the operations' type."""
+    the operations' type: "bf16" or "int8", the H100's dense tensor-core
+    peaks as the tensor-core probe states them, or a number."""
+    from open_whisper_kit_tpu_torch.tools import bench_int8_mxu as P
+    rate = {"bf16": P.BF16_PEAK, "int8": P.INT8_PEAK}.get(rate, rate)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -844,7 +856,7 @@ def phase_k6(torch, E8):
             l_ms = cuda_ms(torch, int_mm, flush=l2_flush)
         wd = w.to(torch.bfloat16)
         d_ms = cuda_ms(torch, lambda: torch.matmul(x, wd), flush=l2_flush)
-        b_ms, b_by = bound(nbytes(x, wq, ws, got), 2 * M * K * N, INT8_OP_PER_S)
+        b_ms, b_by = bound(nbytes(x, wq, ws, got), 2 * M * K * N, "int8")
         rows.append({"shape": f"{label}: M={M} K={K} N={N}", "max_abs_err": err,
                      "values_differing": n_diff, "ms": k_ms, "plain_ms": p_ms,
                      "library_ms": l_ms, "dense_bf16_ms": d_ms, "bound_ms": b_ms,
@@ -1616,7 +1628,7 @@ def phase_k9(torch, TM, XQ) -> dict:
                        flush=l2_flush, queued=True)
         live = (Bk * H * K9_TA * 64, Bk * H * K9_TA * 4)     # plane and scale bytes a side
         b_ms, b_by = bound(2 * sum(live) + 2 * nbytes(q), 4 * B * H * K9_TA * 64,
-                           BF16_FLOP_PER_S if dt == "bf16" else F32_FLOP_PER_S)
+                           "bf16" if dt == "bf16" else F32_FLOP_PER_S)
         rows[kernel].append({"shape": shape, "max_abs_err": err, "ms": k_ms, "call_ms": c_ms,
                              "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                              "library_ms": None, "float_kv_sdpa_ms": s_ms})
@@ -1786,6 +1798,126 @@ def phase_narrow_cross_int8(torch, TF, TM, tok_mod, FullParams, mods, tokens) ->
               "few tokens, or K9b not launched on the card")
 
 
+# the tensor-core probe's two products (tools/bench_int8_mxu.py): x @ W1 and
+# h @ W2 of large-v3-turbo's encoder MLP, M = 1536 rows (one window, padded)
+MXU_SHAPES = (("x @ W1", 1536, 1280, 5120), ("h @ W2", 1536, 5120, 1280))
+
+
+def phase_mxu(torch, G, P, profiling: bool = False) -> dict:
+    """T1 (mm_bf16) and T2 (mm_s8) against their plain versions at the
+    probe's two products, on the probe's own operands (X0 and W1; the gelu
+    of their product, rounded to bf16, and W2; T2 on their quant_rows /
+    quant_cols planes): T1 within one bf16 ulp of every element, plus what
+    two f32 sums of the same K products can differ by in another order,
+    with at most 1 % of the values differing and 0.1 % by more than one
+    ulp (G.mm_bf16_within); T2 bit for bit. Times with the L2 cache flushed before each
+    launch, queued behind a spin (device time): the kernel, the plain
+    version, the library call (T1: cuBLAS bf16 through torch.mm with f32
+    out; T2: torch._int_mm with the same scale ops, first checked equal to
+    the plain version) and the bound. Then the port's probe, main(), at
+    full shape: every chain call of T1 and T2 launches its kernel exactly
+    twice per iteration (two warm calls and the timed repeats), and each
+    chain's row is finite. With `profiling`, one call of each of the four
+    chains under torch.profiler (profile_call). Returns {"mm_bf16": rows,
+    "mm_s8": rows, "launches": {...}, "probe": rows}."""
+    import torch.nn.functional as F
+    l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    x0, w1, w2 = P.operands(P.M, P.K, P.F_, "cuda")
+    h = F.gelu(G.mm_bf16_plain(x0, w1).float(), approximate="tanh").to(torch.bfloat16)
+    rows = {"mm_bf16": [], "mm_s8": []}
+    for (label, M, K, N), a, b in zip(MXU_SHAPES, (x0, h), (w1, w2)):
+        check(tuple(a.shape) == (M, K) and tuple(b.shape) == (K, N), f"{label}: operands")
+        shape = f"{label}: ({M},{K})@({K},{N})"
+        # ---- T1 ----
+        ref = G.mm_bf16_plain(a, b)
+        got = G.mm_bf16(a, b)
+        torch.cuda.synchronize()
+        r = G.mm_bf16_within(got, ref, a, b)
+        err = r["max_abs_err"]
+        print(f"[23] T1 {shape}: max|err| {err:.3e} (max|ref| "
+              f"{ref.float().abs().max().item():.3e}); {r['differing']} of {r['n']} values "
+              f"differ (limit {G.MM_BF16_MAX_DIFFERING:.0%}), {r['past_ulp']} by more than "
+              f"one bf16 ulp (limit {G.MM_BF16_MAX_PAST_ULP:.1%}), {r['past_bound']} past "
+              f"the ulp plus the f32 order bound (limit 0)", flush=True)
+        check(got.shape == ref.shape and r["ok"],
+              f"T1 {shape}: beyond its gate against the plain version: {r}")
+        k_ms = cuda_ms(torch, lambda: G.mm_bf16(a, b), flush=l2_flush, queued=True)
+        p_ms = cuda_ms(torch, lambda: G.mm_bf16_plain(a, b), flush=l2_flush, queued=True)
+        l_ms = cuda_ms(torch, lambda: torch.mm(a, b, out_dtype=torch.float32),
+                       flush=l2_flush, queued=True)
+        b_ms, b_by = bound(nbytes(a, b, got), 2 * M * K * N)
+        rows["mm_bf16"].append({"shape": shape, "max_abs_err": err, "values_differing":
+                                r["differing"], "values_past_one_ulp": r["past_ulp"], "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                                "bound_ms": b_ms, "bound_by": b_by})
+        print(f"[23]   T1 kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, cuBLAS bf16 "
+              f"(torch.mm, f32 out) {l_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}); "
+              f"{2 * M * K * N / k_ms / 1e9:.1f} TFLOP/s", flush=True)
+        del ref, got
+        # ---- T2 ----
+        aq, a_s = P.quant_rows(a)
+        bq, b_s = P.quant_cols(b)
+        bq_t = bq.t().contiguous()
+        ref = G.mm_s8_plain(aq, a_s, bq_t, b_s)
+        got = G.mm_s8(aq, a_s, bq_t, b_s)
+        torch.cuda.synchronize()
+        n_diff = int((got.float() != ref.float()).sum())
+        err = (got.float() - ref.float()).abs().max().item()
+        print(f"[23] T2 {shape}: {n_diff} of {got.numel()} values differ from the plain "
+              f"version (max|err| {err:.3e})", flush=True)
+        check(got.shape == ref.shape and n_diff == 0,
+              f"T2 {shape}: {n_diff} values differ from the plain version")
+
+        def int_mm():
+            return ((torch._int_mm(aq, bq_t.t()).float() * a_s) * b_s).to(torch.bfloat16)
+        check(torch.equal(int_mm(), ref), f"T2 {shape}: the _int_mm yardstick differs")
+        k_ms = cuda_ms(torch, lambda: G.mm_s8(aq, a_s, bq_t, b_s), flush=l2_flush,
+                       queued=True)
+        p_ms = cuda_ms(torch, lambda: G.mm_s8_plain(aq, a_s, bq_t, b_s), flush=l2_flush,
+                       queued=True)
+        l_ms = cuda_ms(torch, int_mm, flush=l2_flush, queued=True)
+        b_ms, b_by = bound(nbytes(aq, a_s, bq_t, b_s, got), 2 * M * K * N, "int8")
+        rows["mm_s8"].append({"shape": shape, "max_abs_err": err, "values_differing": n_diff,
+                              "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                              "bound_ms": b_ms, "bound_by": b_by})
+        print(f"[23]   T2 kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, _int_mm + "
+              f"scale ops {l_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}); "
+              f"{2 * M * K * N / k_ms / 1e9:.1f} TOP/s (median of 20, cold L2, device time)",
+              flush=True)
+        del aq, a_s, bq, bq_t, ref, got
+    del l2_flush, x0, w1, w2, h
+    torch.cuda.empty_cache()
+
+    # ---- the probe, the main path of T1 and T2 ----
+    G.mm_bf16.launches = G.mm_s8.launches = 0
+    probe = P.main([])
+    torch.cuda.synchronize()
+    launches = {"mm_bf16": G.mm_bf16.launches, "mm_s8": G.mm_s8.launches}
+    want = 2 * P.NITER * (2 + P.REPEATS)
+    print(f"[23] probe main(): {len(probe)} rows; launches T1 {launches['mm_bf16']}, T2 "
+          f"{launches['mm_s8']} (predicted {want} each: 2 x {P.NITER} iterations x "
+          f"{2 + P.REPEATS} chain calls)", flush=True)
+    check(launches["mm_bf16"] == launches["mm_s8"] == want,
+          "probe: T1/T2 launch counts off prediction")
+    check(len(probe) == 4
+          and all(r["us_per_iter"] > 0 and 0 < r["peak_share"] < 1 for r in probe),
+          "probe: malformed rows")
+    if profiling:
+        x0, w1, w2 = P.operands(P.M, P.K, P.F_, "cuda")
+        (w1q, w1s), (w2q, w2s) = P.quant_cols(w1), P.quant_cols(w2)
+        w1q_cm, w2q_cm = (w.t().contiguous().t() for w in (w1q, w2q))
+        bm, bn = G.TILES[0]
+        for tag, step, ws in (
+                ("bf16", P.step_bf16, (w1, w2)),
+                ("w8a8", P.step_xla_s8, (w1q_cm, w1s, w2q_cm, w2s)),
+                ("T1", P.make_step_pallas_bf16(bm, bn, w1, w2), ()),
+                ("T2", P.make_step_pallas_s8(bm, bn, w1q, w1s, w2q, w2s), ())):
+            loop = P.chain(step)
+            loop(x0, *ws)
+            profile_call(torch, f"probe-{tag}", f"probe chain {tag}, {P.NITER} iterations",
+                         lambda: (loop(x0, *ws), [])[1])
+    return {**rows, "launches": launches, "probe": probe}
+
+
 def profile_request(torch, tr, FullParams, secs, seed, tag, beam_size=0) -> None:
     """One request (greedy, or beam search with `beam_size`) under
     torch.profiler (profile_call)."""
@@ -1795,7 +1927,7 @@ def profile_request(torch, tr, FullParams, secs, seed, tag, beam_size=0) -> None
 
 
 def profile_call(torch, tag, label, run) -> None:
-    """`run()` (a list of TranscribeResults) under torch.profiler: device
+    """`run()` (a list of TranscribeResults, or none) under torch.profiler: device
     busy share (the sum of kernel self times over the wall time) and the
     kernels that take it; the full table goes to
     chiprun_out/profile-<tag>.txt."""
@@ -1816,9 +1948,10 @@ def profile_call(torch, tag, label, run) -> None:
                   key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in kern) / 1e3
     n_tok = sum(r.timings.n_sample for r in results)
-    print(f"[profile {tag}] {label}, traced: wall {wall * 1e3:.0f} ms, "
-          f"device busy {busy:.0f} ms ({100 * busy / (wall * 1e3):.1f} %), sampled "
-          f"tokens {n_tok}, device launches {sum(e.count for e in kern)}; top: "
+    print(f"[profile {tag}] {label}, traced: wall {wall * 1e3:.1f} ms, "
+          f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f} %), "
+          + (f"sampled tokens {n_tok}, " if results else "")
+          + f"device launches {sum(e.count for e in kern)}; top: "
           + "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.1f} ms x{e.count}"
                       for e in kern[:6]), flush=True)
     out = REPO / "chiprun_out"
@@ -1905,7 +2038,9 @@ def main(profiling: bool = False) -> int:
     from open_whisper_kit_tpu_torch.ops import decode_megakernel as MK
     from open_whisper_kit_tpu_torch.ops import encoder_int8 as E8
     from open_whisper_kit_tpu_torch.ops import experiments as XQ
+    from open_whisper_kit_tpu_torch.ops import gemm as G
     from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
+    from open_whisper_kit_tpu_torch.tools import bench_int8_mxu as P
     from open_whisper_kit_tpu_torch.decode import batch as TB
     import types
     import numpy as np
@@ -1935,6 +2070,8 @@ def main(profiling: bool = False) -> int:
     MK._kernel_lib("mega_batch")
     E8._kernel_lib()
     XQ._kernel_lib()
+    G._lib_bf16()
+    G._lib_s8()
     for name in ("qmm", "qmm4", "ffn_int8"):
         Q._kernel_lib(name)
     print(f"[2] {', '.join(KERNELS)} built and loaded in "
@@ -1960,6 +2097,9 @@ def main(profiling: bool = False) -> int:
     # ---- 18. K9b and K9a (int8 cross-KV) against their plain versions ----
     k9 = phase_k9(torch, TM, XQ)
     done("18")
+    # ---- 23. T1 and T2 against their plain versions; the probe, their path ----
+    mxu = phase_mxu(torch, G, P, profiling)
+    done("23")
 
     # ---- 4. turbo bf16 requests through the public entry point ----
     t0 = time.perf_counter()
@@ -2319,6 +2459,7 @@ def main(profiling: bool = False) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    launches.update(mxu["launches"])
     head = {"qmm": 0, "qmm4": 0, "ffn_int8": 0}   # the row each headline takes
     replaces = {"mha_packed": "open_whisper_kit_tpu/ops/attention.py:70",
                 "mega_decode_step": "open_whisper_kit_tpu/ops/decode_megakernel.py:1128",
@@ -2330,7 +2471,9 @@ def main(profiling: bool = False) -> int:
                 "qmm4": "open_whisper_kit_tpu/ops/quant_matmul.py:280",
                 "ffn_int8": "open_whisper_kit_tpu/ops/quant_matmul.py:385",
                 "cross_attention_q8": "open_whisper_kit_tpu/ops/experiments.py:155",
-                "cross_attention_q8_nat": "open_whisper_kit_tpu/ops/experiments.py:73"}
+                "cross_attention_q8_nat": "open_whisper_kit_tpu/ops/experiments.py:73",
+                "mm_bf16": "tools/bench_int8_mxu.py:115",
+                "mm_s8": "tools/bench_int8_mxu.py:125"}
     rows = [{"name": "mha_packed", **k1},
             {"name": "mega_decode_step", **k2["all"], "modes": list(k2.values())},
             {"name": "mega_decode_step_verify", **k2v[("all", 5)],
@@ -2340,7 +2483,9 @@ def main(profiling: bool = False) -> int:
             {"name": "w8a8_mm", **next(r for r in k6 if r["shape"].startswith(K6_HEADLINE)),
              "shapes": k6},
             {"name": "cross_attention_q8", **k9["K9b"][0], "shapes": k9["K9b"]},
-            {"name": "cross_attention_q8_nat", **k9["K9a"][0], "shapes": k9["K9a"]}]
+            {"name": "cross_attention_q8_nat", **k9["K9a"][0], "shapes": k9["K9a"]},
+            {"name": "mm_bf16", **mxu["mm_bf16"][0], "shapes": mxu["mm_bf16"]},
+            {"name": "mm_s8", **mxu["mm_s8"][0], "shapes": mxu["mm_s8"]}]
     for name, i in head.items():
         rows.append({"name": name, **{k: v for k, v in quant[name][i].items()
                                       if k != "shape"},
@@ -2348,7 +2493,8 @@ def main(profiling: bool = False) -> int:
     stems = {"mega_decode_step": "mega_step", "mega_decode_step_verify": "mega_step",
              "mega_decode_step_beam": "mega_beam",
              "mega_decode_step_batch": "mega_batch", "w8a8_mm": "w8a8",
-             "cross_attention_q8": "cross_q8", "cross_attention_q8_nat": "cross_q8"}
+             "cross_attention_q8": "cross_q8", "cross_attention_q8_nat": "cross_q8",
+             "mm_s8": "w8a8"}
     for r in rows:
         stem = stems.get(r["name"], r["name"])
         r.update(route="cuda", source=SRC + stem + ".cu",

@@ -30,6 +30,11 @@
 //     makes the fragment loads free of bank conflicts.
 // A fused quantize prologue, wgmma and TMA are later work.
 //
+// Kernel T2 is gemm_s8 launched alone (owk_mm_s8): it replaces the TPU
+// kernel tools/bench_int8_mxu.py::pallas_mm_s8 (kernel body _mm_s8_kernel),
+// whose function is this GEMM with its epilogue on rows the caller has
+// quantized, row scales given.
+//
 // Requires K % 8 == 0, Kp % 64 == 0, Mp % 128 == 0, Np % 128 == 0, x on a
 // 16-byte boundary; the Python wrapper pads and checks.
 
@@ -244,4 +249,19 @@ extern "C" int owk_w8a8_f32(const void* x, void* xq, void* xs, const void* wt,
                             const void* ws, void* out, int M, int K, int Mp, int Kp,
                             int Np, float inv127, void* stream) {
   return run<float>(x, xq, xs, wt, ws, out, M, K, Mp, Kp, Np, inv127, stream);
+}
+
+// Kernel T2: xq (Mp, Kp) int8 with row scales xs (Mp) f32, wt (Np, Kp) int8
+// with column scales ws (Np) f32 -> out (Mp, Np) bf16, the GEMM alone. Returns
+// the launch's cudaError_t, or cudaErrorInvalidValue for a shape the tile
+// does not take.
+extern "C" int owk_mm_s8(const void* xq, const void* xs, const void* wt, const void* ws,
+                         void* out, int Mp, int Kp, int Np, void* stream) {
+  if (Mp <= 0 || Kp <= 0 || Np <= 0 || Kp % kBK || Mp % kBM || Np % kBN)
+    return (int)cudaErrorInvalidValue;
+  gemm_s8<<<dim3(Np / kBN, Mp / kBM), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
+      static_cast<const int8_t*>(wt), static_cast<const float*>(ws),
+      static_cast<__nv_bfloat16*>(out), Kp, Np);
+  return (int)cudaGetLastError();
 }

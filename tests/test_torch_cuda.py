@@ -1,6 +1,6 @@
 """The port on a CUDA card: kernels K1, K2 (one row and the speculative
-verify rows), K3, K4, K5, K6, K7, K8, K9a and K9b against their plain
-versions, the
+verify rows), K3, K4, K5, K6, K7, K8, K9a, K9b, T1 and T2 against their
+plain versions, the
 device token loops (greedy, beam and speculative) on the card against the
 same loops on the CPU, and a narrow q8_0 checkpoint's transcript on the
 card and the CPU.
@@ -705,3 +705,80 @@ def test_cross_kv_int8_whisper_full_cuda_matches_cpu(cuda):
             assert (launched > 0 and launched % cfg.n_text_layer == 0) if dev == "cuda" \
                 else launched == 0
         assert ids["cuda"] == ids["cpu"] and len(ids["cpu"]) >= 100
+
+
+@pytest.mark.parametrize("M,K,N", [(1536, 1280, 5120), (1536, 5120, 1280), (200, 72, 136)])
+def test_mm_bf16_kernel_matches_plain(cuda, M, K, N, monkeypatch):
+    """T1 at the tensor-core probe's two products (and a shape the wrapper
+    pads) against its plain version: every element within one bf16 ulp,
+    plus what two f32 sums of the same K products can differ by in another
+    order, and at most 1 % of the values differing, 0.1 % by more than one
+    ulp (gemm.mm_bf16_within). One launch per call, never the plain
+    version."""
+    from open_whisper_kit_tpu_torch.ops import gemm as G
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    a = (torch.randn(M, K, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    b = (torch.randn(K, N, generator=g, device=cuda) * K ** -0.5).to(torch.bfloat16)
+    ref = G.mm_bf16_plain(a, b)
+    before = G.mm_bf16.launches
+    with monkeypatch.context() as m:
+        m.setattr(G, "mm_bf16_plain", None)
+        got = G.mm_bf16(a, b)
+    torch.cuda.synchronize()
+    assert G.mm_bf16.launches == before + 1
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    r = G.mm_bf16_within(got, ref, a, b)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("M,K,N", [(1536, 1280, 5120), (1536, 5120, 1280), (200, 72, 136)])
+def test_mm_s8_kernel_matches_plain(cuda, M, K, N, monkeypatch):
+    """T2 (K6's GEMM alone) at the probe's two products (and a padded
+    shape) against its plain version, bit for bit; an all-zero row and an
+    all-zero weight column give zeros. One launch per call, never the
+    plain version."""
+    from open_whisper_kit_tpu_torch.ops import gemm as G
+    from open_whisper_kit_tpu_torch.ops import encoder_int8 as E8
+    from open_whisper_kit_tpu_torch.tools import bench_int8_mxu as P
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    x[1] = 0
+    w = torch.randn(K, N, generator=g, device=cuda) * K ** -0.5
+    w[:, 2] = 0
+    aq, a_s = P.quant_rows(x)
+    wq, ws = E8.quantize_w_cols(w)
+    wq_t = wq.t().contiguous()
+    ref = G.mm_s8_plain(aq, a_s, wq_t, ws)
+    before = G.mm_s8.launches
+    with monkeypatch.context() as m:
+        m.setattr(G, "mm_s8_plain", None)
+        got = G.mm_s8(aq, a_s, wq_t, ws)
+    torch.cuda.synchronize()
+    assert G.mm_s8.launches == before + 1
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    n_diff = int((got.float() != ref.float()).sum())
+    assert n_diff == 0, f"{n_diff} of {got.numel()} values differ"
+    assert not got[1].any() and not got[:, 2].any()
+
+
+def test_mm_wrappers_reject_what_the_kernels_cannot_take(cuda):
+    """T1 and T2 raise on a wrong dtype, a non-contiguous operand, an
+    operand off the 16-byte grid and mismatched shapes, before launching."""
+    from open_whisper_kit_tpu_torch.ops import gemm as G
+    a = torch.zeros(256, 256, dtype=torch.bfloat16, device=cuda)
+    before = (G.mm_bf16.launches, G.mm_s8.launches)
+    with pytest.raises(ValueError, match="bfloat16"):
+        G.mm_bf16(a.float(), a)
+    with pytest.raises(ValueError, match="contiguous"):
+        G.mm_bf16(a, a.t())
+    with pytest.raises(ValueError, match="16-byte"):
+        G.mm_bf16(a.flatten()[1:1 + 128 * 128].view(128, 128), a[:128])
+    with pytest.raises(ValueError, match=r"got torch.bfloat16 \(128, 256\)"):
+        G.mm_bf16(a, a[:128])
+    q = torch.zeros(256, 256, dtype=torch.int8, device=cuda)
+    s = torch.zeros(256, 1, device=cuda)
+    with pytest.raises(ValueError, match="a_s"):
+        G.mm_s8(q, s[:128], q, s.t().contiguous())
+    with pytest.raises(ValueError, match="b_t"):
+        G.mm_s8(q, s, q.float(), s.t().contiguous())
+    assert (G.mm_bf16.launches, G.mm_s8.launches) == before
