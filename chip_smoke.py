@@ -12,11 +12,14 @@ Phases, each gated; any failure exits non-zero before the result lines:
   3. K1 against its plain torch version on the card: bf16 at the
      large-v3-turbo encoder shape (B=1, T=1536, S=1280, n_valid=1500,
      gate max|err| <= 1e-2 * max|ref|) and the narrow f32 shape (S=128,
-     gate 1e-4); kernel, plain and SDPA times (CUDA events, median of 20);
+     gate 1e-4); kernel, plain and SDPA times (CUDA events, median of 20),
+     the bound, the bound of the bf16 kernel's two-pass work (QK^T twice)
+     and the TFLOP/s it reaches;
      K3, K4 and K5 against their plain versions at the shapes large-v3-turbo
      gives them (gate 1e-3 * max|ref|), with kernel, plain and library times
      (torch.matmul on the dequantized bf16 weight), each launch with a cold
-     L2 cache, and the bound; K2 (the whole decoder step) at large-v3-turbo
+     L2 cache, the bound and the kernel's share of it; K2 (the whole decoder
+     step) at large-v3-turbo
      width (4 layers, 448 cache rows, 1500 audio positions, vocabulary
      51866) in its four modes (dense, int8 logits, int8, int4): 8
      consecutive steps from a cache with 100 rows of history, each from the
@@ -52,7 +55,9 @@ Phases, each gated; any failure exits non-zero before the result lines:
      65 s requests (temperature_inc = 0), which run K2 by themselves (its
      int8 mode) for every token step; K3 must launch exactly 200 per
      encoder pass (32 layers x 6 linears + 4 layers x cross K/V) and 16 per
-     decode_impl call (prompt ingest: 4 layers x qkv/o/cq/co), K5 4 per
+     decode_impl call (prompt ingest: 4 layers x qkv/o/cq/co), by route: the
+     encoder's and the decoder calls over more than 16 rows on the tiles,
+     the others on the rows (check_k3_routes), K5 4 per
      decode_impl call, K2 once per token step; then one 30 s request with
      megakernel=False, whose token steps run decode_impl (K3 and K5); then
      the main path of beam search: a 30 s request with beam_size=5, every
@@ -166,7 +171,8 @@ and {"ok": true, "device": {...}}. Imports nothing of JAX.
 
     python3 chip_smoke.py --profile
 
-also traces one 30 s greedy request on the q8_0 checkpoint, one beam-5
+also traces one q8_0 encoder + cross-KV pass of a 30 s window (the
+encoder's kernel split), one 30 s greedy request on the q8_0 checkpoint, one beam-5
 request on it (K7), one greedy request on the dense preset, one
 transcribe_batch of 8 x 30 s (W8A8 encoder, K8 int8) and one call of each
 of the tensor-core probe's four chains with torch.profiler
@@ -297,12 +303,19 @@ def phase_k1(torch, A, dtype, S: int, tol_rel: bool, tol: float, seed: int, B: i
     lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, scale=scale))
     # QK^T and PV over the live keys; q/k/v read once, out written once
-    b_ms, b_by = bound(nbytes(q, k, v, out), 4 * B * 1536 * n_valid * S)
+    flops = 4 * B * 1536 * n_valid * S
+    b_ms, b_by = bound(nbytes(q, k, v, out), flops)
+    # the bf16 kernel's own work: QK^T twice (the TPU kernel's rounding point
+    # needs the row sums before P is rounded), then PV
+    two_ms, _ = bound(nbytes(q, k, v, out), 1.5 * flops)
+    tflops = 1.5 * flops / (kern * 1e-3) / 1e12 if dtype == torch.bfloat16 else None
     print(f"[{tag}]   kernel {kern * 1e3:.1f} us, plain {plain * 1e3:.1f} us, SDPA "
-          f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}) "
-          "(median of 20)", flush=True)
+          f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by})"
+          + (f", two-pass bound {two_ms * 1e3:.1f} us, {tflops:.0f} TFLOP/s of two-pass "
+             "work" if tflops else "") + " (median of 20)", flush=True)
     return {"max_abs_err": err, "ms": kern, "plain_ms": plain, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib}
+            "bound_by": b_by, "library_ms": lib, "two_pass_bound_ms": two_ms,
+            "tflops": tflops}
 
 
 # (kernel, what large-v3-turbo runs it on, M, K, N)
@@ -369,12 +382,12 @@ def phase_quant_kernels(torch, Q):
         b_ms, b_by = bound(moved, flops)
         out[name].append({"shape": f"{label}: M={M} K={K} N={N}", "max_abs_err": err,
                           "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                          "bound_ms": b_ms, "bound_by": b_by})
+                          "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms})
         lib_txt = f"{l_ms * 1e3:.1f} us" if l_ms is not None else "none"
         print(f"[3] {name} {label} (M={M}, K={K}, N={N}): max|err| {err:.3e} "
               f"(max|ref| {ref_max:.3e}); kernel {k_ms * 1e3:.1f} us, plain "
               f"{p_ms * 1e3:.1f} us, library {lib_txt}, bound {b_ms * 1e3:.1f} us "
-              f"({b_by})", flush=True)
+              f"({b_by}), {100 * b_ms / k_ms:.1f} % of the bound", flush=True)
         del args, ref, got
     del l2_flush
     torch.cuda.empty_cache()
@@ -1027,7 +1040,8 @@ class BeamWitness:
 
 class CallCounter:
     """Counts calls of the model's encoder pass and decoder forward (`dec1`:
-    those over one token row), and the
+    those over one token row; `dec_rows`: each call's batch x tokens, the
+    rows its linears take), and the
     token loops' calls of the K2, K7 and K8 steps, while it is installed (each
     is looked up on its module at call time; the loops' views of the kernel
     module are swapped for one that counts, so the wrappers' own counters
@@ -1036,6 +1050,7 @@ class CallCounter:
     def __init__(self, TM, DL, DB, TB=None):
         self.TM, self.DL, self.DB, self.TB = TM, DL, DB, TB
         self.enc = self.dec = self.dec1 = self.mega = self.beam = self.batch = 0
+        self.dec_rows = []
         self._orig = (TM.encode_with_cross_kv, TM.decode_impl, DL.MK)
 
     def __enter__(self):
@@ -1047,8 +1062,10 @@ class CallCounter:
             return enc(*a, **k)
 
         def decode(*a, **k):
+            tokens = a[2] if len(a) > 2 else k["tokens"]
             self.dec += 1
-            self.dec1 += (a[2] if len(a) > 2 else k["tokens"]).shape[1] == 1
+            self.dec1 += tokens.shape[1] == 1
+            self.dec_rows.append(tokens.shape[0] * tokens.shape[1])
             return dec(*a, **k)
 
         class CountingMK:
@@ -1966,10 +1983,24 @@ def reset_counts(A, Q, MK, E8=None, XQ=None) -> None:
     MK.mega_decode_step.launches_by_rows.clear()
     MK.mega_decode_step_beam.launches = MK.mega_decode_step_batch.launches = 0
     Q.qmm.launches = Q.qmm4.launches = Q.ffn_int8.launches = 0
+    Q.qmm.launches_by_route.update(rows=0, tiles=0)
     if E8 is not None:
         E8.w8a8_mm.launches = 0
     if XQ is not None:
         XQ.cross_attention_q8.launches = XQ.cross_attention_q8_nat.launches = 0
+
+
+def check_k3_routes(Q, calls, what) -> None:
+    """K3's launches by route in a q8_0 request: every encoder pass (32
+    layers x 6 linears + 4 cross K/V, M = 1500 or 1536) and every decoder
+    call over more than QMM_ROWS_MAX rows (4 layers x qkv/o/cq/co) on the
+    tiles; the decoder's calls over fewer rows on the rows route."""
+    big = sum(m > Q.QMM_ROWS_MAX for m in calls.dec_rows)
+    want = {"rows": 16 * (calls.dec - big), "tiles": (TURBO_LAYERS * 6 + 4 * 2) * calls.enc
+            + 16 * big}
+    got = dict(Q.qmm.launches_by_route)
+    print(f"[6] {what}: K3 launches by route {got} (predicted {want})", flush=True)
+    check(got == want, f"{what}: K3 route counts {got} != {want}")
 
 
 def request_params(FullParams, greedy=True, megakernel=None, beam_size=0):
@@ -2210,6 +2241,7 @@ def main(profiling: bool = False) -> int:
                   and Q.ffn_int8.launches == want_k5
                   and A.mha_packed.launches == TURBO_LAYERS * calls.enc
                   and Q.qmm4.launches == 0, "q8_0 request: launch counts off prediction")
+            check_k3_routes(Q, calls, f"q8_0 megakernel={megakernel!r}")
             if megakernel is None:
                 # every token step is one K2 launch; a window's loop steps once
                 # per sampled token but its last, and at most POLL - 1 masked
@@ -2245,6 +2277,7 @@ def main(profiling: bool = False) -> int:
               and A.mha_packed.launches == TURBO_LAYERS * calls.enc
               and MK.mega_decode_step.launches == 0 and calls.mega == 0,
               "q8_0 beam request: launch counts off prediction")
+        check_k3_routes(Q, calls, f"q8_0 beam {K7_BEAMS}")
         check(n_k7 == calls.beam and n_sample - calls.dec <= n_k7 <= n_sample + 16 * calls.dec,
               f"q8_0 beam: K7 launches {n_k7} do not match the beam token steps")
         check(reads <= n_sample / 16 + 2 * calls.dec + 1,
@@ -2257,6 +2290,8 @@ def main(profiling: bool = False) -> int:
         print(f"[6] q8_0 encoder + cross-KV per window: {q_ms:.2f} ms (median of 5)",
               flush=True)
         if profiling:
+            profile_call(torch, "q8_0-encoder", "q8_0 encoder + cross-KV, one 30 s window",
+                         lambda: (tr.ctx.encode_window(mel.data, 0, 0), [])[1])
             profile_request(torch, tr, FullParams, 30.0, 30, "q8_0")
             profile_request(torch, tr, FullParams, 30.0, 30, "q8_0-beam5", beam_size=K7_BEAMS)
         done("6")

@@ -2,33 +2,56 @@
 """Time greedy large-v3-turbo requests of the PyTorch port on one GPU, for
 one or more source trees in turn.
 
-    python3 greedy_rtf.py ROOT [ROOT ...] [--reps 3]
+    python3 greedy_rtf.py ROOT [ROOT ...] [--reps 3] [--model dense|q8_0]
 
 Each ROOT is a directory holding `open_whisper_kit_tpu_torch/`: this
 checkout, or another commit unpacked with `git archive` into a git-ignored
 directory such as `build/`. Each root runs in a process of its own, in the
 order given, so naming roots as A B B A interleaves two trees on one card.
-A process builds the dense bf16 large-v3-turbo preset from seed 0 on cuda,
-serves one warm-up request, then `--reps` timed requests of 30 s of
+A process builds the dense bf16 large-v3-turbo preset from seed 0 on cuda
+(`--model dense`, the default) or loads a full-width large-v3-turbo q8_0
+checkpoint of seed-0 random tensors in bf16 (`--model q8_0`; written once,
+by this checkout's writer, into a temporary directory under `build/`, and
+removed at the end; its token steps run K2 by themselves), serves one
+warm-up request, then `--reps` timed requests of 30 s of
 seeded noise with `temperature_inc = 0` (the greedy device loop alone).
-Each timed request prints one JSON line: the root, wall seconds (host clock,
+Each timed request prints one JSON line: the root, the model, wall seconds (host clock,
 ending in `torch.cuda.synchronize()`), RTF, sampled tokens, encoder passes
-and wall ms per sampled token. The card's name and power limit come first.
+and wall ms per sampled token. Then `--reps` timed passes of the request's
+first window through the encoder and cross-KV print the window's device
+span (CUDA events) and the host's time to issue it. The card's name and
+power limit come first.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 SECONDS, AUDIO_SEED = 30.0, 30
+REPO = Path(__file__).resolve().parent
+TURBO = (51866, 1500, 1280, 20, 32, 448, 1280, 20, 4, 128)   # large-v3-turbo hparams
 
 
-def child(root: Path, reps: int) -> None:
+def write_q8_0(path: Path) -> None:
+    """A large-v3-turbo q8_0 checkpoint of seed-0 random tensors, written by
+    this checkout's port (as chip_smoke.py's phase 6 writes it)."""
+    sys.path.insert(0, str(REPO))
+    from open_whisper_kit_tpu_torch.decode import full as TF
+    from open_whisper_kit_tpu_torch.io import ggml_writer as W
+    hp = W.WhisperHParams(*TURBO, ftype=1, qntvr=0)
+    tokens = [b"<%d>" % i for i in range(50257)]
+    W.write_checkpoint(path, hp, TF._synthetic_mel_filters(128), tokens,
+                       W.random_reference_tensors(hp, seed=0), wtype=W.TYPE_FOR_NAME["q8_0"])
+
+
+def child(root: Path, reps: int, model_path: Path | None) -> None:
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
@@ -39,8 +62,11 @@ def child(root: Path, reps: int) -> None:
         sys.exit("greedy_rtf: no CUDA device")
     samples = (np.random.default_rng(AUDIO_SEED).standard_normal(int(16000 * SECONDS))
                .astype(np.float32) * 0.1)
-    tr = Transcriber(preset="large-v3-turbo", dtype=torch.bfloat16, device="cuda",
-                     seed=0)
+    if model_path is None:
+        tr = Transcriber(preset="large-v3-turbo", dtype=torch.bfloat16, device="cuda",
+                         seed=0)
+    else:
+        tr = Transcriber(model_path=model_path, dtype=torch.bfloat16, device="cuda")
     for rep in range(reps + 1):
         p = FullParams(print_progress=False)
         p.temperature_inc = 0
@@ -51,28 +77,61 @@ def child(root: Path, reps: int) -> None:
         if rep == 0:
             continue   # warm-up: first launches, allocator growth
         n = res.timings.n_sample
-        print(json.dumps({"root": str(root), "rep": rep, "wall_s": wall,
+        print(json.dumps({"root": str(root), "model": "dense" if model_path is None
+                          else "q8_0", "rep": rep, "wall_s": wall,
                           "rtf": wall / SECONDS, "sampled_tokens": n,
                           "encoder_passes": res.timings.n_encode,
                           "ms_per_token": 1e3 * wall / max(n, 1)}), flush=True)
+    # the request's first window alone: encoder + cross-KV, the device span
+    # (CUDA events) beside the host's time to issue it; where the two are
+    # equal the host paces the window
+    from open_whisper_kit_tpu_torch.audio import mel as mel_mod
+    mel = mel_mod.log_mel_spectrogram(samples, tr.ctx.filters, "cuda")
+    for rep in range(reps + 1):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        tr.ctx.encode_window(mel.data, 0, 0)
+        issue = time.perf_counter() - t0
+        b.record()
+        b.synchronize()
+        if rep:
+            print(json.dumps({"root": str(root), "model": "dense" if model_path is None
+                              else "q8_0", "rep": rep, "encoder_window_ms": a.elapsed_time(b),
+                              "encoder_issue_ms": 1e3 * issue}), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="+", type=Path)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--model", choices=("dense", "q8_0"), default="dense")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--model-path", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.roots[0].resolve(), args.reps)
+        child(args.roots[0].resolve(), args.reps, args.model_path)
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip(), flush=True)
-    for root in args.roots:
-        subprocess.run([sys.executable, __file__, "--child", "--reps", str(args.reps),
-                        str(root)], check=True, timeout=900)
+    tmp = None
+    extra = []
+    try:
+        if args.model == "q8_0":
+            (REPO / "build").mkdir(exist_ok=True)
+            tmp = Path(tempfile.mkdtemp(prefix="greedy-rtf-", dir=REPO / "build"))
+            path = tmp / "ggml-large-v3-turbo-q8_0.bin"
+            write_q8_0(path)
+            extra = ["--model-path", str(path)]
+        for root in args.roots:
+            subprocess.run([sys.executable, __file__, "--child", "--reps", str(args.reps),
+                            *extra, str(root)], check=True, timeout=900)
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
     return 0
 
 

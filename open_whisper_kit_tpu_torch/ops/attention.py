@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from . import _build
 
 HEAD_DIM = 64   # every whisper preset; the kernel takes no other
-_T_MULTIPLE = 64
+_T_MULTIPLE = 64   # the f32 kernel's T granule
 
 
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,9 +59,11 @@ def mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take the plain version. CUDA tensors (bf16 or f32,
     contiguous, S a multiple of 64) launch the kernel on the current
-    stream; T is zero-padded to a multiple of 64 first (the padded keys
-    lie past `n_valid`, the padded query rows are sliced off). The
-    `launches` attribute counts kernel launches."""
+    stream. The bf16 kernel reads any T through its TMA maps (rows past T
+    load as zero; keys past `n_valid` are masked) and needs q/k/v on
+    16-byte boundaries; for f32, T is zero-padded to a multiple of 64 first
+    (the padded keys lie past `n_valid`, the padded query rows are sliced
+    off). The `launches` attribute counts kernel launches."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v, q.shape[-1] // HEAD_DIM, scale, n_valid)
     if q.device.type != "cuda":
@@ -82,7 +84,9 @@ def mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"mha_packed: S={S} is not a multiple of {HEAD_DIM}")
     if not 1 <= n_valid <= T:
         raise ValueError(f"mha_packed: n_valid={n_valid} outside [1, {T}]")
-    pad = -T % _T_MULTIPLE
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("mha_packed: bf16 q/k/v must start on 16-byte boundaries")
+    pad = -T % _T_MULTIPLE if q.dtype == torch.float32 else 0
     if pad:
         q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
     out = torch.empty_like(q)

@@ -255,15 +255,21 @@ def ffn_int8_plain(x: torch.Tensor, q0: torch.Tensor, s0: torch.Tensor,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+# the C entries of each kernel library: K3 has one per route (qmm_route)
+_ENTRIES = {"qmm": ("owk_qmm_rows", "owk_qmm_tiles"), "qmm4": ("owk_qmm4",),
+            "ffn_int8": ("owk_ffn_int8",)}
+
+
 @functools.cache
 def _kernel_lib(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
-    fn = getattr(lib, f"owk_{name}")
-    if name == "ffn_int8":   # x q0 s0 b0 q1 s1 h out, M K FF N1p, stream
-        fn.argtypes = [_P] * 8 + [_I] * 4 + [_P]
-    else:                    # x qs scales out, M K Np, stream
-        fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
-    fn.restype = ctypes.c_int
+    for entry in _ENTRIES[name]:
+        fn = getattr(lib, entry)
+        if name == "ffn_int8":   # x q0 s0 b0 q1 s1 h out, M K FF N1p, stream
+            fn.argtypes = [_P] * 8 + [_I] * 4 + [_P]
+        else:                    # x qs scales out, M K Np, stream
+            fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -289,8 +295,8 @@ def _bf16_rows(x: torch.Tensor) -> torch.Tensor:
     return xb if xb.data_ptr() % 16 == 0 else xb.clone()
 
 
-def _launch(name: str, *args) -> None:
-    fn = getattr(_kernel_lib(name), f"owk_{name}")
+def _launch(name: str, *args, entry: str | None = None) -> None:
+    fn = getattr(_kernel_lib(name), entry or f"owk_{name}")
     stream = torch.cuda.current_stream().cuda_stream
     rc = fn(*args, stream)
     if rc != 0:
@@ -308,9 +314,21 @@ def _check_shapes(name: str, K: int, rows: int, qs: torch.Tensor,
     return Np
 
 
+QMM_ROWS_MAX = 16   # K3's "rows" route takes M up to this; the "tiles" route the rest
+
+
+def qmm_route(M: int) -> str:
+    """The K3 body a CUDA call with M rows launches: "rows" (qmm_tile.cuh's
+    16-row slice, for the decode rows) when M <= QMM_ROWS_MAX, else "tiles"
+    (the TMA + wgmma kernel of csrc/qmm.cu, 128 x 128 output tiles)."""
+    return "rows" if M <= QMM_ROWS_MAX else "tiles"
+
+
 def qmm(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Kernel K3: x (M, K) @ int8 planes -> (M, Np) f32. CPU tensors take
-    `qmm_plain`; CUDA tensors launch csrc/qmm.cu on the current stream."""
+    `qmm_plain`; CUDA tensors launch csrc/qmm.cu on the current stream, on
+    the route `qmm_route(M)` names. `launches` counts launches,
+    `launches_by_route` the same by route."""
     if x.device.type == "cpu":
         return qmm_plain(x, qs, scales)
     _check("qmm", x, (qs, torch.int8), (scales, torch.float32))
@@ -319,9 +337,11 @@ def qmm(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor
     out = torch.empty(M, Np, dtype=torch.float32, device=x.device)
     if M:
         xb = _bf16_rows(x)
+        route = qmm_route(M)
         _launch("qmm", xb.data_ptr(), qs.data_ptr(), scales.data_ptr(),
-                out.data_ptr(), M, K, Np)
+                out.data_ptr(), M, K, Np, entry=f"owk_qmm_{route}")
         qmm.launches += 1
+        qmm.launches_by_route[route] += 1
     return out
 
 
@@ -370,6 +390,7 @@ def ffn_int8(x: torch.Tensor, q0: torch.Tensor, s0: torch.Tensor,
 
 
 qmm.launches = 0
+qmm.launches_by_route = {"rows": 0, "tiles": 0}
 qmm4.launches = 0
 ffn_int8.launches = 0
 

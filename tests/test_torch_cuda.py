@@ -44,12 +44,17 @@ def cuda():
 
 @pytest.mark.parametrize("dtype,S,tol", [(torch.bfloat16, 1280, 1e-2),
                                          (torch.float32, 128, 1e-4)])
-@pytest.mark.parametrize("T,n_valid", [(1536, 1500), (200, 190)])
-def test_mha_packed_kernel_matches_plain(cuda, dtype, S, tol, T, n_valid):
-    """The kernel against its plain version (T=200 exercises the wrapper's
-    pad to a multiple of 64); the bf16 gate is relative to max|ref|."""
-    g = torch.Generator(device=cuda).manual_seed(T + S)
-    q, k, v = (torch.randn(1, T, S, generator=g, device=cuda).to(dtype)
+@pytest.mark.parametrize("B,T,n_valid", [(1, 1536, 1500), (1, 200, 190), (8, 1536, 1500),
+                                         (1, 1536, 1536), (8, 1536, 1536), (1, 1536, 190),
+                                         (8, 1536, 190), (1, 1536, 1), (8, 1536, 1)])
+def test_mha_packed_kernel_matches_plain(cuda, dtype, S, tol, B, T, n_valid):
+    """The kernel against its plain version at large-v3-turbo's encoder shape
+    for one window and a batched round of eight, with every key live, one
+    ragged key tile, a few tiles and one key. T=200: bf16 reads the ragged
+    rows through its TMA maps (zero past T), f32 through the wrapper's pad
+    to a multiple of 64. The bf16 gate is relative to max|ref|."""
+    g = torch.Generator(device=cuda).manual_seed(T + S + n_valid)
+    q, k, v = (torch.randn(B, T, S, generator=g, device=cuda).to(dtype)
                for _ in range(3))
     ref = A.mha_plain(q, k, v, S // 64, 0.125, n_valid)
     before = A.mha_packed.launches
@@ -69,6 +74,9 @@ def test_mha_packed_kernel_rejects_bad_inputs(cuda):
         A.mha_packed(q.half(), q.half(), q.half(), 0.1, 128)
     with pytest.raises(ValueError, match="n_valid"):
         A.mha_packed(q, q, q, 0.1, 0)
+    shifted = torch.zeros(128 * 128 + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte"):   # the TMA maps need aligned rows
+        A.mha_packed(shifted.view(1, 128, 128), q.bfloat16(), q.bfloat16(), 0.1, 128)
     with pytest.raises(NotImplementedError, match="head dim"):
         A.mha_full(q, q, q, 4, 0.1)
 
@@ -127,18 +135,43 @@ def _close(out, ref, tol=1e-3):
     (5, 1280, 3840, torch.bfloat16),      # decoder qkv at 5 rows, Np = 4096
     (1536, 1280, 1280, torch.bfloat16),   # encoder q/k/v/o, Np = 1536
     (37, 256, 600, torch.float32),        # an f32 model's x, odd M
+    # the tiles route: the fewest rows it takes, 128-row tile edges, the
+    # cross-KV's 1500 and the encoder's 1536, at every encoder (K, N)
+    *[(M, K, N, torch.bfloat16) for M in (17, 130, 1500, 1536)
+      for K, N in ((1280, 1280), (1280, 5120), (5120, 1280))],
 ])
 def test_qmm_kernel_matches_plain(cuda, M, K, N, dtype):
     """K3 against its plain version within 1e-3 of max|ref| (f32 sums in
-    another order); the launch counter grows by one."""
+    another order); the launch counter and its route's count grow by one."""
     w = _planes(cuda, K, N, seed=M)
     x = _x(cuda, M, K, seed=M + 1, dtype=dtype)
-    before = TQ.qmm.launches
+    before, route = TQ.qmm.launches, TQ.qmm_route(M)
+    on_route = TQ.qmm.launches_by_route[route]
     out = TQ.qmm(x, w.qs, w.scales)
     torch.cuda.synchronize()
     assert TQ.qmm.launches == before + 1
+    assert TQ.qmm.launches_by_route[route] == on_route + 1
     assert out.shape == (M, w.qs.shape[1]) and out.dtype == torch.float32
     _close(out, TQ.qmm_plain(x, w.qs, w.scales))
+
+
+@pytest.mark.parametrize("name", ["mha_packed", "qmm"])
+def test_redesigned_kernels_run_wgmma(cuda, name):
+    """K1's and K3's libraries hold Hopper warpgroup products (HGMMA in the
+    SASS), and K1's holds no warp-level mma.sync (HMMA) any more: its f32
+    body uses plain FMA. K3's library keeps the rows route's mma.sync."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+    from open_whisper_kit_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
+    if not Path(tool).exists():
+        pytest.skip("cuobjdump not found")
+    sass = subprocess.run([tool, "-sass", str(_build.build(name))], capture_output=True,
+                          text=True, check=True).stdout
+    assert "HGMMA" in sass
+    if name == "mha_packed":
+        assert "HMMA" not in sass
 
 
 @pytest.mark.parametrize("M", [1, 5])

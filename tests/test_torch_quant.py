@@ -97,7 +97,7 @@ def _rel_err(ref, got) -> float:
     return float(np.abs(ref - got.numpy()).max() / np.abs(ref).max())
 
 
-@pytest.mark.parametrize("M_rows", [1, 5, 37])
+@pytest.mark.parametrize("M_rows", [1, 5, 37, 130, 300])
 def test_qmm_plain_matches_jax_kernel(M_rows):
     """K3's plain version against the TPU kernel `_qmm` (interpret mode),
     within 1e-5 of max|ref| (f32 summation order)."""
@@ -111,6 +111,15 @@ def test_qmm_plain_matches_jax_kernel(M_rows):
     assert _rel_err(ref, got) <= 1e-5
     # the CPU wrapper is the plain version
     assert torch.equal(TQ.qmm(torch.from_numpy(x), t.qs, t.scales), got)
+
+
+def test_qmm_route_by_rows():
+    """K3's route on the card: the decode rows (M <= 16) keep the 16-row
+    slice of qmm_tile.cuh, every larger M takes the 128 x 128 TMA + wgmma
+    tiles (130 and 300 cross the 128-row tile edges)."""
+    rows = [1, 5, 16, 17, 130, 300, 1500, 1536, 12288]
+    assert [TQ.qmm_route(M) for M in rows] == ["rows"] * 3 + ["tiles"] * 6
+    assert set(TQ.qmm.launches_by_route) == {"rows", "tiles"}
 
 
 @pytest.mark.parametrize("M_rows", [1, 5, 37])
