@@ -6,7 +6,8 @@
 Phases, each gated; any failure exits non-zero before the result lines:
   1. torch / CUDA versions and the card's name and power limit;
   2. build kernels K1 (csrc/mha_packed.cu), K2 (mega_step.cu, 1-8 rows), K3
-     (qmm.cu), K4 (qmm4.cu), K5 (ffn_int8.cu), K6 and T2 (w8a8.cu), K7
+     (qmm.cu, and qmm_rows.cu for M <= 16), K4 (qmm4.cu), K5 (ffn_int8.cu),
+     K6 and T2 (w8a8.cu), K7
      (mega_beam.cu), K8 (mega_batch.cu), K9a/K9b (cross_q8.cu) and T1
      (mm_bf16.cu) with nvcc, one process per source, all at once, timed;
   3. K1 against its plain torch version on the card: bf16 at the
@@ -18,7 +19,11 @@ Phases, each gated; any failure exits non-zero before the result lines:
      K3, K4 and K5 against their plain versions at the shapes large-v3-turbo
      gives them (gate 1e-3 * max|ref|), with kernel, plain and library times
      (torch.matmul on the dequantized bf16 weight), each launch with a cold
-     L2 cache, the bound and the kernel's share of it; K2 (the whole decoder
+     L2 cache, the bound and the kernel's share of it; at K3's rows-route
+     shapes (1 x 1280 -> 1280 and -> 3840, 5 x 1280 -> 3840, W8 logits) also
+     the kernel's and torch.matmul's device times queued behind a spin, with
+     the bound's share of the queued time, and two launches bit-equal (the
+     splits' ordered combine); K2 (the whole decoder
      step) at large-v3-turbo
      width (4 layers, 448 cache rows, 1500 audio positions, vocabulary
      51866) in its four modes (dense, int8 logits, int8, int4): 8
@@ -160,7 +165,8 @@ Phases, each gated; any failure exits non-zero before the result lines:
      operands: T1 within one bf16 ulp per element (plus the f32 sum-order
      bound where products cancel), T2 bit for bit; kernel, plain and
      library times (cuBLAS bf16 through torch.mm with f32 out; _int_mm with
-     the scale ops), cold L2, and the bound; then the port's probe
+     the scale ops), cold L2, the bound and T1's and cuBLAS's shares of the
+     bf16 peak; then the port's probe
      (open_whisper_kit_tpu_torch.tools.bench_int8_mxu.main) at full shape,
      the path of T1 and T2, with exact launch counts (two per chained
      iteration per chain call).
@@ -197,8 +203,8 @@ TURBO_LAYERS = 32
 NARROW = (51864, 1500, 128, 2, 2, 448, 128, 2, 2, 80)
 NARROW_Q = (51864, 1500, 128, 2, 2, 448, 128, 2, 3, 80)   # 3 decoder layers
 TURBO = (51866, 1500, 1280, 20, 32, 448, 1280, 20, 4, 128)
-KERNELS = ("mha_packed", "mega_step", "qmm", "qmm4", "ffn_int8", "mega_beam", "w8a8",
-           "mega_batch", "cross_q8", "mm_bf16")
+KERNELS = ("mha_packed", "mega_step", "qmm", "qmm_rows", "qmm4", "ffn_int8", "mega_beam",
+           "w8a8", "mega_batch", "cross_q8", "mm_bf16")
 SRC = "open_whisper_kit_tpu_torch/csrc/"
 # H100 SXM published HBM bandwidth (NVIDIA data sheet): the bound of a
 # kernel is the larger of its bytes over it and its operations over the
@@ -340,14 +346,20 @@ def phase_quant_kernels(torch, Q):
     cache flushed before each launch (on the decode path every weight
     plane arrives cold), and the bound. The bound counts the logical N
     columns only: the planes' padding to a multiple of 128 is zeros that
-    the function does not need. Returns {kernel: [per-shape dicts]}."""
+    the function does not need. K3's rows-route shapes (M <= 16, kernel
+    "qmm_rows") are also timed queued behind a spin (cuda_ms's `queued`:
+    the device time without the wrapper's host time) for the kernel and the
+    library call, and two launches must give the same bits. Returns
+    {kernel: [per-shape dicts]}; a rows-route dict's "ms" and "library_ms"
+    are the queued times, "ms_unqueued" and "library_ms_unqueued" the
+    others."""
     g = torch.Generator(device="cuda").manual_seed(0)
     l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
 
     def weight(K, N):
         return torch.randn(K, N, generator=g, device="cuda") * K ** -0.5
 
-    out = {name: [] for name in ("qmm", "qmm4", "ffn_int8")}
+    out = {name: [] for name in ("qmm", "qmm_rows", "qmm4", "ffn_int8")}
     for name, label, M, K, N in QUANT_SHAPES:
         x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
         if name == "ffn_int8":
@@ -380,14 +392,31 @@ def phase_quant_kernels(torch, Q):
         p_ms = cuda_ms(torch, lambda: plain(*args), flush=l2_flush)
         l_ms = cuda_ms(torch, lib_fn, flush=l2_flush) if lib_fn is not None else None
         b_ms, b_by = bound(moved, flops)
-        out[name].append({"shape": f"{label}: M={M} K={K} N={N}", "max_abs_err": err,
-                          "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                          "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms})
+        row = {"shape": f"{label}: M={M} K={K} N={N}", "max_abs_err": err,
+               "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms}
         lib_txt = f"{l_ms * 1e3:.1f} us" if l_ms is not None else "none"
         print(f"[3] {name} {label} (M={M}, K={K}, N={N}): max|err| {err:.3e} "
               f"(max|ref| {ref_max:.3e}); kernel {k_ms * 1e3:.1f} us, plain "
               f"{p_ms * 1e3:.1f} us, library {lib_txt}, bound {b_ms * 1e3:.1f} us "
               f"({b_by}), {100 * b_ms / k_ms:.1f} % of the bound", flush=True)
+        if name == "qmm" and Q.qmm_route(M) == "rows":
+            name = "qmm_rows"
+            again = kern(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"qmm rows route ({label}): two launches differ")
+            kq_ms = cuda_ms(torch, lambda: kern(*args), flush=l2_flush, queued=True)
+            lq_ms = cuda_ms(torch, lib_fn, flush=l2_flush, queued=True)
+            plan = Q.qmm_rows_plan(M, K, args[1].shape[1])
+            row.update(ms=kq_ms, library_ms=lq_ms, ms_unqueued=k_ms, library_ms_unqueued=l_ms,
+                       bound_share=b_ms / kq_ms, splits=plan.splits, blocks=plan.blocks)
+            print(f"[3]   qmm rows route, queued (device time): kernel {kq_ms * 1e3:.1f} us, "
+                  f"torch.matmul {lq_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us, "
+                  f"{100 * b_ms / kq_ms:.1f} % of the bound; kernel / matmul "
+                  f"{kq_ms / lq_ms:.2f}; {plan.splits} splits, {plan.blocks} blocks; two "
+                  "launches bit-equal", flush=True)
+            del again
+        out[name].append(row)
         del args, ref, got
     del l2_flush
     torch.cuda.empty_cache()
@@ -1863,12 +1892,18 @@ def phase_mxu(torch, G, P, profiling: bool = False) -> dict:
         l_ms = cuda_ms(torch, lambda: torch.mm(a, b, out_dtype=torch.float32),
                        flush=l2_flush, queued=True)
         b_ms, b_by = bound(nbytes(a, b, got), 2 * M * K * N)
+        share = 2 * M * K * N / (k_ms * 1e-3) / P.BF16_PEAK
+        plan = G.mm_bf16_plan(M, N, torch.cuda.get_device_properties(0).multi_processor_count)
         rows["mm_bf16"].append({"shape": shape, "max_abs_err": err, "values_differing":
-                                r["differing"], "values_past_one_ulp": r["past_ulp"], "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                                "bound_ms": b_ms, "bound_by": b_by})
+                                r["differing"], "values_past_one_ulp": r["past_ulp"], "ms": k_ms,
+                                "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                                "bound_by": b_by, "bf16_peak_share": share,
+                                "library_bf16_peak_share": share * k_ms / l_ms})
         print(f"[23]   T1 kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, cuBLAS bf16 "
               f"(torch.mm, f32 out) {l_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}); "
-              f"{2 * M * K * N / k_ms / 1e9:.1f} TFLOP/s", flush=True)
+              f"{2 * M * K * N / k_ms / 1e9:.1f} TFLOP/s, {100 * share:.1f} % of the bf16 peak "
+              f"(cuBLAS {100 * share * k_ms / l_ms:.1f} %), kernel / cuBLAS {k_ms / l_ms:.2f}; "
+              f"{plan}", flush=True)
         del ref, got
         # ---- T2 ----
         aq, a_s = P.quant_rows(a)
@@ -1926,7 +1961,7 @@ def phase_mxu(torch, G, P, profiling: bool = False) -> dict:
         for tag, step, ws in (
                 ("bf16", P.step_bf16, (w1, w2)),
                 ("w8a8", P.step_xla_s8, (w1q_cm, w1s, w2q_cm, w2s)),
-                ("T1", P.make_step_pallas_bf16(bm, bn, w1, w2), ()),
+                ("T1", P.make_step_pallas_bf16(w1, w2), ()),
                 ("T2", P.make_step_pallas_s8(bm, bn, w1q, w1s, w2q, w2s), ())):
             loop = P.chain(step)
             loop(x0, *ws)
@@ -2103,7 +2138,7 @@ def main(profiling: bool = False) -> int:
     XQ._kernel_lib()
     G._lib_bf16()
     G._lib_s8()
-    for name in ("qmm", "qmm4", "ffn_int8"):
+    for name in ("qmm", "qmm_rows", "qmm4", "ffn_int8"):
         Q._kernel_lib(name)
     print(f"[2] {', '.join(KERNELS)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -2218,7 +2253,7 @@ def main(profiling: bool = False) -> int:
         print(f"[6] loaded on cuda in {time.perf_counter() - t0:.1f} s", flush=True)
         check(tr.ctx.mega_mode(greedy_params(FullParams)) == "all",
               "q8_0 checkpoint: K2 is not switched on by itself")
-        launches["qmm"] = launches["ffn_int8"] = 0
+        launches["qmm"] = launches["qmm_rows"] = launches["ffn_int8"] = 0
         # auto (K2 int8 for every token step), then megakernel=False, whose
         # token steps run decode_impl (K3 and K5 on the decoder path)
         for megakernel, runs in ((None, ((30.0, 30), (65.0, 65))), (False, ((30.0, 30),))):
@@ -2252,7 +2287,8 @@ def main(profiling: bool = False) -> int:
                 launches["mega_decode_step"] = n_k2
             else:
                 check(n_k2 == 0 and calls.mega == 0, "megakernel=False still ran K2")
-            launches["qmm"] += Q.qmm.launches
+            launches["qmm"] += Q.qmm.launches_by_route["tiles"]
+            launches["qmm_rows"] += Q.qmm.launches_by_route["rows"]
             launches["ffn_int8"] += Q.ffn_int8.launches
         # the main path of beam search: every beam token step is one K7
         # launch (int8, by itself), K2 never; the host reads the loop's done
@@ -2495,7 +2531,7 @@ def main(profiling: bool = False) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     launches.update(mxu["launches"])
-    head = {"qmm": 0, "qmm4": 0, "ffn_int8": 0}   # the row each headline takes
+    head = {"qmm": 0, "qmm_rows": 0, "qmm4": 0, "ffn_int8": 0}   # the row each headline takes
     replaces = {"mha_packed": "open_whisper_kit_tpu/ops/attention.py:70",
                 "mega_decode_step": "open_whisper_kit_tpu/ops/decode_megakernel.py:1128",
                 "mega_decode_step_verify": "open_whisper_kit_tpu/ops/decode_megakernel.py:1128",
@@ -2503,6 +2539,7 @@ def main(profiling: bool = False) -> int:
                 "mega_decode_step_batch": "open_whisper_kit_tpu/ops/decode_megakernel.py:1471",
                 "w8a8_mm": "open_whisper_kit_tpu/ops/encoder_int8.py:129",
                 "qmm": "open_whisper_kit_tpu/ops/quant_matmul.py:129",
+                "qmm_rows": "open_whisper_kit_tpu/ops/quant_matmul.py:129",
                 "qmm4": "open_whisper_kit_tpu/ops/quant_matmul.py:280",
                 "ffn_int8": "open_whisper_kit_tpu/ops/quant_matmul.py:385",
                 "cross_attention_q8": "open_whisper_kit_tpu/ops/experiments.py:155",

@@ -3,6 +3,7 @@
 one or more source trees in turn.
 
     python3 greedy_rtf.py ROOT [ROOT ...] [--reps 3] [--model dense|q8_0]
+                          [--request auto|no-megakernel|cross-kv-int8 ...]
 
 Each ROOT is a directory holding `open_whisper_kit_tpu_torch/`: this
 checkout, or another commit unpacked with `git archive` into a git-ignored
@@ -14,10 +15,14 @@ checkpoint of seed-0 random tensors in bf16 (`--model q8_0`; written once,
 by this checkout's writer, into a temporary directory under `build/`, and
 removed at the end; its token steps run K2 by themselves), serves one
 warm-up request, then `--reps` timed requests of 30 s of
-seeded noise with `temperature_inc = 0` (the greedy device loop alone).
-Each timed request prints one JSON line: the root, the model, wall seconds (host clock,
-ending in `torch.cuda.synchronize()`), RTF, sampled tokens, encoder passes
-and wall ms per sampled token. Then `--reps` timed passes of the request's
+seeded noise with `temperature_inc = 0` (the greedy device loop alone),
+for each `--request` kind in turn: `auto` (the defaults), `no-megakernel`
+(megakernel=False: every token step runs decode_impl, 16 quantized linears
+through K3's rows route on the q8_0 model) or `cross-kv-int8`
+(cross_kv_int8=True, which also keeps K2 off). Each timed request prints
+one JSON line: the root, the model, the request kind, wall seconds (host
+clock, ending in `torch.cuda.synchronize()`), RTF, sampled tokens, encoder
+passes and wall ms per sampled token. Then `--reps` timed passes of the request's
 first window through the encoder and cross-KV print the window's device
 span (CUDA events) and the host's time to issue it. The card's name and
 power limit come first.
@@ -51,7 +56,11 @@ def write_q8_0(path: Path) -> None:
                        W.random_reference_tensors(hp, seed=0), wtype=W.TYPE_FOR_NAME["q8_0"])
 
 
-def child(root: Path, reps: int, model_path: Path | None) -> None:
+REQUESTS = {"auto": {}, "no-megakernel": {"megakernel": False},
+            "cross-kv-int8": {"cross_kv_int8": True}}
+
+
+def child(root: Path, reps: int, model_path: Path | None, requests: list[str]) -> None:
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
@@ -67,21 +76,24 @@ def child(root: Path, reps: int, model_path: Path | None) -> None:
                          seed=0)
     else:
         tr = Transcriber(model_path=model_path, dtype=torch.bfloat16, device="cuda")
-    for rep in range(reps + 1):
-        p = FullParams(print_progress=False)
-        p.temperature_inc = 0
-        t0 = time.perf_counter()
-        res = tr.transcribe(samples, p)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if rep == 0:
-            continue   # warm-up: first launches, allocator growth
-        n = res.timings.n_sample
-        print(json.dumps({"root": str(root), "model": "dense" if model_path is None
-                          else "q8_0", "rep": rep, "wall_s": wall,
-                          "rtf": wall / SECONDS, "sampled_tokens": n,
-                          "encoder_passes": res.timings.n_encode,
-                          "ms_per_token": 1e3 * wall / max(n, 1)}), flush=True)
+    for request in requests:
+        for rep in range(reps + 1):
+            p = FullParams(print_progress=False)
+            p.temperature_inc = 0
+            for field, value in REQUESTS[request].items():
+                setattr(p, field, value)
+            t0 = time.perf_counter()
+            res = tr.transcribe(samples, p)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if rep == 0:
+                continue   # warm-up: first launches, allocator growth
+            n = res.timings.n_sample
+            print(json.dumps({"root": str(root), "model": "dense" if model_path is None
+                              else "q8_0", "request": request, "rep": rep, "wall_s": wall,
+                              "rtf": wall / SECONDS, "sampled_tokens": n,
+                              "encoder_passes": res.timings.n_encode,
+                              "ms_per_token": 1e3 * wall / max(n, 1)}), flush=True)
     # the request's first window alone: encoder + cross-KV, the device span
     # (CUDA events) beside the host's time to issue it; where the two are
     # equal the host paces the window
@@ -107,11 +119,13 @@ def main() -> int:
     ap.add_argument("roots", nargs="+", type=Path)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--model", choices=("dense", "q8_0"), default="dense")
+    ap.add_argument("--request", choices=tuple(REQUESTS), action="append",
+                    help="request kind, repeatable (default: auto)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--model-path", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.roots[0].resolve(), args.reps, args.model_path)
+        child(args.roots[0].resolve(), args.reps, args.model_path, args.request or ["auto"])
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -127,8 +141,9 @@ def main() -> int:
             write_q8_0(path)
             extra = ["--model-path", str(path)]
         for root in args.roots:
+            kinds = [f"--request={r}" for r in args.request or ["auto"]]
             subprocess.run([sys.executable, __file__, "--child", "--reps", str(args.reps),
-                            *extra, str(root)], check=True, timeout=900)
+                            *kinds, *extra, str(root)], check=True, timeout=900)
     finally:
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)

@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Time K3's rows route and T1 of the PyTorch port on one GPU, for one or
+more source trees in turn.
+
+    python3 kernel_times.py ROOT [ROOT ...]
+
+Each ROOT is a directory holding `open_whisper_kit_tpu_torch/`: this
+checkout, or another commit unpacked with `git archive` into a git-ignored
+directory such as `build/`; each runs in a process of its own, in the order
+given (A B B A interleaves two trees on one card). A root prints one JSON
+line per case, every time the median of 20 launches in µs (CUDA events):
+- K3 (`ops.quant_matmul.qmm`) at its decode-row shapes, 1 x 1280 -> 1280
+  and -> 3840, 5 x 1280 -> 3840, 1 x 1280 -> 51866 (the W8 logits), 8 x
+  1280 -> 1280 and -> 3840 (lockstep batches of 8 streams) and 16 x 1280
+  -> 1280, beside `torch.matmul` on the dequantized bf16 weight, each with
+  the L2 cache flushed before the launch, "queued" (behind a spin on the
+  card: the device time) and not (the span then also holds the wrapper's
+  host time); and the host's time to issue one call (`host_us`: 200 calls
+  back to back on the host clock, no flush);
+- T1 (`ops.gemm.mm_bf16`) at the tensor-core probe's two products beside
+  cuBLAS bf16 (`torch.mm` with f32 out), queued, cold L2; where the tree's
+  T1 plans its tile (`mm_bf16_plan`), with that tile;
+- where the tree has the split rows route (`qmm_rows_plan`), the rows
+  route at its one- and five-row shapes for a range of splits.
+The card's name and power limit come first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROWS_SHAPES = [(1, 1280, 1280), (1, 1280, 3840), (5, 1280, 3840), (1, 1280, 51866),
+               (8, 1280, 1280), (8, 1280, 3840), (16, 1280, 1280)]
+SPLITS = {1280: (4, 6, 8), 3840: (2, 3, 4, 6, 8), 51866: (1, 2)}
+MM_SHAPES = [(1536, 1280, 5120), (1536, 5120, 1280)]
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def setup(root: Path):
+    sys.path.insert(0, str(root))   # the tree's package; cuda_ms from its chip_smoke.py
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("kernel_times: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import chip_smoke as CS
+    return torch, CS
+
+
+def plane(torch, Q, M, K, N, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = Q.quantize_linear(torch.randn(K, N, generator=g, device="cuda") * K ** -0.5)
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    return w, x, Q.dequantize_dense(w, torch.bfloat16).contiguous()
+
+
+def host_us(torch, fn, n: int = 200) -> float:
+    """µs of host time per call of fn, issued n times back to back."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / n
+
+
+def emit(**row) -> None:
+    print(json.dumps(row), flush=True)
+
+
+def child(root: Path) -> None:
+    torch, CS = setup(root)
+    from open_whisper_kit_tpu_torch.ops import gemm as G
+    from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def us(fn, queued=True):
+        return 1e3 * CS.cuda_ms(torch, fn, flush=flush, queued=queued)
+
+    for M, K, N in ROWS_SHAPES:
+        w, x, wd = plane(torch, Q, M, K, N, M + N)
+        ref = Q.qmm_plain(x, w.qs, w.scales)
+        err = ((Q.qmm(x, w.qs, w.scales) - ref).abs().max() / ref.abs().max()).item()
+        emit(root=str(root), kernel="qmm rows route", M=M, K=K, N=N, rel_err=err,
+             us=us(lambda: Q.qmm(x, w.qs, w.scales)),
+             us_unqueued=us(lambda: Q.qmm(x, w.qs, w.scales), False),
+             host_us=host_us(torch, lambda: Q.qmm(x, w.qs, w.scales)),
+             matmul_us=us(lambda: torch.matmul(x, wd)),
+             matmul_us_unqueued=us(lambda: torch.matmul(x, wd), False),
+             matmul_host_us=host_us(torch, lambda: torch.matmul(x, wd)))
+        if not hasattr(Q, "qmm_rows_plan"):
+            continue
+        Np = w.qs.shape[1]
+        maps = Q._rows_tensor_maps(w.qs, w.scales, K, Np)
+        lib = Q._kernel_lib("qmm_rows")
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty(M, Np, device="cuda")
+        for splits in SPLITS.get(N, ()) if M <= 5 else ():
+            def run(splits=splits):
+                rc = lib.owk_qmm_rows(x.data_ptr(), maps, out.data_ptr(), M, K, Np, splits,
+                                      stream)
+                if rc:
+                    raise RuntimeError(f"owk_qmm_rows: cudaError {rc}")
+            run()
+            torch.cuda.synchronize()
+            err = ((out - ref).abs().max() / ref.abs().max()).item()
+            emit(root=str(root), kernel="qmm rows route", M=M, K=K, N=N, splits=splits,
+                 blocks=splits * Np // 128, rel_err=err, us=us(run))
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for M, K, N in MM_SHAPES:
+        a = (torch.randn(M, K, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+        b = (torch.randn(K, N, generator=g, device="cuda") * K ** -0.5).to(torch.bfloat16)
+        ok = G.mm_bf16_within(G.mm_bf16(a, b), G.mm_bf16_plain(a, b), a, b)["ok"]
+        tile = (list(G.mm_bf16_plan(M, N, torch.cuda.get_device_properties(0)
+                                    .multi_processor_count).tile)
+                if hasattr(G, "mm_bf16_plan") else None)
+        emit(root=str(root), kernel="mm_bf16", M=M, K=K, N=N, tile=tile, ok=ok,
+             us=us(lambda: G.mm_bf16(a, b)),
+             cublas_us=us(lambda: torch.mm(a, b, out_dtype=torch.float32)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("roots", nargs="+", type=Path)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        child(args.roots[0].resolve())
+        return 0
+    print(smi(), flush=True)
+    for root in args.roots:
+        subprocess.run([sys.executable, __file__, "--child", str(root)], check=True,
+                       timeout=900)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

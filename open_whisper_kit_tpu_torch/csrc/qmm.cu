@@ -13,10 +13,10 @@
 // (mlp0 and mlp1, 1536 x 1280 x 5120: 20.4 us at 989 TFLOP/s).
 //
 // Two routes, chosen by the caller (ops/quant_matmul.py::qmm_route):
-//  * "rows", M <= 16 (the decode rows): qmm_tile.cuh's tile loop on one
-//    16-row slice, owk_qmm_rows;
+//  * "rows", M <= 16 (the decode rows): owk_qmm_rows in qmm_rows.cu, a
+//    split weight stream on TMA rings (its own library);
 //  * "tiles", M > 16 (the encoder, the cross-KV, prompt ingest):
-//    owk_qmm_tiles, a Hopper kernel (TMA, mbarriers, wgmma).
+//    owk_qmm_tiles, this file, a Hopper kernel (TMA, mbarriers, wgmma).
 //
 // Design of the tiles route: one block per 128 x 128 output tile, five
 // warpgroups, one block per SM; the grid is fixed per shape: mlp0 (1536 x
@@ -46,11 +46,9 @@
 // tile (240 MB through L2 at mlp0 and mlp1).
 //
 // Requires K % 32 == 0, Np % 128 == 0, x, qs and scales on 16-byte
-// boundaries (the rows route: 16-byte aligned x / scales rows, 4-byte aligned
-// value rows); the Python wrapper checks. Each entry launches on `stream` and
+// boundaries; the Python wrapper checks. The entry launches on `stream` and
 // returns the cudaError_t of the launch (or of the tensor-map encoding).
 
-#include "qmm_tile.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -78,32 +76,6 @@ constexpr uint32_t kWRing = kXRing + kXStages * kXBytes;
 constexpr uint32_t kBRing = kWRing + kWStages * kWBytes;   // every tile 1024-aligned
 constexpr uint32_t kBars = kBRing + kBStages * kBBytes;
 constexpr size_t kSmemBytes = 1024 + kBars + 8 * 2 * (kXStages + kWStages + kBStages);
-
-// full / empty mbarrier pairs of one ring, at bars: full[s], then empty[s]
-template <int kStages>
-struct Ring {
-  uint32_t bars;
-  __device__ __forceinline__ uint32_t full(int i) const { return bars + 8 * (i % kStages); }
-  __device__ __forceinline__ uint32_t empty(int i) const {
-    return bars + 8 * (kStages + i % kStages);
-  }
-  // step i's slot holds data (consumer side)
-  __device__ __forceinline__ void wait_full(int i) const { mbar_wait(full(i), (i / kStages) & 1); }
-  // step i's slot is free again (producer side; the first round is free)
-  __device__ __forceinline__ void wait_empty(int i) const {
-    if (i >= kStages) mbar_wait(empty(i), ((i / kStages) & 1) ^ 1);
-  }
-  // one arrival per warp, after the whole warp is done with step i's slot
-  __device__ __forceinline__ void arrive_warp(uint32_t bar) const {
-    __syncwarp();
-    if (threadIdx.x % 32 == 0) mbar_arrive(bar);
-  }
-};
-
-// int8 x4 -> f32 x4 exactly: byte b + 128 lands in the mantissa of 2^23
-__device__ __forceinline__ float q_at(uint32_t biased, int k) {
-  return __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 + k)) - 8388736.0f;
-}
 
 // the int8 tile (64 x 128, row-major) and its scales (2 x 128) at `w` -> bf16
 // B tile at `dst`, MN-major, 128-byte swizzle. 256 threads; thread t takes
@@ -146,9 +118,9 @@ qmm_tiles_kernel(const __grid_constant__ CUtensorMap tm_x,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;   // swizzled tiles: 1024-aligned
   uint8_t* const gbase = smem_raw + (base - raw);
-  const Ring<kXStages> xr{base + kBars};
-  const Ring<kWStages> wr{xr.bars + 16 * kXStages};
-  const Ring<kBStages> br{wr.bars + 16 * kWStages};
+  const StageRing<kXStages> xr{base + kBars};
+  const StageRing<kWStages> wr{xr.bars + 16 * kXStages};
+  const StageRing<kBStages> br{wr.bars + 16 * kWStages};
 
   const int warp = threadIdx.x / 32;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
@@ -237,17 +209,6 @@ qmm_tiles_kernel(const __grid_constant__ CUtensorMap tm_x,
 }
 
 }  // namespace
-
-extern "C" int owk_qmm_rows(const void* x, const void* qs, const void* scales, void* out,
-                            int M, int K, int Np, void* stream) {
-  namespace qt = owk_qtile;
-  if (M < 1 || M > 16) return (int)cudaErrorInvalidValue;
-  qt::qmm_kernel<1><<<dim3(Np / qt::kBN, 1), qt::kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(x), M, K,
-      qt::Int8Planes{static_cast<const int8_t*>(qs), static_cast<const float*>(scales), Np},
-      qt::StoreF32{static_cast<float*>(out), Np});
-  return (int)cudaGetLastError();
-}
 
 extern "C" int owk_qmm_tiles(const void* x, const void* qs, const void* scales, void* out,
                              int M, int K, int Np, void* stream) {

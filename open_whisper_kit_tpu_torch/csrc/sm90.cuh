@@ -1,21 +1,30 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (K1's bf16 body in mha_packed.cu, K3's M > 16 body in qmm.cu).
+// (K1's bf16 body in mha_packed.cu, K3's M > 16 body in qmm.cu, K3's M <= 16
+// body in qmm_rows.cuh, T1 in mm_bf16.cu).
 //
 //  * mbarriers: init, arrive, arrive with an expected transaction count, and
 //    a phase-parity wait that traps after ~10 s instead of hanging the card
 //    (a wrong parity or byte count then fails the launch's stream with an
-//    error rather than a hang);
+//    error rather than a hang); StageRing, the full / empty barrier pairs of
+//    a ring of shared-memory stages;
+//  * clusters: the cluster barrier's two halves, a block's rank, its shared
+//    addresses as another block of the cluster sees them, arrivals on
+//    another block's mbarrier, and st.async stores into another block's
+//    shared memory that complete on its mbarrier;
 //  * TMA: 2-D and 3-D tile loads from a CUtensorMap kernel parameter
 //    (`const __grid_constant__`) into shared memory, completing on an
-//    mbarrier; the host encodes the map with libcuda's cuTensorMapEncodeTiled,
+//    mbarrier (2-D also multicast to the blocks of a cluster); the host encodes the map with libcuda's cuTensorMapEncodeTiled,
 //    looked up at run time (cudaGetDriverEntryPoint), so no library links
 //    -lcuda;
 //  * wgmma: shared-memory matrix descriptors for the 128-byte swizzle, and
-//    m64n128k16 (both operands in shared memory) and m64n64k16 (A in
-//    registers) bf16 -> f32 products with their fence, commit and wait;
+//    m64n128k16 and m64n256k16 (both operands in shared memory) and
+//    m64n64k16 (A in registers) bf16 -> f32 products with their fence,
+//    commit and wait;
 //  * the async-proxy fence that makes threads' shared-memory writes visible
 //    to wgmma; setmaxnreg for warp-specialised blocks; the once-per-device
-//    opt-in to more than 48 KB of dynamic shared memory.
+//    opt-in to more than 48 KB of dynamic shared memory;
+//  * q_at, an int8 value to f32 exactly through a byte permute (the
+//    dequantizing kernels' way past the slower int-to-float unit).
 //
 // Layouts. A 128-byte-swizzled tile stores each row of 64 bf16 (128 bytes)
 // with its 16-byte chunk c at chunk position c ^ (row % 8); the pattern
@@ -89,6 +98,98 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (clock64() - t0 > (1ll << 34)) __trap();   // ~10 s: a pipeline fault, not a wait
 }
 
+// the same wait with cluster-scope acquire: for phases that other blocks of
+// the cluster complete (st_async, a peer's arrive)
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t ok = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (ok) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// -- clusters ------------------------------------------------------------------
+
+// the cluster barrier in two halves: every thread of every block of the
+// cluster arrives (release: its block's writes so far, barrier inits
+// included, are visible to the cluster) and later waits (acquire), before it
+// exits; the halves may sit far apart, so the barrier costs little
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+// the same without the release: enough at a kernel's start, where the one
+// write the others need, the barrier inits, is already released by
+// fence_barrier_init; a release there costs a launch time (kernel_times.py
+// --ablate, variant release-arrive)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the shared::cluster address of `addr` (a shared::cta address) in block `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// arrive on an mbarrier of another block of the cluster (`bar` from map_rank);
+// the default .release.cta: a cluster-scope release here waits for the
+// warp's wgmma still in flight and serialises a pipeline
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// store 16 bytes into another block's shared memory (`addr` and `bar` from
+// map_rank); the bytes count against `bar`'s expected transaction
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// full / empty mbarrier pairs of a ring of kStages stages, at bars: full[s],
+// then empty[s]; step i uses stage i % kStages
+template <int kStages>
+struct StageRing {
+  uint32_t bars;
+  __device__ __forceinline__ uint32_t full(int i) const { return bars + 8 * (i % kStages); }
+  __device__ __forceinline__ uint32_t empty(int i) const {
+    return bars + 8 * (kStages + i % kStages);
+  }
+  // step i's slot holds data (consumer side)
+  __device__ __forceinline__ void wait_full(int i) const { mbar_wait(full(i), (i / kStages) & 1); }
+  // step i's slot is free again (producer side; the first round is free)
+  __device__ __forceinline__ void wait_empty(int i) const {
+    if (i >= kStages) mbar_wait(empty(i), ((i / kStages) & 1) ^ 1);
+  }
+  // one arrival per warp, after the whole warp is done with step i's slot
+  __device__ __forceinline__ void arrive_warp(uint32_t bar) const {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+  }
+};
+
 // -- TMA -------------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -106,6 +207,28 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads) over `n` threads, a multiple of 32
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// fetch a tensor map (a __grid_constant__ kernel parameter) ahead of its first load
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// the 2-D tile load into the same shared offset of every block of the cluster
+// in `mask`, completing on the mbarrier at the same offset in each
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
       : "memory");
 }
 
@@ -212,6 +335,94 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss_first(float (&d)[64], uint64
       : "l"(a_desc), "l"(b_desc), "r"(0), "n"(kTransB));
 }
 
+// D (64 x 256, f32) = A (64 x 16, bf16, K-major, shared) * B (16 x 256, bf16,
+// shared; K-major when kTransB is 0, MN-major when 1) + (scale_d ? D : 0): per
+// k16 half the shared-memory reads of A that two m64n128k16 need
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t a_desc,
+                                                    uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d), "n"(kTransB));
+}
+
+// the same with D = A * B (scale-d 0, the accumulator only written)
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n256k16_ss_first(float (&d)[128], uint64_t a_desc,
+                                                          uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63]),
+        "=f"(d[64]), "=f"(d[65]), "=f"(d[66]), "=f"(d[67]), "=f"(d[68]), "=f"(d[69]), "=f"(d[70]), "=f"(d[71]),
+        "=f"(d[72]), "=f"(d[73]), "=f"(d[74]), "=f"(d[75]), "=f"(d[76]), "=f"(d[77]), "=f"(d[78]), "=f"(d[79]),
+        "=f"(d[80]), "=f"(d[81]), "=f"(d[82]), "=f"(d[83]), "=f"(d[84]), "=f"(d[85]), "=f"(d[86]), "=f"(d[87]),
+        "=f"(d[88]), "=f"(d[89]), "=f"(d[90]), "=f"(d[91]), "=f"(d[92]), "=f"(d[93]), "=f"(d[94]), "=f"(d[95]),
+        "=f"(d[96]), "=f"(d[97]), "=f"(d[98]), "=f"(d[99]), "=f"(d[100]), "=f"(d[101]), "=f"(d[102]), "=f"(d[103]),
+        "=f"(d[104]), "=f"(d[105]), "=f"(d[106]), "=f"(d[107]), "=f"(d[108]), "=f"(d[109]), "=f"(d[110]), "=f"(d[111]),
+        "=f"(d[112]), "=f"(d[113]), "=f"(d[114]), "=f"(d[115]), "=f"(d[116]), "=f"(d[117]), "=f"(d[118]), "=f"(d[119]),
+        "=f"(d[120]), "=f"(d[121]), "=f"(d[122]), "=f"(d[123]), "=f"(d[124]), "=f"(d[125]), "=f"(d[126]), "=f"(d[127])
+      : "l"(a_desc), "l"(b_desc), "r"(0), "n"(kTransB));
+}
+
 // D (64 x 64, f32) = A (64 x 16, bf16, registers) * B (16 x 64, bf16, shared)
 // + (scale_d ? D : 0). Thread t's four A registers hold two bf16 each (the
 // lower column first): rows r = 16 (t / 32) + (t % 32) / 4 and r + 8 at
@@ -240,6 +451,12 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// int8 x4 -> f32 x4 exactly: `biased` is four int8 values XOR 0x80808080
+// (each + 128 as a byte); byte k lands in the mantissa of 2^23
+__device__ __forceinline__ float q_at(uint32_t biased, int k) {
+  return __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 + k)) - 8388736.0f;
 }
 
 // -- host: tensor maps -----------------------------------------------------------

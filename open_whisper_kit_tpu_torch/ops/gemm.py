@@ -14,13 +14,15 @@ tools/bench_int8_mxu.py (`pallas_mm_bf16`, `pallas_mm_s8`), which
 
 CPU tensors take the plain versions; CUDA tensors launch the kernel on the
 current stream or raise. Each wrapper's `launches` counts its launches.
-Shapes that are not multiples of the kernels' tile are zero-padded per
-call (the probe's are not).
+T1 takes ragged shapes as they are (its TMA loads fill past the edges with
+zeros) and pads only K or N that is not a multiple of 8; T2 zero-pads
+shapes that are not multiples of its tile per call (the probe's are not).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -28,8 +30,11 @@ import torch.nn.functional as F
 
 from . import _build
 
-TILES = ((128, 128),)   # (rows, columns) of the output tile the kernels are built for
-_BK_BF16 = 32           # T1's K step (csrc/mm_bf16.cu)
+TILES = ((128, 128),)   # (rows, columns): T2's tile, which the probe sweeps
+# T1's output tiles: mm_bf16_plan takes the wider where its tile pairs still
+# fill the card
+MM_BF16_TILES = ((128, 128), (128, 256))
+_ALIGN_BF16 = 8         # T1's K and N: TMA's row strides are multiples of 16 bytes
 _BK_S8 = 64             # T2's K step (csrc/w8a8.cu)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # T1 against another bf16 rounding of the same f32 sums (its plain version,
@@ -83,12 +88,59 @@ def mm_bf16_within(got: torch.Tensor, ref: torch.Tensor, a: torch.Tensor,
     return r
 
 
+# -- launch plans ------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MmPlan:
+    """T1's grid for one shape on a card of `sms` SMs: `tiles` output tiles
+    of `tile` in `pairs` of two row tiles of one column tile (a cluster of
+    two blocks, which share the tile of b), walked by `grid` persistent
+    blocks (cluster c takes pairs c, c + grid / 2, ...), so the busiest
+    cluster computes `rounds` pairs; `fill` is the share of the card's
+    SM-rounds that compute a tile."""
+    tile: tuple[int, int]
+    tiles: int
+    pairs: int
+    grid: int
+    sms: int
+
+    @property
+    def rounds(self) -> int:
+        return -(-self.pairs // (self.grid // 2))
+
+    @property
+    def fill(self) -> float:
+        return self.tiles / (self.sms * self.rounds)
+
+
+def mm_bf16_plan(M: int, N: int, sms: int) -> MmPlan:
+    """T1's plan for an (M, N) output: one block per SM (its ring of stages
+    takes most of the SM's shared memory), two to a cluster, no more
+    clusters than tile pairs, at the widest of MM_BF16_TILES whose pairs
+    fill every cluster the card holds (fewer bytes per product from L2 and
+    shared memory), else the narrowest."""
+    def plan(t):
+        m_tiles, n_tiles = -(-M // t[0]), -(-N // t[1])
+        pairs = -(-m_tiles // 2) * n_tiles
+        return MmPlan(tile=t, tiles=m_tiles * n_tiles, pairs=pairs,
+                      grid=2 * min(pairs, sms // 2), sms=sms)
+    for t in MM_BF16_TILES[::-1]:
+        if plan(t).pairs >= sms // 2:
+            return plan(t)
+    return plan(MM_BF16_TILES[0])
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 # -- kernels ---------------------------------------------------------------------
 
 @functools.cache
 def _lib_bf16() -> ctypes.CDLL:
     lib = _build.load("mm_bf16")
-    lib.owk_mm_bf16.argtypes = [_P] * 3 + [_I] * 3 + [_P]   # a, b, out, M, K, N, stream
+    lib.owk_mm_bf16.argtypes = [_P] * 3 + [_I] * 5 + [_P]   # a, b, out, M, K, N, bn, grid, stream
     lib.owk_mm_bf16.restype = ctypes.c_int
     return lib
 
@@ -128,7 +180,7 @@ def _launch_check(name: str, rc: int) -> None:
 def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Kernel T1: a (M, K) bf16 @ b (K, N) bf16 -> bf16 (M, N), f32 sums.
     CPU tensors take `mm_bf16_plain`; CUDA tensors launch csrc/mm_bf16.cu
-    or raise."""
+    at `mm_bf16_plan`'s tile, or raise."""
     if a.device.type == "cpu":
         return mm_bf16_plain(a, b)
     if a.device.type != "cuda":
@@ -140,15 +192,17 @@ def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     N = b.shape[1]
     _check("mm_bf16: a", a, torch.bfloat16, (M, K), a.device)
     _check("mm_bf16: b", b, torch.bfloat16, (K, N), a.device)
-    bm, bn = TILES[0]
-    Mp, Kp, Np = _up(M, bm), _up(K, _BK_BF16), _up(N, bn)
-    a_p, b_p = _pad_to(a, Mp, Kp), _pad_to(b, Kp, Np)
-    out = torch.empty(Mp, Np, dtype=torch.bfloat16, device=a.device)
-    rc = _lib_bf16().owk_mm_bf16(a_p.data_ptr(), b_p.data_ptr(), out.data_ptr(), Mp, Kp,
-                                 Np, torch.cuda.current_stream(a.device).cuda_stream)
+    Kp, Np = _up(K, _ALIGN_BF16), _up(N, _ALIGN_BF16)
+    a_p, b_p = _pad_to(a, M, Kp), _pad_to(b, Kp, Np)
+    out = torch.empty(M, Np, dtype=torch.bfloat16, device=a.device)
+    plan = mm_bf16_plan(M, Np, _sms(a.device.index if a.device.index is not None
+                                    else torch.cuda.current_device()))
+    rc = _lib_bf16().owk_mm_bf16(a_p.data_ptr(), b_p.data_ptr(), out.data_ptr(), M, Kp,
+                                 Np, plan.tile[1], plan.grid,
+                                 torch.cuda.current_stream(a.device).cuda_stream)
     _launch_check("mm_bf16", rc)
     mm_bf16.launches += 1
-    return out[:M, :N] if (Mp, Np) != (M, N) else out
+    return out[:, :N] if Np != N else out
 
 
 mm_bf16.launches = 0

@@ -11,7 +11,9 @@ planes come from dense weights through `quantize_linear` /
 
 Three kernels, each beside its plain torch version:
 
-* K3 `qmm` (csrc/qmm.cu): y = bf16(x) @ bf16(q * s), f32 accumulation;
+* K3 `qmm`: y = bf16(x) @ bf16(q * s), f32 accumulation; two bodies by the
+  number of rows (`qmm_route`): csrc/qmm_rows.cu for the decode rows,
+  csrc/qmm.cu above them;
 * K4 `qmm4` (csrc/qmm4.cu): the same over split-half int4 planes
   (low nibble = even K row, high nibble = odd), weights (nibble - 8) * s
   rounded to bf16 as the TPU kernel rounds them;
@@ -255,20 +257,26 @@ def ffn_int8_plain(x: torch.Tensor, q0: torch.Tensor, s0: torch.Tensor,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-# the C entries of each kernel library: K3 has one per route (qmm_route)
-_ENTRIES = {"qmm": ("owk_qmm_rows", "owk_qmm_tiles"), "qmm4": ("owk_qmm4",),
-            "ffn_int8": ("owk_ffn_int8",)}
+_X_PLANES_OUT = [_P] * 4 + [_I] * 3 + [_P]   # x qs scales out, M K Np, stream
+# the C entries of each kernel library and their arguments; K3's two routes
+# (qmm_route) are two libraries
+_ENTRIES = {
+    "qmm": {"owk_qmm_tiles": _X_PLANES_OUT},
+    # x maps out, M K Np splits, stream; qs scales, K Np, maps
+    "qmm_rows": {"owk_qmm_rows": [_P] * 3 + [_I] * 4 + [_P],
+                 "owk_qmm_rows_maps": [_P] * 2 + [_I] * 2 + [_P]},
+    "qmm4": {"owk_qmm4": _X_PLANES_OUT},
+    # x q0 s0 b0 q1 s1 h out, M K FF N1p, stream
+    "ffn_int8": {"owk_ffn_int8": [_P] * 8 + [_I] * 4 + [_P]},
+}
 
 
 @functools.cache
 def _kernel_lib(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
-    for entry in _ENTRIES[name]:
+    for entry, argtypes in _ENTRIES[name].items():
         fn = getattr(lib, entry)
-        if name == "ffn_int8":   # x q0 s0 b0 q1 s1 h out, M K FF N1p, stream
-            fn.argtypes = [_P] * 8 + [_I] * 4 + [_P]
-        else:                    # x qs scales out, M K Np, stream
-            fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
@@ -318,16 +326,109 @@ QMM_ROWS_MAX = 16   # K3's "rows" route takes M up to this; the "tiles" route th
 
 
 def qmm_route(M: int) -> str:
-    """The K3 body a CUDA call with M rows launches: "rows" (qmm_tile.cuh's
-    16-row slice, for the decode rows) when M <= QMM_ROWS_MAX, else "tiles"
-    (the TMA + wgmma kernel of csrc/qmm.cu, 128 x 128 output tiles)."""
+    """The K3 body a CUDA call with M rows launches: "rows" (csrc/qmm_rows.cu,
+    the split weight stream, for the decode rows) when M <= QMM_ROWS_MAX,
+    else "tiles" (the TMA + wgmma kernel of csrc/qmm.cu, 128 x 128 output
+    tiles)."""
     return "rows" if M <= QMM_ROWS_MAX else "tiles"
+
+
+# the rows route's launch plan (csrc/qmm_rows.cuh): about ROWS_BLOCKS blocks
+# (the decoder's 1.8 MB planes are then in flight whole on the H100, and
+# more splits cost more in their combine than they gain); the splits of a
+# column tile are one thread-block cluster, of at most ROWS_MAX_SPLITS
+# blocks (the portable cluster size); a block holds its split of x's rows in
+# at most ROWS_X_SMEM bytes of shared memory, and the first split the
+# others' partial sums in at most ROWS_GATHER
+ROWS_BLOCKS = 100
+ROWS_MAX_SPLITS = 8
+ROWS_X_SMEM = 40 << 10
+ROWS_GATHER = 24 << 10
+
+
+@dataclasses.dataclass(frozen=True)
+class RowsPlan:
+    """A rows-route launch: `tiles` column tiles of 128 (the grid's x) times
+    `splits` of K (its y, one cluster per tile); split s takes the 32-row
+    scale blocks [s * nkb // splits, (s + 1) * nkb // splits) of nkb = K / 32."""
+    M: int
+    K: int
+    Np: int
+    splits: int
+
+    @property
+    def tiles(self) -> int:
+        return self.Np // _BN
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    def split_rows(self) -> list[tuple[int, int]]:
+        """The K rows [start, stop) of each split, in split order."""
+        nkb = self.K // QK
+        return [(s * nkb // self.splits * QK, (s + 1) * nkb // self.splits * QK)
+                for s in range(self.splits)]
+
+    @property
+    def x_smem(self) -> int:
+        """Bytes of a block's x rows in shared memory (8 or 16 rows of the
+        longest split; the kernel adds 16 bytes of padding a row)."""
+        return (8 if self.M <= 8 else 16) * -(-self.K // QK // self.splits) * QK * 2
+
+    @property
+    def gather_smem(self) -> int:
+        """Bytes of the other splits' partial sums (M x 128 f32 each) that
+        the first split of a tile receives."""
+        return (self.splits - 1) * self.M * _BN * 4
+
+
+@functools.cache
+def qmm_rows_plan(M: int, K: int, Np: int) -> RowsPlan:
+    """The rows route's splits for x (M, K) @ planes (K, Np): as many as
+    make ROWS_BLOCKS blocks, at most one per scale block, ROWS_MAX_SPLITS
+    and as many as ROWS_GATHER holds; more if x's rows of a split would not
+    fit ROWS_X_SMEM (a K the decoder does not have)."""
+    nkb, tiles = K // QK, Np // _BN
+    splits = max(1, min(nkb, -(-ROWS_BLOCKS // tiles), ROWS_MAX_SPLITS,
+                        1 + ROWS_GATHER // (M * _BN * 4)))
+    while RowsPlan(M, K, Np, splits).x_smem > ROWS_X_SMEM:
+        splits += 1
+    plan = RowsPlan(M, K, Np, splits)
+    if plan.splits > min(nkb, ROWS_MAX_SPLITS) or plan.gather_smem > ROWS_GATHER:
+        raise ValueError(f"qmm: no rows-route plan for M={M} K={K} Np={Np}")
+    return plan
+
+
+# The rows route keeps the two tensor maps of each plane between calls, so
+# that a token step's wrapper encodes nothing: keyed on the planes'
+# addresses, K, Np and the device (a map is a function of those alone, so a
+# plane freed and another allocated at its address with its shape reuse it
+# rightly). It needs no workspace: the splits meet in shared memory.
+_rows_maps: dict[tuple, tuple[ctypes.Array, int]] = {}
+_ROWS_MAPS_MAX = 4096   # entries kept before the cache starts over
+
+
+def _rows_tensor_maps(qs: torch.Tensor, scales: torch.Tensor, K: int, Np: int) -> int:
+    key = (qs.data_ptr(), scales.data_ptr(), K, Np, qs.device.index)
+    hit = _rows_maps.get(key)
+    if hit is None:
+        if len(_rows_maps) >= _ROWS_MAPS_MAX:
+            _rows_maps.clear()
+        buf = ctypes.create_string_buffer(256)
+        rc = _kernel_lib("qmm_rows").owk_qmm_rows_maps(qs.data_ptr(), scales.data_ptr(), K,
+                                                        Np, ctypes.addressof(buf))
+        if rc != 0:
+            raise RuntimeError(f"qmm: tensor map encoding failed (cudaError {rc})")
+        hit = _rows_maps[key] = (buf, ctypes.addressof(buf))
+    return hit[1]
 
 
 def qmm(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Kernel K3: x (M, K) @ int8 planes -> (M, Np) f32. CPU tensors take
-    `qmm_plain`; CUDA tensors launch csrc/qmm.cu on the current stream, on
-    the route `qmm_route(M)` names. `launches` counts launches,
+    `qmm_plain`; CUDA tensors launch the body of the route `qmm_route(M)`
+    names on the current stream (rows: csrc/qmm_rows.cu, planned by
+    `qmm_rows_plan`; tiles: csrc/qmm.cu). `launches` counts launches,
     `launches_by_route` the same by route."""
     if x.device.type == "cpu":
         return qmm_plain(x, qs, scales)
@@ -338,8 +439,15 @@ def qmm(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor
     if M:
         xb = _bf16_rows(x)
         route = qmm_route(M)
-        _launch("qmm", xb.data_ptr(), qs.data_ptr(), scales.data_ptr(),
-                out.data_ptr(), M, K, Np, entry=f"owk_qmm_{route}")
+        if route == "rows":
+            rc = _kernel_lib("qmm_rows").owk_qmm_rows(
+                xb.data_ptr(), _rows_tensor_maps(qs, scales, K, Np), out.data_ptr(), M, K, Np,
+                qmm_rows_plan(M, K, Np).splits, torch.cuda.current_stream(x.device).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"qmm: kernel launch failed (cudaError {rc})")
+        else:
+            _launch("qmm", xb.data_ptr(), qs.data_ptr(), scales.data_ptr(),
+                    out.data_ptr(), M, K, Np, entry="owk_qmm_tiles")
         qmm.launches += 1
         qmm.launches_by_route[route] += 1
     return out

@@ -26,8 +26,9 @@ Python loop whose host side can outlast its kernels, so each timed call
 starts behind a spin on the card twice as long as the second warm call's
 host time: the CUDA events then span the kernels, not the host's launching
 them, as the JAX probe's one jitted scan does. The JAX probe sweeps TPU VMEM blocks;
-here T1 and T2 run once for each output tile the kernels are built for
-(`ops.gemm.TILES`, one today).
+here T2 runs once for each output tile of `ops.gemm.TILES` (one today),
+and T1 once, at the tile its plan picks for each product
+(`ops.gemm.mm_bf16_plan`), which its row names on the card.
 On the CPU (`--device cpu`) every product takes its plain version and the
 times are the CPU's; no share of a peak is given.
 """
@@ -44,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.encoder_int8 import quantize_w_cols
-from ..ops.gemm import TILES, mm_bf16, mm_s8
+from ..ops.gemm import TILES, mm_bf16, mm_bf16_plan, mm_s8
 
 M, K, F_ = 1536, 1280, 5120
 NITER = 32
@@ -164,17 +165,25 @@ def step_xla_s8(x, w1q, w1s, w2q, w2s):
 # ---- the port's kernels ----
 def _select(bm: int, bn: int) -> None:
     if (bm, bn) not in TILES:
-        raise ValueError(f"tile {bm}x{bn}: the kernels are built for {TILES} only")
+        raise ValueError(f"tile {bm}x{bn}: T2 is built for {TILES} only")
 
 
-def make_step_pallas_bf16(bm: int, bn: int, w1: torch.Tensor, w2: torch.Tensor):
-    """The chained step over T1 at the output tile (bm, bn)."""
-    _select(bm, bn)
-
+def make_step_pallas_bf16(w1: torch.Tensor, w2: torch.Tensor):
+    """The chained step over T1, each product at its plan's tile."""
     def step(x):
         h = F.gelu(mm_bf16(x, w1).float(), approximate="tanh").to(torch.bfloat16)
         return mm_bf16(h, w2)
     return step
+
+
+def t1_name(m: int, k: int, f: int, device: torch.device) -> str:
+    """T1's row: on the card with the tiles its plan picks for x @ W1 and
+    h @ W2."""
+    if device.type != "cuda":
+        return "T1 bf16"
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = (mm_bf16_plan(m, n, sms).tile for n in (f, k))
+    return "T1 bf16 " + " / ".join(f"{bm}x{bn}" for bm, bn in tiles)
 
 
 def make_step_pallas_s8(bm: int, bn: int, w1q, w1s, w2q, w2s):
@@ -216,8 +225,8 @@ def _shape(text: str) -> tuple[int, int, int]:
 
 
 def main(argv: list[str] | None = None) -> list[dict]:
-    """Run the four chains, print one row each (T1 and T2 once per tile),
-    return the rows."""
+    """Run the four chains, print one row each (T2 once per tile), return
+    the rows."""
     ap = argparse.ArgumentParser(prog="python -m open_whisper_kit_tpu_torch.tools.bench_int8_mxu",
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -255,11 +264,12 @@ def main(argv: list[str] | None = None) -> list[dict]:
             report("torch W8A8 (_int_mm, incl act quant)",
                    run(step_xla_s8, w1q_cm, w1s, w2q_cm, w2s),
                    n_gop, int8_peak)]
+    rows.append(report(t1_name(m, k, f, device), run(make_step_pallas_bf16(w1, w2)), n_gop,
+                       bf16_peak))
     for bm, bn in TILES:
-        rows += [report(f"T1 bf16 {bm}x{bn}", run(make_step_pallas_bf16(bm, bn, w1, w2)),
-                        n_gop, bf16_peak),
-                 report(f"T2 W8A8 {bm}x{bn} (incl act quant)",
-                        run(make_step_pallas_s8(bm, bn, w1q, w1s, w2q, w2s)), n_gop, int8_peak)]
+        rows.append(report(f"T2 W8A8 {bm}x{bn} (incl act quant)",
+                           run(make_step_pallas_s8(bm, bn, w1q, w1s, w2q, w2s)), n_gop,
+                           int8_peak))
     return rows
 
 

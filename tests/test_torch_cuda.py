@@ -11,6 +11,8 @@ so it also runs where the JAX package is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -155,11 +157,65 @@ def test_qmm_kernel_matches_plain(cuda, M, K, N, dtype):
     _close(out, TQ.qmm_plain(x, w.qs, w.scales))
 
 
-@pytest.mark.parametrize("name", ["mha_packed", "qmm"])
+@functools.cache
+def _rows_plane(K, N):
+    """One int8 plane per (K, N) for the rows-route cases, made once."""
+    return _planes(torch.device("cuda"), K, N, seed=K + N)
+
+
+@pytest.mark.parametrize("N", [1280, 3840, 51866])
+@pytest.mark.parametrize("M", range(1, 17))
+def test_qmm_rows_kernel_matches_plain(cuda, M, N):
+    """K3's rows route (csrc/qmm_rows.cu) against its plain version for
+    every M it takes, at K = 1280 and the decoder's o/cq/co, qkv and W8
+    logits widths (51866 padded to 51968), within 1e-3 of max|ref|; one
+    launch per call, counted on the rows route."""
+    w = _rows_plane(1280, N)
+    x = _x(cuda, M, 1280, seed=M + N)
+    before, rows = TQ.qmm.launches, TQ.qmm.launches_by_route["rows"]
+    out = TQ.qmm(x, w.qs, w.scales)
+    torch.cuda.synchronize()
+    assert TQ.qmm_route(M) == "rows"
+    assert (TQ.qmm.launches, TQ.qmm.launches_by_route["rows"]) == (before + 1, rows + 1)
+    assert out.shape == (M, w.qs.shape[1])
+    _close(out, TQ.qmm_plain(x, w.qs, w.scales))
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 1312, 1280), (3, 1312, 1280), (9, 2080, 640),
+                                   (16, 5120, 1280), (2, 96, 128)])
+def test_qmm_rows_uneven_splits(cuda, M, K, N):
+    """K whose 32-row scale blocks do not divide evenly into the plan's
+    splits, K = 5120 at 16 rows (x's rows of a split fill the 40 KB the
+    plan allows them) and a plane of three scale blocks in one column tile:
+    within 1e-3 of max|ref|."""
+    plan = TQ.qmm_rows_plan(M, K, -(-N // 128) * 128)
+    sizes = {stop - start for start, stop in plan.split_rows()}
+    assert plan.splits > 1 and (len(sizes) > 1 or K // 32 % plan.splits == 0)
+    w = _planes(cuda, K, N, seed=K)
+    x = _x(cuda, M, K, seed=M)
+    out = TQ.qmm(x, w.qs, w.scales)
+    torch.cuda.synchronize()
+    _close(out, TQ.qmm_plain(x, w.qs, w.scales))
+
+
+@pytest.mark.parametrize("M,N", [(1, 1280), (5, 3840), (16, 1280), (1, 51866)])
+def test_qmm_rows_is_deterministic(cuda, M, N):
+    """The splits' partial sums are added in split order by the last block
+    of each column tile: two launches give the same bits."""
+    w = _rows_plane(1280, N)
+    x = _x(cuda, M, 1280, seed=3 * M)
+    first = TQ.qmm(x, w.qs, w.scales)
+    second = TQ.qmm(x, w.qs, w.scales)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("name", ["mha_packed", "qmm", "mm_bf16"])
 def test_redesigned_kernels_run_wgmma(cuda, name):
-    """K1's and K3's libraries hold Hopper warpgroup products (HGMMA in the
-    SASS), and K1's holds no warp-level mma.sync (HMMA) any more: its f32
-    body uses plain FMA. K3's library keeps the rows route's mma.sync."""
+    """K1's, K3's tiles route's and T1's libraries hold Hopper warpgroup
+    products (HGMMA in the SASS) and no warp-level mma.sync (HMMA): K1's f32
+    body uses plain FMA, and K3's rows route (mma.sync) is a library of its
+    own."""
     import shutil
     import subprocess
     from pathlib import Path
@@ -170,8 +226,7 @@ def test_redesigned_kernels_run_wgmma(cuda, name):
     sass = subprocess.run([tool, "-sass", str(_build.build(name))], capture_output=True,
                           text=True, check=True).stdout
     assert "HGMMA" in sass
-    if name == "mha_packed":
-        assert "HMMA" not in sass
+    assert "HMMA" not in sass
 
 
 @pytest.mark.parametrize("M", [1, 5])
@@ -740,10 +795,13 @@ def test_cross_kv_int8_whisper_full_cuda_matches_cpu(cuda):
         assert ids["cuda"] == ids["cpu"] and len(ids["cpu"]) >= 100
 
 
-@pytest.mark.parametrize("M,K,N", [(1536, 1280, 5120), (1536, 5120, 1280), (200, 72, 136)])
+@pytest.mark.parametrize("M,K,N", [(1536, 1280, 5120), (1536, 5120, 1280), (200, 72, 136),
+                                   (1000, 1000, 1000), (131, 70, 100), (1, 8, 8)])
 def test_mm_bf16_kernel_matches_plain(cuda, M, K, N, monkeypatch):
-    """T1 at the tensor-core probe's two products (and a shape the wrapper
-    pads) against its plain version: every element within one bf16 ulp,
+    """T1 at the tensor-core probe's two products, at ragged M, N and K
+    (not multiples of the 128 x 128 tile or the 64-deep step: TMA fills
+    with zeros, the stores are masked), and at K and N the wrapper pads to
+    a multiple of 8, against its plain version: every element within one bf16 ulp,
     plus what two f32 sums of the same K products can differ by in another
     order, and at most 1 % of the values differing, 0.1 % by more than one
     ulp (gemm.mm_bf16_within). One launch per call, never the plain
@@ -761,6 +819,30 @@ def test_mm_bf16_kernel_matches_plain(cuda, M, K, N, monkeypatch):
     assert G.mm_bf16.launches == before + 1
     assert got.shape == (M, N) and got.dtype == torch.bfloat16
     r = G.mm_bf16_within(got, ref, a, b)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("M,K,N,tile", [
+    (1536, 1280, 5120, (128, 256)), (2000, 700, 2100, (128, 256)), (1300, 1000, 4000, (128, 256)),
+    (1536, 5120, 1280, (128, 128)), (1000, 1000, 1000, (128, 128)), (131, 70, 100, (128, 128)),
+    (300, 512, 520, (128, 128))])
+def test_mm_bf16_each_tile_matches_plain(cuda, M, K, N, tile):
+    """T1 at each output tile it is built for, reached through shapes
+    where its plan picks that tile (128 x 256 only where its tile pairs
+    fill the card): the probe's products, ragged M, N and K, and K and N
+    the wrapper pads to a multiple of 8, within mm_bf16_within's limits;
+    one launch per call."""
+    from open_whisper_kit_tpu_torch.ops import gemm as G
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert G.mm_bf16_plan(M, -(-N // 8) * 8, sms).tile == tile
+    g = torch.Generator(device=cuda).manual_seed(M * K + N)
+    a = (torch.randn(M, K, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    b = (torch.randn(K, N, generator=g, device=cuda) * K ** -0.5).to(torch.bfloat16)
+    before = G.mm_bf16.launches
+    got = G.mm_bf16(a, b)
+    torch.cuda.synchronize()
+    assert G.mm_bf16.launches == before + 1 and got.shape == (M, N)
+    r = G.mm_bf16_within(got, G.mm_bf16_plain(a, b), a, b)
     assert r["ok"], r
 
 
