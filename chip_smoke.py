@@ -29,10 +29,14 @@ Phases, each gated; any failure exits non-zero before the result lines:
      51866) in its four modes (dense, int8 logits, int8, int4): 8
      consecutive steps from a cache with 100 rows of history, each from the
      same inputs as its plain version (logits and the new cache rows
-     within 2e-2 of max|ref|, K2_TOL), the step
-     time against the plain step and the port's decode_impl step on the
-     same weights (the yardstick; no single library call computes a step),
-     each with a cold L2 cache, and the bound; K7 (the beam step) at the same
+     within 2e-2 of max|ref|, K2_TOL), two launches from the same inputs
+     bit-equal, the step's device time queued behind a spin (its "ms"), the
+     call with its host time and the host's time to issue one step
+     (host_us), beside the plain step and the port's decode_impl step on
+     the same weights (the yardstick; no single library call computes a
+     step), each with a cold L2 cache, the bound and its share of the
+     device time (with --profile also each of the 33 launches' traced
+     device time); K7 (the beam step) at the same
      width for B = 5 beams in the same four modes: 8 steps at heads 126-129
      and 254-257 (across the self-attention's 128-row time-block edges)
      with lineage reorders, from a cache whose slot 0 holds 100 prompt rows
@@ -48,8 +52,9 @@ Phases, each gated; any failure exits non-zero before the result lines:
      R-row step bit-equal to R one-row K2 steps at heads 126, 448 - R and
      Tc - 8 on the same cache, and at the first two also on a 448-row cache
      (the greedy loop's), logits and cache rows; within K2_TOL of the plain
-     R-row step; the step time at head 258 against R one-row K2 steps, the
-     plain step and the decode_impl step at T = R, and the bound;
+     R-row step; at head 258 the step queued, the call and host_us against
+     R one-row K2 steps, the plain step and the decode_impl step at T = R,
+     and the bound;
   4. Transcriber(preset="large-v3-turbo", bf16, cuda, seed 0) answers 30 s
      and 65 s of seeded synthetic audio; K1's launch count must be exactly
      32 (encoder layers) per encoder pass;
@@ -182,8 +187,11 @@ encoder's kernel split), one 30 s greedy request on the q8_0 checkpoint, one bea
 request on it (K7), one greedy request on the dense preset, one
 transcribe_batch of 8 x 30 s (W8A8 encoder, K8 int8) and one call of each
 of the tensor-core probe's four chains with torch.profiler
-(device busy share, top kernels; tables in chiprun_out/). It is the
-source of PERF.md's "Where the time goes".
+(device busy share, top kernels; tables in chiprun_out/), and in phase 3
+five K2 steps per mode at one row and int8 at five and eight
+(chiprun_out/k2-stages-*.json: each launch's device time and how many
+start before the one in front ends). It is the source of PERF.md's
+"Where the time goes".
 """
 
 from __future__ import annotations
@@ -210,6 +218,7 @@ SRC = "open_whisper_kit_tpu_torch/csrc/"
 # kernel is the larger of its bytes over it and its operations over the
 # tensor-core rate of their type (bound())
 HBM_BYTES_PER_S = 3.35e12
+F32_PEAK = 67e12   # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
 
 
 class PhaseFailed(Exception):
@@ -255,6 +264,60 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None,
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_us(torch, fn, reps: int = 50) -> float:
+    """Median µs of host time one call of fn() takes to return (its checks
+    and launches), each call made on an idle card (a synchronize between
+    calls, outside the timed span)."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
+
+
+# K2's 33 launches of one large-v3-turbo step, in chain order
+K2_STAGES = [f"L{il} {s}" for il in range(4) for s in (
+    "qkv", "self-attend", "o", "cq", "cross-attend", "co", "mlp0", "mlp1")] + ["logits"]
+
+
+def k2_stage_trace(torch, tag: str, fn, steps: int = 5) -> dict:
+    """`steps` calls of fn() (one K2 step each), queued behind a spin, under
+    torch.profiler: from the trace's kernel rows (chrome trace, written to
+    chiprun_out/k2-stages-<tag>.json), each launch of the last step in chain
+    order with its device µs, the chain's span from the first start to the
+    last end, and how many launches start before the one in front of them
+    has ended (the dependent launches' overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(2_000_000)
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    path = out / f"k2-stages-{tag}.json"
+    prof.export_chrome_trace(str(path))
+    kern = sorted((e for e in json.loads(path.read_text()).get("traceEvents", [])
+                   if e.get("cat") == "kernel" and ("gemv" in e.get("name", "")
+                                                    or "attend" in e.get("name", ""))),
+                  key=lambda e: e["ts"])
+    n = len(K2_STAGES)
+    last = kern[-n:] if len(kern) >= n else []
+    if not last:
+        return {"stages": [], "span_us": None, "overlapping": None}
+    stages = [{"stage": name, "us": e["dur"]} for name, e in zip(K2_STAGES, last)]
+    overlap = sum(b["ts"] < a["ts"] + a["dur"] for a, b in zip(last, last[1:]))
+    span = last[-1]["ts"] + last[-1]["dur"] - last[0]["ts"]
+    return {"stages": stages, "span_us": span, "overlapping": overlap}
 
 
 def bound(nbytes: float, flops: float, rate: str | float = "bf16") -> tuple[float, str]:
@@ -308,9 +371,11 @@ def phase_k1(torch, A, dtype, S: int, tol_rel: bool, tol: float, seed: int, B: i
     mask = (torch.arange(1536, device="cuda") < n_valid)[None, None, None, :]
     lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, scale=scale))
-    # QK^T and PV over the live keys; q/k/v read once, out written once
+    # QK^T and PV over the live keys; q/k/v read once, out written once; f32
+    # operations at the H100's f32 (non-tensor) peak, bf16 at its tensor peak
     flops = 4 * B * 1536 * n_valid * S
-    b_ms, b_by = bound(nbytes(q, k, v, out), flops)
+    b_ms, b_by = bound(nbytes(q, k, v, out), flops,
+                       F32_PEAK if dtype == torch.float32 else "bf16")
     # the bf16 kernel's own work: QK^T twice (the TPU kernel's rounding point
     # needs the row sums before P is rounded), then PV
     two_ms, _ = bound(nbytes(q, k, v, out), 1.5 * flops)
@@ -498,13 +563,19 @@ def k2_bytes_ops(MK, mp, cfg, n_keys: int, Ta: int, rows: int = 1,
     return moved, ops
 
 
-def phase_k2(torch, TM, MK, Q):
+def phase_k2(torch, TM, MK, Q, profiling: bool = False):
     """K2 at large-v3-turbo width in each mode: K2_STEPS consecutive steps
     from a cache holding K2_HISTORY rows, each kernel step against the
     plain step on the same inputs (logits and the new cache rows within
-    K2_TOL of max|ref|); times of the kernel step, the plain
-    step and the decode_impl step (the yardstick) with a cold L2 cache;
-    the bound. Returns {mode: row}."""
+    K2_TOL of max|ref|), and two launches from the same inputs bit-equal;
+    times with a cold L2 cache of the kernel step queued behind a spin (its
+    device time, "ms"), of the call with its host time ("call_ms"), of the
+    plain step and the decode_impl step (the yardstick); the host's time to
+    issue one step ("host_us"); the bound. With `profiling`, each launch's
+    device time in a traced step (k2_stage_trace). Returns {mode: row}.
+    K2's "ms" in the kernels line is this queued device time; the kernels
+    lines of older trees held the call, host time included, under that key
+    (now "call_ms")."""
     cfg = TM.WhisperConfig(*TURBO)
     L, S, Tc, Ta = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_ctx, cfg.n_audio_ctx
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -550,9 +621,27 @@ def phase_k2(torch, TM, MK, Q):
               f"version ({cache_err:.3e} of their max)")
         head = torch.tensor(K2_HISTORY + K2_STEPS, device="cuda")
         x0 = (dec["te"][toks[0]] + dec["pe"][head])[None].to(torch.bfloat16)
+        # two launches from the same inputs: the same bits (no float atomics;
+        # the splits and the key chunks combine in a fixed order)
+        twice = []
+        for _ in range(2):
+            kk.copy_(pk)
+            kv.copy_(pv)
+            twice.append((MK.mega_decode_step(cfg, mp, x0, kk[:, 0], kv[:, 0], head,
+                                              xk[:, 0], xv[:, 0])[0], kk.clone(), kv.clone()))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(*twice)),
+              f"K2 {mode}: two launches from the same inputs differ")
+        del twice
         tok = toks[:1, None]
-        k_ms = cuda_ms(torch, lambda: MK.mega_decode_step(
-            cfg, mp, x0, kk[:, 0], kv[:, 0], head, xk[:, 0], xv[:, 0]), flush=l2_flush)
+
+        def step():
+            return MK.mega_decode_step(cfg, mp, x0, kk[:, 0], kv[:, 0], head, xk[:, 0],
+                                       xv[:, 0])
+        kq_ms = cuda_ms(torch, step, flush=l2_flush, queued=True)
+        k_ms = cuda_ms(torch, step, flush=l2_flush)
+        h_us = host_us(torch, step)
+        stages = k2_stage_trace(torch, f"{mode}-1", step) if profiling else None
         p_ms = cuda_ms(torch, lambda: MK.mega_decode_step_plain(
             cfg, mp, x0, pk[:, 0], pv[:, 0], head, xk[:, 0], xv[:, 0]), flush=l2_flush)
         y_ms = cuda_ms(torch, lambda: TM.decode_impl(cfg, ydec, tok, pk, pv, head, xk, xv),
@@ -560,14 +649,26 @@ def phase_k2(torch, TM, MK, Q):
         moved, ops = k2_bytes_ops(MK, mp, cfg, K2_HISTORY + K2_STEPS + 1, Ta)
         b_ms, b_by = bound(moved, ops)
         out[mode] = {"mode": mode, "max_abs_err": err, "max_ref": ref_max,
-                     "cache_rel_err": cache_err, "cache_rel_err_by_layer": layer_err, "ms": k_ms, "plain_ms": p_ms,
-                     "decode_impl_ms": y_ms, "library_ms": None, "bound_ms": b_ms,
-                     "bound_by": b_by, "bytes": moved}
+                     "cache_rel_err": cache_err, "cache_rel_err_by_layer": layer_err,
+                     "two_launches_bit_equal": True, "ms": kq_ms, "call_ms": k_ms,
+                     "host_us": h_us, "plain_ms": p_ms, "decode_impl_ms": y_ms,
+                     "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_share": b_ms / kq_ms, "bytes": moved}
+        if stages is not None:
+            out[mode]["stage_trace"] = stages
         print(f"[3] K2 {mode}: {K2_STEPS} steps, logits max|err| {err:.3e} (max|ref| "
               f"{ref_max:.3e}), cache rows {cache_err:.3e} of max (by layer "
-              f"{', '.join(f'{x:.1e}' for x in layer_err)}); step {k_ms * 1e3:.1f} "
-              f"us, plain {p_ms * 1e3:.1f} us, decode_impl step {y_ms * 1e3:.1f} us, "
-              f"bound {b_ms * 1e3:.1f} us ({b_by}, {moved / 1e6:.1f} MB)", flush=True)
+              f"{', '.join(f'{x:.1e}' for x in layer_err)}), two launches bit-equal; step "
+              f"queued (device time) {kq_ms * 1e3:.1f} us, {100 * b_ms / kq_ms:.1f} % of the "
+              f"bound; the call {k_ms * 1e3:.1f} us, host {h_us:.1f} us; plain "
+              f"{p_ms * 1e3:.1f} us, decode_impl step {y_ms * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.1f} us ({b_by}, {moved / 1e6:.1f} MB)", flush=True)
+        if stages is not None and stages["stages"]:
+            print(f"[3]   K2 {mode} traced stages (device us): " + ", ".join(
+                f"{r['stage']} {r['us']:.1f}" for r in stages["stages"])
+                + f"; chain span {stages['span_us']:.1f} us, {stages['overlapping']} of "
+                f"{len(stages['stages']) - 1} launches start before the one in front ends",
+                flush=True)
         del dec, ydec, mp, kk, kv, pk, pv
         torch.cuda.empty_cache()
     del l2_flush, hist, xk, xv
@@ -731,7 +832,7 @@ K2V_PAD = 7 + 4
 K2V_TIMED_HEAD = 258
 
 
-def phase_k2_verify(torch, TM, MK, Q):
+def phase_k2_verify(torch, TM, MK, Q, profiling: bool = False):
     """K2's speculative verify rows at large-v3-turbo width in each mode, R
     in K2V_ROWS: from a cache of Tc = n_text_ctx + K2V_PAD rows (the
     speculative loop's) holding `head` rows of random history, one R-row
@@ -819,8 +920,14 @@ def phase_k2_verify(torch, TM, MK, Q):
             x0 = rows_at(head, R)
             (vk, vv), (pk, pv) = caches(head), caches(head)
             tok = torch.randint(0, cfg.n_vocab, (1, R), generator=g, device="cuda")
-            k_ms = cuda_ms(torch, lambda: MK.mega_decode_step(
-                cfg, mp, x0, vk[:, 0], vv[:, 0], ht, xk[:, 0], xv[:, 0]), flush=l2_flush)
+            def step():
+                return MK.mega_decode_step(cfg, mp, x0, vk[:, 0], vv[:, 0], ht, xk[:, 0],
+                                           xv[:, 0])
+            kq_ms = cuda_ms(torch, step, flush=l2_flush, queued=True)
+            k_ms = cuda_ms(torch, step, flush=l2_flush)
+            h_us = host_us(torch, step)
+            stages = (k2_stage_trace(torch, f"{mode}-{R}", step)
+                      if profiling and mode == "all" else None)
 
             s_ms = cuda_ms(torch, lambda: one_row_steps(x0, head, vk, vv), flush=l2_flush)
             p_ms = cuda_ms(torch, lambda: MK.mega_decode_step_plain(
@@ -833,14 +940,19 @@ def phase_k2_verify(torch, TM, MK, Q):
                 "mode": mode, "rows": R, "heads": list(heads), "cache_rows": Tc,
                 "timed_head": head, "bit_equal_to_one_row_steps": True,
                 "max_abs_err": err, "max_ref": ref_max, "cache_rel_err": cache_err,
-                "ms": k_ms, "plain_ms": p_ms, "one_row_steps_ms": s_ms,
-                "decode_impl_ms": y_ms, "library_ms": None, "bound_ms": b_ms,
-                "bound_by": b_by, "bytes": moved}
+                "ms": kq_ms, "call_ms": k_ms, "host_us": h_us, "plain_ms": p_ms,
+                "one_row_steps_ms": s_ms, "decode_impl_ms": y_ms, "library_ms": None,
+                "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / kq_ms,
+                "bytes": moved}
+            if stages is not None:
+                out[(mode, R)]["stage_trace"] = stages
             print(f"[3] K2 verify {mode}, R={R}: bit-equal to {R} one-row K2 steps at heads "
                   f"{', '.join(map(str, heads))} (cache {Tc} rows; and on a {n_ctx}-row "
                   f"cache at heads {heads[0]} and {heads[1]}); logits max|err| against the plain "
                   f"version {err:.3e} (max|ref| {ref_max:.3e}), cache rows {cache_err:.3e} "
-                  f"of max; at head {head}: step {k_ms * 1e3:.1f} us, {R} one-row steps "
+                  f"of max; at head {head}: step queued (device time) {kq_ms * 1e3:.1f} us, "
+                  f"{100 * b_ms / kq_ms:.1f} % of the bound; the call {k_ms * 1e3:.1f} us, host "
+                  f"{h_us:.1f} us; {R} one-row steps "
                   f"{s_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, decode_impl T={R} "
                   f"{y_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}, "
                   f"{moved / 1e6:.1f} MB)", flush=True)
@@ -2148,8 +2260,8 @@ def main(profiling: bool = False) -> int:
     k1 = phase_k1(torch, A, torch.bfloat16, 1280, True, 1e-2, 0)
     phase_k1(torch, A, torch.float32, 128, False, 1e-4, 1)
     quant = phase_quant_kernels(torch, Q)
-    k2 = phase_k2(torch, TM, MK, Q)
-    k2v = phase_k2_verify(torch, TM, MK, Q)
+    k2 = phase_k2(torch, TM, MK, Q, profiling)
+    k2v = phase_k2_verify(torch, TM, MK, Q, profiling)
     k7 = phase_k7(torch, TM, MK, Q)
     done("3")
 

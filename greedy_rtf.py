@@ -3,7 +3,7 @@
 one or more source trees in turn.
 
     python3 greedy_rtf.py ROOT [ROOT ...] [--reps 3] [--model dense|q8_0]
-                          [--request auto|no-megakernel|cross-kv-int8 ...]
+                          [--request auto|no-megakernel|cross-kv-int8|speculative ...]
 
 Each ROOT is a directory holding `open_whisper_kit_tpu_torch/`: this
 checkout, or another commit unpacked with `git archive` into a git-ignored
@@ -19,7 +19,11 @@ seeded noise with `temperature_inc = 0` (the greedy device loop alone),
 for each `--request` kind in turn: `auto` (the defaults), `no-megakernel`
 (megakernel=False: every token step runs decode_impl, 16 quantized linears
 through K3's rows route on the q8_0 model) or `cross-kv-int8`
-(cross_kv_int8=True, which also keeps K2 off). Each timed request prints
+(cross_kv_int8=True, which also keeps K2 off) or `speculative` (q8_0
+only: speculative greedy with gamma 4 and a q4_0 draft of the same seed-0
+tensors, written beside the target, as chip_smoke.py's phase 16 draft (a);
+its token steps run K2 at one row and its verify passes K2 at five). Each
+timed request prints
 one JSON line: the root, the model, the request kind, wall seconds (host
 clock, ending in `torch.cuda.synchronize()`), RTF, sampled tokens, encoder
 passes and wall ms per sampled token. Then `--reps` timed passes of the request's
@@ -44,23 +48,27 @@ REPO = Path(__file__).resolve().parent
 TURBO = (51866, 1500, 1280, 20, 32, 448, 1280, 20, 4, 128)   # large-v3-turbo hparams
 
 
-def write_q8_0(path: Path) -> None:
-    """A large-v3-turbo q8_0 checkpoint of seed-0 random tensors, written by
-    this checkout's port (as chip_smoke.py's phase 6 writes it)."""
+def write_checkpoints(paths: dict) -> None:
+    """Large-v3-turbo checkpoints of the same seed-0 random tensors, written
+    by this checkout's port (as chip_smoke.py's phase 6 writes them):
+    {"q8_0": path, "q4_0": path, ...}."""
     sys.path.insert(0, str(REPO))
     from open_whisper_kit_tpu_torch.decode import full as TF
     from open_whisper_kit_tpu_torch.io import ggml_writer as W
     hp = W.WhisperHParams(*TURBO, ftype=1, qntvr=0)
     tokens = [b"<%d>" % i for i in range(50257)]
-    W.write_checkpoint(path, hp, TF._synthetic_mel_filters(128), tokens,
-                       W.random_reference_tensors(hp, seed=0), wtype=W.TYPE_FOR_NAME["q8_0"])
+    tensors = W.random_reference_tensors(hp, seed=0)
+    for wtype, path in paths.items():
+        W.write_checkpoint(path, hp, TF._synthetic_mel_filters(128), tokens, tensors,
+                           wtype=W.TYPE_FOR_NAME[wtype])
 
 
 REQUESTS = {"auto": {}, "no-megakernel": {"megakernel": False},
-            "cross-kv-int8": {"cross_kv_int8": True}}
+            "cross-kv-int8": {"cross_kv_int8": True}, "speculative": {"speculative": 4}}
 
 
-def child(root: Path, reps: int, model_path: Path | None, requests: list[str]) -> None:
+def child(root: Path, reps: int, model_path: Path | None, requests: list[str],
+          draft_path: Path | None) -> None:
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
@@ -76,6 +84,10 @@ def child(root: Path, reps: int, model_path: Path | None, requests: list[str]) -
                          seed=0)
     else:
         tr = Transcriber(model_path=model_path, dtype=torch.bfloat16, device="cuda")
+    if draft_path is not None:   # read only by the speculative requests
+        from open_whisper_kit_tpu_torch.decode import full as TF
+        tr.ctx.set_draft(TF.WhisperContext.from_file(draft_path, dtype=torch.bfloat16,
+                                                     device="cuda"))
     for request in requests:
         for rep in range(reps + 1):
             p = FullParams(print_progress=False)
@@ -93,6 +105,7 @@ def child(root: Path, reps: int, model_path: Path | None, requests: list[str]) -
                               else "q8_0", "request": request, "rep": rep, "wall_s": wall,
                               "rtf": wall / SECONDS, "sampled_tokens": n,
                               "encoder_passes": res.timings.n_encode,
+                              "spec_accepted": res.timings.n_spec_accepted,
                               "ms_per_token": 1e3 * wall / max(n, 1)}), flush=True)
     # the request's first window alone: encoder + cross-KV, the device span
     # (CUDA events) beside the host's time to issue it; where the two are
@@ -123,10 +136,14 @@ def main() -> int:
                     help="request kind, repeatable (default: auto)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--model-path", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--draft-path", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    requests = args.request or ["auto"]
     if args.child:
-        child(args.roots[0].resolve(), args.reps, args.model_path, args.request or ["auto"])
+        child(args.roots[0].resolve(), args.reps, args.model_path, requests, args.draft_path)
         return 0
+    if "speculative" in requests and args.model != "q8_0":
+        ap.error("--request speculative needs --model q8_0")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
@@ -137,11 +154,15 @@ def main() -> int:
         if args.model == "q8_0":
             (REPO / "build").mkdir(exist_ok=True)
             tmp = Path(tempfile.mkdtemp(prefix="greedy-rtf-", dir=REPO / "build"))
-            path = tmp / "ggml-large-v3-turbo-q8_0.bin"
-            write_q8_0(path)
-            extra = ["--model-path", str(path)]
+            paths = {"q8_0": tmp / "ggml-large-v3-turbo-q8_0.bin"}
+            if "speculative" in requests:
+                paths["q4_0"] = tmp / "draft-q4_0-seed0.bin"
+            write_checkpoints(paths)
+            extra = ["--model-path", str(paths["q8_0"])]
+            if "q4_0" in paths:
+                extra += ["--draft-path", str(paths["q4_0"])]
         for root in args.roots:
-            kinds = [f"--request={r}" for r in args.request or ["auto"]]
+            kinds = [f"--request={r}" for r in requests]
             subprocess.run([sys.executable, __file__, "--child", "--reps", str(args.reps),
                             *kinds, *extra, str(root)], check=True, timeout=900)
     finally:

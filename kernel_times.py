@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time K3's rows route and T1 of the PyTorch port on one GPU, for one or
-more source trees in turn.
+"""Time K2, K3's rows route and T1 of the PyTorch port on one GPU, for one
+or more source trees in turn.
 
     python3 kernel_times.py ROOT [ROOT ...]
 
@@ -21,7 +21,14 @@ line per case, every time the median of 20 launches in µs (CUDA events):
   cuBLAS bf16 (`torch.mm` with f32 out), queued, cold L2; where the tree's
   T1 plans its tile (`mm_bf16_plan`), with that tile;
 - where the tree has the split rows route (`qmm_rows_plan`), the rows
-  route at its one- and five-row shapes for a range of splits.
+  route at its one- and five-row shapes for a range of splits;
+- K2 (`ops.decode_megakernel.mega_decode_step`, the whole large-v3-turbo
+  decoder step, seed-0 random weights as chip_smoke.py's phase 3 makes
+  them) in its four modes at R = 1 (head 108 of a 448-row cache) and R = 5
+  and 8 (the verify rows, head 258 of a 459-row cache), each with the L2
+  cache flushed: queued behind a spin (the device time), the call (with its
+  host time) and `host_us` (one call's host time on an idle card, median of
+  50), beside the bound (chip_smoke.k2_bytes_ops) and its share.
 The card's name and power limit come first.
 """
 
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -38,6 +46,7 @@ ROWS_SHAPES = [(1, 1280, 1280), (1, 1280, 3840), (5, 1280, 3840), (1, 1280, 5186
                (8, 1280, 1280), (8, 1280, 3840), (16, 1280, 1280)]
 SPLITS = {1280: (4, 6, 8), 3840: (2, 3, 4, 6, 8), 51866: (1, 2)}
 MM_SHAPES = [(1536, 1280, 5120), (1536, 5120, 1280)]
+K2_CASES = [(1, 448, 108), (5, 459, 258), (8, 459, 258)]   # (R, cache rows, head)
 
 
 def smi() -> str:
@@ -77,8 +86,57 @@ def host_us(torch, fn, n: int = 200) -> float:
     return 1e6 * t / n
 
 
+def call_host_us(torch, fn, reps: int = 50) -> float:
+    """Median µs of host time one call of fn() takes, on an idle card."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
+
+
 def emit(**row) -> None:
     print(json.dumps(row), flush=True)
+
+
+def k2_times(torch, CS, root: Path) -> None:
+    from open_whisper_kit_tpu_torch.models.whisper import model as TM
+    from open_whisper_kit_tpu_torch.ops import decode_megakernel as MK
+    from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
+    cfg = TM.WhisperConfig(*CS.TURBO)
+    L, S, Ta = cfg.n_text_layer, cfg.n_text_state, cfg.n_audio_ctx
+    g = torch.Generator(device="cuda").manual_seed(3)
+    xk, xv = ((torch.randn(L, Ta, S, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    hist = (torch.randn(2, L, 459, S, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for mode in CS.K2_MODES:
+        dec, ydec = CS.turbo_decoder(torch, TM, Q, cfg, mode)
+        mp = MK.prepare_mega(cfg, ydec if mode in ("logits", "all") else dec, quant=mode)
+        for R, Tc, head in K2_CASES:
+            kk, kv = (hist[i, :, :Tc].clone() for i in range(2))
+            kk[:, head:] = kv[:, head:] = 0
+            toks = torch.randint(0, cfg.n_vocab, (R,), generator=g, device="cuda")
+            x0 = (dec["te"][toks] + dec["pe"][head:head + R]).to(torch.bfloat16)
+            ht = torch.tensor(head, device="cuda")
+
+            def step():
+                return MK.mega_decode_step(cfg, mp, x0, kk, kv, ht, xk, xv)
+            moved, ops = CS.k2_bytes_ops(MK, mp, cfg, head + R, Ta, rows=R, self_shared=True)
+            b_ms = CS.bound(moved, ops)[0]
+            q_ms = CS.cuda_ms(torch, step, flush=flush, queued=True)
+            emit(root=str(root), kernel="mega_decode_step", mode=mode, R=R,
+                 cache_rows=Tc, head=head, us=1e3 * q_ms,
+                 us_call=1e3 * CS.cuda_ms(torch, step, flush=flush),
+                 host_us=call_host_us(torch, step), bound_us=1e3 * b_ms,
+                 bound_share=b_ms / q_ms)
+        del dec, ydec, mp
+        torch.cuda.empty_cache()
 
 
 def child(root: Path) -> None:
@@ -131,6 +189,9 @@ def child(root: Path) -> None:
         emit(root=str(root), kernel="mm_bf16", M=M, K=K, N=N, tile=tile, ok=ok,
              us=us(lambda: G.mm_bf16(a, b)),
              cublas_us=us(lambda: torch.mm(a, b, out_dtype=torch.float32)))
+    del flush
+    torch.cuda.empty_cache()
+    k2_times(torch, CS, root)
 
 
 def main() -> int:

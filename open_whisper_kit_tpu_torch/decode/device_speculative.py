@@ -41,6 +41,12 @@ from .device_loop import HostReads, SegmentResult, machine_init, machine_step
 POLL = 4   # rounds between host reads of the loop's done flag
 
 
+def cache_rows(cfg: M.WhisperConfig, gamma: int) -> int:
+    """Self-cache rows of a model in the speculative loop: n_text_ctx +
+    gamma + 4 (a verify pass may write gamma + 1 rows past the last token)."""
+    return cfg.n_text_ctx + gamma + 4
+
+
 def _rule_state(ms, token_beg: int, is_initial: torch.Tensor) -> LR.BeamState:
     return LR.BeamState(
         is_initial=is_initial, last_was_ts=ms.last_was_ts[None],
@@ -82,8 +88,7 @@ def speculative_core(cfg: M.WhisperConfig, dcfg: M.WhisperConfig, rc: LR.RuleCon
     dxk/dxv their (L, 1, Ta, S) cross-KV for this window (the target's may
     be QuantKV planes; `tmega` reads the float cross-KV only); prompt (1, T_pad)
     long; `t_real` a 0-d long tensor; `seek` an int or a 0-d tensor. Both
-    models' self-caches are allocated here, n_text_ctx + gamma + 4 rows (a
-    verify pass may write gamma + 1 rows past the last token). Returns
+    models' self-caches are allocated here, `cache_rows` each. Returns
     (SegmentResult, n_accepted, n_rounds): accepted draft tokens and verify
     passes, 0-d device tensors."""
     if tmega is not None and gamma + 1 > 8:
@@ -97,11 +102,10 @@ def speculative_core(cfg: M.WhisperConfig, dcfg: M.WhisperConfig, rc: LR.RuleCon
                             max_tokens=max_tokens, single_segment=single_segment,
                             no_timestamps=no_timestamps)
 
-    pad = gamma + 4
     kv_k, kv_v = M.init_kv_cache(cfg, 1, cache_dtype, device=dev,
-                                 width=cfg.n_text_ctx + pad)
+                                 width=cache_rows(cfg, gamma))
     dkv_k, dkv_v = M.init_kv_cache(dcfg, 1, cache_dtype, device=dev,
-                                   width=dcfg.n_text_ctx + pad)
+                                   width=cache_rows(dcfg, gamma))
 
     # ---- prompt ingest, both models ----
     logits_all, kv_k, kv_v = M.decode_impl(cfg, dec, prompt, kv_k, kv_v, 0, xk, xv,

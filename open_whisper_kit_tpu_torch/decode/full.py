@@ -26,8 +26,9 @@ host-stepped loops, `decode_impl`. With a draft model attached
 (`WhisperContext.set_draft`) and `FullParams.speculative` = gamma > 0,
 greedy t = 0 windows of a loaded model decode speculatively: gamma draft
 steps and one (gamma + 1)-row target verify pass a round (K2 at gamma + 1
-rows when the target's mode policy picks K2 and gamma + 1 <= 8), with the
-same output as greedy decoding.
+rows when the target's mode policy picks K2 and gamma + 1 <= 8; the
+draft's steps on K2 while its cache of n_text_ctx + gamma + 4 rows has a
+plan), with the same output as greedy decoding.
 
 With `FullParams.cross_kv_int8` each window's cross-KV is quantized to
 int8 planes (model.QuantKV) right after its encoder pass, as the JAX
@@ -782,9 +783,16 @@ def _device_greedy_window(ctx, p, rc, decoders, prompt, xk, xv,
 
 def _speculative_mega(ctx, p: FullParams, gamma: int):
     """(dmega, tmega): K2's params for the draft's steps and for the verify
-    pass, each None for decode_impl; K2 takes gamma + 1 <= 8 verify rows."""
-    return (ctx.draft.mega_params(p, draft=True),
-            ctx.mega_params(p) if gamma + 1 <= 8 else None)
+    pass, each None for decode_impl. K2 takes gamma + 1 <= 8 verify rows,
+    and a model whose speculative cache (n_text_ctx + gamma + 4 rows) is
+    within `MK.mega_step_max_cache` (at n_text_ctx 448: the draft to gamma
+    60)."""
+    from .device_speculative import cache_rows
+
+    def fits(cfg):
+        return cache_rows(cfg, gamma) <= MK.mega_step_max_cache(cfg)
+    return (ctx.draft.mega_params(p, draft=True) if fits(ctx.draft.cfg) else None,
+            ctx.mega_params(p) if gamma + 1 <= 8 and fits(ctx.cfg) else None)
 
 
 def _device_speculative_window(ctx, p, rc, decoders, prompt, xk, xv, dxkv,

@@ -21,8 +21,11 @@ split-half int4 `Q4Planes` (bf16 scales), chosen by `prepare_mega`:
              quantized; the W8 serving mode);
 * "int4"   - every weight split-half int4 (the W4 serving mode).
 
-`mega_decode_step` launches csrc/mega_step.cu on CUDA tensors (33 launches
-per large-v3-turbo token, one wrapper call) and takes
+`mega_decode_step` launches csrc/mega_step.cu on CUDA tensors (a chain of
+33 dependent launches per large-v3-turbo token from one wrapper call,
+planned by `mega_step_plan`; the argument pack and the planes' tensor maps
+are cached, so a call does work only for x0, kv_head and the logits) and
+takes
 `mega_decode_step_plain`, the same rounding points in plain torch, on CPU
 tensors. The caches are the port's natural layout: the self-cache
 (L, Tc, S) and the cross-KV (L, Ta, S) are views of the (L, 1, T, S)
@@ -53,6 +56,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -478,15 +482,223 @@ def mega_decode_step_batch_plain(cfg, mp: MegaParams, x0: torch.Tensor,
     return _step_rows_plain(cfg, mp, x0, self_attend, cross_attend), kv_k, kv_v
 
 
+# -- K2's launch plan ------------------------------------------------------------
+
+# csrc/mega_stream.cuh: a GEMV block makes MEGA_BN output columns from a ring
+# of 32-row stages (at most MEGA_MAX_DEPTH) and holds 8 x rows; a tile's
+# splits of K and a head's key chunks are each one thread-block cluster of
+# at most MEGA_MAX_CLUSTER blocks (the portable size); a block may ask for
+# MEGA_MAX_SMEM bytes of shared memory (what the kernels opt in to, kMaxSmem)
+# and a multiprocessor holds MEGA_SM_SMEM for its blocks (the H100's 227
+# KB); a key chunk is at
+# most MEGA_MAX_CHUNK keys, a multiple of 16. The plan is for the H100's
+# MEGA_SMS multiprocessors.
+MEGA_BN = 128
+MEGA_MAX_CLUSTER = 8
+MEGA_MAX_DEPTH = 20
+MEGA_MAX_SMEM = 200 << 10
+MEGA_SM_SMEM = 227 << 10
+MEGA_MAX_CHUNK = 256
+MEGA_SMS = 132
+_MEGA_X_ROWS = 8
+# about this many blocks a GEMV launch at least (K3's rows route's number)
+MEGA_BLOCKS = 100
+# the ring depth a field's splits are sized for (dense 64 KB, int8 / int4
+# 54 KB), so that a split's stages are all in flight before its launch waits
+# on the one in front of it; and the deepest ring a format takes where the
+# cluster limit leaves longer splits (mlp1: dense 80 KB, int8 90 KB)
+_RING_DEPTH = {None: 8, "int8": 12, "int4": 12}
+_RING_MAX = {None: 10, "int8": 20, "int4": 20}
+_LN_FIELDS = ("qkv_w", "cq_w", "mlp0_w", "teT")   # the fields with a layernorm prologue
+
+
+@dataclasses.dataclass(frozen=True)
+class MegaField:
+    """One weight field's GEMV launch in K2's chain: `tiles` column tiles of
+    MEGA_BN (the grid's x) times `splits` of K (its y, one cluster a tile),
+    each block streaming its split through a ring of `depth` stages. K is
+    split in stages of 32 rows (int4: 32 packed rows, whose nibbles hold K
+    rows p and p + K/2); split s takes the stages [s * n // splits,
+    (s + 1) * n // splits) of n."""
+    name: str
+    kind: str | None
+    K: int
+    N: int
+    splits: int
+    depth: int = 1
+
+    @property
+    def stages(self) -> int:
+        return (self.K // 2 if self.kind == "int4" else self.K) // QK
+
+    @property
+    def tiles(self) -> int:
+        return self.N // MEGA_BN
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def split_stages(self) -> int:
+        """Stages of the longest split."""
+        return -(-self.stages // self.splits)
+
+    def split_rows(self) -> list[tuple[int, int]]:
+        """The K rows [start, stop) of each split, in split order (int4: the
+        low run; the high run is the same K/2 rows on)."""
+        n = self.stages
+        return [(s * n // self.splits * QK, (s + 1) * n // self.splits * QK)
+                for s in range(self.splits)]
+
+    def smem(self, rows: int) -> int:
+        """Bytes of shared memory a block asks for at `rows` rows
+        (csrc/mega_stream.cuh::gemv_layout): 1024 of alignment, the ring
+        (dense 8 KB a stage; int8 and int4 4 KB of values and 512 bytes of
+        scales), its barriers, 8 x rows of the longest split (int4: two
+        runs) padded by 8 values, the partial sums the first split gathers,
+        and with a layernorm the split's weights and (with more than one
+        split; one split stages them in x's rows) the input rows whole."""
+        w, s = (8192, 0) if self.kind is None else (4096, 512)
+        runs = 2 if self.kind == "int4" else 1
+        run = self.split_stages * QK
+        ln = 0
+        if self.name in _LN_FIELDS:   # one split: the rows are staged in x's
+            ln = 2 * runs * run * 2 + (rows * (self.K + 8) * 2 if self.splits > 1 else 0)
+        return (1024 + self.depth * (w + s) + 16 * MEGA_MAX_DEPTH + 16
+                + _MEGA_X_ROWS * (runs * run + 8) * 2 + (self.splits - 1) * rows * MEGA_BN * 4
+                + ln)
+
+
+def _attn_smem(chunk: int, chunks: int, rows: int) -> int:
+    """csrc/mega_stream.cuh::attn_layout: K, V and q (144-byte rows), the
+    scores, P, the statistics (the block's and the cluster's), the warps'
+    P.V sums, this chunk's partial and the other chunks'."""
+    return (2 * chunk * 144 + _MEGA_X_ROWS * 144 + _MEGA_X_ROWS * chunk * 4
+            + _MEGA_X_ROWS * (chunk + 8) * 2 + _MEGA_X_ROWS * 8 + MEGA_MAX_CLUSTER * _MEGA_X_ROWS * 8
+            + 4 * _MEGA_X_ROWS * 64 * 4 + rows * 64 * 4 + (chunks - 1) * rows * 64 * 4 + 16)
+
+
+def _attn_chunk(T: int, parts: int) -> int:
+    """Keys a block: T keys over `parts` chunks, rounded up to 16."""
+    return max(16, -(-(-(-T // parts)) // 16) * 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class MegaPlan:
+    """K2's launches for one step: the seven fields' GEMVs (qkv, o, cq, co,
+    mlp0, mlp1, logits) and the key chunks of the self- and
+    cross-attention, each head's chunks one cluster."""
+    rows: int
+    fields: tuple[MegaField, ...]
+    self_chunk: int
+    self_chunks: int
+    cross_chunk: int
+    cross_chunks: int
+
+    @property
+    def ints(self) -> tuple[int, ...]:
+        """What the kernel takes: the seven fields' splits, their ring
+        depths, then the self and the cross key chunk."""
+        return (*(f.splits for f in self.fields), *(f.depth for f in self.fields),
+                self.self_chunk, self.cross_chunk)
+
+    @property
+    def attn_smem(self) -> tuple[int, int]:
+        """Shared memory of a self- and of a cross-attention block."""
+        return (_attn_smem(self.self_chunk, self.self_chunks, self.rows),
+                _attn_smem(self.cross_chunk, self.cross_chunks, self.rows))
+
+
+@functools.cache
+def _mega_step_plan(S: int, Vp: int, n_text_ctx: int, kinds: tuple, Tc: int, Ta: int,
+                    rows: int) -> MegaPlan:
+    kn = {"qkv_w": (S, 3 * S), "o_w": (S, S), "cq_w": (S, S), "co_w": (S, S),
+          "mlp0_w": (S, 4 * S), "mlp1_w": (4 * S, S), "teT": (S, Vp)}
+    fields = []
+    for name, kind in zip(WEIGHTS, kinds):
+        K, N = kn[name]
+        f = MegaField(name, kind, K, N, 1)
+        # enough splits for MEGA_BLOCKS blocks, and for rings that hold a
+        # whole split where the grid then still fits the card at two blocks
+        # a multiprocessor (not the logits: their plane is streamed)
+        ring = _RING_DEPTH[kind]
+        splits = -(-MEGA_BLOCKS // f.tiles)
+        if f.tiles * -(-f.stages // ring) <= 2 * MEGA_SMS:
+            splits = max(splits, -(-f.stages // ring))
+        f = dataclasses.replace(f, splits=max(1, min(splits, f.stages, MEGA_MAX_CLUSTER)))
+        f = dataclasses.replace(f, depth=min(f.split_stages, _RING_MAX[kind]))
+        # a grid of more blocks than the card holds at two a multiprocessor
+        # (the logits) keeps a shallower ring, so that all its blocks are
+        # resident at once (at 8 rows)
+        per_sm = -(-f.blocks // MEGA_SMS)
+        while per_sm > 2 and f.depth > 2 and f.smem(8) * per_sm > MEGA_SM_SMEM:
+            f = dataclasses.replace(f, depth=f.depth - 1)
+        fields.append(f)
+    # the self-attention's chunk from Tp = min(Tc, n_text_ctx) keys over 7
+    # chunks: the greedy loop's cache (Tp rows) and the speculative loop's
+    # (Tp + gamma + 4) then split every row's keys alike, and the eighth
+    # chunk holds the speculative loop's extra rows
+    sc = _attn_chunk(min(Tc, n_text_ctx), MEGA_MAX_CLUSTER - 1)
+    cc = _attn_chunk(Ta, MEGA_MAX_CLUSTER)
+    plan = MegaPlan(rows, tuple(fields), sc, -(-Tc // sc), cc, -(-Ta // cc))
+    if (max(plan.self_chunks, plan.cross_chunks) > MEGA_MAX_CLUSTER
+            or max(sc, cc) > MEGA_MAX_CHUNK):
+        raise ValueError(f"mega_decode_step: no plan for {Tc} cache rows and {Ta} audio "
+                         f"positions (at most {MEGA_MAX_CLUSTER} chunks of "
+                         f"{MEGA_MAX_CHUNK} keys)")
+    if (max(f.smem(rows) for f in fields) > MEGA_MAX_SMEM
+            or max(plan.attn_smem) > MEGA_MAX_SMEM):
+        raise ValueError(f"mega_decode_step: no plan fits shared memory at S={S}")
+    return plan
+
+
+def mega_step_plan(cfg, kinds, Tc: int, Ta: int | None = None, rows: int = 1,
+                   Vp: int | None = None) -> MegaPlan:
+    """K2's launch plan (csrc/mega_step.cu) for a decoder whose seven weight
+    fields have `kinds` (None dense, "int8", "int4"; the order of WEIGHTS),
+    a self-cache of Tc rows and Ta audio positions (default
+    cfg.n_audio_ctx), at `rows` rows (1..8; only the shared memory of the
+    partial sums the first split gathers depends on it). The splits depend
+    on each field's kind, K and N only, the self-attention's key chunk on
+    min(Tc, n_text_ctx) only: every row's sums run in the same order
+    whatever the row count, so a verify row equals the one-row step."""
+    if not 1 <= rows <= 8:
+        raise ValueError(f"mega_decode_step: {rows} rows; 1 to 8")
+    S = cfg.n_text_state
+    Vp = Vp or -(-cfg.n_vocab // _VP_MULTIPLE) * _VP_MULTIPLE
+    return _mega_step_plan(S, Vp, cfg.n_text_ctx, tuple(kinds), Tc,
+                           cfg.n_audio_ctx if Ta is None else Ta, rows)
+
+
+def mega_step_max_cache(cfg) -> int:
+    """The most self-cache rows K2 plans for: MEGA_MAX_CLUSTER key chunks
+    of the chunk that n_text_ctx keys over MEGA_MAX_CLUSTER - 1 give (512
+    at n_text_ctx 448). A longer cache has no plan: the wrapper raises."""
+    return MEGA_MAX_CLUSTER * _attn_chunk(cfg.n_text_ctx, MEGA_MAX_CLUSTER - 1)
+
+
 # -- the kernel ----------------------------------------------------------------
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 
 
 _ENTRIES = {"mega_step": "owk_mega_step", "mega_beam": "owk_mega_beam",
             "mega_batch": "owk_mega_batch"}
 _WHAT = {"mega_step": "mega_decode_step", "mega_beam": "mega_decode_step_beam",
          "mega_batch": "mega_decode_step_batch"}
+_PTRS, _INTS = ctypes.POINTER(_P), ctypes.POINTER(_I)
+_F = ctypes.c_float
+# the C entries and their arguments: K7 and K8 take (p, dims, eps, kq,
+# cross_scale, stream); K2 (p, dims, plan, maps, x0, head, logits, eps, kq,
+# cross_scale, stream) and its tensor maps (p, dims, maps out)
+_ARGTYPES = {
+    "owk_mega_step": [_PTRS, _INTS, _INTS, _P, _P, _P, _P, _F, _F, _F, _P],
+    "owk_mega_step_maps": [_PTRS, _INTS, _P],
+    "owk_mega_beam": [_PTRS, _INTS, _F, _F, _F, _P],
+    "owk_mega_batch": [_PTRS, _INTS, _F, _F, _F, _P],
+}
 
 
 @functools.cache
@@ -494,12 +706,13 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
     """csrc/<name>.cu built and loaded: mega_step (K2), mega_beam (K7) or
     mega_batch (K8)."""
     lib = _build.load(name)
-    step = getattr(lib, _ENTRIES[name])
-    step.argtypes = [ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int),
-                     ctypes.c_float, ctypes.c_float, ctypes.c_float, _P]
-    step.restype = ctypes.c_int
+    for entry, argtypes in _ARGTYPES.items():
+        if entry.startswith(_ENTRIES[name]):
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     ws = getattr(lib, _ENTRIES[name] + "_workspace")
-    ws.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    ws.argtypes = [_INTS]
     ws.restype = ctypes.c_longlong
     return lib
 
@@ -508,9 +721,10 @@ _WORKSPACES: dict = {}
 
 
 def _workspace(name: str, dims, device) -> torch.Tensor:
-    """Zeroed scratch for one step (residual rows, partial sums, attention
-    scores, split counters), kept per kernel, device and shape: every
-    launch leaves its counters at zero again."""
+    """Zeroed scratch for one step (K2: the residual, query, attention and
+    GELU rows; K7/K8 also partial sums, attention scores and split
+    counters), kept per kernel, device and shape: every launch leaves its
+    counters at zero again."""
     key = (name, str(device), tuple(dims))
     ws = _WORKSPACES.get(key)
     if ws is None:
@@ -546,39 +760,35 @@ def _field_args(name: str, w, K: int, N: int, L: int | None, device):
     return [w.qs.data_ptr(), w.sc.data_ptr()]
 
 
-def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tensor,
-            kv_v: torch.Tensor, kv_head, xk: torch.Tensor, xv: torch.Tensor, Tc: int,
-            origin: torch.Tensor | None = None) -> torch.Tensor:
-    """Check a step's arguments on the card and launch csrc/<kernel>.cu on
-    the current stream: R = x0's rows, self-cache (L, Tc, S) for K2, the
-    row-flat (L, Tc * R, S) for K7 and K8, K7's origin table last; the
-    cross-KV (L, Ta, S), or K8's per-stream (L, R, Ta, S). Returns the
-    (R, V) f32 logits; raises if a launch fails."""
+def _step_args(kernel: str, cfg, mp: MegaParams, R: int, kv_k: torch.Tensor,
+               kv_v: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor, Tc: int, dev):
+    """Check a step's arguments other than x0, kv_head and K7's origin
+    table, on the card: self-cache (L, Tc, S) for K2, the row-flat
+    (L, Tc * R, S) for K7 and K8; the cross-KV (L, Ta, S), or K8's
+    per-stream (L, R, Ta, S). Returns the kernel's pointer list (x0, head
+    and the logits as None, the workspace last) and dims (L, S, H, Tc, Ta,
+    Vp, the seven kinds, R)."""
     what = _WHAT[kernel]
-    dev = x0.device
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
-    R = x0.shape[0]
     S, H, L, V = cfg.n_text_state, cfg.n_text_head, cfg.n_text_layer, cfg.n_vocab
-    if S % 128 or S // H != 64:
+    if S % 128 or S // H != 64 or (kernel == "mega_step" and S > 2048):
         raise ValueError(f"{what}: S={S} with {H} heads; the kernel "
-                         "takes S % 128 == 0 and 64-wide heads")
+                         "takes S % 128 == 0 and 64-wide heads"
+                         + (" and S <= 2048" if kernel == "mega_step" else ""))
     per_stream = kernel == "mega_batch"
     Ta, Vp = xk.shape[-2], mp.vp
-    if Vp % 64 or Vp < V:
+    if Vp % (128 if kernel == "mega_step" else 64) or Vp < V:
         raise ValueError(f"{what}: vocab plane width {Vp}")
-    x0b = x0.to(torch.bfloat16).contiguous()
-    _check_tensor(f"{what}: x0", x0b, torch.bfloat16, (R, S), dev)
     cache_rows = Tc if kernel == "mega_step" else Tc * R
     for name, t in (("kv_k", kv_k), ("kv_v", kv_v)):
         _check_tensor(f"{what}: {name}", t, torch.bfloat16, (L, cache_rows, S), dev)
     for name, t in (("xk", xk), ("xv", xv)):
         _check_tensor(f"{what}: {name}", t, torch.bfloat16,
                       (L, R, Ta, S) if per_stream else (L, Ta, S), dev)
-    head = torch.as_tensor(kv_head, device=dev).to(torch.int64).reshape(())
     _check_tensor(f"{what}: lnw", mp.lnw, torch.bfloat16, (3 * L + 1, S), dev)
     _check_tensor(f"{what}: lnb", mp.lnb, torch.bfloat16, (3 * L + 1, S), dev)
-    ptrs = [x0b.data_ptr(), head.data_ptr(), mp.lnw.data_ptr(), mp.lnb.data_ptr()]
+    ptrs = [None, None, mp.lnw.data_ptr(), mp.lnb.data_ptr()]
     kn = {"qkv_w": (S, 3 * S), "o_w": (S, S), "cq_w": (S, S), "co_w": (S, S),
           "mlp0_w": (S, 4 * S), "mlp1_w": (4 * S, S), "teT": (S, Vp)}
     for name, bname in zip(WEIGHTS, _BIASES):
@@ -593,24 +803,142 @@ def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tens
         ptrs += _field_args(f"{what}: {name}", w, *kn[name],
                             None if name == "teT" else L, dev)
         kinds.append(_KINDS[_kind(w)])
-    logits = torch.empty(R, Vp, dtype=torch.float32, device=dev)
-    # the last: the rows K2 plans its self-attention key chunks from (see
-    # csrc/mega_rows.cuh Dims::Tp)
-    dims = [L, S, H, Tc, Ta, Vp, *kinds, R, min(Tc, cfg.n_text_ctx)]
-    ws = _workspace(kernel, dims, dev)
-    ptrs += [kv_k.data_ptr(), kv_v.data_ptr(), xk.data_ptr(), xv.data_ptr(),
-             logits.data_ptr(), ws.data_ptr()]
+    dims = [L, S, H, Tc, Ta, Vp, *kinds, R]
+    ws = _workspace(kernel, dims + ([] if kernel == "mega_step" else [min(Tc, cfg.n_text_ctx)]),
+                    dev)
+    ptrs += [kv_k.data_ptr(), kv_v.data_ptr(), xk.data_ptr(), xv.data_ptr(), None,
+             ws.data_ptr()]
+    return ptrs, dims
+
+
+def _kq(cfg) -> float:
+    """bf16(dh^-0.25) as the f32 the kernels multiply Q and K by."""
+    dh = cfg.n_text_state // cfg.n_text_head
+    return float(torch.tensor(float(dh) ** -0.25, dtype=torch.bfloat16))
+
+
+def _kv_head(kv_head, dev) -> torch.Tensor:
+    """kv_head as an int64 scalar on the card (read there by the kernel)."""
+    if (isinstance(kv_head, torch.Tensor) and kv_head.dtype == torch.int64
+            and kv_head.device == dev and kv_head.numel() == 1):
+        return kv_head
+    return torch.as_tensor(kv_head, device=dev).to(torch.int64).reshape(())
+
+
+def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tensor,
+            kv_v: torch.Tensor, kv_head, xk: torch.Tensor, xv: torch.Tensor, Tc: int,
+            origin: torch.Tensor | None = None) -> torch.Tensor:
+    """Check a K7 or K8 step's arguments on the card and launch
+    csrc/<kernel>.cu on the current stream (`_step_args`; K7's origin table
+    last). Returns the (R, V) f32 logits; raises if a launch fails."""
+    what = _WHAT[kernel]
+    dev = x0.device
+    R = x0.shape[0]
+    ptrs, dims = _step_args(kernel, cfg, mp, R, kv_k, kv_v, xk, xv, Tc, dev)
+    x0b = x0.to(torch.bfloat16).contiguous()
+    _check_tensor(f"{what}: x0", x0b, torch.bfloat16, (R, cfg.n_text_state), dev)
+    head = _kv_head(kv_head, dev)
+    logits = torch.empty(R, mp.vp, dtype=torch.float32, device=dev)
+    ptrs[0], ptrs[1], ptrs[28] = x0b.data_ptr(), head.data_ptr(), logits.data_ptr()
+    # the last: the rows K7/K8's self-attention plans its key chunks from
+    # (see csrc/mega_rows.cuh Dims::Tp)
+    dims = dims + [min(Tc, cfg.n_text_ctx)]
     if origin is not None:
         _check_tensor(f"{what}: origin", origin, torch.int64, (R, Tc), dev)
         ptrs.append(origin.data_ptr())
-    dh = S // H
-    kq = float(torch.tensor(float(dh) ** -0.25, dtype=torch.bfloat16))
+    dh = cfg.n_text_state // cfg.n_text_head
     rc = getattr(_kernel_lib(kernel), _ENTRIES[kernel])(
         (_P * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
-        float(cfg.eps), kq, float(dh) ** -0.25, torch.cuda.current_stream(dev).cuda_stream)
+        float(cfg.eps), _kq(cfg), float(dh) ** -0.25, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed (cudaError {rc})")
-    return logits[:, :V]
+    return logits[:, :cfg.n_vocab]
+
+
+# K2 keeps each prepared decoder's 14 tensor maps (two a weight field, 128
+# bytes each), keyed on the planes' addresses, the dims they are read with
+# and the device (a map is a function of those alone), and each step's
+# checked argument pack, keyed on the decoder and config (by identity; the
+# fields of a prepared MegaParams are not replaced), the caches' addresses,
+# the row count and the device: a call then does work only for x0, kv_head
+# and the logits.
+_step_maps: dict[tuple, ctypes.Array] = {}
+_step_packs: dict[tuple, "_StepPack"] = {}
+_STEP_CACHE_MAX = 256   # entries kept before a cache starts over
+
+
+@dataclasses.dataclass
+class _StepPack:
+    mp: "weakref.ref"
+    cfg: object
+    shapes: tuple          # the caches' and cross-KV's shapes it was checked at
+    ptrs: ctypes.Array
+    dims: ctypes.Array
+    plan: ctypes.Array
+    maps: ctypes.Array
+    ws: torch.Tensor
+    kq: float
+    cross_scale: float
+
+
+def _step_pack(cfg, mp: MegaParams, R: int, kv_k, kv_v, xk, xv, dev) -> _StepPack:
+    # a hit is the same decoder and config (held by identity), the same
+    # addresses, and tensors there of the shapes, type and layout checked
+    ts = (kv_k, kv_v, xk, xv)
+    key = (id(mp), id(cfg), R, dev.index, *(t.data_ptr() for t in ts))
+    pack = _step_packs.get(key)
+    if (pack is not None and pack.mp() is mp and pack.cfg is cfg
+            and pack.shapes == tuple(t.shape for t in ts)
+            and all(t.dtype == torch.bfloat16 and t.is_contiguous() and t.device == dev
+                    for t in ts)):
+        return pack
+    Tc = kv_k.shape[1]
+    ptrs, dims = _step_args("mega_step", cfg, mp, R, kv_k, kv_v, xk, xv, Tc, dev)
+    plan = mega_step_plan(cfg, [_kind(getattr(mp, n)) for n in WEIGHTS], Tc,
+                          Ta=xk.shape[-2], rows=R, Vp=mp.vp)
+    c_ptrs = (_P * len(ptrs))(*ptrs)
+    c_dims = (_I * len(dims))(*dims)
+    mkey = (tuple(ptrs[10:24]), tuple(dims[:3]), dims[5], tuple(dims[6:13]), dev)
+    maps = _step_maps.get(mkey)
+    if maps is None:
+        maps = ctypes.create_string_buffer(14 * 128)
+        rc = _kernel_lib("mega_step").owk_mega_step_maps(c_ptrs, c_dims, ctypes.addressof(maps))
+        if rc != 0:
+            raise RuntimeError(f"mega_decode_step: tensor map encoding failed (cudaError {rc})")
+        if len(_step_maps) >= _STEP_CACHE_MAX:
+            _step_maps.clear()
+        _step_maps[mkey] = maps
+    if len(_step_packs) >= _STEP_CACHE_MAX:
+        _step_packs.clear()
+    pack = _step_packs[key] = _StepPack(
+        weakref.ref(mp), cfg, tuple(t.shape for t in ts), c_ptrs, c_dims,
+        (_I * len(plan.ints))(*plan.ints), maps,
+        _workspace("mega_step", dims, dev), _kq(cfg), _cross_scale(cfg))
+    return pack
+
+
+def _launch_step(cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tensor,
+                 kv_v: torch.Tensor, kv_head, xk: torch.Tensor, xv: torch.Tensor
+                 ) -> torch.Tensor:
+    """Launch K2 (csrc/mega_step.cu) on the current stream from the cached
+    argument pack; returns the (R, V) f32 logits, raises if a launch fails."""
+    dev = x0.device
+    R, S = x0.shape
+    pack = _step_pack(cfg, mp, R, kv_k, kv_v, xk, xv, dev)
+    if S != cfg.n_text_state:
+        raise ValueError(f"mega_decode_step: x0 {tuple(x0.shape)}; rows of {cfg.n_text_state}")
+    x0b = x0.to(torch.bfloat16).contiguous()
+    if x0b.data_ptr() % 16:
+        x0b = x0b.clone()
+    head = _kv_head(kv_head, dev)
+    logits = torch.empty(R, mp.vp, dtype=torch.float32, device=dev)
+    rc = _kernel_lib("mega_step").owk_mega_step(
+        pack.ptrs, pack.dims, pack.plan, ctypes.addressof(pack.maps), x0b.data_ptr(),
+        head.data_ptr(), logits.data_ptr(), float(cfg.eps), pack.kq, pack.cross_scale,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mega_decode_step: kernel launch failed (cudaError {rc})")
+    return logits[:, :cfg.n_vocab]
 
 
 def mega_decode_step(cfg, mp: MegaParams, x0: torch.Tensor,
@@ -636,7 +964,7 @@ def mega_decode_step(cfg, mp: MegaParams, x0: torch.Tensor,
         raise ValueError(f"mega_decode_step: x0 {tuple(x0.shape)}; 1 to 8 rows")
     if x0.device.type == "cpu":
         return mega_decode_step_plain(cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv)
-    logits = _launch("mega_step", cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv, kv_k.shape[1])
+    logits = _launch_step(cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv)
     R, counts = x0.shape[0], mega_decode_step.launches_by_rows
     mega_decode_step.launches += 1
     counts[R] = counts.get(R, 0) + 1

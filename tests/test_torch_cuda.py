@@ -344,6 +344,87 @@ def test_mega_step_kernel_matches_plain(cuda, mode):
         assert not k[:, 5:].any()
 
 
+def _k2_narrow(cuda, mode, Tc=64):
+    """The narrow config of the K2 tests (S=256, 4 heads, 3 layers,
+    vocabulary 640, 48 audio positions), its MegaParams in `mode`, cross-KV
+    and a (L, Tc, S) self-cache with 20 rows of random history."""
+    cfg = TM.WhisperConfig(640, 48, 256, 4, 2, 64, 256, 4, 3, 80)
+    params = TM.init_params(cfg, seed=5, dtype=torch.bfloat16, device=cuda)
+    dec = TM.prepare_decoder(params["decoder"])
+    if mode == "logits":
+        dec = TM.quantize_decoder_int8(dec)
+    mp = MK.prepare_mega(cfg, dec, quant=mode)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    xk, xv = ((torch.randn(3, 48, 256, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    hist = (torch.randn(2, 3, Tc, 256, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    hist[:, :, 20:] = 0
+    return cfg, dec, mp, xk, xv, hist
+
+
+@pytest.mark.parametrize("R", [1, 8])
+@pytest.mark.parametrize("mode", ["none", "logits", "all", "int4"])
+def test_mega_step_two_launches_bit_equal(cuda, mode, R):
+    """Two launches from the same inputs give the same bits (logits and
+    cache): the splits and the key chunks combine in a fixed order, with no
+    float atomics."""
+    cfg, dec, mp, xk, xv, hist = _k2_narrow(cuda, mode)
+    x0 = (dec["te"][torch.arange(R, device=cuda) * 7] + dec["pe"][20:20 + R]).to(torch.bfloat16)
+    out = []
+    for _ in range(2):
+        k, v = hist[0].clone(), hist[1].clone()
+        out.append((MK.mega_decode_step(cfg, mp, x0, k, v, torch.tensor(20, device=cuda),
+                                        xk, xv)[0], k, v))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+    assert not torch.equal(out[0][1], hist[0])   # the step wrote its rows
+
+
+@pytest.mark.parametrize("mode", ["none", "all", "int4"])
+def test_mega_step_reads_step_data_after_the_wait(cuda, mode):
+    """x0 and kv_head written by ops queued behind a 2 ms spin (their
+    tensors hold other values until the spin ends) give the bits of the
+    call whose inputs were ready: no launch of the chain reads the step's
+    data before its dependent-launch wait, however early it is launched."""
+    cfg, dec, mp, xk, xv, hist = _k2_narrow(cuda, mode)
+    R = 5
+    x0 = (dec["te"][torch.arange(R, device=cuda) * 11] + dec["pe"][20:20 + R]).to(torch.bfloat16)
+    head = torch.tensor(20, device=cuda)
+    k, v = hist[0].clone(), hist[1].clone()
+    ref = MK.mega_decode_step(cfg, mp, x0, k, v, head, xk, xv)[0]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        x0_late = torch.full_like(x0, float("nan"))
+        head_late = torch.tensor(3, device=cuda)
+        k2, v2 = hist[0].clone(), hist[1].clone()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(4_000_000)
+        x0_late.copy_(x0)
+        head_late.copy_(head)
+        got = MK.mega_decode_step(cfg, mp, x0_late, k2, v2, head_late, xk, xv)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref) and torch.equal(k2, k) and torch.equal(v2, v)
+
+
+def test_mega_step_library_has_tma_and_dependent_launch(cuda):
+    """K2's library (csrc/mega_step.cu on mega_stream.cuh) holds TMA tile
+    loads (UTMALDG), the dependent-launch trigger (PREEXIT,
+    griddepcontrol.launch_dependents) and wait (ACQBULK,
+    griddepcontrol.wait) in its SASS, and warp-level mma.sync (HMMA)."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from open_whisper_kit_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
+    if not Path(tool).exists():
+        pytest.skip("cuobjdump not found")
+    sass = subprocess.run([tool, "-sass", str(_build.build("mega_step"))],
+                          capture_output=True, text=True, check=True).stdout
+    for op in ("UTMALDG", "PREEXIT", "ACQBULK", "HMMA"):
+        assert op in sass, op
+
+
 @pytest.mark.parametrize("R", [2, 5, 8])
 @pytest.mark.parametrize("mode", ["none", "logits", "all", "int4"])
 def test_mega_step_verify_rows(cuda, mode, R, monkeypatch):

@@ -1,17 +1,26 @@
 """The launch plans of the port's redesigned Hopper kernels, on the CPU.
 
-K3's rows route (ops/quant_matmul.py::qmm_rows_plan, csrc/qmm_rows.cuh)
-and T1 (ops/gemm.py::mm_bf16_plan, csrc/mm_bf16.cu) size their launches in
-Python: how many splits of K, which K rows each takes, how much shared
-memory a block holds for x's rows and for the other splits' partial sums,
-T1's tile, its clusters and how many rounds of tile pairs the busiest one
-walks. The kernels themselves run only on the card (tests/test_torch_cuda.py);
+K3's rows route (ops/quant_matmul.py::qmm_rows_plan, csrc/qmm_rows.cuh),
+T1 (ops/gemm.py::mm_bf16_plan, csrc/mm_bf16.cu) and K2's chain
+(ops/decode_megakernel.py::mega_step_plan, csrc/mega_stream.cuh) size their
+launches in Python: how many splits of K, which K rows each takes, how much
+shared memory a block holds for x's rows and for the other splits' partial
+sums, T1's tile, its clusters and how many rounds of tile pairs the busiest
+one walks, K2's attention key chunks. The kernels themselves run only on the card (tests/test_torch_cuda.py);
 these are the numbers they are launched with, checked here at the shapes
 large-v3-turbo gives them.
 """
 
+import re
+import types
+from pathlib import Path
+
 import pytest
 
+from open_whisper_kit_tpu_torch.decode import device_speculative as DS
+from open_whisper_kit_tpu_torch.decode import full as FULL
+from open_whisper_kit_tpu_torch.models.whisper import model as TM
+from open_whisper_kit_tpu_torch.ops import decode_megakernel as MK
 from open_whisper_kit_tpu_torch.ops import gemm as G
 from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
 
@@ -131,3 +140,173 @@ def test_mm_bf16_plan_widens_only_where_pairs_fill_the_card(n_pairs, tile):
     plan = G.mm_bf16_plan(256, 256 * n_pairs, H100_SMS)
     assert plan.tile == tile
     assert plan.grid == H100_SMS
+
+
+# K2 (the whole decoder step) at large-v3-turbo and at the narrow S = 128
+# config the card compares with the CPU token for token, in each mode
+# (int4 needs S % 256 == 0); the kinds of the seven weight fields
+TURBO_CFG = TM.WhisperConfig(51866, 1500, 1280, 20, 32, 448, 1280, 20, 4, 128)
+NARROW_CFG = TM.WhisperConfig(51864, 1500, 128, 2, 2, 448, 128, 2, 3, 80)
+K2_KINDS = {"none": (None,) * 7, "logits": (None,) * 6 + ("int8",), "all": ("int8",) * 7,
+            "int4": ("int4",) * 7}
+K2_CASES = [(name, cfg, mode) for name, cfg in (("turbo", TURBO_CFG), ("narrow", NARROW_CFG))
+            for mode in K2_KINDS if not (mode == "int4" and cfg.n_text_state % 256)]
+K2_IDS = [f"{name}-{mode}" for name, _, mode in K2_CASES]
+
+
+def _k2_plan(cfg, mode, R, Tc=None):
+    return MK.mega_step_plan(cfg, K2_KINDS[mode], Tc or cfg.n_text_ctx, rows=R)
+
+
+def _key_chunks(plan, T, cross=False):
+    """The keys [start, stop) each block of a head's cluster takes of T."""
+    c, n = ((plan.cross_chunk, plan.cross_chunks) if cross
+            else (plan.self_chunk, plan.self_chunks))
+    return [(i * c, min((i + 1) * c, T)) for i in range(n)]
+
+
+@pytest.mark.parametrize("R", [1, 5, 8])
+@pytest.mark.parametrize("name,cfg,mode", K2_CASES, ids=K2_IDS)
+def test_mega_step_plan_covers_every_tile_once(name, cfg, mode, R):
+    """Every field's grid is its column tiles of 128 by its splits: the
+    tiles cover the field's N (the vocabulary padded to 128) once, and each
+    tile's splits cover K (int4: the packed rows) in order, once."""
+    S = cfg.n_text_state
+    Vp = -(-cfg.n_vocab // 128) * 128
+    want = {"qkv_w": (S, 3 * S), "o_w": (S, S), "cq_w": (S, S), "co_w": (S, S),
+            "mlp0_w": (S, 4 * S), "mlp1_w": (4 * S, S), "teT": (S, Vp)}
+    plan = _k2_plan(cfg, mode, R)
+    assert [f.name for f in plan.fields] == list(MK.WEIGHTS)
+    for f in plan.fields:
+        assert (f.K, f.N) == want[f.name] and f.kind == K2_KINDS[mode][MK.WEIGHTS.index(f.name)]
+        assert f.tiles * 128 == f.N and f.blocks == f.tiles * f.splits
+        rows = f.split_rows()
+        assert len(rows) == f.splits and rows[0][0] == 0
+        assert rows[-1][1] == (f.K // 2 if f.kind == "int4" else f.K)
+        assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+
+
+@pytest.mark.parametrize("R", [1, 5, 8])
+@pytest.mark.parametrize("name,cfg,mode", K2_CASES, ids=K2_IDS)
+def test_mega_step_plan_splits_fall_on_scale_blocks(name, cfg, mode, R):
+    """Each split is a non-empty run of whole 32-row scale blocks (int4: 32
+    packed rows, one block of each half), the longest at most one block
+    longer than the shortest."""
+    for f in _k2_plan(cfg, mode, R).fields:
+        rows = f.split_rows()
+        assert all(a % 32 == 0 and b % 32 == 0 and b > a for a, b in rows)
+        sizes = [b - a for a, b in rows]
+        assert max(sizes) - min(sizes) <= 32
+
+
+@pytest.mark.parametrize("R", [1, 5, 8])
+@pytest.mark.parametrize("name,cfg,mode", K2_CASES, ids=K2_IDS)
+def test_mega_step_plan_is_the_same_for_every_row_count(name, cfg, mode, R):
+    """The splits and the key chunks, what fixes every row's summation
+    order, do not depend on R: a verify row sums as the one-row step at its
+    position does. Only the gathered partial sums' shared memory grows."""
+    one, plan = _k2_plan(cfg, mode, 1), _k2_plan(cfg, mode, R)
+    assert plan.ints == one.ints
+    assert [f.split_rows() for f in plan.fields] == [f.split_rows() for f in one.fields]
+    assert _key_chunks(plan, cfg.n_text_ctx) == _key_chunks(one, cfg.n_text_ctx)
+    assert _key_chunks(plan, cfg.n_audio_ctx, cross=True) == _key_chunks(
+        one, cfg.n_audio_ctx, cross=True)
+    for f, g in zip(plan.fields, one.fields):
+        staged = ((R - 1) * (f.K + 8) * 2 if f.splits > 1
+                  and f.name in ("qkv_w", "cq_w", "mlp0_w", "teT") else 0)
+        assert f.smem(R) - g.smem(1) == (f.splits - 1) * (R - 1) * 128 * 4 + staged
+
+
+@pytest.mark.parametrize("R", [1, 5, 8])
+@pytest.mark.parametrize("name,cfg,mode", K2_CASES, ids=K2_IDS)
+def test_mega_step_plan_clusters_and_shared_memory(name, cfg, mode, R):
+    """Clusters (a tile's splits, a head's key chunks) of at most 8 blocks,
+    key chunks of at most 256 keys, rings of 1-20 stages, none deeper than
+    its split, and every block's shared memory, mlp1's (K = 4S) included,
+    within MEGA_MAX_SMEM (what the kernels opt in to); a grid larger than
+    the card at two blocks a multiprocessor (the logits) fits it whole at 8
+    rows, within a multiprocessor's 227 KB."""
+    plan = _k2_plan(cfg, mode, R)
+    limit = MK.MEGA_MAX_SMEM
+    for f in plan.fields:
+        assert 1 <= f.splits <= MK.MEGA_MAX_CLUSTER and f.splits <= f.stages
+        assert 1 <= f.depth <= min(f.split_stages, MK.MEGA_MAX_DEPTH)
+        assert f.smem(R) <= limit
+        per_sm = -(-f.blocks // 132)
+        if per_sm > 2:
+            assert f.smem(8) * per_sm <= MK.MEGA_SM_SMEM == 227 * 1024
+    mlp1 = plan.fields[MK.WEIGHTS.index("mlp1_w")]
+    assert mlp1.K == 4 * cfg.n_text_state and mlp1.smem(R) <= limit
+    assert max(plan.self_chunks, plan.cross_chunks) <= 8
+    assert max(plan.self_chunk, plan.cross_chunk) <= 256
+    assert max(plan.attn_smem) <= limit
+    assert plan.cross_chunk * plan.cross_chunks >= cfg.n_audio_ctx
+
+
+@pytest.mark.parametrize("gamma", range(1, 8))
+@pytest.mark.parametrize("name,cfg,mode", K2_CASES, ids=K2_IDS)
+def test_mega_step_plan_key_chunk_depends_on_tp_only(name, cfg, mode, gamma):
+    """The speculative loop's cache (n_text_ctx + gamma + 4 rows) is split
+    into the greedy loop's chunks (n_text_ctx rows), plus one chunk for the
+    rows past n_text_ctx, within the 8 a cluster holds."""
+    Tc = cfg.n_text_ctx
+    greedy = _k2_plan(cfg, mode, 1, Tc)
+    spec = _k2_plan(cfg, mode, gamma + 1, Tc + gamma + 4)
+    assert spec.self_chunk == greedy.self_chunk
+    g_chunks, s_chunks = _key_chunks(greedy, Tc), _key_chunks(spec, Tc + gamma + 4)
+    assert s_chunks[:len(g_chunks) - 1] == g_chunks[:-1]
+    assert s_chunks[len(g_chunks) - 1][0] == g_chunks[-1][0]
+    assert spec.self_chunks <= 8 and spec.ints[:14] == greedy.ints[:14]
+
+
+def test_mega_step_plan_at_turbo():
+    """The int8 launches at large-v3-turbo (tiles, splits, ring depth):
+    qkv 30 x 4 x 10, mlp0 40 x 4 x 10, o/cq/co 10 x 8 x 5, mlp1 10 x 8 x 20
+    (a ring holds the whole split), the W8 logits 406 x 1 x 6 (of 40
+    stages: four blocks a multiprocessor); self-attention 7
+    chunks of 64 keys at 448 cache rows (8 at the speculative loop's 459),
+    cross 8 of 192."""
+    plan = _k2_plan(TURBO_CFG, "all", 1)
+    assert [(f.tiles, f.splits, f.depth) for f in plan.fields] == [
+        (30, 4, 10), (10, 8, 5), (10, 8, 5), (10, 8, 5), (40, 4, 10), (10, 8, 20), (406, 1, 6)]
+    assert (plan.self_chunk, plan.self_chunks, plan.cross_chunk, plan.cross_chunks) == (
+        64, 7, 192, 8)
+    assert _k2_plan(TURBO_CFG, "all", 8, 459).self_chunks == 8
+
+
+def test_mega_step_plan_rejects_what_no_cluster_holds():
+    """A cache far past n_text_ctx would need more than 8 key chunks: no
+    plan (the wrapper raises rather than launching)."""
+    with pytest.raises(ValueError, match="no plan"):
+        _k2_plan(TURBO_CFG, "all", 1, 448 * 2)
+
+
+def test_mega_step_smem_limit_is_the_kernels():
+    """The planner's per-block limit is what csrc/mega_stream.cuh opts its
+    kernels in to: a plan that passes here also launches."""
+    src = (Path(MK.__file__).parents[1] / "csrc" / "mega_stream.cuh").read_text()
+    kb = int(re.search(r"constexpr int kMaxSmem = (\d+) \* 1024;", src).group(1))
+    assert kb * 1024 == MK.MEGA_MAX_SMEM
+
+
+@pytest.mark.parametrize("gamma", [4, 7, 60, 61, 100])
+@pytest.mark.parametrize("name,cfg,mode", K2_CASES, ids=K2_IDS)
+def test_speculative_steps_take_k2_while_the_cache_has_a_plan(name, cfg, mode, gamma):
+    """The speculative loop's caches hold n_text_ctx + gamma + 4 rows; K2
+    plans for at most mega_step_max_cache (512 at 448: 8 chunks of 64).
+    The draft's one-row steps take K2 to gamma 60 and decode_impl past it;
+    the verify pass takes K2 to gamma 7. Whatever gamma, each step has a
+    route."""
+    Tc = DS.cache_rows(cfg, gamma)
+    fits = Tc <= MK.mega_step_max_cache(cfg)
+    assert fits == (gamma <= 60)
+    if fits:
+        _k2_plan(cfg, mode, 1, Tc)
+    else:
+        with pytest.raises(ValueError, match="no plan"):
+            _k2_plan(cfg, mode, 1, Tc)
+    ctx = types.SimpleNamespace(
+        cfg=cfg, mega_params=lambda p, draft=False: "target",
+        draft=types.SimpleNamespace(cfg=cfg, mega_params=lambda p, draft=False: "draft"))
+    assert FULL._speculative_mega(ctx, None, gamma) == (
+        "draft" if fits else None, "target" if gamma + 1 <= 8 else None)
