@@ -3,7 +3,8 @@
 one or more source trees in turn.
 
     python3 greedy_rtf.py ROOT [ROOT ...] [--reps 3] [--model dense|q8_0]
-                          [--request auto|no-megakernel|cross-kv-int8|speculative ...]
+                          [--request auto|no-megakernel|cross-kv-int8|speculative|
+                                     batch-k8-int8|batch-k8-dense ...]
 
 Each ROOT is a directory holding `open_whisper_kit_tpu_torch/`: this
 checkout, or another commit unpacked with `git archive` into a git-ignored
@@ -22,11 +23,15 @@ through K3's rows route on the q8_0 model) or `cross-kv-int8`
 (cross_kv_int8=True, which also keeps K2 off) or `speculative` (q8_0
 only: speculative greedy with gamma 4 and a q4_0 draft of the same seed-0
 tensors, written beside the target, as chip_smoke.py's phase 16 draft (a);
-its token steps run K2 at one row and its verify passes K2 at five). Each
-timed request prints
-one JSON line: the root, the model, the request kind, wall seconds (host
-clock, ending in `torch.cuda.synchronize()`), RTF, sampled tokens, encoder
-passes and wall ms per sampled token. Then `--reps` timed passes of the request's
+its token steps run K2 at one row and its verify passes K2 at five) or
+`batch-k8-int8` / `batch-k8-dense` (dense model only: transcribe_batch of
+eight 30 s files, audio seeds 500-507, with the W8A8 encoder and
+megakernel="int8" / True, chip_smoke.py's phase-14 request: every
+lockstep step one K8 launch, int8 or dense planes). Each timed request
+prints one JSON line: the root, the model, the request kind, wall seconds
+(host clock, ending in `torch.cuda.synchronize()`), RTF, sampled tokens,
+encoder passes and wall ms per sampled token (a batched request: wall
+seconds, audio seconds per second, K8 launches and emitted tokens). Then `--reps` timed passes of the request's
 first window through the encoder and cross-KV print the window's device
 span (CUDA events) and the host's time to issue it. The card's name and
 power limit come first.
@@ -64,7 +69,9 @@ def write_checkpoints(paths: dict) -> None:
 
 
 REQUESTS = {"auto": {}, "no-megakernel": {"megakernel": False},
-            "cross-kv-int8": {"cross_kv_int8": True}, "speculative": {"speculative": 4}}
+            "cross-kv-int8": {"cross_kv_int8": True}, "speculative": {"speculative": 4},
+            "batch-k8-int8": {"megakernel": "int8"}, "batch-k8-dense": {"megakernel": True}}
+BATCH_FILES = 8           # 30 s files of a batched request, audio seeds 500 + b
 
 
 def child(root: Path, reps: int, model_path: Path | None, requests: list[str],
@@ -89,6 +96,9 @@ def child(root: Path, reps: int, model_path: Path | None, requests: list[str],
         tr.ctx.set_draft(TF.WhisperContext.from_file(draft_path, dtype=torch.bfloat16,
                                                      device="cuda"))
     for request in requests:
+        if request.startswith("batch"):
+            batch_request(root, tr, request, reps)
+            continue
         for rep in range(reps + 1):
             p = FullParams(print_progress=False)
             p.temperature_inc = 0
@@ -127,6 +137,41 @@ def child(root: Path, reps: int, model_path: Path | None, requests: list[str],
                               "encoder_issue_ms": 1e3 * issue}), flush=True)
 
 
+def batch_request(root: Path, tr, request: str, reps: int) -> None:
+    """transcribe_batch of BATCH_FILES x 30 s with the W8A8 encoder swapped
+    in (restored after): one warm-up, then `reps` timed requests."""
+    import numpy as np
+    import torch
+    from open_whisper_kit_tpu_torch.decode.params import FullParams
+    from open_whisper_kit_tpu_torch.ops import decode_megakernel as MK
+    from open_whisper_kit_tpu_torch.ops import encoder_int8 as E8
+    files = [(np.random.default_rng(500 + b).standard_normal(int(16000 * SECONDS))
+              .astype(np.float32) * 0.1) for b in range(BATCH_FILES)]
+    dense_enc = tr.ctx.params["encoder"]
+    tr.ctx.params["encoder"] = E8.prepare_encoder_int8(tr.ctx.cfg, dense_enc)
+    try:
+        for rep in range(reps + 1):
+            p = FullParams(print_progress=False)
+            p.temperature_inc = 0
+            for field, value in REQUESTS[request].items():
+                setattr(p, field, value)
+            k8 = MK.mega_decode_step_batch.launches
+            t0 = time.perf_counter()
+            results = tr.transcribe_batch(files, p)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if rep == 0:
+                continue
+            print(json.dumps({"root": str(root), "model": "dense", "request": request,
+                              "rep": rep, "wall_s": wall,
+                              "audio_s_per_s": BATCH_FILES * SECONDS / wall,
+                              "k8_launches": MK.mega_decode_step_batch.launches - k8,
+                              "emitted_tokens": sum(len(s.tokens) for r in results
+                                                    for s in r.segments)}), flush=True)
+    finally:
+        tr.ctx.params["encoder"] = dense_enc
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="+", type=Path)
@@ -144,6 +189,8 @@ def main() -> int:
         return 0
     if "speculative" in requests and args.model != "q8_0":
         ap.error("--request speculative needs --model q8_0")
+    if any(r.startswith("batch") for r in requests) and args.model != "dense":
+        ap.error("--request batch-k8-* needs --model dense")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time K2, K3's rows route and T1 of the PyTorch port on one GPU, for one
-or more source trees in turn.
+"""Time K2, K8, K3's rows route and T1 of the PyTorch port on one GPU, for
+one or more source trees in turn.
 
     python3 kernel_times.py ROOT [ROOT ...]
 
@@ -28,7 +28,11 @@ line per case, every time the median of 20 launches in µs (CUDA events):
   and 8 (the verify rows, head 258 of a 459-row cache), each with the L2
   cache flushed: queued behind a spin (the device time), the call (with its
   host time) and `host_us` (one call's host time on an idle card, median of
-  50), beside the bound (chip_smoke.k2_bytes_ops) and its share.
+  50), beside the bound (chip_smoke.k2_bytes_ops) and its share;
+- K8 (`ops.decode_megakernel.mega_decode_step_batch`, the same step for B
+  independent streams, each with its own cross-KV) in the four modes at
+  B = 2, 5 and 8, head 258 of a 448-row cache a stream, timed as K2, beside
+  its bound (every plane, each stream's cross-KV and self-KV rows).
 The card's name and power limit come first.
 """
 
@@ -47,6 +51,8 @@ ROWS_SHAPES = [(1, 1280, 1280), (1, 1280, 3840), (5, 1280, 3840), (1, 1280, 5186
 SPLITS = {1280: (4, 6, 8), 3840: (2, 3, 4, 6, 8), 51866: (1, 2)}
 MM_SHAPES = [(1536, 1280, 5120), (1536, 5120, 1280)]
 K2_CASES = [(1, 448, 108), (5, 459, 258), (8, 459, 258)]   # (R, cache rows, head)
+K8_STREAMS = (2, 5, 8)
+K8_HEAD = 258          # of a 448-row cache a stream (n_text_ctx)
 
 
 def smi() -> str:
@@ -139,6 +145,43 @@ def k2_times(torch, CS, root: Path) -> None:
         torch.cuda.empty_cache()
 
 
+def k8_times(torch, CS, root: Path) -> None:
+    from open_whisper_kit_tpu_torch.models.whisper import model as TM
+    from open_whisper_kit_tpu_torch.ops import decode_megakernel as MK
+    from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
+    cfg = TM.WhisperConfig(*CS.TURBO)
+    L, S, Ta, Tc = cfg.n_text_layer, cfg.n_text_state, cfg.n_audio_ctx, cfg.n_text_ctx
+    B_max, head = max(K8_STREAMS), K8_HEAD
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xk, xv = ((torch.randn(L, B_max, Ta, S, generator=g, device="cuda") * 0.5)
+              .to(torch.bfloat16) for _ in range(2))
+    hist = (torch.randn(2, L, Tc * B_max, S, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for mode in CS.K2_MODES:
+        dec, ydec = CS.turbo_decoder(torch, TM, Q, cfg, mode)
+        mp = MK.prepare_mega(cfg, ydec if mode in ("logits", "all") else dec, quant=mode)
+        for B in K8_STREAMS:
+            kk, kv = (hist[i, :, :Tc * B].clone() for i in range(2))
+            kk[:, head * B:] = kv[:, head * B:] = 0
+            sk, sv = xk[:, :B].contiguous(), xv[:, :B].contiguous()
+            toks = torch.randint(0, cfg.n_vocab, (B,), generator=g, device="cuda")
+            x0 = (dec["te"][toks] + dec["pe"][head]).to(torch.bfloat16)
+            ht = torch.tensor(head, device="cuda")
+
+            def step():
+                return MK.mega_decode_step_batch(cfg, mp, x0, kk, kv, ht, sk, sv)
+            moved, ops = CS.k2_bytes_ops(MK, mp, cfg, head + 1, Ta, rows=B, cross_streams=B)
+            b_ms = CS.bound(moved, ops)[0]
+            q_ms = CS.cuda_ms(torch, step, flush=flush, queued=True)
+            emit(root=str(root), kernel="mega_decode_step_batch", mode=mode, B=B,
+                 cache_rows=Tc, head=head, us=1e3 * q_ms,
+                 us_call=1e3 * CS.cuda_ms(torch, step, flush=flush),
+                 host_us=call_host_us(torch, step), bound_us=1e3 * b_ms,
+                 bound_share=b_ms / q_ms)
+        del dec, ydec, mp
+        torch.cuda.empty_cache()
+
+
 def child(root: Path) -> None:
     torch, CS = setup(root)
     from open_whisper_kit_tpu_torch.ops import gemm as G
@@ -192,6 +235,7 @@ def child(root: Path) -> None:
     del flush
     torch.cuda.empty_cache()
     k2_times(torch, CS, root)
+    k8_times(torch, CS, root)
 
 
 def main() -> int:

@@ -1,7 +1,7 @@
 // The self-attention of a decode step over a row-flat, time-major cache
 // (L, Tc * B, S): row t * B + j is slot j at time t. Used by mega_beam.cu
-// (K7, beam lineage through an origin table) and mega_batch.cu (K8,
-// independent streams: the identity lineage, no table).
+// alone (K7, beam lineage through an origin table; a null table is the
+// identity lineage).
 //
 // beam_attend_kernel is one block per (head, row b). It walks the time
 // blocks 0 .. head / 128 in order and keeps the TPU kernel's online

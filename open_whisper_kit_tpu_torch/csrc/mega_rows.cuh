@@ -3,10 +3,10 @@
 // stream: the split-K GEMV (layernorm prologue; bias, residual, GELU, QKV
 // and logits epilogues), the full-row softmax attention against a shared
 // key/value set (cross-attention, and K2's self-attention at R = 1), the
-// workspace layout and the launch helpers. Used by mega_step.cu (K2: R = 1,
-// or R consecutive tokens of one stream in the speculative verify pass),
-// mega_beam.cu (K7, R = B beams) and mega_batch.cu (K8, R = B streams); R is
-// a template parameter.
+// workspace layout and the launch helpers. Used by mega_beam.cu alone (K7,
+// R = B beams; K2 and K8 run on mega_stream.cuh); R is a template
+// parameter. The K2 paths below (natural cache, `head`-limited rows) are
+// no longer launched.
 //
 // Rounding points, per row, as the TPU kernel body (open_whisper_kit_tpu/
 // ops/decode_megakernel.py::_make_kernel): layernorm with f32 statistics
@@ -91,7 +91,7 @@ struct Gemv {
   bf16* kk;             // this layer's self-cache; row r's new K/V goes to
   bf16* vv;             //   cache row head * head_stride + r (QKV epilogue)
   const long long* head;
-  int head_stride;      // R: K7/K8's row-flat cache; 1: K2's natural one
+  int head_stride;      // R: K7's row-flat cache; 1: K2's natural one
   long long cache_rows; // rows of kk/vv: a row at or past it is not written
   int S;
   float kq;             // bf16(dh^-0.25) as f32
@@ -548,7 +548,7 @@ struct Step {
   const long long* head;
   int head_stride;  // cache row of row r: head * head_stride + r
 
-  // natural: K2's (L, Tc, S) self-cache; otherwise K7/K8's row-flat
+  // natural: K2's (L, Tc, S) self-cache; otherwise K7's row-flat
   // (L, Tc * R, S)
   Step(void* const* p_, const int* dims, float eps_, float kq_, void* stream,
        bool natural = false)

@@ -1,13 +1,15 @@
-// The body of kernel K2 (mega_step.cu): one decoder step for R <= 8 rows of
-// one stream as a chain of launches whose weight streams run ahead of their
-// dependencies.
+// The body of kernels K2 (mega_step.cu) and K8 (mega_batch.cu): one decoder
+// step for R <= 8 rows (K2: consecutive tokens of one stream; K8: one token
+// of each of B independent streams) as a chain of launches whose weight
+// streams run ahead of their dependencies.
 //
-// Two kernels, each launched once per stage of the step:
+// Two kernels, each launched once per stage of a K2 step (K8 launches the
+// GEMV and its own attention kernels, mega_batch.cu):
 //
 // gemv_kernel<kind>: Y = stage-in(X) @ W for the R rows, W a dense bf16, int8
 // (per-32-row f32 scales) or split-half int4 (per-32-row bf16 scales) plane
-// of one layer; the layernorm prologue and the QKV, residual, bias, GELU and
-// f32 logits epilogues of mega_rows.cuh, at the same rounding points.
+// of one layer; a layernorm prologue and QKV, residual, bias, GELU and f32
+// logits epilogues, at the TPU kernel's rounding points.
 //  * The grid is (Np / 128 column tiles) x (splits of K); the splits of a
 //    column tile are one thread-block cluster (at most 8, the portable size).
 //    The plan (ops/decode_megakernel.py::mega_step_plan) depends on the
@@ -29,7 +31,7 @@
 //    fetch their constants then too (the split's layernorm weights, the
 //    epilogue's biases) and zero x's rows past R. Nothing the step produces
 //    (x0, head, the residual rows, q, the new K/V rows) is read before the
-//    wait, and nothing global is written before it: a K2 chain may start
+//    wait, and nothing global is written before it: a chain may start
 //    while the one before it is still running.
 //  * After the wait the four consumer warps load the split's R x rows into
 //    shared memory, layernormed where the stage has a layernorm (the R rows
@@ -48,8 +50,12 @@
 //    Each output row's sums run in an order that R does not change (the
 //    tensor core sums each row alone), so every verify row is bit-identical
 //    to the one-row step at its position.
+//  * The QKV epilogue writes row r's new K and V at cache row head *
+//    head_stride + r: K2's natural (Tc, S) cache (stride 1), K8's row-flat
+//    time-major (Tc * B, S) cache (stride B: stream b at time t is row
+//    t * B + b).
 //
-// attend_kernel: the R query rows of one head against a key set in one pass.
+// attend_kernel (K2 only): the R query rows of one head against a key set in one pass.
 // The grid is (heads) x (key chunks), a head's chunks one cluster (at most
 // 8); the chunk length depends on Tp = min(Tc, n_text_ctx) for the
 // self-cache (so the greedy loop's cache and the speculative loop's, Tp +
@@ -78,6 +84,7 @@
 #pragma once
 
 #include <math.h>
+#include <string.h>
 
 #include "sm90.cuh"
 
@@ -269,7 +276,7 @@ struct GemvArgs {
   const bf16* bias;      // this layer's N biases (null for the logits)
   bf16* out;             // q / cq (S wide), the GELU rows (N wide) or the residual rows
   float* out_f32;        // the logits rows (N wide)
-  bf16* kk;              // this layer's self-cache (Tc, S): row r's new K/V at head + r
+  bf16* kk;              // this layer's self-cache: row r's new K/V at head * head_stride + r
   bf16* vv;
   const long long* head; // on the card
   const bf16* x0;        // the first stage only: x0, copied to `xres`
@@ -278,6 +285,7 @@ struct GemvArgs {
   float eps;
   float kq;              // bf16(dh^-0.25) as f32
   int K, N, S, R, layer, splits, depth, epi;
+  int head_stride;       // K2 1, K8 B
 };
 
 // one row's 16 sums at columns n .. n + 15 -> the stage's output; `bq` the
@@ -309,7 +317,7 @@ __device__ __forceinline__ void epilogue16(const GemvArgs& a, int r, int n, cons
 #pragma unroll
         for (int j = 0; j < 16; ++j) y[j] = t[j] * a.kq;
       } else {
-        const long long crow = *a.head + r;
+        const long long crow = *a.head * a.head_stride + r;
         if (crow >= a.cache_rows) return;
         if (n < 2 * S) {
           dst = a.kk + (size_t)crow * S + (n - S);
@@ -984,5 +992,213 @@ __global__ void __launch_bounds__(kAttnThreads) attend_kernel(const AttnArgs a) 
   }
   if (chunks > 1) cluster_wait();
 }
+
+// -- host side: the step's dims, workspace, launches and tensor maps ----------
+//
+// In an unnamed namespace: every kernel library that includes this header
+// keeps its own copy, its own shared-memory opt-in flags included (a flag
+// shared across libraries once let one library's kernel launch without its
+// own attribute).
+
+namespace {
+
+struct Dims {
+  int L, S, H, Tc, Ta, Vp;
+  int kind[7];  // qkv, o, cq, co, mlp0, mlp1, logits
+  int R;
+};
+
+// dims: L, S, H, Tc, Ta, Vp, the seven kinds (0 dense, 1 int8, 2 int4), R
+inline Dims read_dims(const int* v) {
+  Dims d;
+  d.L = v[0]; d.S = v[1]; d.H = v[2]; d.Tc = v[3]; d.Ta = v[4]; d.Vp = v[5];
+  for (int f = 0; f < 7; ++f) d.kind[f] = v[6 + f];
+  d.R = v[13];
+  return d;
+}
+
+// K (dense rows) and N of the seven weight fields
+inline void field_kn(const Dims& d, int f, int* K, int* N) {
+  const int S = d.S;
+  const int k[7] = {S, S, S, S, S, 4 * S, S};
+  const int n[7] = {3 * S, S, S, S, 4 * S, S, d.Vp};
+  *K = k[f];
+  *N = n[f];
+}
+
+// the workspace: the residual rows, q / cq, the attention output, the GELU rows
+struct Layout {
+  size_t xres, qb, ab, gb, total;
+};
+
+inline size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }
+
+inline Layout layout(const Dims& d) {
+  Layout o;
+  size_t at = 0;
+  o.xres = at; at = align256(at + (size_t)d.R * d.S * 2);
+  o.qb = at; at = align256(at + (size_t)d.R * d.S * 2);
+  o.ab = at; at = align256(at + (size_t)d.R * d.S * 2);
+  o.gb = at; at = align256(at + (size_t)d.R * 4 * d.S * 2);
+  o.total = at;
+  return o;
+}
+
+// the GEMV's dynamic shared memory opt-in, once per device and kind
+unsigned long long allowed_gemv[3];
+
+// a launch with the programmatic-dependent-launch attribute, and a cluster
+// of cluster_y blocks along y where cluster_y > 1
+template <class Kernel, class... Args>
+int launch(Kernel kernel, dim3 grid, int threads, int cluster_y, int smem, cudaStream_t st,
+           Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[0].val.programmaticStreamSerializationAllowed = 1;
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].val.clusterDim.x = 1;
+  attrs[1].val.clusterDim.y = cluster_y;
+  attrs[1].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = cluster_y > 1 ? 2 : 1;
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return (int)(rc != cudaSuccess ? rc : cudaGetLastError());
+}
+
+// One step's GEMV launches. p: x0 and head (unused: x0 and head take their
+// place), lnw, lnb, the six bias stacks (qkv, o, cq, co, mlp0, mlp1), then
+// (plane, scales) for qkv, o, cq, co, mlp0, mlp1, logits (scales null for
+// dense), kv_k, kv_v (L, Tc * head_stride, S), xk, xv, logits (unused: the
+// logits member), workspace.
+struct Chain {
+  Dims d;
+  void* const* p;
+  const int* plan;        // the seven fields' splits and ring depths, then two key chunks
+  const CUtensorMap* maps;  // two a field
+  cudaStream_t st;
+  float eps, kq, cross_scale;
+  const bf16* x0;
+  const long long* head;
+  float* logits;
+  bf16 *xres, *qb, *ab, *gb;
+  int head_stride;        // cache row of row r: head * head_stride + r
+
+  Chain(const int* dims, void* const* p_, const int* plan_, const void* maps_, const void* x0_,
+        const void* head_, void* logits_, float eps_, float kq_, float cross_scale_,
+        void* stream, int head_stride_)
+      : d(read_dims(dims)), p(p_), plan(plan_), maps(static_cast<const CUtensorMap*>(maps_)),
+        st(static_cast<cudaStream_t>(stream)), eps(eps_), kq(kq_), cross_scale(cross_scale_),
+        x0(static_cast<const bf16*>(x0_)), head(static_cast<const long long*>(head_)),
+        logits(static_cast<float*>(logits_)), head_stride(head_stride_) {
+    const Layout lay = layout(d);
+    unsigned char* ws = static_cast<unsigned char*>(p[29]);
+    xres = reinterpret_cast<bf16*>(ws + lay.xres);
+    qb = reinterpret_cast<bf16*>(ws + lay.qb);
+    ab = reinterpret_cast<bf16*>(ws + lay.ab);
+    gb = reinterpret_cast<bf16*>(ws + lay.gb);
+  }
+
+  // what every step takes: R rows of S = H heads of 64, S % 128 == 0, a
+  // layernorm row within kMaxLnK
+  bool dims_ok() const {
+    return d.R >= 1 && d.R <= kRows && d.S % kBN == 0 && d.S == d.H * kDH && d.S <= kMaxLnK;
+  }
+
+  // field f of layer il (the logits plane has no layer axis); the first
+  // stage also starts the residual rows as x0
+  int gemv(int f, int il, const bf16* in, int ln_row, int epi, bf16* out, bool first) const {
+    int K, N;
+    field_kn(d, f, &K, &N);
+    const int kind = d.kind[f], splits = plan[f], depth = plan[7 + f], S = d.S;
+    if (splits < 1 || splits > kMaxCluster || splits > n_stages(kind, K) || depth < 1 ||
+        depth > kMaxDepth)
+      return (int)cudaErrorInvalidValue;
+    const int smem = (int)gemv_layout(kind, K, S, splits, depth, d.R, ln_row >= 0).total;
+    if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    const size_t cache_layer = (size_t)d.Tc * head_stride * S;
+    GemvArgs a;
+    a.in = in;
+    a.lnw = ln_row >= 0 ? static_cast<const bf16*>(p[2]) + (size_t)ln_row * S : nullptr;
+    a.lnb = ln_row >= 0 ? static_cast<const bf16*>(p[3]) + (size_t)ln_row * S : nullptr;
+    a.bias = f < 6 ? static_cast<const bf16*>(p[4 + f]) + (size_t)il * N : nullptr;
+    a.out = out;
+    a.out_f32 = f == 6 ? logits : nullptr;
+    a.kk = static_cast<bf16*>(p[24]) + il * cache_layer;
+    a.vv = static_cast<bf16*>(p[25]) + il * cache_layer;
+    a.head = head;
+    a.x0 = x0;
+    a.xres = first ? xres : nullptr;
+    a.cache_rows = (long long)d.Tc * head_stride;
+    a.eps = eps;
+    a.kq = kq;
+    a.K = K; a.N = N; a.S = S; a.R = d.R; a.layer = f < 6 ? il : 0;
+    a.splits = splits; a.depth = depth; a.epi = epi;
+    a.head_stride = head_stride;
+    const dim3 grid(N / kBN, splits);
+    const CUtensorMap& mw = maps[2 * f];
+    const CUtensorMap& ms = maps[2 * f + 1];
+    int e;
+    switch (kind) {
+      case kDense:
+        if ((e = allow_smem(gemv_kernel<kDense>, kMaxSmem, allowed_gemv[0]))) return e;
+        return launch(gemv_kernel<kDense>, grid, kThreads, splits, smem, st, mw, ms, a);
+      case kInt8:
+        if ((e = allow_smem(gemv_kernel<kInt8>, kMaxSmem, allowed_gemv[1]))) return e;
+        return launch(gemv_kernel<kInt8>, grid, kThreads, splits, smem, st, mw, ms, a);
+      case kInt4:
+        if ((e = allow_smem(gemv_kernel<kInt4>, kMaxSmem, allowed_gemv[2]))) return e;
+        return launch(gemv_kernel<kInt4>, grid, kThreads, splits, smem, st, mw, ms, a);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+};
+
+// The 14 tensor maps of a prepared decoder's planes (two a field: values,
+// then scales; a dense field's second is a copy of its first), 128 bytes
+// each, into maps_out. p and dims as a step's (only the planes and L, S, Vp
+// and the kinds are read). Returns 0 or a cudaError_t.
+inline int encode_step_maps(void* const* p, const int* dims, void* maps_out) {
+  const Dims d = read_dims(dims);
+  CUtensorMap maps[14];
+  for (int f = 0; f < 7; ++f) {
+    int K, N;
+    field_kn(d, f, &K, &N);
+    const int kind = d.kind[f];
+    const cuuint64_t L = f < 6 ? d.L : 1;
+    if (N % kBN || K % (kind == kInt4 ? 2 * kQK : kQK)) return (int)cudaErrorInvalidValue;
+    const cuuint64_t rows = kind == kInt4 ? K / 2 : K;
+    const cuuint64_t esz = kind == kDense ? 2 : 1;
+    const cuuint64_t w_dims[3] = {(cuuint64_t)N, rows, L};
+    const cuuint64_t w_stride[2] = {N * esz, rows * N * esz};
+    const cuuint32_t w_box[3] = {kind == kDense ? 64u : 128u, (cuuint32_t)kQK, 1};
+    int rc = encode_map(&maps[2 * f],
+                        kind == kDense ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                        3, p[10 + 2 * f], w_dims, w_stride, w_box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (rc) return rc;
+    if (kind == kDense) {
+      maps[2 * f + 1] = maps[2 * f];
+      continue;
+    }
+    const cuuint64_t ssz = kind == kInt8 ? 4 : 2;
+    const cuuint64_t s_dims[3] = {(cuuint64_t)N, (cuuint64_t)(K / kQK), L};
+    const cuuint64_t s_stride[2] = {N * ssz, (cuuint64_t)(K / kQK) * N * ssz};
+    const cuuint32_t s_box[3] = {(cuuint32_t)kBN, 1, 1};
+    rc = encode_map(&maps[2 * f + 1],
+                    kind == kInt8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    3, p[11 + 2 * f], s_dims, s_stride, s_box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (rc) return rc;
+  }
+  memcpy(maps_out, maps, sizeof maps);
+  return 0;
+}
+
+}  // namespace
 
 }  // namespace mstream

@@ -48,7 +48,10 @@ batch_plain` on the CPU) takes B streams on the same time-major
 self-cache with the identity lineage (stream b owns slot b; the CUDA
 kernel needs no table) and a per-stream (L, B, Ta, S) cross-KV, which it
 attends with the TPU kernel's chunked online softmax over 256-row key
-chunks.
+chunks; its self-attention is the same online softmax over 128-row time
+blocks. On the card it is K2's chain at R = B (K2's GEMVs, planned by
+`mega_batch_plan`) with its own cluster attention kernels, from the same
+cached argument pack and tensor maps as K2.
 """
 
 from __future__ import annotations
@@ -611,8 +614,9 @@ class MegaPlan:
 
 
 @functools.cache
-def _mega_step_plan(S: int, Vp: int, n_text_ctx: int, kinds: tuple, Tc: int, Ta: int,
-                    rows: int) -> MegaPlan:
+def _gemv_fields(S: int, Vp: int, kinds: tuple) -> tuple[MegaField, ...]:
+    """The seven fields' GEMV launches (K2's and K8's): splits and ring depths
+    from each field's kind, K and N only."""
     kn = {"qkv_w": (S, 3 * S), "o_w": (S, S), "cq_w": (S, S), "co_w": (S, S),
           "mlp0_w": (S, 4 * S), "mlp1_w": (4 * S, S), "teT": (S, Vp)}
     fields = []
@@ -635,13 +639,20 @@ def _mega_step_plan(S: int, Vp: int, n_text_ctx: int, kinds: tuple, Tc: int, Ta:
         while per_sm > 2 and f.depth > 2 and f.smem(8) * per_sm > MEGA_SM_SMEM:
             f = dataclasses.replace(f, depth=f.depth - 1)
         fields.append(f)
+    return tuple(fields)
+
+
+@functools.cache
+def _mega_step_plan(S: int, Vp: int, n_text_ctx: int, kinds: tuple, Tc: int, Ta: int,
+                    rows: int) -> MegaPlan:
+    fields = _gemv_fields(S, Vp, kinds)
     # the self-attention's chunk from Tp = min(Tc, n_text_ctx) keys over 7
     # chunks: the greedy loop's cache (Tp rows) and the speculative loop's
     # (Tp + gamma + 4) then split every row's keys alike, and the eighth
     # chunk holds the speculative loop's extra rows
     sc = _attn_chunk(min(Tc, n_text_ctx), MEGA_MAX_CLUSTER - 1)
     cc = _attn_chunk(Ta, MEGA_MAX_CLUSTER)
-    plan = MegaPlan(rows, tuple(fields), sc, -(-Tc // sc), cc, -(-Ta // cc))
+    plan = MegaPlan(rows, fields, sc, -(-Tc // sc), cc, -(-Ta // cc))
     if (max(plan.self_chunks, plan.cross_chunks) > MEGA_MAX_CLUSTER
             or max(sc, cc) > MEGA_MAX_CHUNK):
         raise ValueError(f"mega_decode_step: no plan for {Tc} cache rows and {Ta} audio "
@@ -678,6 +689,72 @@ def mega_step_max_cache(cfg) -> int:
     return MEGA_MAX_CLUSTER * _attn_chunk(cfg.n_text_ctx, MEGA_MAX_CLUSTER - 1)
 
 
+# -- K8's launch plan -------------------------------------------------------------
+
+# csrc/mega_batch.cu: an attention block takes BT time rows (self) or TAC
+# audio positions (cross) of one (head, stream) pair, one thread a key row;
+# a pair's blocks are one cluster
+_PART = 64 + 4        # a partial: o (64 f32), l and padding
+
+
+def _block_smem(rows: int) -> int:
+    """csrc/mega_batch.cu::block_layout: K and V of the block (128-byte
+    rows), q, e, the warps' P.V sums, the partial and the other blocks', the
+    block's max and the cluster's, the warps' maxima or sums, the gather
+    barrier, the 128-byte alignment."""
+    return (2 * rows * 128 + 64 * 2 + rows * 4 + rows // 32 * 64 * 4 + _PART * 4
+            + (MEGA_MAX_CLUSTER - 1) * _PART * 4 + 16 + MEGA_MAX_CLUSTER * 4 + 32 + 16 + 128)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPlan:
+    """K8's launches for one step of `rows` = B streams: K2's seven GEMV
+    fields at B rows, the self-attention's time blocks of BT rows and the
+    cross-attention's chunks of TAC audio positions (each a grid of heads x
+    blocks x streams, a (head, stream) pair's blocks one cluster)."""
+    rows: int
+    fields: tuple[MegaField, ...]
+    self_blocks: int
+    cross_chunks: int
+
+    @property
+    def ints(self) -> tuple[int, ...]:
+        """What the kernel takes: the seven fields' splits, their ring
+        depths, then the self-attention's time block and the cross chunk."""
+        return (*(f.splits for f in self.fields), *(f.depth for f in self.fields), BT, TAC)
+
+    @property
+    def attn_smem(self) -> tuple[int, int]:
+        """Shared memory of a self- and of a cross-attention block."""
+        return _block_smem(BT), _block_smem(TAC)
+
+
+def mega_batch_plan(cfg, kinds, Tc: int, Ta: int | None = None, streams: int = 8,
+                    Vp: int | None = None) -> BatchPlan:
+    """K8's launch plan (csrc/mega_batch.cu) for B = `streams` (2..8) streams
+    of a decoder whose seven weight fields have `kinds` (as mega_step_plan),
+    a self-cache of Tc rows a stream and Ta audio positions (default
+    cfg.n_audio_ctx). The GEMVs are K2's at R = B. A cluster holds at most
+    MEGA_MAX_CLUSTER time blocks of BT rows (Tc <= 1024) and as many chunks
+    of TAC positions (Ta <= 2048); past that there is no plan (ValueError)."""
+    if not 2 <= streams <= 8:
+        raise ValueError(f"mega_decode_step_batch: {streams} streams; 2 to 8")
+    S = cfg.n_text_state
+    Vp = Vp or -(-cfg.n_vocab // _VP_MULTIPLE) * _VP_MULTIPLE
+    Ta = cfg.n_audio_ctx if Ta is None else Ta
+    plan = BatchPlan(streams, _gemv_fields(S, Vp, tuple(kinds)), -(-Tc // BT), -(-Ta // TAC))
+    if max(plan.self_blocks, plan.cross_chunks) > MEGA_MAX_CLUSTER:
+        raise ValueError(
+            f"mega_decode_step_batch: no plan for {Tc} cache rows a stream and {Ta} audio "
+            f"positions: a cluster holds at most {MEGA_MAX_CLUSTER} time blocks of {BT} rows "
+            f"({MEGA_MAX_CLUSTER * BT}) and {MEGA_MAX_CLUSTER} chunks of {TAC} positions "
+            f"({MEGA_MAX_CLUSTER * TAC})")
+    if (max(f.smem(streams) for f in plan.fields) > MEGA_MAX_SMEM
+            or max(plan.attn_smem) > MEGA_MAX_SMEM):
+        raise ValueError(f"mega_decode_step_batch: no plan fits shared memory at S={S}")
+    return plan
+
+
 # -- the kernel ----------------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -690,14 +767,15 @@ _WHAT = {"mega_step": "mega_decode_step", "mega_beam": "mega_decode_step_beam",
          "mega_batch": "mega_decode_step_batch"}
 _PTRS, _INTS = ctypes.POINTER(_P), ctypes.POINTER(_I)
 _F = ctypes.c_float
-# the C entries and their arguments: K7 and K8 take (p, dims, eps, kq,
-# cross_scale, stream); K2 (p, dims, plan, maps, x0, head, logits, eps, kq,
-# cross_scale, stream) and its tensor maps (p, dims, maps out)
+# the C entries and their arguments: K7 takes (p, dims, eps, kq,
+# cross_scale, stream); K2 and K8 (p, dims, plan, maps, x0, head, logits,
+# eps, kq, cross_scale, stream) and their tensor maps (p, dims, maps out)
 _ARGTYPES = {
     "owk_mega_step": [_PTRS, _INTS, _INTS, _P, _P, _P, _P, _F, _F, _F, _P],
     "owk_mega_step_maps": [_PTRS, _INTS, _P],
     "owk_mega_beam": [_PTRS, _INTS, _F, _F, _F, _P],
-    "owk_mega_batch": [_PTRS, _INTS, _F, _F, _F, _P],
+    "owk_mega_batch": [_PTRS, _INTS, _INTS, _P, _P, _P, _P, _F, _F, _F, _P],
+    "owk_mega_batch_maps": [_PTRS, _INTS, _P],
 }
 
 
@@ -721,8 +799,8 @@ _WORKSPACES: dict = {}
 
 
 def _workspace(name: str, dims, device) -> torch.Tensor:
-    """Zeroed scratch for one step (K2: the residual, query, attention and
-    GELU rows; K7/K8 also partial sums, attention scores and split
+    """Zeroed scratch for one step (K2, K8: the residual, query, attention
+    and GELU rows; K7 also partial sums, attention scores and split
     counters), kept per kernel, device and shape: every launch leaves its
     counters at zero again."""
     key = (name, str(device), tuple(dims))
@@ -772,13 +850,14 @@ def _step_args(kernel: str, cfg, mp: MegaParams, R: int, kv_k: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
     S, H, L, V = cfg.n_text_state, cfg.n_text_head, cfg.n_text_layer, cfg.n_vocab
-    if S % 128 or S // H != 64 or (kernel == "mega_step" and S > 2048):
+    streamed = kernel in ("mega_step", "mega_batch")   # on mega_stream.cuh
+    if S % 128 or S // H != 64 or (streamed and S > 2048):
         raise ValueError(f"{what}: S={S} with {H} heads; the kernel "
                          "takes S % 128 == 0 and 64-wide heads"
-                         + (" and S <= 2048" if kernel == "mega_step" else ""))
+                         + (" and S <= 2048" if streamed else ""))
     per_stream = kernel == "mega_batch"
     Ta, Vp = xk.shape[-2], mp.vp
-    if Vp % (128 if kernel == "mega_step" else 64) or Vp < V:
+    if Vp % (128 if streamed else 64) or Vp < V:
         raise ValueError(f"{what}: vocab plane width {Vp}")
     cache_rows = Tc if kernel == "mega_step" else Tc * R
     for name, t in (("kv_k", kv_k), ("kv_v", kv_v)):
@@ -804,8 +883,7 @@ def _step_args(kernel: str, cfg, mp: MegaParams, R: int, kv_k: torch.Tensor,
                             None if name == "teT" else L, dev)
         kinds.append(_KINDS[_kind(w)])
     dims = [L, S, H, Tc, Ta, Vp, *kinds, R]
-    ws = _workspace(kernel, dims + ([] if kernel == "mega_step" else [min(Tc, cfg.n_text_ctx)]),
-                    dev)
+    ws = _workspace(kernel, dims + ([] if streamed else [min(Tc, cfg.n_text_ctx)]), dev)
     ptrs += [kv_k.data_ptr(), kv_v.data_ptr(), xk.data_ptr(), xv.data_ptr(), None,
              ws.data_ptr()]
     return ptrs, dims
@@ -828,9 +906,9 @@ def _kv_head(kv_head, dev) -> torch.Tensor:
 def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tensor,
             kv_v: torch.Tensor, kv_head, xk: torch.Tensor, xv: torch.Tensor, Tc: int,
             origin: torch.Tensor | None = None) -> torch.Tensor:
-    """Check a K7 or K8 step's arguments on the card and launch
-    csrc/<kernel>.cu on the current stream (`_step_args`; K7's origin table
-    last). Returns the (R, V) f32 logits; raises if a launch fails."""
+    """Check a K7 step's arguments on the card and launch csrc/<kernel>.cu
+    on the current stream (`_step_args`; the origin table last). Returns the
+    (R, V) f32 logits; raises if a launch fails."""
     what = _WHAT[kernel]
     dev = x0.device
     R = x0.shape[0]
@@ -840,7 +918,7 @@ def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tens
     head = _kv_head(kv_head, dev)
     logits = torch.empty(R, mp.vp, dtype=torch.float32, device=dev)
     ptrs[0], ptrs[1], ptrs[28] = x0b.data_ptr(), head.data_ptr(), logits.data_ptr()
-    # the last: the rows K7/K8's self-attention plans its key chunks from
+    # the last: the rows K7's self-attention plans its key chunks from
     # (see csrc/mega_rows.cuh Dims::Tp)
     dims = dims + [min(Tc, cfg.n_text_ctx)]
     if origin is not None:
@@ -855,23 +933,26 @@ def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tens
     return logits[:, :cfg.n_vocab]
 
 
-# K2 keeps each prepared decoder's 14 tensor maps (two a weight field, 128
-# bytes each), keyed on the planes' addresses, the dims they are read with
-# and the device (a map is a function of those alone), and each step's
-# checked argument pack, keyed on the decoder and config (by identity; the
-# fields of a prepared MegaParams are not replaced), the caches' addresses,
-# the row count and the device: a call then does work only for x0, kv_head
-# and the logits.
+# K2 and K8 keep each prepared decoder's 14 tensor maps (two a weight field,
+# 128 bytes each), keyed on the planes' addresses, the dims they are read
+# with and the device (a map is a function of those alone, whichever library
+# encodes it), and each step's checked argument pack, keyed on the kernel,
+# the decoder and config (by identity; the fields of a prepared MegaParams
+# are not replaced), the row count, the device and the caches' and
+# cross-KV's shapes: a call then checks the four step tensors' type and
+# layout, writes their addresses into the pack and does work only for x0,
+# kv_head and the logits. The lockstep loop lays out new caches every round:
+# the same pack serves them all.
 _step_maps: dict[tuple, ctypes.Array] = {}
 _step_packs: dict[tuple, "_StepPack"] = {}
 _STEP_CACHE_MAX = 256   # entries kept before a cache starts over
+_STEP_TENSORS = 24      # the pointer list's kv_k, kv_v, xk, xv
 
 
 @dataclasses.dataclass
 class _StepPack:
     mp: "weakref.ref"
     cfg: object
-    shapes: tuple          # the caches' and cross-KV's shapes it was checked at
     ptrs: ctypes.Array
     dims: ctypes.Array
     plan: ctypes.Array
@@ -881,63 +962,76 @@ class _StepPack:
     cross_scale: float
 
 
-def _step_pack(cfg, mp: MegaParams, R: int, kv_k, kv_v, xk, xv, dev) -> _StepPack:
-    # a hit is the same decoder and config (held by identity), the same
-    # addresses, and tensors there of the shapes, type and layout checked
+def _plan(kernel: str, cfg, mp: MegaParams, R: int, Tc: int, Ta: int):
+    kinds = [_kind(getattr(mp, n)) for n in WEIGHTS]
+    if kernel == "mega_batch":
+        return mega_batch_plan(cfg, kinds, Tc, Ta=Ta, streams=R, Vp=mp.vp)
+    return mega_step_plan(cfg, kinds, Tc, Ta=Ta, rows=R, Vp=mp.vp)
+
+
+def _step_pack(kernel: str, cfg, mp: MegaParams, R: int, kv_k, kv_v, xk, xv,
+               dev) -> _StepPack:
+    # a hit is the same kernel, decoder and config (held by identity), row
+    # count, device and shapes; the tensors' type and layout are checked at
+    # every call, and their addresses written into the pack
     ts = (kv_k, kv_v, xk, xv)
-    key = (id(mp), id(cfg), R, dev.index, *(t.data_ptr() for t in ts))
+    what = _WHAT[kernel]
+    for name, t in zip(("kv_k", "kv_v", "xk", "xv"), ts):
+        if (t.dtype != torch.bfloat16 or t.device != dev or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            _check_tensor(f"{what}: {name}", t, torch.bfloat16, t.shape, dev)
+    key = (kernel, id(mp), id(cfg), R, dev.index, *(tuple(t.shape) for t in ts))
     pack = _step_packs.get(key)
-    if (pack is not None and pack.mp() is mp and pack.cfg is cfg
-            and pack.shapes == tuple(t.shape for t in ts)
-            and all(t.dtype == torch.bfloat16 and t.is_contiguous() and t.device == dev
-                    for t in ts)):
-        return pack
-    Tc = kv_k.shape[1]
-    ptrs, dims = _step_args("mega_step", cfg, mp, R, kv_k, kv_v, xk, xv, Tc, dev)
-    plan = mega_step_plan(cfg, [_kind(getattr(mp, n)) for n in WEIGHTS], Tc,
-                          Ta=xk.shape[-2], rows=R, Vp=mp.vp)
-    c_ptrs = (_P * len(ptrs))(*ptrs)
-    c_dims = (_I * len(dims))(*dims)
-    mkey = (tuple(ptrs[10:24]), tuple(dims[:3]), dims[5], tuple(dims[6:13]), dev)
-    maps = _step_maps.get(mkey)
-    if maps is None:
-        maps = ctypes.create_string_buffer(14 * 128)
-        rc = _kernel_lib("mega_step").owk_mega_step_maps(c_ptrs, c_dims, ctypes.addressof(maps))
-        if rc != 0:
-            raise RuntimeError(f"mega_decode_step: tensor map encoding failed (cudaError {rc})")
-        if len(_step_maps) >= _STEP_CACHE_MAX:
-            _step_maps.clear()
-        _step_maps[mkey] = maps
-    if len(_step_packs) >= _STEP_CACHE_MAX:
-        _step_packs.clear()
-    pack = _step_packs[key] = _StepPack(
-        weakref.ref(mp), cfg, tuple(t.shape for t in ts), c_ptrs, c_dims,
-        (_I * len(plan.ints))(*plan.ints), maps,
-        _workspace("mega_step", dims, dev), _kq(cfg), _cross_scale(cfg))
+    if pack is None or pack.mp() is not mp or pack.cfg is not cfg:
+        Tc = kv_k.shape[1] // (R if kernel == "mega_batch" else 1)
+        ptrs, dims = _step_args(kernel, cfg, mp, R, kv_k, kv_v, xk, xv, Tc, dev)
+        plan = _plan(kernel, cfg, mp, R, Tc, xk.shape[-2])
+        c_ptrs = (_P * len(ptrs))(*ptrs)
+        c_dims = (_I * len(dims))(*dims)
+        mkey = (tuple(ptrs[10:24]), tuple(dims[:3]), dims[5], tuple(dims[6:13]), dev)
+        maps = _step_maps.get(mkey)
+        if maps is None:
+            maps = ctypes.create_string_buffer(14 * 128)
+            rc = getattr(_kernel_lib(kernel), _ENTRIES[kernel] + "_maps")(
+                c_ptrs, c_dims, ctypes.addressof(maps))
+            if rc != 0:
+                raise RuntimeError(f"{what}: tensor map encoding failed (cudaError {rc})")
+            if len(_step_maps) >= _STEP_CACHE_MAX:
+                _step_maps.clear()
+            _step_maps[mkey] = maps
+        if len(_step_packs) >= _STEP_CACHE_MAX:
+            _step_packs.clear()
+        pack = _step_packs[key] = _StepPack(
+            weakref.ref(mp), cfg, c_ptrs, c_dims, (_I * len(plan.ints))(*plan.ints), maps,
+            _workspace(kernel, dims, dev), _kq(cfg), _cross_scale(cfg))
+    for i, t in enumerate(ts):
+        pack.ptrs[_STEP_TENSORS + i] = t.data_ptr()
     return pack
 
 
-def _launch_step(cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tensor,
+def _launch_step(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tensor,
                  kv_v: torch.Tensor, kv_head, xk: torch.Tensor, xv: torch.Tensor
                  ) -> torch.Tensor:
-    """Launch K2 (csrc/mega_step.cu) on the current stream from the cached
-    argument pack; returns the (R, V) f32 logits, raises if a launch fails."""
+    """Launch K2 (csrc/mega_step.cu) or K8 (csrc/mega_batch.cu) on the
+    current stream from the cached argument pack; returns the (R, V) f32
+    logits, raises if a launch fails."""
+    what = _WHAT[kernel]
     dev = x0.device
     R, S = x0.shape
-    pack = _step_pack(cfg, mp, R, kv_k, kv_v, xk, xv, dev)
+    pack = _step_pack(kernel, cfg, mp, R, kv_k, kv_v, xk, xv, dev)
     if S != cfg.n_text_state:
-        raise ValueError(f"mega_decode_step: x0 {tuple(x0.shape)}; rows of {cfg.n_text_state}")
+        raise ValueError(f"{what}: x0 {tuple(x0.shape)}; rows of {cfg.n_text_state}")
     x0b = x0.to(torch.bfloat16).contiguous()
     if x0b.data_ptr() % 16:
         x0b = x0b.clone()
     head = _kv_head(kv_head, dev)
     logits = torch.empty(R, mp.vp, dtype=torch.float32, device=dev)
-    rc = _kernel_lib("mega_step").owk_mega_step(
+    rc = getattr(_kernel_lib(kernel), _ENTRIES[kernel])(
         pack.ptrs, pack.dims, pack.plan, ctypes.addressof(pack.maps), x0b.data_ptr(),
         head.data_ptr(), logits.data_ptr(), float(cfg.eps), pack.kq, pack.cross_scale,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"mega_decode_step: kernel launch failed (cudaError {rc})")
+        raise RuntimeError(f"{what}: kernel launch failed (cudaError {rc})")
     return logits[:, :cfg.n_vocab]
 
 
@@ -964,7 +1058,7 @@ def mega_decode_step(cfg, mp: MegaParams, x0: torch.Tensor,
         raise ValueError(f"mega_decode_step: x0 {tuple(x0.shape)}; 1 to 8 rows")
     if x0.device.type == "cpu":
         return mega_decode_step_plain(cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv)
-    logits = _launch_step(cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv)
+    logits = _launch_step("mega_step", cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv)
     R, counts = x0.shape[0], mega_decode_step.launches_by_rows
     mega_decode_step.launches += 1
     counts[R] = counts.get(R, 0) + 1
@@ -1036,8 +1130,9 @@ def mega_decode_step_batch(cfg, mp: MegaParams, x0: torch.Tensor,
     stream delegates to K2 (`mega_decode_step`), as the JAX package does.
 
     CPU tensors take `mega_decode_step_batch_plain`; CUDA tensors launch
-    csrc/mega_batch.cu on the current stream or raise. `launches` counts
-    steps of B > 1 run on the card."""
+    csrc/mega_batch.cu on the current stream (planned by `mega_batch_plan`:
+    at most 1024 cache rows a stream and 2048 audio positions, ValueError
+    past them) or raise. `launches` counts steps of B > 1 run on the card."""
     B = x0.shape[0]
     if x0.dim() != 2 or not 1 <= B <= 8:
         raise ValueError(f"mega_decode_step_batch: x0 {tuple(x0.shape)}; 1 to 8 rows")
@@ -1051,8 +1146,7 @@ def mega_decode_step_batch(cfg, mp: MegaParams, x0: torch.Tensor,
                          f"a multiple of {B} streams")
     if x0.device.type == "cpu":
         return mega_decode_step_batch_plain(cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv)
-    logits = _launch("mega_batch", cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv,
-                     kv_k.shape[1] // B)
+    logits = _launch_step("mega_batch", cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv)
     mega_decode_step_batch.launches += 1
     return logits, kv_k, kv_v
 

@@ -1,6 +1,7 @@
 """The port on a CUDA card: kernels K1, K2 (one row and the speculative
 verify rows), K3, K4, K5, K6, K7, K8, K9a, K9b, T1 and T2 against their
-plain versions, the
+plain versions (K2 and K8 also bit-equal across launches, behind a spin
+and, for K8, across identical streams), the
 device token loops (greedy, beam and speculative) on the card against the
 same loops on the CPU, and a narrow q8_0 checkpoint's transcript on the
 card and the CPU.
@@ -768,6 +769,133 @@ def test_mega_batch_kernel_matches_plain(cuda, mode, monkeypatch):
     print(f"K8 {mode}: (head, max|err| / max|ref|, argmax flips, plain gap / max|ref|) "
           f"{[(h, f'{e:.2e}', n, f'{g:.1e}') for h, e, n, g in steps]}")
     assert all(e <= 2e-2 and g <= 1e-2 for _, e, _, g in steps), steps
+
+
+def _k8_narrow(cuda, mode, B, Tc=300, Ta=600):
+    """K8's narrow config (S=256, 4 heads, 3 layers, vocabulary 640; Tc
+    cache rows a stream and Ta audio positions, across the 128-row time
+    blocks and the 256-row cross chunks), its MegaParams in `mode`, each
+    stream's cross-KV and a (L, Tc * B, S) self-cache of random history."""
+    cfg = TM.WhisperConfig(640, Ta, 256, 4, 2, Tc, 256, 4, 3, 80)
+    params = TM.init_params(cfg, seed=5, dtype=torch.bfloat16, device=cuda)
+    dec = TM.prepare_decoder(params["decoder"])
+    if mode == "logits":
+        dec = TM.quantize_decoder_int8(dec)
+    mp = MK.prepare_mega(cfg, dec, quant=mode)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    xk, xv = ((torch.randn(3, B, Ta, 256, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    hist = (torch.randn(2, 3, Tc * B, 256, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    return cfg, dec, mp, xk, xv, hist
+
+
+@pytest.mark.parametrize("B", [2, 5, 8])
+@pytest.mark.parametrize("mode", ["none", "logits", "all", "int4"])
+def test_mega_batch_two_launches_bit_equal(cuda, mode, B):
+    """Two K8 launches from the same inputs at head 257 (the third time
+    block, past 128 and 256) give the same bits, logits and caches: every
+    split, key block and chunk combines in a fixed order, with no float
+    atomics."""
+    cfg, dec, mp, xk, xv, hist = _k8_narrow(cuda, mode, B)
+    head = 257
+    for c in hist:
+        c[:, head * B:] = 0
+    x0 = (dec["te"][torch.arange(B, device=cuda) * 7] + dec["pe"][head]).to(torch.bfloat16)
+    out = []
+    for _ in range(2):
+        k, v = hist[0].clone(), hist[1].clone()
+        out.append((MK.mega_decode_step_batch(cfg, mp, x0, k, v, torch.tensor(head, device=cuda),
+                                              xk, xv)[0], k, v))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+    assert out[0][1][:, head * B:(head + 1) * B].any()   # the step wrote its rows
+
+
+@pytest.mark.parametrize("mode", ["none", "all", "int4"])
+def test_mega_batch_reads_step_data_after_the_wait(cuda, mode):
+    """x0 and kv_head written by ops queued behind a 2 ms spin (their
+    tensors hold other values until the spin ends) give the bits of the
+    call whose inputs were ready: no launch of K8's chain reads the step's
+    data before its dependent-launch wait (the cross-KV, fixed for the
+    window, is read before it)."""
+    B, head = 5, 130
+    cfg, dec, mp, xk, xv, hist = _k8_narrow(cuda, mode, B)
+    for c in hist:
+        c[:, head * B:] = 0
+    x0 = (dec["te"][torch.arange(B, device=cuda) * 11] + dec["pe"][head]).to(torch.bfloat16)
+    ht = torch.tensor(head, device=cuda)
+    k, v = hist[0].clone(), hist[1].clone()
+    ref = MK.mega_decode_step_batch(cfg, mp, x0, k, v, ht, xk, xv)[0]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        x0_late = torch.full_like(x0, float("nan"))
+        head_late = torch.tensor(3, device=cuda)
+        k2, v2 = hist[0].clone(), hist[1].clone()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(4_000_000)
+        x0_late.copy_(x0)
+        head_late.copy_(ht)
+        got = MK.mega_decode_step_batch(cfg, mp, x0_late, k2, v2, head_late, xk, xv)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref) and torch.equal(k2, k) and torch.equal(v2, v)
+
+
+@pytest.mark.parametrize("mode", ["none", "logits", "all", "int4"])
+def test_mega_batch_identical_streams_give_identical_rows(cuda, mode):
+    """Eight streams with the same token, history and cross-KV give eight
+    bit-equal logits rows and new cache rows: no row's sums depend on
+    another row or on its index."""
+    B, head = 8, 200
+    cfg, dec, mp, xk, xv, hist = _k8_narrow(cuda, mode, 1)
+    hist[:, :, head:] = 0
+    k = hist[0].repeat_interleave(B, dim=1).contiguous()   # row t * B + b: stream 0's row t
+    v = hist[1].repeat_interleave(B, dim=1).contiguous()
+    sk, sv = xk.expand(-1, B, -1, -1).contiguous(), xv.expand(-1, B, -1, -1).contiguous()
+    x0 = (dec["te"][5] + dec["pe"][head])[None].expand(B, -1).to(torch.bfloat16).contiguous()
+    got = MK.mega_decode_step_batch(cfg, mp, x0, k, v, torch.tensor(head, device=cuda), sk, sv)[0]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert all(torch.equal(got[b], got[0]) for b in range(1, B))
+    rows = k[:, head * B:(head + 1) * B], v[:, head * B:(head + 1) * B]
+    assert all(torch.equal(r[:, b], r[:, 0]) for r in rows for b in range(1, B))
+    assert rows[0].any()
+
+
+def test_mega_batch_library_has_tma_and_dependent_launch(cuda):
+    """K8's library (csrc/mega_batch.cu on mega_stream.cuh) holds TMA tile
+    loads (UTMALDG), the dependent-launch trigger (PREEXIT) and wait
+    (ACQBULK) and warp-level mma.sync (HMMA) in its SASS."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from open_whisper_kit_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
+    if not Path(tool).exists():
+        pytest.skip("cuobjdump not found")
+    sass = subprocess.run([tool, "-sass", str(_build.build("mega_batch"))],
+                          capture_output=True, text=True, check=True).stdout
+    for op in ("UTMALDG", "PREEXIT", "ACQBULK", "HMMA"):
+        assert op in sass, op
+
+
+def test_chain_libraries_keep_their_own_flags(cuda):
+    """K2's and K8's libraries both include mega_stream.cuh; each keeps its
+    own shared-memory opt-in flags: neither exports a flag or any GNU
+    unique symbol (`nm -D` type u), which the dynamic linker would make one
+    object for every library in the process."""
+    import shutil
+    import subprocess
+
+    from open_whisper_kit_tpu_torch.ops import _build
+    if shutil.which("nm") is None:
+        pytest.skip("nm not found")
+    for name in ("mega_step", "mega_batch"):
+        table = subprocess.run(["nm", "-D", "-C", "--defined-only", str(_build.build(name))],
+                               capture_output=True, text=True, check=True).stdout.splitlines()
+        kinds = [line.split()[1] for line in table if len(line.split()) >= 3]
+        assert "u" not in kinds, name
+        assert not any("allowed" in line for line in table), name
 
 
 def _int8_cross_kv(cuda, B, H, Ta, seed, nat=False):

@@ -6,7 +6,8 @@ T1 (ops/gemm.py::mm_bf16_plan, csrc/mm_bf16.cu) and K2's chain
 launches in Python: how many splits of K, which K rows each takes, how much
 shared memory a block holds for x's rows and for the other splits' partial
 sums, T1's tile, its clusters and how many rounds of tile pairs the busiest
-one walks, K2's attention key chunks. The kernels themselves run only on the card (tests/test_torch_cuda.py);
+one walks, K2's attention key chunks, and K8's (csrc/mega_batch.cu,
+mega_batch_plan) GEMVs, time blocks and cross chunks. The kernels themselves run only on the card (tests/test_torch_cuda.py);
 these are the numbers they are launched with, checked here at the shapes
 large-v3-turbo gives them.
 """
@@ -15,10 +16,15 @@ import re
 import types
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
+from open_whisper_kit_tpu_torch import Transcriber
 from open_whisper_kit_tpu_torch.decode import device_speculative as DS
 from open_whisper_kit_tpu_torch.decode import full as FULL
+from open_whisper_kit_tpu_torch.decode import tokenizer as TOK
+from open_whisper_kit_tpu_torch.decode.params import FullParams
 from open_whisper_kit_tpu_torch.models.whisper import model as TM
 from open_whisper_kit_tpu_torch.ops import decode_megakernel as MK
 from open_whisper_kit_tpu_torch.ops import gemm as G
@@ -310,3 +316,102 @@ def test_speculative_steps_take_k2_while_the_cache_has_a_plan(name, cfg, mode, g
         draft=types.SimpleNamespace(cfg=cfg, mega_params=lambda p, draft=False: "draft"))
     assert FULL._speculative_mega(ctx, None, gamma) == (
         "draft" if fits else None, "target" if gamma + 1 <= 8 else None)
+
+
+# K8 (the batched-stream step) at B = 2, 5 and 8 streams on the same cases
+K8_STREAMS = (2, 5, 8)
+
+
+@pytest.mark.parametrize("B", K8_STREAMS)
+@pytest.mark.parametrize("name,cfg,mode", K2_CASES, ids=K2_IDS)
+def test_mega_batch_plan_runs_k2s_gemvs_at_b_rows(name, cfg, mode, B):
+    """K8's seven GEMV launches are K2's at R = B: the same fields, splits,
+    ring depths and split rows, so each stream's row sums as a K2 row does."""
+    plan = MK.mega_batch_plan(cfg, K2_KINDS[mode], cfg.n_text_ctx, streams=B)
+    k2 = _k2_plan(cfg, mode, B)
+    assert plan.rows == k2.rows == B
+    assert plan.fields == k2.fields and plan.ints[:14] == k2.ints[:14]
+    assert [f.split_rows() for f in plan.fields] == [f.split_rows() for f in k2.fields]
+
+
+@pytest.mark.parametrize("B", K8_STREAMS)
+@pytest.mark.parametrize("name,cfg,mode", K2_CASES, ids=K2_IDS)
+def test_mega_batch_plan_blocks_clusters_and_shared_memory(name, cfg, mode, B):
+    """The self-attention walks whole 128-row time blocks and the
+    cross-attention whole 256-row chunks (the TPU kernel's BT and tac: its
+    online softmax's running max moves at their edges), each (head, stream)
+    pair's blocks one cluster; every cluster (those and the GEMVs' splits)
+    within MEGA_MAX_CLUSTER and every block's shared memory within
+    MEGA_MAX_SMEM, what the kernels opt in to."""
+    Tc, Ta = cfg.n_text_ctx, cfg.n_audio_ctx
+    plan = MK.mega_batch_plan(cfg, K2_KINDS[mode], Tc, streams=B)
+    assert MK.BT == 128 and MK.TAC == 256 and plan.ints[14:] == (MK.BT, MK.TAC)
+    for rows, n, T in ((MK.BT, plan.self_blocks, Tc), (MK.TAC, plan.cross_chunks, Ta)):
+        blocks = [(c * rows, min((c + 1) * rows, T)) for c in range(n)]
+        assert blocks[-1][1] == T and all(b - a == rows for a, b in blocks[:-1])
+        assert 0 < blocks[-1][1] - blocks[-1][0] <= rows
+        assert n <= MK.MEGA_MAX_CLUSTER
+    assert all(1 <= f.splits <= MK.MEGA_MAX_CLUSTER for f in plan.fields)
+    assert max(f.smem(B) for f in plan.fields) <= MK.MEGA_MAX_SMEM
+    assert max(plan.attn_smem) <= MK.MEGA_MAX_SMEM
+
+
+@pytest.mark.parametrize("Tc,Ta,fits", [(1024, 2048, True), (1025, 1500, False),
+                                        (448, 2049, False), (1100, 2100, False)])
+def test_mega_batch_plan_rejects_what_no_cluster_holds(Tc, Ta, fits):
+    """A cluster of 8 holds 8 time blocks (1024 cache rows a stream) and 8
+    cross chunks (2048 audio positions); past either there is no plan, and
+    the error names the limit (the wrapper raises it on the card)."""
+    kinds = K2_KINDS["all"]
+    if fits:
+        plan = MK.mega_batch_plan(TURBO_CFG, kinds, Tc, Ta, streams=8)
+        assert (plan.self_blocks, plan.cross_chunks) == (8, 8)
+    else:
+        with pytest.raises(ValueError, match=r"1024\).*2048\)"):
+            MK.mega_batch_plan(TURBO_CFG, kinds, Tc, Ta, streams=8)
+
+
+@pytest.mark.parametrize("preset", sorted(TM.PRESETS))
+def test_every_preset_lockstep_step_has_a_k8_plan(preset):
+    """The lockstep loop steps K8 on a cache of n_text_ctx rows a stream
+    over n_audio_ctx positions: every preset has a plan there at every B
+    and in every mode the kernel takes (int4 needs S % 256 == 0)."""
+    cfg = TM.PRESETS[preset]
+    for mode, kinds in K2_KINDS.items():
+        if mode == "int4" and cfg.n_text_state % 256:
+            continue
+        for B in range(2, 9):
+            plan = MK.mega_batch_plan(cfg, kinds, cfg.n_text_ctx, cfg.n_audio_ctx, streams=B)
+            assert max(plan.self_blocks, plan.cross_chunks) <= MK.MEGA_MAX_CLUSTER
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_lockstep_path_steps_k8_at_n_text_ctx(monkeypatch):
+    """transcribe_batch with megakernel="int8" on a narrow bf16 model on the
+    CPU: the first lockstep step calls K8 with n_text_ctx cache rows a
+    stream and n_audio_ctx positions, where it has a plan (the call is
+    stopped there)."""
+    cfg = TM.WhisperConfig(51864, 1500, 128, 2, 2, 448, 128, 2, 2, 80)
+    params = TM.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
+    vocab = TOK.build_vocab([b"<%d>" % i for i in range(50257)], cfg.n_vocab)
+    ctx = FULL.WhisperContext(cfg, params, vocab, FULL._synthetic_mel_filters(80), n_loaded=1,
+                              dtype=torch.bfloat16, device="cpu")
+    seen = []
+
+    def k8(cfg_, mp, x0, kv_k, kv_v, kv_head, xk, xv):
+        B = x0.shape[0]
+        seen.append((B, kv_k.shape[1] // B, xk.shape[-2]))
+        MK.mega_batch_plan(cfg_, [MK._kind(getattr(mp, n)) for n in MK.WEIGHTS],
+                           kv_k.shape[1] // B, xk.shape[-2], streams=B, Vp=mp.vp)
+        raise _Stop
+    monkeypatch.setattr(MK, "mega_decode_step_batch", k8)
+    tr = Transcriber.__new__(Transcriber)
+    tr.ctx = ctx
+    files = [(np.random.default_rng(s).standard_normal(32000) * 0.1).astype(np.float32)
+             for s in range(3)]
+    with pytest.raises(_Stop):
+        tr.transcribe_batch(files, FullParams(print_progress=False, megakernel="int8"))
+    assert seen == [(3, cfg.n_text_ctx, cfg.n_audio_ctx)]
