@@ -4,7 +4,7 @@ one or more source trees in turn.
 
     python3 greedy_rtf.py ROOT [ROOT ...] [--reps 3] [--model dense|q8_0]
                           [--request auto|no-megakernel|cross-kv-int8|speculative|
-                                     batch-k8-int8|batch-k8-dense ...]
+                                     beam5|batch-k8-int8|batch-k8-dense ...]
 
 Each ROOT is a directory holding `open_whisper_kit_tpu_torch/`: this
 checkout, or another commit unpacked with `git archive` into a git-ignored
@@ -24,13 +24,16 @@ through K3's rows route on the q8_0 model) or `cross-kv-int8`
 only: speculative greedy with gamma 4 and a q4_0 draft of the same seed-0
 tensors, written beside the target, as chip_smoke.py's phase 16 draft (a);
 its token steps run K2 at one row and its verify passes K2 at five) or
+`beam5` (q8_0 only: beam search with beam_size 5, the rest as `auto`:
+every beam token step one K7 launch, int8 planes) or
 `batch-k8-int8` / `batch-k8-dense` (dense model only: transcribe_batch of
 eight 30 s files, audio seeds 500-507, with the W8A8 encoder and
 megakernel="int8" / True, chip_smoke.py's phase-14 request: every
 lockstep step one K8 launch, int8 or dense planes). Each timed request
 prints one JSON line: the root, the model, the request kind, wall seconds
 (host clock, ending in `torch.cuda.synchronize()`), RTF, sampled tokens,
-encoder passes and wall ms per sampled token (a batched request: wall
+encoder passes and wall ms per sampled token (beam5 also K7's launches;
+a batched request: wall
 seconds, audio seconds per second, K8 launches and emitted tokens). Then `--reps` timed passes of the request's
 first window through the encoder and cross-KV print the window's device
 span (CUDA events) and the host's time to issue it. The card's name and
@@ -70,6 +73,7 @@ def write_checkpoints(paths: dict) -> None:
 
 REQUESTS = {"auto": {}, "no-megakernel": {"megakernel": False},
             "cross-kv-int8": {"cross_kv_int8": True}, "speculative": {"speculative": 4},
+            "beam5": {"beam_size": 5},
             "batch-k8-int8": {"megakernel": "int8"}, "batch-k8-dense": {"megakernel": True}}
 BATCH_FILES = 8           # 30 s files of a batched request, audio seeds 500 + b
 
@@ -77,10 +81,14 @@ BATCH_FILES = 8           # 30 s files of a batched request, audio seeds 500 + b
 def child(root: Path, reps: int, model_path: Path | None, requests: list[str],
           draft_path: Path | None) -> None:
     sys.path.insert(0, str(root))
+    import dataclasses
+
     import numpy as np
     import torch
     from open_whisper_kit_tpu_torch import Transcriber
-    from open_whisper_kit_tpu_torch.decode.params import FullParams
+    from open_whisper_kit_tpu_torch.decode.params import (BeamSearchParams, FullParams,
+                                                          SamplingStrategy)
+    from open_whisper_kit_tpu_torch.ops import decode_megakernel as MK
 
     if not torch.cuda.is_available():
         sys.exit("greedy_rtf: no CUDA device")
@@ -103,7 +111,12 @@ def child(root: Path, reps: int, model_path: Path | None, requests: list[str],
             p = FullParams(print_progress=False)
             p.temperature_inc = 0
             for field, value in REQUESTS[request].items():
-                setattr(p, field, value)
+                if field == "beam_size":
+                    p = dataclasses.replace(p, strategy=SamplingStrategy.BEAM_SEARCH,
+                                            beam_search=BeamSearchParams(beam_size=value))
+                else:
+                    setattr(p, field, value)
+            k7 = MK.mega_decode_step_beam.launches
             t0 = time.perf_counter()
             res = tr.transcribe(samples, p)
             torch.cuda.synchronize()
@@ -116,6 +129,7 @@ def child(root: Path, reps: int, model_path: Path | None, requests: list[str],
                               "rtf": wall / SECONDS, "sampled_tokens": n,
                               "encoder_passes": res.timings.n_encode,
                               "spec_accepted": res.timings.n_spec_accepted,
+                              "k7_launches": MK.mega_decode_step_beam.launches - k7,
                               "ms_per_token": 1e3 * wall / max(n, 1)}), flush=True)
     # the request's first window alone: encoder + cross-KV, the device span
     # (CUDA events) beside the host's time to issue it; where the two are
@@ -187,8 +201,9 @@ def main() -> int:
     if args.child:
         child(args.roots[0].resolve(), args.reps, args.model_path, requests, args.draft_path)
         return 0
-    if "speculative" in requests and args.model != "q8_0":
-        ap.error("--request speculative needs --model q8_0")
+    for kind in ("speculative", "beam5"):
+        if kind in requests and args.model != "q8_0":
+            ap.error(f"--request {kind} needs --model q8_0")
     if any(r.startswith("batch") for r in requests) and args.model != "dense":
         ap.error("--request batch-k8-* needs --model dense")
     smi = subprocess.run(

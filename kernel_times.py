@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time K2, K8, K3's rows route and T1 of the PyTorch port on one GPU, for
-one or more source trees in turn.
+"""Time K2, K7, K8, K1's f32 body, K3's rows route and T1 of the PyTorch
+port on one GPU, for one or more source trees in turn.
 
     python3 kernel_times.py ROOT [ROOT ...]
 
@@ -32,7 +32,17 @@ line per case, every time the median of 20 launches in µs (CUDA events):
 - K8 (`ops.decode_megakernel.mega_decode_step_batch`, the same step for B
   independent streams, each with its own cross-KV) in the four modes at
   B = 2, 5 and 8, head 258 of a 448-row cache a stream, timed as K2, beside
-  its bound (every plane, each stream's cross-KV and self-KV rows).
+  its bound (every plane, each stream's cross-KV and self-KV rows);
+- K7 (`ops.decode_megakernel.mega_decode_step_beam`, the same step for B
+  beams over one shared cross-KV, with a lineage) in the four modes at
+  B = 2, 5 and 8, head 258 of a 448-row cache a beam with a random origin
+  table, timed as K2, beside its bound (every plane and the cross-KV once,
+  each beam's lineage rows and origin entries);
+- K1's f32 body (`ops.attention.mha_packed` on f32 tensors) at (1, 1536,
+  128), the narrow f32 models' encoder, and (1, 1536, 1280), large-v3-
+  turbo's width, 1500 live keys, warm L2 as the encoder finds its q/k/v:
+  queued and not, beside SDPA on the head-major layout with the same mask,
+  the plain version and the bound (the f32 operations at the f32 peak).
 The card's name and power limit come first.
 """
 
@@ -53,6 +63,8 @@ MM_SHAPES = [(1536, 1280, 5120), (1536, 5120, 1280)]
 K2_CASES = [(1, 448, 108), (5, 459, 258), (8, 459, 258)]   # (R, cache rows, head)
 K8_STREAMS = (2, 5, 8)
 K8_HEAD = 258          # of a 448-row cache a stream (n_text_ctx)
+K7_BEAMS = (2, 5, 8)   # at K8_HEAD of a 448-row cache a beam
+K1_F32_SHAPES = [(1, 1536, 128), (1, 1536, 1280)]   # (B, T, S), 1500 live keys
 
 
 def smi() -> str:
@@ -182,6 +194,72 @@ def k8_times(torch, CS, root: Path) -> None:
         torch.cuda.empty_cache()
 
 
+def k7_times(torch, CS, root: Path) -> None:
+    from open_whisper_kit_tpu_torch.models.whisper import model as TM
+    from open_whisper_kit_tpu_torch.ops import decode_megakernel as MK
+    from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
+    cfg = TM.WhisperConfig(*CS.TURBO)
+    L, S, Ta, Tc = cfg.n_text_layer, cfg.n_text_state, cfg.n_audio_ctx, cfg.n_text_ctx
+    B_max, head = max(K7_BEAMS), K8_HEAD
+    g = torch.Generator(device="cuda").manual_seed(6)
+    xk, xv = ((torch.randn(L, Ta, S, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    hist = (torch.randn(2, L, Tc * B_max, S, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for mode in CS.K2_MODES:
+        dec, ydec = CS.turbo_decoder(torch, TM, Q, cfg, mode)
+        mp = MK.prepare_mega(cfg, ydec if mode in ("logits", "all") else dec, quant=mode)
+        for B in K7_BEAMS:
+            kk, kv = (hist[i, :, :Tc * B].clone() for i in range(2))
+            kk[:, head * B:] = kv[:, head * B:] = 0
+            origin = torch.randint(0, B, (B, Tc), generator=g, device="cuda")
+            origin[:, head] = torch.arange(B, device="cuda")
+            toks = torch.randint(0, cfg.n_vocab, (B,), generator=g, device="cuda")
+            x0 = (dec["te"][toks] + dec["pe"][head]).to(torch.bfloat16)
+            ht = torch.tensor(head, device="cuda")
+
+            def step():
+                return MK.mega_decode_step_beam(cfg, mp, x0, kk, kv, ht, xk, xv, origin=origin)
+            moved, ops = CS.k2_bytes_ops(MK, mp, cfg, head + 1, Ta, rows=B)
+            moved += B * (head + 1) * 8
+            b_ms = CS.bound(moved, ops)[0]
+            q_ms = CS.cuda_ms(torch, step, flush=flush, queued=True)
+            emit(root=str(root), kernel="mega_decode_step_beam", mode=mode, B=B,
+                 cache_rows=Tc, head=head, us=1e3 * q_ms,
+                 us_call=1e3 * CS.cuda_ms(torch, step, flush=flush),
+                 host_us=call_host_us(torch, step), bound_us=1e3 * b_ms,
+                 bound_share=b_ms / q_ms)
+        del dec, ydec, mp
+        torch.cuda.empty_cache()
+
+
+def k1_f32_times(torch, CS, root: Path) -> None:
+    import torch.nn.functional as F
+    from open_whisper_kit_tpu_torch.ops import attention as A
+    g = torch.Generator(device="cuda").manual_seed(1)
+    n_valid, scale = 1500, 0.125
+    for B, T, S in K1_F32_SHAPES:
+        q, k, v = (torch.randn(B, T, S, generator=g, device="cuda") for _ in range(3))
+        H = S // 64
+        ref = A.mha_plain(q, k, v, H, scale, n_valid)
+        err = (A.mha_packed(q, k, v, scale, n_valid) - ref).abs().max().item()
+        qh, kh, vh = (t.view(B, T, H, 64).transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = (torch.arange(T, device="cuda") < n_valid)[None, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=scale)
+
+        def us(fn, queued=True):
+            return 1e3 * CS.cuda_ms(torch, fn, queued=queued)
+        b_ms, b_by = CS.bound(4 * q.numel() * 4, 4 * B * T * n_valid * S, CS.F32_PEAK)
+        k_us = us(lambda: A.mha_packed(q, k, v, scale, n_valid))
+        emit(root=str(root), kernel="mha_packed f32", B=B, T=T, S=S, n_valid=n_valid,
+             max_abs_err=err, us=k_us,
+             us_unqueued=us(lambda: A.mha_packed(q, k, v, scale, n_valid), False),
+             sdpa_us=us(sdpa), plain_us=us(lambda: A.mha_plain(q, k, v, H, scale, n_valid)),
+             bound_us=1e3 * b_ms, bound_by=b_by, bound_share=1e3 * b_ms / k_us)
+
+
 def child(root: Path) -> None:
     torch, CS = setup(root)
     from open_whisper_kit_tpu_torch.ops import gemm as G
@@ -234,7 +312,9 @@ def child(root: Path) -> None:
              cublas_us=us(lambda: torch.mm(a, b, out_dtype=torch.float32)))
     del flush
     torch.cuda.empty_cache()
+    k1_f32_times(torch, CS, root)
     k2_times(torch, CS, root)
+    k7_times(torch, CS, root)
     k8_times(torch, CS, root)
 
 

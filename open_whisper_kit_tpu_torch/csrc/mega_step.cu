@@ -57,36 +57,6 @@
 
 using namespace mstream;
 
-namespace {
-
-// attend_kernel's dynamic shared memory opt-in, once per device
-unsigned long long allowed_attend;
-
-// the R rows of qb against keys of layer il: the self-cache (row r up to
-// head + r) or the cross-KV; out -> ab
-int attend(const Chain& c, int il, bool self) {
-  const Dims& d = c.d;
-  const int S = d.S, T = self ? d.Tc : d.Ta, chunk = c.plan[self ? 14 : 15];
-  if (chunk < 16 || chunk > kMaxChunk || chunk % 16) return (int)cudaErrorInvalidValue;
-  const int chunks = (T + chunk - 1) / chunk;
-  if (chunks > kMaxCluster) return (int)cudaErrorInvalidValue;
-  const bf16* k = static_cast<const bf16*>(c.p[self ? 24 : 26]) + (size_t)il * T * S;
-  const bf16* v = static_cast<const bf16*>(c.p[self ? 25 : 27]) + (size_t)il * T * S;
-  AttnArgs a;
-  a.q = c.qb; a.k = k; a.v = v;
-  a.head = self ? c.head : nullptr;
-  a.out = c.ab;
-  a.T = T; a.S = S; a.R = d.R; a.chunk = chunk;
-  a.scale = self ? 1.0f : c.cross_scale;
-  int e;
-  if ((e = allow_smem(attend_kernel, kMaxSmem, allowed_attend))) return e;
-  const int smem = (int)attn_layout(chunk, chunks, d.R).total;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  return launch(attend_kernel, dim3(d.H, chunks), kAttnThreads, chunks, smem, c.st, a);
-}
-
-}  // namespace
-
 // bytes of workspace a step needs (dims as owk_mega_step)
 extern "C" long long owk_mega_step_workspace(const int* dims) {
   return (long long)layout(read_dims(dims)).total;

@@ -1,10 +1,12 @@
-// The body of kernels K2 (mega_step.cu) and K8 (mega_batch.cu): one decoder
-// step for R <= 8 rows (K2: consecutive tokens of one stream; K8: one token
-// of each of B independent streams) as a chain of launches whose weight
-// streams run ahead of their dependencies.
+// The body of kernels K2 (mega_step.cu), K7 (mega_beam.cu) and K8
+// (mega_batch.cu): one decoder step for R <= 8 rows (K2: consecutive tokens
+// of one stream; K7: one token of each of B beams; K8: one token of each of
+// B independent streams) as a chain of launches whose weight streams run
+// ahead of their dependencies.
 //
-// Two kernels, each launched once per stage of a K2 step (K8 launches the
-// GEMV and its own attention kernels, mega_batch.cu):
+// Two kernels, each launched once per stage of a K2 step (K7 and K8 launch
+// the GEMV and, for the attention over their row-flat caches, the block
+// attention kernel of mega_blocks.cuh):
 //
 // gemv_kernel<kind>: Y = stage-in(X) @ W for the R rows, W a dense bf16, int8
 // (per-32-row f32 scales) or split-half int4 (per-32-row bf16 scales) plane
@@ -51,11 +53,12 @@
 //    tensor core sums each row alone), so every verify row is bit-identical
 //    to the one-row step at its position.
 //  * The QKV epilogue writes row r's new K and V at cache row head *
-//    head_stride + r: K2's natural (Tc, S) cache (stride 1), K8's row-flat
-//    time-major (Tc * B, S) cache (stride B: stream b at time t is row
-//    t * B + b).
+//    head_stride + r: K2's natural (Tc, S) cache (stride 1), K7's and K8's
+//    row-flat time-major (Tc * B, S) cache (stride B: slot b at time t is
+//    row t * B + b).
 //
-// attend_kernel (K2 only): the R query rows of one head against a key set in one pass.
+// attend_kernel (K2's self- and cross-attention, K7's cross-attention): the R
+// query rows of one head against a key set in one pass.
 // The grid is (heads) x (key chunks), a head's chunks one cluster (at most
 // 8); the chunk length depends on Tp = min(Tc, n_text_ctx) for the
 // self-cache (so the greedy loop's cache and the speculative loop's, Tp +
@@ -285,7 +288,7 @@ struct GemvArgs {
   float eps;
   float kq;              // bf16(dh^-0.25) as f32
   int K, N, S, R, layer, splits, depth, epi;
-  int head_stride;       // K2 1, K8 B
+  int head_stride;       // K2 1, K7 and K8 B
 };
 
 // one row's 16 sums at columns n .. n + 15 -> the stage's output; `bq` the
@@ -1157,6 +1160,33 @@ struct Chain {
     return (int)cudaErrorInvalidValue;
   }
 };
+
+// attend_kernel's dynamic shared memory opt-in, once per device
+unsigned long long allowed_attend;
+
+// attend_kernel for the R rows of qb against keys of layer il: K2's
+// self-cache (row r up to head + r) or the shared (Ta, S) cross-KV (K2, K7);
+// out -> ab
+inline int attend(const Chain& c, int il, bool self) {
+  const Dims& d = c.d;
+  const int S = d.S, T = self ? d.Tc : d.Ta, chunk = c.plan[self ? 14 : 15];
+  if (chunk < 16 || chunk > kMaxChunk || chunk % 16) return (int)cudaErrorInvalidValue;
+  const int chunks = (T + chunk - 1) / chunk;
+  if (chunks > kMaxCluster) return (int)cudaErrorInvalidValue;
+  const bf16* k = static_cast<const bf16*>(c.p[self ? 24 : 26]) + (size_t)il * T * S;
+  const bf16* v = static_cast<const bf16*>(c.p[self ? 25 : 27]) + (size_t)il * T * S;
+  AttnArgs a;
+  a.q = c.qb; a.k = k; a.v = v;
+  a.head = self ? c.head : nullptr;
+  a.out = c.ab;
+  a.T = T; a.S = S; a.R = d.R; a.chunk = chunk;
+  a.scale = self ? 1.0f : c.cross_scale;
+  int e;
+  if ((e = allow_smem(attend_kernel, kMaxSmem, allowed_attend))) return e;
+  const int smem = (int)attn_layout(chunk, chunks, d.R).total;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return launch(attend_kernel, dim3(d.H, chunks), kAttnThreads, chunks, smem, c.st, a);
+}
 
 // The 14 tensor maps of a prepared decoder's planes (two a field: values,
 // then scales; a dense field's second is a copy of its first), 128 bytes

@@ -51,14 +51,48 @@
 //    exponentials on the SFU's 16 lanes an SM a clock, against 4096 tensor
 //    FLOP a clock: per 128-key tile a warpgroup's 8192 + 8192 exponentials
 //    take 1024 SFU clocks, its three products 768 tensor clocks.
-//  * f32: the same two passes with plain FMA (no tf32, so the result holds
-//    the plain version to 1e-4), 32 queries per block, 4 threads per row;
-//    it serves narrow f32 models only and is not redesigned.
 //
-// Requires head dim 64; bf16: q/k/v on 16-byte boundaries; f32: T % 64 ==
-// 0; 1 <= n_valid <= T. The Python wrapper checks and pads the f32 path.
-// Launches on the caller's stream and returns the cudaError_t of the launch
-// (or of the tensor-map encoding).
+// Design (f32; mma.sync in 3xTF32, thread-block clusters):
+//  * The function at f32: the cast of p to the input type is the identity,
+//    so there is no rounding point between the row sums and P V, and a
+//    one-pass online softmax (a running max m, sum l and output o, rescaled
+//    by exp(m_old - m_new) as the keys come) computes the same function up
+//    to the order of its f32 sums. The second Q K^T pass that the bf16 body
+//    pays for its rounding point is not needed here.
+//  * The grid is (key chunks, 64-query tiles, heads x batch); a query
+//    tile's chunks are one thread-block cluster of 1, 2, 4 or 8. The number
+//    of chunks comes from the wrapper's plan (ops/attention.py::
+//    mha_f32_plan) so that the grid fills the card, two blocks of 128
+//    threads a multiprocessor: at the narrow models' two heads, 24 query
+//    tiles x 2 heads x 4 chunks = 192 blocks (the first f32 body had 96
+//    blocks and walked all 1500 keys twice in each); at large-v3-turbo's
+//    20 heads, 480 blocks of one chunk.
+//  * Each block streams its chunk's K and V in 64-key tiles through a
+//    double-buffered cp.async ring (rows past the chunk load as zero, keys
+//    past n_valid score -inf; query rows past T load as zero and are not
+//    written: no padding copy), and keeps m, l and o in f32 registers.
+//  * Q K^T and P V run on the tensor cores as mma.sync m16n8k8 in TF32,
+//    split for f32 accuracy: each operand a = hi + lo (hi a TF32 value,
+//    lo = a - hi), and d += lo * hi' + hi * lo' + hi * hi' ("3xTF32"),
+//    which leaves out only lo * lo' and lo's last bits, each under 2^-20 of
+//    a product (one TF32 product alone errs by about 1e-3). P's fragments are the score
+//    registers as they lie: the k index of a P V step is permuted so that
+//    key 2t and 2t + 1 of an 8-key tile feed k indices t and t + 4, and V's
+//    rows are read in the same order. 272-byte rows keep every fragment
+//    load free of bank conflicts.
+//  * The chunks meet over distributed shared memory: each block leaves its
+//    partial (m, l, o) in its shared memory, the cluster barrier publishes
+//    them, and block r combines rows r * ceil(64 / chunks) .. + of every
+//    chunk's partial in chunk order (w = exp(m_c - max_c m_c), o = sum
+//    o_c w, l = sum l_c w) and writes o / l.
+//  * What bounds it: the f32 products, 4 * T * n_valid * 64 FLOP a head
+//    (17.6 us at narrow width against the f32 peak of 67 TFLOP/s; in
+//    3xTF32 on the tensor cores they are three times that work at the TF32
+//    rate of 495 TFLOP/s, 7.2 us).
+//
+// Requires head dim 64 and q/k/v on 16-byte boundaries; 1 <= n_valid <= T.
+// The Python wrapper checks. Launches on the caller's stream and returns
+// the cudaError_t of the launch (or of the tensor-map encoding).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -360,94 +394,234 @@ mha_packed_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-constexpr int kQ32 = 32;   // f32: queries per block
-constexpr int kK32 = 32;   // f32: keys per tile
+// ---- f32: one pass, the live keys split over a cluster ----
 
-__global__ void __launch_bounds__(128)
+constexpr int kFQ = 64;                 // f32: queries per block (a warp 16 rows)
+constexpr int kFKeys = 64;              // f32: keys per tile
+constexpr int kFLd = kHeadDim + 4;      // f32 a K / V row in shared memory (272 bytes)
+constexpr int kFThreads = 128;
+constexpr int kFMaxCluster = 8;         // the portable cluster size
+constexpr uint32_t kFTileBytes = kFKeys * kFLd * 4;
+// two K and two V tiles (double-buffered); after the loop the first two
+// hold the block's partial: o (64 x 64), the row maxima and sums
+constexpr int kFSmemBytes = 4 * kFTileBytes;
+static_assert(kFQ * kHeadDim * 4 + 2 * kFQ * 4 <= 2 * kFTileBytes, "the partial must fit");
+
+// x = hi + lo for the tensor cores' TF32 (which read a register's sign,
+// exponent and top 10 mantissa bits): hi is x with its low 13 mantissa bits
+// cleared, lo = x - hi (exact in f32), of which the product reads the top
+// 11 significant bits. hi * hi' + hi * lo' + lo * hi' then leaves out only
+// lo * lo' and lo's cut bits, each under 2^-20 of the product: f32 accuracy
+// for two integer operations an operand (a rounding cvt.rna.tf32 for each
+// part measured 25-30 % slower on the H100, PERF.md)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D (16 x 8, f32) += A (16 x 8, tf32) * B (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in 3xTF32: the two small products first, then the large one
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// One block per (key chunk, 64-query tile, head x batch element); a query
+// tile's chunks are one cluster (rank = blockIdx.x). Four warps, warp w the
+// query rows 16 w .. + 15 of the tile. Each block runs an online softmax
+// over its chunk's keys (64-key tiles through a double-buffered cp.async
+// ring) and leaves its partial (row max m, row sum l, unnormalised o) in
+// shared memory; then block r combines rows r * ceil(64 / chunks) .. of
+// every chunk's partial, in chunk order, and writes o / l.
+__global__ void __launch_bounds__(kFThreads, 2)
 mha_packed_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      int T, int S, int n_valid, float scale) {
-  __shared__ float q_sh[kQ32][kHeadDim + 1];
-  __shared__ float k_sh[kK32][kHeadDim + 1];
-  __shared__ float v_sh[kK32][kHeadDim];
-  __shared__ float p_sh[kQ32][kK32 + 1];
+                      const float* __restrict__ v, float* __restrict__ o, int T, int S,
+                      int n_valid, int chunk_keys, float scale_log2) {
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int chunks = gridDim.x, c = blockIdx.x, q0 = blockIdx.y * kFQ;
+  const int H = S / kHeadDim, head = blockIdx.z % H, b = blockIdx.z / H;
+  const size_t base = (size_t)b * T * S + (size_t)head * kHeadDim;
+  const int key_lo = c * chunk_keys, key_hi = min(key_lo + chunk_keys, n_valid);
+  const int n_tiles = max(key_hi - key_lo + kFKeys - 1, 0) / kFKeys;
 
-  const int tid = threadIdx.x;
-  const int row = tid >> 2;   // 4 consecutive lanes per query row
-  const int sub = tid & 3;
-  const int q0 = blockIdx.x * kQ32;
-  const size_t base = (size_t)blockIdx.z * T * S + (size_t)blockIdx.y * kHeadDim;
-  const float* qb = q + base;
-  const float* kb = k + base;
-  const float* vb = v + base;
-
-  for (int i = tid; i < kQ32 * kHeadDim; i += 128)
-    q_sh[i / kHeadDim][i % kHeadDim] = qb[(size_t)(q0 + i / kHeadDim) * S + i % kHeadDim];
-
-  const int n_tiles = (n_valid + kK32 - 1) / kK32;
-  auto load_tile = [&](const float* src, int t0, bool to_k) {
-    for (int i = tid; i < kK32 * kHeadDim; i += 128) {
-      const float x = src[(size_t)(t0 + i / kHeadDim) * S + i % kHeadDim];
-      if (to_k) k_sh[i / kHeadDim][i % kHeadDim] = x;
-      else v_sh[i / kHeadDim][i % kHeadDim] = x;
+  // K and V tile `t` of this chunk into buffer `buf`: 16 pieces of 16 bytes a
+  // row, rows past the chunk zero
+  auto load = [&](int t, int buf) {
+    const int key0 = key_lo + t * kFKeys;
+    const uint32_t ks = smem_u32(fsm) + buf * kFTileBytes;
+    const uint32_t vs = ks + 2 * kFTileBytes;
+#pragma unroll
+    for (int i = tid; i < kFKeys * 16; i += kFThreads) {
+      const int r = i / 16, pc = i % 16;
+      const bool live = key0 + r < key_hi;
+      const size_t at = base + (size_t)(live ? key0 + r : key_lo) * S + pc * 4;
+      cp_async16_zfill(ks + (r * kFLd + pc * 4) * 4, k + at, live);
+      cp_async16_zfill(vs + (r * kFLd + pc * 4) * 4, v + at, live);
     }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
-  auto score = [&](int t0, int c) {
-    float acc = 0.0f;
-#pragma unroll 16
-    for (int d = 0; d < kHeadDim; ++d) acc = fmaf(q_sh[row][d], k_sh[c][d], acc);
-    return (t0 + c < n_valid) ? acc * scale : -INFINITY;
-  };
+  if (n_tiles > 0) load(0, 0);
 
-  float m = -INFINITY, l = 0.0f;
+  // this warp's query rows as A fragments: qf[kk] = rows g and g + 8, dims
+  // 8 kk + t4 and + 4 (rows past T zero)
+  const int row0 = q0 + warp * 16 + g;
+  float qf[8][4];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + 8 * (e & 1), dim = 8 * kk + t4 + 4 * (e >> 1);
+      qf[kk][e] = row < T ? q[base + (size_t)row * S + dim] : 0.0f;
+    }
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};   // rows g, g + 8
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
   for (int t = 0; t < n_tiles; ++t) {
-    const int t0 = t * kK32;
+    if (t + 1 < n_tiles) {
+      load(t + 1, (t + 1) & 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
     __syncthreads();
-    load_tile(kb, t0, true);
-    __syncthreads();
-    float sv[8];
-    float tmax = -INFINITY;
+    const float* ks = fsm + (t & 1) * (kFTileBytes / 4);
+    const float* vs = ks + 2 * (kFTileBytes / 4);
+
+    // S = Q K^T: keys 8 j .. + 7 in s[j] (rows g / g + 8, keys 8 j + 2 t4, + 1)
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(qf[kk][e], ah[e], al[e]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float* kr = ks + (8 * j + g) * kFLd + 8 * kk + t4;
+        mma_3xtf32(s[j], ah, al, kr[0], kr[4]);
+      }
+    }
+
+    // scores in base 2, keys past the chunk -inf; the running max and sum
+    const int key0 = key_lo + t * kFKeys;
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool live = key0 + 8 * j + 2 * t4 + (e & 1) < key_hi;
+        s[j][e] = live ? s[j][e] * scale_log2 : -INFINITY;
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], s[j][e]);
+      }
+    float alpha[2], mu[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mn = fmaxf(m[h], quad_max(tmax[h]));
+      mu[h] = mn == -INFINITY ? 0.0f : mn;   // a row with no live key yet: exp2(-inf) = 0
+      alpha[h] = ex2(m[h] - mu[h]);
+      m[h] = mn;
+    }
+    float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2(s[j][e] - mu[e >> 1]);
+        ps[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + ps[h];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+    // O += P V: the k-step j takes keys 8 j .. + 7, k index t4 being key
+    // 8 j + 2 t4 and t4 + 4 key 8 j + 2 t4 + 1, so P's fragments are the
+    // score registers as they lie
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      sv[j] = score(t0, sub * 8 + j);
-      tmax = fmaxf(tmax, sv[j]);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m, tmax);
-    float part = 0.0f;
+      const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+      uint32_t ah[4], al[4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) part += expf(sv[j] - m_new);
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    part += __shfl_xor_sync(0xffffffffu, part, 2);
-    l = l * expf(m - m_new) + part;
-    m = m_new;
+      for (int e = 0; e < 4; ++e) split(pa[e], ah[e], al[e]);
+      const float* vr = vs + (8 * j + 2 * t4) * kFLd + g;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) mma_3xtf32(acc[n], ah, al, vr[8 * n], vr[kFLd + 8 * n]);
+    }
+    __syncthreads();   // the buffer is free for the load two tiles on
   }
 
-  float acc[16];
+  // this block's partial: o (64 x 64), then m and l of the 64 rows
+  float* po = fsm;
+  float* pm = fsm + kFQ * kHeadDim;
+  float* pl = pm + kFQ;
+  const int r0 = warp * 16 + g;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) acc[j] = 0.0f;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int t0 = t * kK32;
-    __syncthreads();
-    load_tile(kb, t0, true);
-    load_tile(vb, t0, false);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = sub * 8 + j;
-      p_sh[row][c] = expf(score(t0, c) - m) / l;
-    }
-    __syncthreads();
-    for (int c = 0; c < kK32; ++c) {
-      const float pc = p_sh[row][c];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[j] = fmaf(pc, v_sh[c][sub * 16 + j], acc[j]);
-    }
+  for (int n = 0; n < 8; ++n) {
+    *reinterpret_cast<float2*>(po + r0 * kHeadDim + 8 * n + 2 * t4) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(po + (r0 + 8) * kHeadDim + 8 * n + 2 * t4) =
+        make_float2(acc[n][2], acc[n][3]);
   }
-  float* ob = o + base + (size_t)(q0 + row) * S + sub * 16;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) ob[j] = acc[j];
+  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+  if (t4 == 0) {
+    pm[r0] = m[0], pm[r0 + 8] = m[1];
+    pl[r0] = l0, pl[r0 + 8] = l1;
+  }
+  cluster_arrive();   // release: every block's partial is written past the barrier
+  cluster_wait();
+
+  // block c combines its rows of the tile over the chunks, in chunk order
+  const int per = (kFQ + chunks - 1) / chunks, rb = c * per, re = min(rb + per, kFQ);
+  for (int i = tid; i < (re - rb) * kHeadDim; i += kFThreads) {
+    const int r = rb + i / kHeadDim, col = i % kHeadDim;
+    float mx = -INFINITY;
+    for (int cc = 0; cc < chunks; ++cc) mx = fmaxf(mx, ld_cluster(map_rank(smem_u32(pm + r), cc)));
+    float lsum = 0.0f, osum = 0.0f;
+    for (int cc = 0; cc < chunks; ++cc) {
+      const float w = ex2(ld_cluster(map_rank(smem_u32(pm + r), cc)) - mx);
+      lsum += ld_cluster(map_rank(smem_u32(pl + r), cc)) * w;
+      osum += ld_cluster(map_rank(smem_u32(po + r * kHeadDim + col), cc)) * w;
+    }
+    if (q0 + r < T) o[base + (size_t)(q0 + r) * S + col] = osum / lsum;
+  }
+  cluster_arrive();   // no block leaves while another still reads its partial
+  cluster_wait();
 }
 
 }  // namespace
@@ -476,12 +650,33 @@ extern "C" int owk_mha_packed_bf16(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// f32: grid (chunks, query tiles of 64, heads x B), a query tile's chunks one
+// cluster; chunk_keys a multiple of 64 with chunks = ceil(n_valid /
+// chunk_keys) <= 8 (ops/attention.py::mha_f32_plan); q/k/v/o on 16-byte
+// boundaries. Any T (rows past T neither read nor written).
 extern "C" int owk_mha_packed_f32(const void* q, const void* k, const void* v,
-                                  void* o, int B, int T, int S, int n_valid,
-                                  float scale, void* stream) {
-  const dim3 grid(T / kQ32, S / kHeadDim, B);
-  mha_packed_f32_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, T, S,
-      n_valid, scale);
-  return (int)cudaGetLastError();
+                                  void* o, int B, int T, int S, int n_valid, int chunks,
+                                  int chunk_keys, float scale, void* stream) {
+  if (chunks < 1 || chunks > kFMaxCluster || chunk_keys % kFKeys ||
+      (long long)chunks * chunk_keys < n_valid || (chunks - 1) * chunk_keys >= n_valid)
+    return (int)cudaErrorInvalidValue;
+  static unsigned long long smem_allowed = 0;
+  const int rc = allow_smem(mha_packed_f32_kernel, kFSmemBytes, smem_allowed);
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(chunks, (T + kFQ - 1) / kFQ, (S / kHeadDim) * B);
+  cfg.blockDim = dim3(kFThreads);
+  cfg.dynamicSmemBytes = kFSmemBytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = chunks;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, mha_packed_f32_kernel, (const float*)q,
+                                           (const float*)k, (const float*)v, (float*)o, T, S,
+                                           n_valid, chunk_keys, scale * 1.4426950408889634f);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -10,15 +10,15 @@ tensor the kernel cannot take raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from . import _build
+from .gemm import _sms
 
 HEAD_DIM = 64   # every whisper preset; the kernel takes no other
-_T_MULTIPLE = 64   # the f32 kernel's T granule
 
 
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -43,12 +43,59 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Tq, S)
 
 
+# csrc/mha_packed.cu's f32 body: a block takes F32_QUERIES query rows of one
+# head and one chunk of the live keys, in tiles of F32_KEYS; a query tile's
+# chunks are one thread-block cluster of at most F32_MAX_CLUSTER; a block
+# asks for F32_SMEM bytes of shared memory (two K and two V tiles of 272-byte
+# rows) and its registers (the kernel's launch bounds) let F32_BLOCKS_PER_SM
+# of them share a multiprocessor
+F32_QUERIES = 64
+F32_KEYS = 64
+F32_MAX_CLUSTER = 8
+F32_SMEM = 4 * F32_KEYS * (HEAD_DIM + 4) * 4
+F32_BLOCKS_PER_SM = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """The f32 body's launch: `chunks` key chunks of `chunk_keys` (a
+    multiple of F32_KEYS; the last holds the rest of the live keys) for
+    each of the `pairs` (query tile, head, batch element) triples."""
+    pairs: int
+    chunks: int
+    chunk_keys: int
+
+    @property
+    def blocks(self) -> int:
+        return self.pairs * self.chunks
+
+
+@functools.cache
+def mha_f32_plan(B: int, T: int, S: int, n_valid: int, sms: int) -> F32Plan:
+    """Split the live keys of K1's f32 body so that the grid fills the
+    card's `sms` multiprocessors: of 1, 2, 4 and 8 chunks (clusters of 3, 5
+    or 6 blocks ran 15-30 % slower than their neighbours on the H100), the
+    one with the fewest waves of F32_BLOCKS_PER_SM blocks a multiprocessor
+    times the key tiles of a chunk (plus one for the cluster's combine);
+    fewer chunks on a tie."""
+    pairs = B * -(-T // F32_QUERIES) * (S // HEAD_DIM)
+    tiles = -(-n_valid // F32_KEYS)
+    slots = sms * F32_BLOCKS_PER_SM
+
+    def cost(c):
+        return -(-pairs * c // slots) * (-(-tiles // c) + 1)
+    c = min((c for c in (1, 2, 4, 8) if c <= max(tiles, 1)), key=lambda c: (cost(c), c))
+    chunk_keys = -(-tiles // c) * F32_KEYS
+    return F32Plan(pairs, -(-n_valid // chunk_keys), chunk_keys)
+
+
 @functools.cache
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("mha_packed")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.owk_mha_packed_bf16.argtypes = [P] * 4 + [I] * 4 + [ctypes.c_float, P]
+    lib.owk_mha_packed_f32.argtypes = [P] * 4 + [I] * 6 + [ctypes.c_float, P]
     for fn in (lib.owk_mha_packed_bf16, lib.owk_mha_packed_f32):
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -58,12 +105,12 @@ def mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Kernel K1: attention over 64-wide heads packed in (B, T, S) tensors.
 
     CPU tensors take the plain version. CUDA tensors (bf16 or f32,
-    contiguous, S a multiple of 64) launch the kernel on the current
-    stream. The bf16 kernel reads any T through its TMA maps (rows past T
-    load as zero; keys past `n_valid` are masked) and needs q/k/v on
-    16-byte boundaries; for f32, T is zero-padded to a multiple of 64 first
-    (the padded keys lie past `n_valid`, the padded query rows are sliced
-    off). The `launches` attribute counts kernel launches."""
+    contiguous, on 16-byte boundaries, S a multiple of 64) launch the
+    kernel on the current stream. Both bodies take any T (rows past T are
+    neither read nor written; keys past `n_valid` are masked): bf16 through
+    its TMA maps, f32 (one pass, the live keys split over a cluster as
+    `mha_f32_plan` says) through its own zero-filling loads. The
+    `launches` attribute counts kernel launches."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v, q.shape[-1] // HEAD_DIM, scale, n_valid)
     if q.device.type != "cuda":
@@ -84,22 +131,23 @@ def mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"mha_packed: S={S} is not a multiple of {HEAD_DIM}")
     if not 1 <= n_valid <= T:
         raise ValueError(f"mha_packed: n_valid={n_valid} outside [1, {T}]")
-    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("mha_packed: bf16 q/k/v must start on 16-byte boundaries")
-    pad = -T % _T_MULTIPLE if q.dtype == torch.float32 else 0
-    if pad:
-        q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("mha_packed: q/k/v must start on 16-byte boundaries")
     out = torch.empty_like(q)
     lib = _kernel_lib()
-    fn = (lib.owk_mha_packed_bf16 if q.dtype == torch.bfloat16
-          else lib.owk_mha_packed_f32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, T + pad, S, n_valid, float(scale), stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if q.dtype == torch.bfloat16:
+        rc = lib.owk_mha_packed_bf16(*ptrs, B, T, S, n_valid, float(scale), stream)
+    else:
+        plan = mha_f32_plan(B, T, S, n_valid, _sms(q.device.index if q.device.index is not None
+                                                   else torch.cuda.current_device()))
+        rc = lib.owk_mha_packed_f32(*ptrs, B, T, S, n_valid, plan.chunks, plan.chunk_keys,
+                                    float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"mha_packed: kernel launch failed (cudaError {rc})")
     mha_packed.launches += 1
-    return out[:, :T] if pad else out
+    return out
 
 
 mha_packed.launches = 0

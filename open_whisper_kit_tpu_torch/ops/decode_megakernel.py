@@ -41,7 +41,11 @@ b at time t. Beams never move their cache rows: lineage is an origin table
 kernel takes it as the 0/-inf bias `beam_attn_bias` builds, which the plain
 version consumes as JAX does; the CUDA kernel reads the table itself. The
 self-attention is an online softmax over 128-row time blocks, as the TPU
-kernel runs it.
+kernel runs it; the cross-attention K2's full-row softmax. On the card it
+is K2's chain at R = B (K2's GEMVs and cross-attention, planned by
+`mega_beam_plan`) with the lineage self-attention of K8's block kernel,
+from the same cached argument pack and tensor maps as K2 (the origin
+table's address is passed in each call).
 
 `mega_decode_step_batch` (csrc/mega_batch.cu on CUDA, `mega_decode_step_
 batch_plain` on the CPU) takes B streams on the same time-major
@@ -689,21 +693,22 @@ def mega_step_max_cache(cfg) -> int:
     return MEGA_MAX_CLUSTER * _attn_chunk(cfg.n_text_ctx, MEGA_MAX_CLUSTER - 1)
 
 
-# -- K8's launch plan -------------------------------------------------------------
+# -- K8's and K7's launch plans ---------------------------------------------------
 
-# csrc/mega_batch.cu: an attention block takes BT time rows (self) or TAC
-# audio positions (cross) of one (head, stream) pair, one thread a key row;
-# a pair's blocks are one cluster
+# csrc/mega_blocks.cuh (K8's attention, K7's self-attention): a block takes BT
+# time rows (self) or TAC audio positions (cross) of one (head, row) pair,
+# one thread a key row; a pair's blocks are one cluster
 _PART = 64 + 4        # a partial: o (64 f32), l and padding
 
 
 def _block_smem(rows: int) -> int:
-    """csrc/mega_batch.cu::block_layout: K and V of the block (128-byte
+    """csrc/mega_blocks.cuh::block_layout: K and V of the block (128-byte
     rows), q, e, the warps' P.V sums, the partial and the other blocks', the
     block's max and the cluster's, the warps' maxima or sums, the gather
-    barrier, the 128-byte alignment."""
+    barrier, a lineage's slots, the 128-byte alignment."""
     return (2 * rows * 128 + 64 * 2 + rows * 4 + rows // 32 * 64 * 4 + _PART * 4
-            + (MEGA_MAX_CLUSTER - 1) * _PART * 4 + 16 + MEGA_MAX_CLUSTER * 4 + 32 + 16 + 128)
+            + (MEGA_MAX_CLUSTER - 1) * _PART * 4 + 16 + MEGA_MAX_CLUSTER * 4 + 32 + 16
+            + rows * 4 + 128)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -755,6 +760,61 @@ def mega_batch_plan(cfg, kinds, Tc: int, Ta: int | None = None, streams: int = 8
     return plan
 
 
+@dataclasses.dataclass(frozen=True)
+class BeamPlan:
+    """K7's launches for one step of `rows` = B beams: K2's seven GEMV
+    fields at B rows, the lineage self-attention's time blocks of BT rows
+    (a grid of heads x blocks x beams, a (head, beam) pair's blocks one
+    cluster) and K2's cross-attention over the shared cross-KV, `cross_chunk`
+    keys a block, a head's `cross_chunks` blocks one cluster."""
+    rows: int
+    fields: tuple[MegaField, ...]
+    self_blocks: int
+    cross_chunk: int
+    cross_chunks: int
+
+    @property
+    def ints(self) -> tuple[int, ...]:
+        """What the kernel takes: the seven fields' splits, their ring
+        depths, then the self-attention's time block and the cross chunk."""
+        return (*(f.splits for f in self.fields), *(f.depth for f in self.fields), BT,
+                self.cross_chunk)
+
+    @property
+    def attn_smem(self) -> tuple[int, int]:
+        """Shared memory of a self- and of a cross-attention block."""
+        return _block_smem(BT), _attn_smem(self.cross_chunk, self.cross_chunks, self.rows)
+
+
+def mega_beam_plan(cfg, kinds, Tc: int, Ta: int | None = None, beams: int = 5,
+                   Vp: int | None = None) -> BeamPlan:
+    """K7's launch plan (csrc/mega_beam.cu) for B = `beams` (2..8) beams of
+    a decoder whose seven weight fields have `kinds` (as mega_step_plan), a
+    self-cache of Tc rows a beam and Ta audio positions (default
+    cfg.n_audio_ctx). The GEMVs are K2's at R = B, the cross-attention's
+    chunks K2's (Ta over MEGA_MAX_CLUSTER chunks). A cluster holds at most
+    MEGA_MAX_CLUSTER time blocks of BT rows (Tc <= 1024) and as many cross
+    chunks of at most MEGA_MAX_CHUNK positions (Ta <= 2048); past that
+    there is no plan (ValueError)."""
+    if not 2 <= beams <= 8:
+        raise ValueError(f"mega_decode_step_beam: {beams} beams; 2 to 8")
+    S = cfg.n_text_state
+    Vp = Vp or -(-cfg.n_vocab // _VP_MULTIPLE) * _VP_MULTIPLE
+    Ta = cfg.n_audio_ctx if Ta is None else Ta
+    cc = _attn_chunk(Ta, MEGA_MAX_CLUSTER)
+    plan = BeamPlan(beams, _gemv_fields(S, Vp, tuple(kinds)), -(-Tc // BT), cc, -(-Ta // cc))
+    if plan.self_blocks > MEGA_MAX_CLUSTER or cc > MEGA_MAX_CHUNK:
+        raise ValueError(
+            f"mega_decode_step_beam: no plan for {Tc} cache rows a beam and {Ta} audio "
+            f"positions: a cluster holds at most {MEGA_MAX_CLUSTER} time blocks of {BT} rows "
+            f"({MEGA_MAX_CLUSTER * BT}) and {MEGA_MAX_CLUSTER} chunks of {MEGA_MAX_CHUNK} "
+            f"positions ({MEGA_MAX_CLUSTER * MEGA_MAX_CHUNK})")
+    if (max(f.smem(beams) for f in plan.fields) > MEGA_MAX_SMEM
+            or max(plan.attn_smem) > MEGA_MAX_SMEM):
+        raise ValueError(f"mega_decode_step_beam: no plan fits shared memory at S={S}")
+    return plan
+
+
 # -- the kernel ----------------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -767,13 +827,14 @@ _WHAT = {"mega_step": "mega_decode_step", "mega_beam": "mega_decode_step_beam",
          "mega_batch": "mega_decode_step_batch"}
 _PTRS, _INTS = ctypes.POINTER(_P), ctypes.POINTER(_I)
 _F = ctypes.c_float
-# the C entries and their arguments: K7 takes (p, dims, eps, kq,
-# cross_scale, stream); K2 and K8 (p, dims, plan, maps, x0, head, logits,
-# eps, kq, cross_scale, stream) and their tensor maps (p, dims, maps out)
+# the C entries and their arguments: K2 and K8 take (p, dims, plan, maps,
+# x0, head, logits, eps, kq, cross_scale, stream), K7 the origin table after
+# head; each library's tensor maps (p, dims, maps out)
 _ARGTYPES = {
     "owk_mega_step": [_PTRS, _INTS, _INTS, _P, _P, _P, _P, _F, _F, _F, _P],
     "owk_mega_step_maps": [_PTRS, _INTS, _P],
-    "owk_mega_beam": [_PTRS, _INTS, _F, _F, _F, _P],
+    "owk_mega_beam": [_PTRS, _INTS, _INTS, _P, _P, _P, _P, _P, _F, _F, _F, _P],
+    "owk_mega_beam_maps": [_PTRS, _INTS, _P],
     "owk_mega_batch": [_PTRS, _INTS, _INTS, _P, _P, _P, _P, _F, _F, _F, _P],
     "owk_mega_batch_maps": [_PTRS, _INTS, _P],
 }
@@ -799,10 +860,8 @@ _WORKSPACES: dict = {}
 
 
 def _workspace(name: str, dims, device) -> torch.Tensor:
-    """Zeroed scratch for one step (K2, K8: the residual, query, attention
-    and GELU rows; K7 also partial sums, attention scores and split
-    counters), kept per kernel, device and shape: every launch leaves its
-    counters at zero again."""
+    """Scratch for one step (the residual, query, attention and GELU rows),
+    kept per kernel, device and shape."""
     key = (name, str(device), tuple(dims))
     ws = _WORKSPACES.get(key)
     if ws is None:
@@ -850,14 +909,12 @@ def _step_args(kernel: str, cfg, mp: MegaParams, R: int, kv_k: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
     S, H, L, V = cfg.n_text_state, cfg.n_text_head, cfg.n_text_layer, cfg.n_vocab
-    streamed = kernel in ("mega_step", "mega_batch")   # on mega_stream.cuh
-    if S % 128 or S // H != 64 or (streamed and S > 2048):
+    if S % 128 or S // H != 64 or S > 2048:
         raise ValueError(f"{what}: S={S} with {H} heads; the kernel "
-                         "takes S % 128 == 0 and 64-wide heads"
-                         + (" and S <= 2048" if streamed else ""))
+                         "takes S % 128 == 0, 64-wide heads and S <= 2048")
     per_stream = kernel == "mega_batch"
     Ta, Vp = xk.shape[-2], mp.vp
-    if Vp % (128 if streamed else 64) or Vp < V:
+    if Vp % 128 or Vp < V:
         raise ValueError(f"{what}: vocab plane width {Vp}")
     cache_rows = Tc if kernel == "mega_step" else Tc * R
     for name, t in (("kv_k", kv_k), ("kv_v", kv_v)):
@@ -883,7 +940,7 @@ def _step_args(kernel: str, cfg, mp: MegaParams, R: int, kv_k: torch.Tensor,
                             None if name == "teT" else L, dev)
         kinds.append(_KINDS[_kind(w)])
     dims = [L, S, H, Tc, Ta, Vp, *kinds, R]
-    ws = _workspace(kernel, dims + ([] if streamed else [min(Tc, cfg.n_text_ctx)]), dev)
+    ws = _workspace(kernel, dims, dev)
     ptrs += [kv_k.data_ptr(), kv_v.data_ptr(), xk.data_ptr(), xv.data_ptr(), None,
              ws.data_ptr()]
     return ptrs, dims
@@ -903,37 +960,7 @@ def _kv_head(kv_head, dev) -> torch.Tensor:
     return torch.as_tensor(kv_head, device=dev).to(torch.int64).reshape(())
 
 
-def _launch(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tensor,
-            kv_v: torch.Tensor, kv_head, xk: torch.Tensor, xv: torch.Tensor, Tc: int,
-            origin: torch.Tensor | None = None) -> torch.Tensor:
-    """Check a K7 step's arguments on the card and launch csrc/<kernel>.cu
-    on the current stream (`_step_args`; the origin table last). Returns the
-    (R, V) f32 logits; raises if a launch fails."""
-    what = _WHAT[kernel]
-    dev = x0.device
-    R = x0.shape[0]
-    ptrs, dims = _step_args(kernel, cfg, mp, R, kv_k, kv_v, xk, xv, Tc, dev)
-    x0b = x0.to(torch.bfloat16).contiguous()
-    _check_tensor(f"{what}: x0", x0b, torch.bfloat16, (R, cfg.n_text_state), dev)
-    head = _kv_head(kv_head, dev)
-    logits = torch.empty(R, mp.vp, dtype=torch.float32, device=dev)
-    ptrs[0], ptrs[1], ptrs[28] = x0b.data_ptr(), head.data_ptr(), logits.data_ptr()
-    # the last: the rows K7's self-attention plans its key chunks from
-    # (see csrc/mega_rows.cuh Dims::Tp)
-    dims = dims + [min(Tc, cfg.n_text_ctx)]
-    if origin is not None:
-        _check_tensor(f"{what}: origin", origin, torch.int64, (R, Tc), dev)
-        ptrs.append(origin.data_ptr())
-    dh = cfg.n_text_state // cfg.n_text_head
-    rc = getattr(_kernel_lib(kernel), _ENTRIES[kernel])(
-        (_P * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
-        float(cfg.eps), _kq(cfg), float(dh) ** -0.25, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed (cudaError {rc})")
-    return logits[:, :cfg.n_vocab]
-
-
-# K2 and K8 keep each prepared decoder's 14 tensor maps (two a weight field,
+# K2, K7 and K8 keep each prepared decoder's 14 tensor maps (two a weight field,
 # 128 bytes each), keyed on the planes' addresses, the dims they are read
 # with and the device (a map is a function of those alone, whichever library
 # encodes it), and each step's checked argument pack, keyed on the kernel,
@@ -966,6 +993,8 @@ def _plan(kernel: str, cfg, mp: MegaParams, R: int, Tc: int, Ta: int):
     kinds = [_kind(getattr(mp, n)) for n in WEIGHTS]
     if kernel == "mega_batch":
         return mega_batch_plan(cfg, kinds, Tc, Ta=Ta, streams=R, Vp=mp.vp)
+    if kernel == "mega_beam":
+        return mega_beam_plan(cfg, kinds, Tc, Ta=Ta, beams=R, Vp=mp.vp)
     return mega_step_plan(cfg, kinds, Tc, Ta=Ta, rows=R, Vp=mp.vp)
 
 
@@ -983,7 +1012,7 @@ def _step_pack(kernel: str, cfg, mp: MegaParams, R: int, kv_k, kv_v, xk, xv,
     key = (kernel, id(mp), id(cfg), R, dev.index, *(tuple(t.shape) for t in ts))
     pack = _step_packs.get(key)
     if pack is None or pack.mp() is not mp or pack.cfg is not cfg:
-        Tc = kv_k.shape[1] // (R if kernel == "mega_batch" else 1)
+        Tc = kv_k.shape[1] // (1 if kernel == "mega_step" else R)
         ptrs, dims = _step_args(kernel, cfg, mp, R, kv_k, kv_v, xk, xv, Tc, dev)
         plan = _plan(kernel, cfg, mp, R, Tc, xk.shape[-2])
         c_ptrs = (_P * len(ptrs))(*ptrs)
@@ -1010,11 +1039,12 @@ def _step_pack(kernel: str, cfg, mp: MegaParams, R: int, kv_k, kv_v, xk, xv,
 
 
 def _launch_step(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch.Tensor,
-                 kv_v: torch.Tensor, kv_head, xk: torch.Tensor, xv: torch.Tensor
-                 ) -> torch.Tensor:
-    """Launch K2 (csrc/mega_step.cu) or K8 (csrc/mega_batch.cu) on the
-    current stream from the cached argument pack; returns the (R, V) f32
-    logits, raises if a launch fails."""
+                 kv_v: torch.Tensor, kv_head, xk: torch.Tensor, xv: torch.Tensor,
+                 origin: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch K2 (csrc/mega_step.cu), K7 (csrc/mega_beam.cu, given its
+    (R, Tc) int64 origin table) or K8 (csrc/mega_batch.cu) on the current
+    stream from the cached argument pack; returns the (R, V) f32 logits,
+    raises if a launch fails."""
     what = _WHAT[kernel]
     dev = x0.device
     R, S = x0.shape
@@ -1026,10 +1056,16 @@ def _launch_step(kernel: str, cfg, mp: MegaParams, x0: torch.Tensor, kv_k: torch
         x0b = x0b.clone()
     head = _kv_head(kv_head, dev)
     logits = torch.empty(R, mp.vp, dtype=torch.float32, device=dev)
+    lineage = ()
+    if kernel == "mega_beam":
+        if (origin.dtype != torch.int64 or origin.device != dev
+                or tuple(origin.shape) != (R, pack.dims[3]) or not origin.is_contiguous()):
+            _check_tensor(f"{what}: origin", origin, torch.int64, (R, pack.dims[3]), dev)
+        lineage = (origin.data_ptr(),)
     rc = getattr(_kernel_lib(kernel), _ENTRIES[kernel])(
         pack.ptrs, pack.dims, pack.plan, ctypes.addressof(pack.maps), x0b.data_ptr(),
-        head.data_ptr(), logits.data_ptr(), float(cfg.eps), pack.kq, pack.cross_scale,
-        torch.cuda.current_stream(dev).cuda_stream)
+        head.data_ptr(), *lineage, logits.data_ptr(), float(cfg.eps), pack.kq,
+        pack.cross_scale, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed (cudaError {rc})")
     return logits[:, :cfg.n_vocab]
@@ -1088,8 +1124,9 @@ def mega_decode_step_beam(cfg, mp: MegaParams, x0: torch.Tensor,
     (`mega_decode_step`), as the JAX package does; origin is then unused.
 
     CPU tensors take `mega_decode_step_beam_plain`; CUDA tensors launch
-    csrc/mega_beam.cu on the current stream or raise. `launches` counts
-    steps of B > 1 run on the card."""
+    csrc/mega_beam.cu on the current stream (planned by `mega_beam_plan`:
+    at most 1024 cache rows a beam and 2048 audio positions, ValueError past
+    them) or raise. `launches` counts steps of B > 1 run on the card."""
     B = x0.shape[0]
     if x0.dim() != 2 or not 1 <= B <= 8:
         raise ValueError(f"mega_decode_step_beam: x0 {tuple(x0.shape)}; 1 to 8 rows")
@@ -1100,11 +1137,10 @@ def mega_decode_step_beam(cfg, mp: MegaParams, x0: torch.Tensor,
     if kv_k.shape[1] % B:
         raise ValueError(f"mega_decode_step_beam: cache rows {kv_k.shape[1]} are not "
                          f"a multiple of {B} beams")
-    Tc = kv_k.shape[1] // B
     if x0.device.type == "cpu":
         return mega_decode_step_beam_plain(cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv,
                                            origin)
-    logits = _launch("mega_beam", cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv, Tc, origin)
+    logits = _launch_step("mega_beam", cfg, mp, x0, kv_k, kv_v, kv_head, xk, xv, origin)
     mega_decode_step_beam.launches += 1
     return logits, kv_k, kv_v
 

@@ -92,3 +92,53 @@ def test_nvcc_missing_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+def _one_pass_chunks(q, k, v, scale, n_valid, plan):
+    """K1's f32 body in plain torch (f64 sums aside): the live keys in the
+    plan's chunks, each an online softmax over 64-key tiles (running max m,
+    sum l, output o, rescaled by exp(m_old - m_new)), the chunks combined in
+    chunk order (w = exp(m_c - max m), o / l)."""
+    B, T, S = q.shape
+    H = S // 64
+    qh, kh, vh = (x.reshape(B, T, H, 64).transpose(1, 2) for x in (q, k, v))   # (B, H, T, 64)
+    parts = []
+    for c in range(plan.chunks):
+        lo, hi = c * plan.chunk_keys, min((c + 1) * plan.chunk_keys, n_valid)
+        m = torch.full((B, H, T, 1), float("-inf"))
+        l, o = torch.zeros(B, H, T, 1), torch.zeros(B, H, T, 64)
+        for t0 in range(lo, hi, A.F32_KEYS):
+            t1 = min(t0 + A.F32_KEYS, hi)
+            s = qh @ kh[:, :, t0:t1].transpose(-1, -2) * scale
+            mn = torch.maximum(m, s.amax(-1, keepdim=True))
+            a = torch.exp(m - mn)
+            p = torch.exp(s - mn)
+            l, o, m = l * a + p.sum(-1, keepdim=True), o * a + p @ vh[:, :, t0:t1], mn
+        parts.append((m, l, o))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - mx) for m, _, _ in parts]
+    lsum = sum(l * wc for (_, l, _), wc in zip(parts, w))
+    osum = sum(o * wc for (_, _, o), wc in zip(parts, w))
+    return (osum / lsum).transpose(1, 2).reshape(B, T, S)
+
+
+@pytest.mark.parametrize("B,T,S,n_valid", [(1, 1536, 128, 1500), (2, 1536, 384, 1500),
+                                           (1, 200, 128, 190), (1, 384, 256, 1)])
+def test_f32_one_pass_over_the_plans_chunks_matches_jax(B, T, S, n_valid):
+    """K1's f32 body computes the full-row softmax of the TPU kernel in one
+    pass, its keys split as mha_f32_plan says (a cluster of chunks, each an
+    online softmax over 64-key tiles, combined in chunk order): with p's
+    cast the identity at f32, that is the same function up to the order of
+    the f32 sums, so it holds JAX's interpret-mode kernel to 2e-5 at the
+    kernel's shapes (narrow, tiny-like heads, one live key); the ragged T,
+    which the TPU kernel does not take, against JAX's XLA attention."""
+    q, k, v = _qkv(B, T, S, seed=T + S + n_valid)
+    plan = A.mha_f32_plan(B, T, S, n_valid, 132)   # the H100's multiprocessors
+    got = _one_pass_chunks(*(torch.from_numpy(x) for x in (q, k, v)), 0.125, n_valid, plan)
+    if T % 128:
+        ref = np.asarray(mha_full_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      S // 64, 0.125, kv_valid=n_valid))
+    else:
+        ref = np.asarray(_mha_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     0.125, n_valid, interpret=True))
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5)

@@ -54,8 +54,8 @@ def test_mha_packed_kernel_matches_plain(cuda, dtype, S, tol, B, T, n_valid):
     """The kernel against its plain version at large-v3-turbo's encoder shape
     for one window and a batched round of eight, with every key live, one
     ragged key tile, a few tiles and one key. T=200: bf16 reads the ragged
-    rows through its TMA maps (zero past T), f32 through the wrapper's pad
-    to a multiple of 64. The bf16 gate is relative to max|ref|."""
+    rows through its TMA maps (zero past T), f32 through its zero-filling
+    loads. The bf16 gate is relative to max|ref|."""
     g = torch.Generator(device=cuda).manual_seed(T + S + n_valid)
     q, k, v = (torch.randn(B, T, S, generator=g, device=cuda).to(dtype)
                for _ in range(3))
@@ -67,6 +67,27 @@ def test_mha_packed_kernel_matches_plain(cuda, dtype, S, tol, B, T, n_valid):
     assert out.shape == q.shape and out.dtype == dtype
     limit = tol * ref.float().abs().max().item() if dtype == torch.bfloat16 else tol
     assert (out.float() - ref.float()).abs().max().item() <= limit
+
+
+@pytest.mark.parametrize("B,T,S,n_valid", [(1, 1536, 128, 1500), (1, 1536, 1280, 1500),
+                                           (2, 1500, 384, 1500), (1, 1536, 1280, 190),
+                                           (2, 1500, 384, 377), (8, 1536, 128, 1500)])
+def test_mha_packed_f32_one_pass_matches_plain(cuda, B, T, S, n_valid):
+    """K1's f32 body (one pass, the live keys split over a cluster as
+    mha_f32_plan says, 3xTF32 products) within 2e-5 of the plain version at
+    the narrow models' width, large-v3-turbo's, a ragged T that the wrapper
+    no longer pads (1500 rows: the last query tile holds 28) and n_valid < T;
+    every launch one cluster per query tile."""
+    g = torch.Generator(device=cuda).manual_seed(B + T + S + n_valid)
+    q, k, v = (torch.randn(B, T, S, generator=g, device=cuda) for _ in range(3))
+    ref = A.mha_plain(q, k, v, S // 64, 0.125, n_valid)
+    before = A.mha_packed.launches
+    out = A.mha_packed(q, k, v, 0.125, n_valid)
+    torch.cuda.synchronize()
+    assert A.mha_packed.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.float32
+    assert bool(torch.isfinite(out).all())
+    assert (out - ref).abs().max().item() <= 2e-5
 
 
 def test_mha_packed_kernel_rejects_bad_inputs(cuda):
@@ -214,8 +235,9 @@ def test_qmm_rows_is_deterministic(cuda, M, N):
 @pytest.mark.parametrize("name", ["mha_packed", "qmm", "mm_bf16"])
 def test_redesigned_kernels_run_wgmma(cuda, name):
     """K1's, K3's tiles route's and T1's libraries hold Hopper warpgroup
-    products (HGMMA in the SASS) and no warp-level mma.sync (HMMA): K1's f32
-    body uses plain FMA, and K3's rows route (mma.sync) is a library of its
+    products (HGMMA in the SASS) and no warp-level mma.sync (HMMA) outside
+    K1's f32 body, whose 3xTF32 products are mma.sync in TF32
+    (HMMA.1688.F32.TF32); K3's rows route (mma.sync) is a library of its
     own."""
     import shutil
     import subprocess
@@ -227,7 +249,11 @@ def test_redesigned_kernels_run_wgmma(cuda, name):
     sass = subprocess.run([tool, "-sass", str(_build.build(name))], capture_output=True,
                           text=True, check=True).stdout
     assert "HGMMA" in sass
-    assert "HMMA" not in sass
+    for body in sass.split("Function : ")[1:]:
+        if "mha_packed_f32_kernel" in body.split("\n", 1)[0]:
+            assert "HMMA.1688.F32.TF32" in body and "HGMMA" not in body
+        else:
+            assert "HMMA" not in body
 
 
 @pytest.mark.parametrize("M", [1, 5])
@@ -658,6 +684,252 @@ def test_mega_beam_one_row_runs_k2(cuda):
     assert torch.equal(a, b) and torch.equal(caches[0], caches[2])
 
 
+def _k7_narrow(cuda, mode, B, Tc=300, Ta=600):
+    """K7's narrow config (S=256, 4 heads, 3 layers, vocabulary 640; Tc
+    cache rows a beam across the 128-row time blocks, Ta audio positions
+    over K2's cross chunks), its MegaParams in `mode`, a shared cross-KV, a
+    (L, Tc * B, S) self-cache of random history and a random lineage."""
+    cfg = TM.WhisperConfig(640, Ta, 256, 4, 2, Tc, 256, 4, 3, 80)
+    params = TM.init_params(cfg, seed=5, dtype=torch.bfloat16, device=cuda)
+    dec = TM.prepare_decoder(params["decoder"])
+    if mode == "logits":
+        dec = TM.quantize_decoder_int8(dec)
+    mp = MK.prepare_mega(cfg, dec, quant=mode)
+    g = torch.Generator(device=cuda).manual_seed(13 + B)
+    xk, xv = ((torch.randn(3, Ta, 256, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    hist = (torch.randn(2, 3, Tc * B, 256, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    origin = torch.randint(0, B, (B, Tc), generator=g, device=cuda)
+    return cfg, dec, mp, xk, xv, hist, origin, g
+
+
+# heads on both sides of the first 128-row time-block edge, and the sources
+# each step's beams continue (a permutation of a random draw), per B
+_EDGE_HEADS = (126, 127, 128, 129)
+
+
+@pytest.mark.parametrize("B", [2, 5, 8])
+@pytest.mark.parametrize("mode", ["none", "logits", "all", "int4"])
+def test_mega_beam_kernel_matches_plain_across_a_block_edge(cuda, mode, B, monkeypatch):
+    """K7 on K2's chain at B = 2, 5 and 8 beams against its plain version,
+    four steps at heads 126-129 (the self-attention's online softmax
+    rescales at the 128-row edge) with a lineage reorder before each, from
+    a cache of random history with a random lineage: logits within 2e-2 of
+    max|ref| (K2_TOL), the same argmax for every beam except where the
+    kernel's pick lies within 1e-2 of max|ref| of the plain best (a near
+    tie: the two sum in other f32 orders), the written cache rows within
+    1e-2 of their max and every other row untouched; one K7 launch per
+    step, never the plain version. Prints each step's error."""
+    cfg, dec, mp, xk, xv, hist, origin, g = _k7_narrow(cuda, mode, B)
+    caches = [hist[i % 2].clone() for i in range(4)]
+    steps = []
+    for head in _EDGE_HEADS:
+        for c in caches:
+            c[:, head * B:] = 0
+        origin = origin[torch.randint(0, B, (B,), generator=g, device=cuda)]
+        origin[:, head] = torch.arange(B, device=cuda)
+        toks = torch.randint(0, 640, (B,), generator=g, device=cuda)
+        x0 = (dec["te"][toks] + dec["pe"][head]).to(torch.bfloat16)
+        ht = torch.tensor(head, device=cuda)
+        ref, _, _ = MK.mega_decode_step_beam_plain(cfg, mp, x0, caches[0], caches[1], ht, xk,
+                                                   xv, origin)
+        before = MK.mega_decode_step_beam.launches
+        with monkeypatch.context() as m:
+            m.setattr(MK, "mega_decode_step_beam_plain", None)
+            got, _, _ = MK.mega_decode_step_beam(cfg, mp, x0, caches[2], caches[3], ht, xk, xv,
+                                                 origin=origin)
+        torch.cuda.synchronize()
+        assert MK.mega_decode_step_beam.launches == before + 1
+        assert got.shape == ref.shape == (B, 640) and bool(torch.isfinite(got).all())
+        mx = ref.abs().max().item()
+        pick = got.argmax(1)
+        gap = ref.max(1).values - ref.gather(1, pick[:, None])[:, 0]
+        steps.append((head, (got - ref).abs().max().item() / mx,
+                      int((pick != ref.argmax(1)).sum()), gap.max().item() / mx))
+        rows = slice(head * B, (head + 1) * B)
+        for r, k in ((caches[0], caches[2]), (caches[1], caches[3])):
+            _close(k[:, rows].float(), r[:, rows].float(), 1e-2)
+            assert torch.equal(k[:, :head * B], r[:, :head * B])
+            assert not k[:, (head + 1) * B:].any()
+            k[:, rows] = r[:, rows]   # the next step from the same history
+    print(f"K7 {mode}, B={B}: (head, max|err| / max|ref|, argmax flips, plain gap / "
+          f"max|ref|) {[(h, f'{e:.2e}', n, f'{gp:.1e}') for h, e, n, gp in steps]}")
+    assert all(e <= 2e-2 and gp <= 1e-2 for _, e, _, gp in steps), steps
+
+
+@pytest.mark.parametrize("B", [2, 5, 8])
+@pytest.mark.parametrize("mode", ["none", "logits", "all", "int4"])
+def test_mega_beam_two_launches_bit_equal(cuda, mode, B):
+    """Two K7 launches from the same inputs at head 257 (the third time
+    block) give the same bits, logits and caches: every split, time block
+    and cross chunk combines in a fixed order, with no float atomics."""
+    cfg, dec, mp, xk, xv, hist, origin, _ = _k7_narrow(cuda, mode, B)
+    head = 257
+    for c in hist:
+        c[:, head * B:] = 0
+    origin[:, head] = torch.arange(B, device=cuda)
+    x0 = (dec["te"][torch.arange(B, device=cuda) * 7] + dec["pe"][head]).to(torch.bfloat16)
+    out = []
+    for _ in range(2):
+        k, v = hist[0].clone(), hist[1].clone()
+        out.append((MK.mega_decode_step_beam(cfg, mp, x0, k, v, torch.tensor(head, device=cuda),
+                                             xk, xv, origin=origin)[0], k, v))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+    assert out[0][1][:, head * B:(head + 1) * B].any()   # the step wrote its rows
+
+
+@pytest.mark.parametrize("mode", ["none", "all", "int4"])
+def test_mega_beam_reads_step_data_after_the_wait(cuda, mode):
+    """x0, kv_head and the origin table written by ops queued behind a 2 ms
+    spin (their tensors hold other values until the spin ends) give the
+    bits of the call whose inputs were ready: no launch of K7's chain reads
+    the step's data, the lineage included, before its dependent-launch
+    wait."""
+    B, head = 5, 130
+    cfg, dec, mp, xk, xv, hist, origin, _ = _k7_narrow(cuda, mode, B)
+    for c in hist:
+        c[:, head * B:] = 0
+    origin[:, head] = torch.arange(B, device=cuda)
+    x0 = (dec["te"][torch.arange(B, device=cuda) * 11] + dec["pe"][head]).to(torch.bfloat16)
+    ht = torch.tensor(head, device=cuda)
+    k, v = hist[0].clone(), hist[1].clone()
+    ref = MK.mega_decode_step_beam(cfg, mp, x0, k, v, ht, xk, xv, origin=origin)[0]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        x0_late = torch.full_like(x0, float("nan"))
+        head_late = torch.tensor(3, device=cuda)
+        origin_late = (origin + 1) % B
+        k2, v2 = hist[0].clone(), hist[1].clone()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(4_000_000)
+        x0_late.copy_(x0)
+        head_late.copy_(ht)
+        origin_late.copy_(origin)
+        got = MK.mega_decode_step_beam(cfg, mp, x0_late, k2, v2, head_late, xk, xv,
+                                       origin=origin_late)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref) and torch.equal(k2, k) and torch.equal(v2, v)
+
+
+@pytest.mark.parametrize("mode", ["none", "logits", "all", "int4"])
+def test_mega_beam_identical_beams_give_identical_rows(cuda, mode):
+    """Eight beams with the same token and one lineage (every beam reads the
+    same slot at every earlier time, a slot that differs from time to time)
+    give eight bit-equal logits rows and new cache rows: no row's sums
+    depend on another row or on its index."""
+    B, head = 8, 200
+    cfg, dec, mp, xk, xv, hist, origin, _ = _k7_narrow(cuda, mode, B)
+    for c in hist:
+        c[:, head * B:] = 0
+    origin = origin[:1].expand(B, -1).contiguous()
+    origin[:, head] = torch.arange(B, device=cuda)
+    x0 = (dec["te"][5] + dec["pe"][head])[None].expand(B, -1).to(torch.bfloat16).contiguous()
+    k, v = hist[0].clone(), hist[1].clone()
+    got = MK.mega_decode_step_beam(cfg, mp, x0, k, v, torch.tensor(head, device=cuda), xk, xv,
+                                   origin=origin)[0]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert all(torch.equal(got[b], got[0]) for b in range(1, B))
+    rows = k[:, head * B:(head + 1) * B], v[:, head * B:(head + 1) * B]
+    assert all(torch.equal(r[:, b], r[:, 0]) for r in rows for b in range(1, B))
+    assert rows[0].any()
+
+
+def test_mega_beam_library_has_tma_and_dependent_launch(cuda):
+    """K7's library (csrc/mega_beam.cu on mega_stream.cuh and
+    mega_blocks.cuh) holds TMA tile loads (UTMALDG), the dependent-launch
+    trigger (PREEXIT) and wait (ACQBULK) and warp-level mma.sync (HMMA) in
+    its SASS."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from open_whisper_kit_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
+    if not Path(tool).exists():
+        pytest.skip("cuobjdump not found")
+    sass = subprocess.run([tool, "-sass", str(_build.build("mega_beam"))],
+                          capture_output=True, text=True, check=True).stdout
+    for op in ("UTMALDG", "PREEXIT", "ACQBULK", "HMMA"):
+        assert op in sass, op
+
+
+# SHA-256 (first 16 hex digits) of one step's logits and written cache rows,
+# K2 (mega_step) at R rows and K8 (mega_batch) at B streams, on the narrow
+# configs of the tests above (step_digest), as the tree before mega_blocks.cuh
+# and the shared attend() helper existed computed them on an NVIDIA H100
+# 80GB HBM3 with STEP_DIGESTS_TOOLKIT: moving that code into the shared
+# headers must leave every bit of K2 and K8 as it was. Another toolkit may
+# compile other sums, so the test runs only with that one; K2 and K8 are
+# held to their plain versions with any toolkit by the tests above
+STEP_DIGESTS_TOOLKIT = ("2.11.0+cu128", "12.9")   # (torch, nvcc release)
+STEP_DIGESTS = {
+    ("mega_step", "none", 1): "c513be32706e2031",
+    ("mega_step", "logits", 1): "c6bc8337e5ac5bed",
+    ("mega_step", "all", 1): "5a8a614384ac5854",
+    ("mega_step", "int4", 1): "99461d77e2f0fcbe",
+    ("mega_step", "none", 8): "904e1ccb33e3b922",
+    ("mega_step", "logits", 8): "bbde43f432d67bf3",
+    ("mega_step", "all", 8): "e93b634c0e7c54cb",
+    ("mega_step", "int4", 8): "f94375c64d20aa47",
+    ("mega_batch", "none", 2): "a86547ef4e0cd762",
+    ("mega_batch", "logits", 2): "7a7ba85fffb61773",
+    ("mega_batch", "all", 2): "5e57782e96527291",
+    ("mega_batch", "int4", 2): "3dce0449fd3a0743",
+    ("mega_batch", "none", 8): "4e9d304d9cc39456",
+    ("mega_batch", "logits", 8): "1f1fb08516f00106",
+    ("mega_batch", "all", 8): "6da9a6be7eefe3fa",
+    ("mega_batch", "int4", 8): "0f5ca7291894457a",
+}
+
+
+def step_digest(cuda, kernel, mode, R):
+    """One K2 step of R rows at head 20 of _k2_narrow's cache, or one K8 step
+    of R streams at head 257 of _k8_narrow's; the digest of its logits and
+    its written cache rows."""
+    import hashlib
+    if kernel == "mega_step":
+        cfg, dec, mp, xk, xv, hist = _k2_narrow(cuda, mode)
+        head, rows = 20, slice(20, 20 + R)
+        x0 = (dec["te"][torch.arange(R, device=cuda) * 7] + dec["pe"][head:head + R])
+        run = MK.mega_decode_step
+    else:
+        cfg, dec, mp, xk, xv, hist = _k8_narrow(cuda, mode, R)
+        head, rows = 257, slice(257 * R, 258 * R)
+        for c in hist:
+            c[:, head * R:] = 0
+        x0 = dec["te"][torch.arange(R, device=cuda) * 7] + dec["pe"][head]
+        run = MK.mega_decode_step_batch
+    k, v = hist[0].clone(), hist[1].clone()
+    logits = run(cfg, mp, x0.to(torch.bfloat16), k, v, torch.tensor(head, device=cuda),
+                 xk, xv)[0]
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in (logits, k[:, rows], v[:, rows]):
+        h.update(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("kernel,R", [("mega_step", 1), ("mega_step", 8), ("mega_batch", 2),
+                                      ("mega_batch", 8)])
+@pytest.mark.parametrize("mode", ["none", "logits", "all", "int4"])
+def test_k2_and_k8_bits_unchanged_by_the_shared_headers(cuda, mode, kernel, R):
+    """K2 and K8 give the same bits as before their attention code moved
+    into the shared headers (STEP_DIGESTS), with the toolkit that computed
+    those."""
+    import re
+    import subprocess
+    from open_whisper_kit_tpu_torch.ops import _build
+    out = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
+                         check=True).stdout
+    toolkit = (torch.__version__, re.search(r"release (\d+\.\d+)", out).group(1))
+    if toolkit != STEP_DIGESTS_TOOLKIT:
+        pytest.skip(f"STEP_DIGESTS were computed with torch and nvcc {STEP_DIGESTS_TOOLKIT}, "
+                    f"this card has {toolkit}")
+    assert step_digest(cuda, kernel, mode, R) == STEP_DIGESTS[(kernel, mode, R)]
+
+
 def test_decode_segment_beam_cuda_matches_cpu(cuda):
     """The device beam loop (B = 3, decode_impl with the physical reorder)
     on the card and on the CPU, f32, from the same CPU-made cross-KV: the
@@ -880,8 +1152,8 @@ def test_mega_batch_library_has_tma_and_dependent_launch(cuda):
 
 
 def test_chain_libraries_keep_their_own_flags(cuda):
-    """K2's and K8's libraries both include mega_stream.cuh; each keeps its
-    own shared-memory opt-in flags: neither exports a flag or any GNU
+    """K2's, K7's and K8's libraries all include mega_stream.cuh; each keeps
+    its own shared-memory opt-in flags: none exports a flag or any GNU
     unique symbol (`nm -D` type u), which the dynamic linker would make one
     object for every library in the process."""
     import shutil
@@ -890,7 +1162,7 @@ def test_chain_libraries_keep_their_own_flags(cuda):
     from open_whisper_kit_tpu_torch.ops import _build
     if shutil.which("nm") is None:
         pytest.skip("nm not found")
-    for name in ("mega_step", "mega_batch"):
+    for name in ("mega_step", "mega_beam", "mega_batch"):
         table = subprocess.run(["nm", "-D", "-C", "--defined-only", str(_build.build(name))],
                                capture_output=True, text=True, check=True).stdout.splitlines()
         kinds = [line.split()[1] for line in table if len(line.split()) >= 3]

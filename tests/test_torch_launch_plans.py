@@ -415,3 +415,144 @@ def test_lockstep_path_steps_k8_at_n_text_ctx(monkeypatch):
     with pytest.raises(_Stop):
         tr.transcribe_batch(files, FullParams(print_progress=False, megakernel="int8"))
     assert seen == [(3, cfg.n_text_ctx, cfg.n_audio_ctx)]
+
+
+# K7 (the beam step) at B = 2..8 beams on the same cases
+K7_BEAMS = tuple(range(2, 9))
+
+
+@pytest.mark.parametrize("B", K7_BEAMS)
+@pytest.mark.parametrize("name,cfg,mode", K2_CASES, ids=K2_IDS)
+def test_mega_beam_plan_runs_k2s_gemvs_and_cross_chunks_at_b_rows(name, cfg, mode, B):
+    """K7's seven GEMV launches are K2's at R = B (the same fields, splits,
+    ring depths and split rows, so each beam's row sums as a K2 row does),
+    and its cross-attention is K2's: the same key chunk over the shared
+    cross-KV."""
+    plan = MK.mega_beam_plan(cfg, K2_KINDS[mode], cfg.n_text_ctx, beams=B)
+    k2 = _k2_plan(cfg, mode, B)
+    assert plan.rows == k2.rows == B
+    assert plan.fields == k2.fields and plan.ints[:14] == k2.ints[:14]
+    assert [f.split_rows() for f in plan.fields] == [f.split_rows() for f in k2.fields]
+    assert (plan.cross_chunk, plan.cross_chunks) == (k2.cross_chunk, k2.cross_chunks)
+    assert plan.ints[15] == k2.ints[15]
+
+
+@pytest.mark.parametrize("B", K7_BEAMS)
+@pytest.mark.parametrize("name,cfg,mode", K2_CASES, ids=K2_IDS)
+def test_mega_beam_plan_blocks_clusters_and_shared_memory(name, cfg, mode, B):
+    """The lineage self-attention walks whole 128-row time blocks (the TPU
+    kernel's BT: its online softmax's running max moves at their edges),
+    each (head, beam) pair's blocks one cluster; every cluster (those, the
+    cross chunks and the GEMVs' splits) within MEGA_MAX_CLUSTER and every
+    block's shared memory within MEGA_MAX_SMEM."""
+    Tc, Ta = cfg.n_text_ctx, cfg.n_audio_ctx
+    plan = MK.mega_beam_plan(cfg, K2_KINDS[mode], Tc, beams=B)
+    assert plan.ints[14] == MK.BT == 128
+    assert plan.self_blocks == -(-Tc // MK.BT) <= MK.MEGA_MAX_CLUSTER
+    assert plan.cross_chunks * plan.cross_chunk >= Ta > (plan.cross_chunks - 1) * plan.cross_chunk
+    assert plan.cross_chunks <= MK.MEGA_MAX_CLUSTER and plan.cross_chunk <= MK.MEGA_MAX_CHUNK
+    assert all(1 <= f.splits <= MK.MEGA_MAX_CLUSTER for f in plan.fields)
+    assert max(f.smem(B) for f in plan.fields) <= MK.MEGA_MAX_SMEM
+    assert max(plan.attn_smem) <= MK.MEGA_MAX_SMEM
+
+
+@pytest.mark.parametrize("Tc,Ta,fits", [(1024, 2048, True), (1025, 1500, False),
+                                        (448, 2049, False), (1100, 2100, False)])
+def test_mega_beam_plan_rejects_what_no_cluster_holds(Tc, Ta, fits):
+    """A cluster of 8 holds 8 time blocks (1024 cache rows a beam) and 8
+    cross chunks of at most 256 positions (2048); past either there is no
+    plan, and the error names the limit (the wrapper raises it on the
+    card)."""
+    kinds = K2_KINDS["all"]
+    if fits:
+        plan = MK.mega_beam_plan(TURBO_CFG, kinds, Tc, Ta, beams=5)
+        assert (plan.self_blocks, plan.cross_chunks) == (8, 8)
+    else:
+        with pytest.raises(ValueError, match=r"1024\).*2048\)"):
+            MK.mega_beam_plan(TURBO_CFG, kinds, Tc, Ta, beams=5)
+
+
+@pytest.mark.parametrize("preset", sorted(TM.PRESETS))
+def test_every_preset_beam_loop_has_a_k7_plan(preset):
+    """The device beam loop steps K7 on a cache of n_text_ctx rows a beam
+    over n_audio_ctx positions: every preset has a plan there at every B
+    and in every mode the kernel takes (int4 needs S % 256 == 0)."""
+    cfg = TM.PRESETS[preset]
+    for mode, kinds in K2_KINDS.items():
+        if mode == "int4" and cfg.n_text_state % 256:
+            continue
+        for B in K7_BEAMS:
+            plan = MK.mega_beam_plan(cfg, kinds, cfg.n_text_ctx, cfg.n_audio_ctx, beams=B)
+            assert max(plan.self_blocks, plan.cross_chunks) <= MK.MEGA_MAX_CLUSTER
+
+
+def test_beam_path_steps_k7_at_n_text_ctx(monkeypatch):
+    """Beam search (beam_size 3) with megakernel="int8" on a narrow bf16
+    model on the CPU: the first beam step calls K7 with n_text_ctx cache
+    rows a beam, n_audio_ctx positions and a (B, n_text_ctx) origin table,
+    where it has a plan (the call is stopped there)."""
+    from open_whisper_kit_tpu_torch.decode.params import BeamSearchParams, SamplingStrategy
+    cfg = TM.WhisperConfig(51864, 1500, 128, 2, 2, 448, 128, 2, 2, 80)
+    params = TM.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
+    vocab = TOK.build_vocab([b"<%d>" % i for i in range(50257)], cfg.n_vocab)
+    ctx = FULL.WhisperContext(cfg, params, vocab, FULL._synthetic_mel_filters(80), n_loaded=1,
+                              dtype=torch.bfloat16, device="cpu")
+    seen = []
+
+    def k7(cfg_, mp, x0, kv_k, kv_v, kv_head, xk, xv, origin=None):
+        B = x0.shape[0]
+        seen.append((B, kv_k.shape[1] // B, xk.shape[-2], tuple(origin.shape)))
+        MK.mega_beam_plan(cfg_, [MK._kind(getattr(mp, n)) for n in MK.WEIGHTS],
+                          kv_k.shape[1] // B, xk.shape[-2], beams=B, Vp=mp.vp)
+        raise _Stop
+    monkeypatch.setattr(MK, "mega_decode_step_beam", k7)
+    tr = Transcriber.__new__(Transcriber)
+    tr.ctx = ctx
+    samples = (np.random.default_rng(0).standard_normal(32000) * 0.1).astype(np.float32)
+    p = FullParams(print_progress=False, strategy=SamplingStrategy.BEAM_SEARCH,
+                   beam_search=BeamSearchParams(beam_size=3), megakernel="int8")
+    with pytest.raises(_Stop):
+        tr.transcribe(samples, p)
+    assert seen == [(3, cfg.n_text_ctx, cfg.n_audio_ctx, (3, cfg.n_text_ctx))]
+
+
+# K1's f32 body (ops/attention.py::mha_f32_plan): (B, T, S, n_valid) of the
+# narrow f32 models (S = 128, 2 heads; one window and a round of eight), a
+# tiny-like width, large-v3-turbo's width, a ragged T and a few live keys
+F32_SHAPES = [(1, 1536, 128, 1500), (8, 1536, 128, 1500), (2, 1500, 384, 1500),
+              (1, 1536, 1280, 1500), (8, 1536, 1280, 1500), (1, 200, 128, 190),
+              (1, 1536, 128, 1)]
+
+
+@pytest.mark.parametrize("B,T,S,n_valid", F32_SHAPES)
+def test_mha_f32_plan_clusters_chunks_and_shared_memory(B, T, S, n_valid):
+    """The chunks cover the live keys in whole 64-key tiles with none empty,
+    a cluster holds at most 8 of them (the portable size), the shared
+    memory a block asks for lets F32_BLOCKS_PER_SM share a multiprocessor,
+    and the grid reaches the card's 132 multiprocessors wherever the query
+    tiles, heads and keys allow it (at most a power-of-two cluster a query
+    tile)."""
+    from open_whisper_kit_tpu_torch.ops import attention as A
+    plan = A.mha_f32_plan(B, T, S, n_valid, H100_SMS)
+    tiles = -(-n_valid // A.F32_KEYS)
+    assert 1 <= plan.chunks <= A.F32_MAX_CLUSTER
+    assert plan.chunk_keys % A.F32_KEYS == 0
+    assert (plan.chunks - 1) * plan.chunk_keys < n_valid <= plan.chunks * plan.chunk_keys
+    assert plan.pairs == B * -(-T // A.F32_QUERIES) * (S // 64)
+    assert A.F32_BLOCKS_PER_SM * A.F32_SMEM <= 227 * 1024
+    widest = max(c for c in (1, 2, 4, 8) if c <= tiles)
+    assert plan.blocks >= min(H100_SMS, plan.pairs * widest)
+
+
+def test_mha_f32_plan_fills_the_card_at_narrow_width():
+    """At the narrow f32 models' encoder shape (one window, 2 heads, 1500
+    live keys) the first f32 body launched 96 blocks; the plan splits the
+    keys in 4 chunks of 384: 24 query tiles x 2 heads x 4 = 192 blocks, one
+    wave at two a multiprocessor (8 chunks, 384 blocks, measured 10 %
+    slower on the H100). At large-v3-turbo's width the 480 (query tile,
+    head) pairs fill the card alone."""
+    from open_whisper_kit_tpu_torch.ops import attention as A
+    plan = A.mha_f32_plan(1, 1536, 128, 1500, H100_SMS)
+    assert (plan.chunks, plan.chunk_keys, plan.blocks) == (4, 384, 192)
+    assert plan.blocks >= H100_SMS
+    assert A.mha_f32_plan(1, 1536, 1280, 1500, H100_SMS).chunks == 1
