@@ -24,7 +24,8 @@ Phases, each gated; any failure exits non-zero before the result lines:
      shapes (1 x 1280 -> 1280 and -> 3840, 5 x 1280 -> 3840, W8 logits) also
      the kernel's and torch.matmul's device times queued behind a spin, with
      the bound's share of the queued time, and two launches bit-equal (the
-     splits' ordered combine); K2 (the whole decoder
+     splits' ordered combine); K5 at 1, 5, 8 and 16 rows (the rows body)
+     likewise queued, two launches bit-equal; K2 (the whole decoder
      step) at large-v3-turbo
      width (4 layers, 448 cache rows, 1500 audio positions, vocabulary
      51866) in its four modes (dense, int8 logits, int8, int4): 8
@@ -181,7 +182,8 @@ Phases, each gated; any failure exits non-zero before the result lines:
      bound where products cancel), T2 bit for bit; kernel, plain and
      library times (cuBLAS bf16 through torch.mm with f32 out; _int_mm with
      the scale ops), cold L2, the bound and T1's and cuBLAS's shares of the
-     bf16 peak; then the port's probe
+     bf16 peak; T2 also bit for bit at the 8-window mlp0 and mlp1 products
+     on seeded operands; then the port's probe
      (open_whisper_kit_tpu_torch.tools.bench_int8_mxu.main) at full shape,
      the path of T1 and T2, with exact launch counts (two per chained
      iteration per chain call).
@@ -423,6 +425,8 @@ QUANT_SHAPES = [
     ("qmm4", "W4 logits, 1 row", 1, 1280, 51866),
     ("ffn_int8", "decoder MLP, 1 row", 1, 1280, 5120),
     ("ffn_int8", "decoder MLP, 5 rows", 5, 1280, 5120),
+    ("ffn_int8", "decoder MLP, 8 rows", 8, 1280, 5120),
+    ("ffn_int8", "decoder MLP, 16 rows", 16, 1280, 5120),
 ]
 
 
@@ -435,10 +439,11 @@ def phase_quant_kernels(torch, Q):
     the function does not need. K3's rows-route shapes (M <= 16, kernel
     "qmm_rows") are also timed queued behind a spin (cuda_ms's `queued`:
     the device time without the wrapper's host time) for the kernel and the
-    library call, and two launches must give the same bits. Returns
-    {kernel: [per-shape dicts]}; a rows-route dict's "ms" and "library_ms"
-    are the queued times, "ms_unqueued" and "library_ms_unqueued" the
-    others."""
+    library call, and two launches must give the same bits; so are K5's
+    (on the rows body at these rows since PR 15: two launches, the second a
+    dependent launch). Returns {kernel: [per-shape dicts]}; a rows-route
+    dict's "ms" and "library_ms" are the queued times, "ms_unqueued" and
+    "library_ms_unqueued" the others."""
     g = torch.Generator(device="cuda").manual_seed(0)
     l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
 
@@ -500,6 +505,22 @@ def phase_quant_kernels(torch, Q):
                   f"torch.matmul {lq_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us, "
                   f"{100 * b_ms / kq_ms:.1f} % of the bound; kernel / matmul "
                   f"{kq_ms / lq_ms:.2f}; {plan.splits} splits, {plan.blocks} blocks; two "
+                  "launches bit-equal", flush=True)
+            del again
+        elif name == "ffn_int8" and Q.ffn_int8_route(M) == "rows":
+            again = kern(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"ffn_int8 ({label}): two launches differ")
+            kq_ms = cuda_ms(torch, lambda: kern(*args), flush=l2_flush, queued=True)
+            plan = Q.ffn_int8_rows_plan(M, K, N, args[4].shape[1])
+            row.update(ms=kq_ms, ms_unqueued=k_ms, bound_share=b_ms / kq_ms,
+                       body="rows: qmm_rows.cuh twice, the second a dependent launch",
+                       splits=[plan.up.splits, plan.down.splits],
+                       blocks=[plan.up.blocks, plan.down.blocks])
+            print(f"[3]   ffn_int8 on the rows body, queued (device time): kernel "
+                  f"{kq_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us, "
+                  f"{100 * b_ms / kq_ms:.1f} % of the bound; splits {plan.up.splits} / "
+                  f"{plan.down.splits}, blocks {plan.up.blocks} / {plan.down.blocks}; two "
                   "launches bit-equal", flush=True)
             del again
         out[name].append(row)
@@ -1083,7 +1104,8 @@ def phase_k6(torch, E8):
     it, rounded to bf16); times with the L2 cache flushed before each launch
     of the kernel, the plain version, torch._int_mm with the same quantize
     and scale ops around it (the library yardstick: the same function), and
-    the dense bf16 torch.matmul the W8A8 layer replaces; the bound (int8
+    the dense bf16 torch.matmul the W8A8 layer replaces, each queued behind
+    a spin (device time; since PR 15, unqueued before); the bound (int8
     operations at 1979 TOP/s, or the bytes). Returns the per-shape rows."""
     g = torch.Generator(device="cuda").manual_seed(11)
     l2_flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
@@ -1101,8 +1123,9 @@ def phase_k6(torch, E8):
         check(got.shape == ref.shape == (M, N) and n_diff == 0,
               f"K6 {label} (M={M}, K={K}, N={N}): {n_diff} of {got.numel()} values "
               f"differ from the plain version (max|err| {err:.3e})")
-        k_ms = cuda_ms(torch, lambda: E8.w8a8_mm(x, wq_t, ws), flush=l2_flush)
-        p_ms = cuda_ms(torch, lambda: E8.w8a8_mm_plain(x, wq_t, ws), flush=l2_flush)
+        k_ms = cuda_ms(torch, lambda: E8.w8a8_mm(x, wq_t, ws), flush=l2_flush, queued=True)
+        p_ms = cuda_ms(torch, lambda: E8.w8a8_mm_plain(x, wq_t, ws), flush=l2_flush,
+                       queued=True)
 
         def int_mm():
             xq, xs = E8.quantize_act_rows(x)
@@ -1110,9 +1133,9 @@ def phase_k6(torch, E8):
         l_ms = None
         if M > 16 and K % 8 == 0 and N % 8 == 0:
             check(torch.equal(int_mm(), ref), f"K6 {label}: the _int_mm yardstick differs")
-            l_ms = cuda_ms(torch, int_mm, flush=l2_flush)
+            l_ms = cuda_ms(torch, int_mm, flush=l2_flush, queued=True)
         wd = w.to(torch.bfloat16)
-        d_ms = cuda_ms(torch, lambda: torch.matmul(x, wd), flush=l2_flush)
+        d_ms = cuda_ms(torch, lambda: torch.matmul(x, wd), flush=l2_flush, queued=True)
         b_ms, b_by = bound(nbytes(x, wq, ws, got), 2 * M * K * N, "int8")
         rows.append({"shape": f"{label}: M={M} K={K} N={N}", "max_abs_err": err,
                      "values_differing": n_diff, "ms": k_ms, "plain_ms": p_ms,
@@ -1122,7 +1145,8 @@ def phase_k6(torch, E8):
         print(f"[11] K6 {label} (M={M}, K={K}, N={N}): bit-equal to plain; kernel "
               f"{k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, _int_mm + quantize/scale "
               f"{lib_txt}, dense bf16 matmul {d_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us "
-              f"({b_by})", flush=True)
+              f"({b_by}), {100 * b_ms / k_ms:.1f} % of the bound (queued, device time)",
+              flush=True)
         del x, w, wq, wq_t, ws, ref, got
     del l2_flush
     torch.cuda.empty_cache()
@@ -2147,6 +2171,8 @@ def phase_narrow_cross_int8(torch, TF, TM, tok_mod, FullParams, mods, tokens) ->
 # the tensor-core probe's two products (tools/bench_int8_mxu.py): x @ W1 and
 # h @ W2 of large-v3-turbo's encoder MLP, M = 1536 rows (one window, padded)
 MXU_SHAPES = (("x @ W1", 1536, 1280, 5120), ("h @ W2", 1536, 5120, 1280))
+# T2 also at the encoder's 8-window MLP products (the 128 x 256 tile)
+MXU_S8_WIDE = (("mlp0, 8 windows", 12288, 1280, 5120), ("mlp1, 8 windows", 12288, 5120, 1280))
 
 
 def phase_mxu(torch, G, P, profiling: bool = False) -> dict:
@@ -2236,7 +2262,32 @@ def phase_mxu(torch, G, P, profiling: bool = False) -> dict:
               f"{2 * M * K * N / k_ms / 1e9:.1f} TOP/s (median of 20, cold L2, device time)",
               flush=True)
         del aq, a_s, bq, bq_t, ref, got
-    del l2_flush, x0, w1, w2, h
+    del x0, w1, w2, h
+    # T2 at the 8-window encoder products, seeded operands, bit for bit
+    g = torch.Generator(device="cuda").manual_seed(23)
+    for label, M, K, N in MXU_S8_WIDE:
+        shape = f"{label}: ({M},{K})@({K},{N})"
+        aq, a_s = P.quant_rows(torch.randn(M, K, generator=g, device="cuda")
+                               .to(torch.bfloat16))
+        bq, b_s = P.quant_cols(torch.randn(K, N, generator=g, device="cuda") * K ** -0.5)
+        bq_t = bq.t().contiguous()
+        ref = G.mm_s8_plain(aq, a_s, bq_t, b_s)
+        got = G.mm_s8(aq, a_s, bq_t, b_s)
+        torch.cuda.synchronize()
+        n_diff = int((got.float() != ref.float()).sum())
+        check(got.shape == ref.shape and n_diff == 0,
+              f"T2 {shape}: {n_diff} values differ from the plain version")
+        k_ms = cuda_ms(torch, lambda: G.mm_s8(aq, a_s, bq_t, b_s), flush=l2_flush,
+                       queued=True)
+        b_ms, b_by = bound(nbytes(aq, a_s, bq_t, b_s, got), 2 * M * K * N, "int8")
+        rows["mm_s8"].append({"shape": shape, "max_abs_err": 0.0, "values_differing": 0,
+                              "ms": k_ms, "plain_ms": None, "library_ms": None,
+                              "bound_ms": b_ms, "bound_by": b_by})
+        print(f"[23] T2 {shape}: bit-equal to the plain version; kernel {k_ms * 1e3:.1f} us, "
+              f"bound {b_ms * 1e3:.1f} us ({b_by}), {100 * b_ms / k_ms:.1f} % of the bound",
+              flush=True)
+        del aq, a_s, bq, bq_t, ref, got
+    del l2_flush
     torch.cuda.empty_cache()
 
     # ---- the probe, the main path of T1 and T2 ----
@@ -2257,12 +2308,11 @@ def phase_mxu(torch, G, P, profiling: bool = False) -> dict:
         x0, w1, w2 = P.operands(P.M, P.K, P.F_, "cuda")
         (w1q, w1s), (w2q, w2s) = P.quant_cols(w1), P.quant_cols(w2)
         w1q_cm, w2q_cm = (w.t().contiguous().t() for w in (w1q, w2q))
-        bm, bn = G.TILES[0]
         for tag, step, ws in (
                 ("bf16", P.step_bf16, (w1, w2)),
                 ("w8a8", P.step_xla_s8, (w1q_cm, w1s, w2q_cm, w2s)),
                 ("T1", P.make_step_pallas_bf16(w1, w2), ()),
-                ("T2", P.make_step_pallas_s8(bm, bn, w1q, w1s, w2q, w2s), ())):
+                ("T2", P.make_step_pallas_s8(w1q, w1s, w2q, w2s), ())):
             loop = P.chain(step)
             loop(x0, *ws)
             profile_call(torch, f"probe-{tag}", f"probe chain {tag}, {P.NITER} iterations",

@@ -34,8 +34,11 @@ prints one JSON line: the root, the model, the request kind, wall seconds
 (host clock, ending in `torch.cuda.synchronize()`), RTF, sampled tokens,
 encoder passes and wall ms per sampled token (beam5 also K7's launches;
 a batched request: wall
-seconds, audio seconds per second, K8 launches and emitted tokens). Then `--reps` timed passes of the request's
-first window through the encoder and cross-KV print the window's device
+seconds, audio seconds per second, K8 launches and emitted tokens, then
+`--reps` timed encoder + cross-KV rounds of its eight first windows on the
+W8A8 encoder, kernel K6's path: the device span and the host's time to
+issue it). Then `--reps` timed passes of the request's first window
+through the (dense or q8_0) encoder and cross-KV print the window's device
 span (CUDA events) and the host's time to issue it. The card's name and
 power limit come first.
 """
@@ -182,6 +185,26 @@ def batch_request(root: Path, tr, request: str, reps: int) -> None:
                               "k8_launches": MK.mega_decode_step_batch.launches - k8,
                               "emitted_tokens": sum(len(s.tokens) for r in results
                                                     for s in r.segments)}), flush=True)
+        # one round's encoder + cross-KV on the W8A8 encoder (the files'
+        # first windows): the device span beside the host's time to issue it
+        from open_whisper_kit_tpu_torch.audio import mel as mel_mod
+        from open_whisper_kit_tpu_torch.models.whisper import model as TM
+        mel = mel_mod.log_mel_spectrogram(np.concatenate(files), tr.ctx.filters, "cuda")
+        windows = torch.stack([mel.data[b * 3000:(b + 1) * 3000] for b in range(BATCH_FILES)])
+        for rep in range(reps + 1):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.record()
+            TM.encode_with_cross_kv(tr.ctx.cfg, tr.ctx.params["encoder"],
+                                    tr.ctx.params["decoder"], windows)
+            issue = time.perf_counter() - t0
+            b.record()
+            b.synchronize()
+            if rep:
+                print(json.dumps({"root": str(root), "model": "dense", "request": request,
+                                  "rep": rep, "encoder_round_ms": a.elapsed_time(b),
+                                  "encoder_round_issue_ms": 1e3 * issue}), flush=True)
     finally:
         tr.ctx.params["encoder"] = dense_enc
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time K2, K7, K8, K1's f32 body, K3's rows route and T1 of the PyTorch
-port on one GPU, for one or more source trees in turn.
+"""Time K2, K7, K8, K1's f32 body, K3's rows route, T1, K5, K6 and T2 of
+the PyTorch port on one GPU, for one or more source trees in turn.
 
     python3 kernel_times.py ROOT [ROOT ...]
 
@@ -42,7 +42,24 @@ line per case, every time the median of 20 launches in µs (CUDA events):
   128), the narrow f32 models' encoder, and (1, 1536, 1280), large-v3-
   turbo's width, 1500 live keys, warm L2 as the encoder finds its q/k/v:
   queued and not, beside SDPA on the head-major layout with the same mask,
-  the plain version and the bound (the f32 operations at the f32 peak).
+  the plain version and the bound (the f32 operations at the f32 peak);
+- K5 (`ops.quant_matmul.ffn_int8`, the int8 decoder MLP 1280 -> 5120 ->
+  1280 with W1 padded as the port pads it) at 1, 5 and 40 rows, cold L2,
+  queued and not, `host_us`, the plain version, the bound (the bytes) and
+  its share, and the route (rows body or tiles) where the tree has one;
+- K6 (`ops.encoder_int8.w8a8_mm`) at the encoder's four linears (qkv, o,
+  mlp0, mlp1) for 1 and 8 windows (M = 1536, 12288), bf16 x, cold L2,
+  queued: the call (quantize and GEMM together), the GEMM alone (T2's
+  entry on the same quantized rows), the quantize launch alone where the
+  tree has one (`owk_quantize_rows`), `host_us`, the plain version, the
+  library yardsticks (`torch._int_mm` with the same quantize and scale
+  ops; dense bf16 `torch.matmul`; the plain version at one window only),
+  the bound (int8 operations at 1979
+  TOP/s, or the bytes) and its share, and the GEMM's tile where the tree
+  plans one (`gemm.w8a8_plan`); the quantize launch's own bound (its
+  bytes);
+- T2 (`ops.gemm.mm_s8`) at the probe's two products beside `_int_mm` +
+  scale ops, queued, cold L2, with the bound and its share.
 The card's name and power limit come first.
 """
 
@@ -65,6 +82,10 @@ K8_STREAMS = (2, 5, 8)
 K8_HEAD = 258          # of a 448-row cache a stream (n_text_ctx)
 K7_BEAMS = (2, 5, 8)   # at K8_HEAD of a 448-row cache a beam
 K1_F32_SHAPES = [(1, 1536, 128), (1, 1536, 1280)]   # (B, T, S), 1500 live keys
+K5_ROWS = (1, 5, 40)
+K6_SHAPES = [(rows, label, k, n) for rows in (1536, 12288)
+             for label, k, n in (("qkv", 1280, 3840), ("o", 1280, 1280), ("mlp0", 1280, 5120),
+                                 ("mlp1", 5120, 1280))]
 
 
 def smi() -> str:
@@ -260,6 +281,121 @@ def k1_f32_times(torch, CS, root: Path) -> None:
              bound_us=1e3 * b_ms, bound_by=b_by, bound_share=1e3 * b_ms / k_us)
 
 
+def k5_times(torch, CS, root: Path) -> None:
+    from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
+    g = torch.Generator(device="cuda").manual_seed(9)
+    S, FF = 1280, 5120
+    w0 = Q.quantize_linear(torch.randn(S, FF, generator=g, device="cuda") * S ** -0.5, pad=False)
+    w1 = Q.quantize_linear(torch.randn(FF, S, generator=g, device="cuda") * FF ** -0.5)
+    b0 = (torch.randn(FF, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for M in K5_ROWS:
+        x = torch.randn(M, S, generator=g, device="cuda").to(torch.bfloat16)
+        args = (x, w0.qs, w0.scales, b0, w1.qs, w1.scales)
+        ref = Q.ffn_int8_plain(*args)
+        err = ((Q.ffn_int8(*args) - ref).abs().max() / ref.abs().max()).item()
+        moved = CS.nbytes(x, w0.qs, w0.scales, b0, w1.qs[:, :S], w1.scales[:, :S]) + M * S * 4
+        b_ms, b_by = CS.bound(moved, 4 * M * S * FF)
+        k_ms = CS.cuda_ms(torch, lambda: Q.ffn_int8(*args), flush=flush, queued=True)
+        emit(root=str(root), kernel="ffn_int8", M=M, K=S, FF=FF, rel_err=err,
+             route=Q.ffn_int8_route(M) if hasattr(Q, "ffn_int8_route") else "tiles",
+             us=1e3 * k_ms,
+             us_unqueued=1e3 * CS.cuda_ms(torch, lambda: Q.ffn_int8(*args), flush=flush),
+             host_us=call_host_us(torch, lambda: Q.ffn_int8(*args)),
+             plain_us=1e3 * CS.cuda_ms(torch, lambda: Q.ffn_int8_plain(*args), flush=flush,
+                                       queued=True),
+             bound_us=1e3 * b_ms, bound_by=b_by, bound_share=b_ms / k_ms)
+
+
+def k6_t2_times(torch, CS, root: Path) -> None:
+    from open_whisper_kit_tpu_torch.ops import encoder_int8 as E8
+    from open_whisper_kit_tpu_torch.ops import gemm as G
+    from open_whisper_kit_tpu_torch.tools import bench_int8_mxu as P
+    g = torch.Generator(device="cuda").manual_seed(11)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    lib = E8._kernel_lib()
+    has_quant = hasattr(lib, "owk_quantize_rows")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def us(fn, queued=True):
+        return 1e3 * CS.cuda_ms(torch, fn, flush=flush, queued=queued)
+
+    for M, label, K, N in K6_SHAPES:
+        x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+        w = torch.randn(K, N, generator=g, device="cuda") * K ** -0.5
+        wq, ws = E8.quantize_w_cols(w)
+        wq_t = wq.t().contiguous()
+        got = E8.w8a8_mm(x, wq_t, ws)
+        ref = E8.w8a8_mm_plain(x, wq_t, ws)
+        n_diff = int((got.float() != ref.float()).sum())
+        xq, xs = E8.quantize_act_rows(x)
+        wd = w.to(torch.bfloat16)
+
+        def int_mm():
+            q, s_ = E8.quantize_act_rows(x)
+            return ((torch._int_mm(q, wq_t.t()).float() * s_) * ws).to(torch.bfloat16)
+        row = {}
+        if has_quant:
+            q_out = torch.empty(M, K, dtype=torch.int8, device="cuda")
+            s_out = torch.empty(M, dtype=torch.float32, device="cuda")
+
+            def quant():
+                rc = lib.owk_quantize_rows(x.data_ptr(), 0, q_out.data_ptr(), s_out.data_ptr(),
+                                           M, K, E8._INV127, stream)
+                if rc:
+                    raise RuntimeError(f"owk_quantize_rows: cudaError {rc}")
+            quant()
+            torch.cuda.synchronize()
+            ok = torch.equal(q_out, xq) and torch.equal(s_out, xs[:, 0])
+            qb_ms, _ = CS.bound(M * K * 2 + M * K + M * 4, 0)
+            q_us = us(quant)
+            row.update(quantize_us=q_us, quantize_bit_equal=ok, quantize_bound_us=1e3 * qb_ms,
+                       quantize_bound_share=1e3 * qb_ms / q_us)
+        b_ms, b_by = CS.bound(CS.nbytes(x, wq, ws, got), 2 * M * K * N, "int8")
+        k_us = us(lambda: E8.w8a8_mm(x, wq_t, ws))
+        gemm_us = us(lambda: G.mm_s8(xq, xs, wq_t, ws))
+        gb_ms, _ = CS.bound(CS.nbytes(xq, xs, wq, ws, got), 2 * M * K * N, "int8")
+        tile = (list(G.w8a8_plan(M, N, sms).tile) if hasattr(G, "w8a8_plan") else [128, 128])
+        emit(root=str(root), kernel="w8a8_mm", shape=f"{label}, {M // 1536} window(s)", M=M,
+             K=K, N=N, tile=tile, values_differing=n_diff, us=k_us,
+             us_unqueued=us(lambda: E8.w8a8_mm(x, wq_t, ws), False),
+             host_us=call_host_us(torch, lambda: E8.w8a8_mm(x, wq_t, ws)),
+             gemm_us=gemm_us, gemm_bound_share=1e3 * gb_ms / gemm_us, **row,
+             # the plain version's f64 product: timed at one window only
+             plain_us=us(lambda: E8.w8a8_mm_plain(x, wq_t, ws)) if M == 1536 else None,
+             int_mm_us=us(int_mm),
+             dense_bf16_us=us(lambda: torch.matmul(x, wd)), bound_us=1e3 * b_ms,
+             bound_by=b_by, bound_share=1e3 * b_ms / k_us,
+             int8_tops=2 * M * K * N / k_us / 1e6)
+        del x, w, wq, wq_t, got, ref, xq, xs, wd, row
+        torch.cuda.empty_cache()
+
+    x0, w1, w2 = P.operands(P.M, P.K, P.F_, "cuda")
+    h = torch.nn.functional.gelu(G.mm_bf16_plain(x0, w1).float(),
+                                 approximate="tanh").to(torch.bfloat16)
+    for (label, M, K, N), a, b in zip((("x @ W1", P.M, P.K, P.F_), ("h @ W2", P.M, P.F_, P.K)),
+                                      (x0, h), (w1, w2)):
+        aq, a_s = P.quant_rows(a)
+        bq, b_s = P.quant_cols(b)
+        bq_t = bq.t().contiguous()
+        got = G.mm_s8(aq, a_s, bq_t, b_s)
+        n_diff = int((got.float() != G.mm_s8_plain(aq, a_s, bq_t, b_s).float()).sum())
+
+        def int_mm():
+            return ((torch._int_mm(aq, bq_t.t()).float() * a_s) * b_s).to(torch.bfloat16)
+        b_ms, b_by = CS.bound(CS.nbytes(aq, a_s, bq_t, b_s, got), 2 * M * K * N, "int8")
+        k_us = us(lambda: G.mm_s8(aq, a_s, bq_t, b_s))
+        tile = (list(G.w8a8_plan(M, N, sms).tile) if hasattr(G, "w8a8_plan") else [128, 128])
+        emit(root=str(root), kernel="mm_s8", shape=label, M=M, K=K, N=N, tile=tile,
+             values_differing=n_diff, us=k_us,
+             host_us=call_host_us(torch, lambda: G.mm_s8(aq, a_s, bq_t, b_s)),
+             int_mm_us=us(int_mm), bound_us=1e3 * b_ms, bound_by=b_by,
+             bound_share=1e3 * b_ms / k_us, int8_tops=2 * M * K * N / k_us / 1e6)
+    del flush
+    torch.cuda.empty_cache()
+
+
 def child(root: Path) -> None:
     torch, CS = setup(root)
     from open_whisper_kit_tpu_torch.ops import gemm as G
@@ -312,6 +448,8 @@ def child(root: Path) -> None:
              cublas_us=us(lambda: torch.mm(a, b, out_dtype=torch.float32)))
     del flush
     torch.cuda.empty_cache()
+    k5_times(torch, CS, root)
+    k6_t2_times(torch, CS, root)
     k1_f32_times(torch, CS, root)
     k2_times(torch, CS, root)
     k7_times(torch, CS, root)

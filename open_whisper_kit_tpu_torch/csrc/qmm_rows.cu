@@ -25,49 +25,18 @@ using namespace owk_qrows;
 
 extern "C" int owk_qmm_rows_maps(const void* qs, const void* scales, int K, int Np,
                                  void* maps_out) {
-  if (K <= 0 || K % kQK || Np <= 0 || Np % kBN) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[2];
-  const cuuint64_t q_dims[2] = {(cuuint64_t)Np, (cuuint64_t)K};
-  const cuuint64_t q_stride[1] = {(cuuint64_t)Np};
-  const cuuint32_t q_box[2] = {kBN, kQK};
-  const cuuint64_t s_dims[2] = {(cuuint64_t)Np, (cuuint64_t)(K / kQK)};
-  const cuuint64_t s_stride[1] = {(cuuint64_t)Np * 4};
-  const cuuint32_t s_box[2] = {kBN, 1};
-  int rc = encode_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, qs, q_dims, q_stride, q_box,
-                      CU_TENSOR_MAP_SWIZZLE_128B);
-  if (rc == 0)
-    rc = encode_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, scales, s_dims, s_stride,
-                    s_box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  const int rc = encode_rows_maps(qs, scales, K, Np, maps);
   if (rc == 0) memcpy(maps_out, maps, sizeof maps);
   return rc;
 }
 
 extern "C" int owk_qmm_rows(const void* x, const void* maps, void* out, int M, int K, int Np,
                             int splits, void* stream) {
-  if (M < 1 || M > 16 || K <= 0 || K % kQK || Np <= 0 || Np % kBN || splits < 1 ||
-      splits > kMaxSplits || splits > K / kQK)
-    return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(M, K, splits);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   static unsigned long long smem_allowed = 0;
-  int err = allow_smem(qmm_rows_kernel, kMaxSmem, smem_allowed);
-  if (err != 0) return err;
   CUtensorMap m[2];
   memcpy(m, maps, sizeof m);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(Np / kBN, splits);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = 1;
-  cluster.val.clusterDim.y = splits;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = splits > 1 ? 1 : 0;
-  const cudaError_t rc = cudaLaunchKernelEx(&cfg, qmm_rows_kernel, m[0], m[1],
-                                            static_cast<const __nv_bfloat16*>(x),
-                                            static_cast<float*>(out), M, K, Np, splits);
-  return (int)(rc != cudaSuccess ? rc : cudaGetLastError());
+  return launch_rows<4, kGatherCap, StoreF32Rows, kPdlNone>(m, x, StoreF32Rows{static_cast<float*>(out), Np},
+                                                M, K, Np, splits, (cudaStream_t)stream,
+                                                smem_allowed);
 }

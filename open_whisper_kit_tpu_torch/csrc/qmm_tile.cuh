@@ -1,4 +1,7 @@
-// The tiled dequantize-matmul that kernels K3, K4 and K5 share.
+// The tiled dequantize-matmul of kernel K4 (qmm4.cu, every M) and of K5's
+// route above 16 rows (ffn_int8.cu's owk_ffn_int8: prompt ingest). K3 left
+// it for its own bodies (qmm.cu above 16 rows, qmm_rows.cuh below), and
+// K5's decode rows run qmm_rows.cuh too.
 //
 // y[M, Np] = bf16(x)[M, K] @ bf16(dequant(planes))[K, Np], f32 accumulation.
 // x arrives in bf16 (the wrappers cast it, as the TPU kernels do); each
@@ -12,11 +15,11 @@
 // (mma.sync) on its 32 columns for every 16-row slice of the tile. The next
 // step's global loads are issued into registers before this step's products,
 // so one step's load latency overlaps the previous step's math. MF = 1 serves
-// the skinny decode rows (M <= 16; the idle rows of the 16-row slice are
-// wasted tensor work, the weight stream is what bounds them), MF = 4 the
-// encoder's M = 1500/1536. Rows past M load as zero and are never stored.
-// An epilogue functor stores each output element: plain f32 (K3, K4, K5's
-// second half) or bias + gelu_tanh rounded to bf16 (K5's first half).
+// the skinny rows (M <= 16: K4's logits; the idle rows of the 16-row slice
+// are wasted tensor work, the weight stream is what bounds them), MF = 4
+// more rows (K5's ingest rows). Rows past M load as zero and are never
+// stored. An epilogue functor stores each output element: plain f32 (K4,
+// K5's second half) or bias + gelu_tanh rounded to bf16 (K5's first half).
 //
 // Requires K % 32 == 0, Np % 128 == 0, 16-byte aligned x/scales rows and
 // 4-byte aligned value rows; the Python wrappers check.

@@ -16,7 +16,9 @@ The conv front-end, positional add, layernorms, attention (kernel K1) and
 the residual stream stay dense; the stack runs in bf16 whatever the
 context's dtype, as the JAX package runs it.
 
-`w8a8_mm` is kernel K6 (csrc/w8a8.cu) on CUDA tensors and `w8a8_mm_plain`,
+`w8a8_mm` is kernel K6 (csrc/w8a8.cu: a row-quantize launch, then a
+persistent TMA + wgmma s8 GEMM at `gemm.w8a8_plan`'s tile, a dependent
+launch) on CUDA tensors and `w8a8_mm_plain`,
 the same integer formula in plain torch (a float64 product, exact below
 2^53), on CPU tensors. The port stores each weight plane transposed,
 (N, K) int8 with K contiguous: the layout the tensor cores' B operand
@@ -34,12 +36,13 @@ import torch.nn.functional as F
 
 from . import _build
 from .attention import mha_full
+from .gemm import _sms, w8a8_plan
 from .layers import layer_norm as _ln
 from .quant_matmul import QuantLinear, QuantLinear4, dequantize_dense
 
 _WIDE_K = 2048          # wider inputs are rounded to bf16 before quantizing
 _INV127 = float(np.float32(1.0 / 127.0))   # JAX's amax * (1.0 / 127.0), in f32
-_BM, _BN, _BK = 128, 128, 64                # the kernel's tile (csrc/w8a8.cu)
+_ALIGN_K, _ALIGN_N = 16, 8   # the kernel's K (16-byte int8 rows for TMA), N (16-byte stores)
 
 
 # -- quantizers --------------------------------------------------------------
@@ -87,9 +90,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("w8a8")
     for fn in (lib.owk_w8a8_bf16, lib.owk_w8a8_f32):
-        # x, xq, xs, wq_t, ws, out, M, K, Mp, Kp, Np, 1/127, stream
-        fn.argtypes = [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]
+        # x, xq, xs, wq_t, ws, out, M, K, N, 1/127, bn, grid, stream
+        fn.argtypes = [_P] * 6 + [_I] * 3 + [ctypes.c_float] + [_I] * 2 + [_P]
         fn.restype = ctypes.c_int
+    # x, is_f32, xq, xs, M, K, 1/127, stream: the quantize launch alone
+    # (kernel_times.py times it apart from the GEMM)
+    lib.owk_quantize_rows.argtypes = [_P, _I, _P, _P, _I, _I, ctypes.c_float, _P]
+    lib.owk_quantize_rows.restype = ctypes.c_int
     return lib
 
 
@@ -103,13 +110,33 @@ def w8a8_mm(x: torch.Tensor, wq_t: torch.Tensor, ws: torch.Tensor) -> torch.Tens
     column scales ws (1, N) -> bf16 (M, N), quantizing each row of x once.
 
     CPU tensors take `w8a8_mm_plain`; CUDA tensors launch csrc/w8a8.cu on
-    the current stream (a row-quantize launch, then the s8 tensor-core
-    GEMM with the scale epilogue) or raise. Planes whose N is not a
-    multiple of 128 or K of 64, and x whose K is not a multiple of 8, are
-    zero-padded per call (no preset has them). `launches` counts calls on
-    the card."""
+    the current stream (a row-quantize launch, then the s8 TMA + wgmma GEMM
+    with the scale epilogue at `gemm.w8a8_plan`'s tile, a dependent launch)
+    or raise. A K that is not a multiple of 16, or N of 8, is zero-padded
+    per call (no preset has one). `launches` counts calls on the card."""
     if x.device.type == "cpu":
         return w8a8_mm_plain(x, wq_t, ws)
+    M, N, xc, wq_p, ws_p = _w8a8_operands(x, wq_t, ws)
+    out = torch.empty(M, wq_p.shape[0], dtype=torch.bfloat16, device=x.device)
+    if M:
+        xq = torch.empty(M, xc.shape[1], dtype=torch.int8, device=x.device)
+        xs = torch.empty(M, dtype=torch.float32, device=x.device)
+        plan = w8a8_plan(M, wq_p.shape[0], _sms(x.device.index if x.device.index is not None
+                                                else torch.cuda.current_device()))
+        lib = _kernel_lib()
+        fn = lib.owk_w8a8_bf16 if x.dtype == torch.bfloat16 else lib.owk_w8a8_f32
+        rc = fn(xc.data_ptr(), xq.data_ptr(), xs.data_ptr(), wq_p.data_ptr(), ws_p.data_ptr(),
+                out.data_ptr(), M, xc.shape[1], wq_p.shape[0], _INV127, plan.tile[1], plan.grid,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"w8a8_mm: kernel launch failed (cudaError {rc})")
+        w8a8_mm.launches += 1
+    return out[:, :N] if out.shape[1] != N else out
+
+
+def _w8a8_operands(x: torch.Tensor, wq_t: torch.Tensor, ws: torch.Tensor):
+    """Check K6's operands on the card; x, the planes and the scales as the
+    kernel takes them (K padded to 16, N to 8, where they are not)."""
     if x.device.type != "cuda":
         raise ValueError(f"w8a8_mm: unsupported device {x.device}")
     if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32):
@@ -122,26 +149,13 @@ def w8a8_mm(x: torch.Tensor, wq_t: torch.Tensor, ws: torch.Tensor) -> torch.Tens
             or wq_t.device != x.device or ws.device != x.device):
         raise ValueError(f"w8a8_mm: planes {tuple(wq_t.shape)} {wq_t.dtype}, scales "
                          f"{tuple(ws.shape)} {ws.dtype} do not fit x {tuple(x.shape)}")
-    out_rows = -(-max(M, 1) // _BM) * _BM
-    Kp, Np = -(-K // _BK) * _BK, -(-N // _BN) * _BN
+    Kp, Np = -(-K // _ALIGN_K) * _ALIGN_K, -(-N // _ALIGN_N) * _ALIGN_N
+    # zero columns change no amax and add nothing to a sum
+    xc = _pad_to(x.contiguous(), M, Kp)
     wq_p = _pad_to(wq_t.contiguous(), Np, Kp)
     ws_p = _pad_to(ws.contiguous(), 1, Np)
-    # the kernel reads 8 values at a time: zero columns change no amax or sum
-    xc = _pad_to(x.contiguous(), M, -(-K // 8) * 8)
-    if xc.data_ptr() % 16:
-        xc = xc.clone()
-    xq = torch.empty(out_rows, Kp, dtype=torch.int8, device=x.device)
-    xs = torch.empty(out_rows, dtype=torch.float32, device=x.device)
-    out = torch.empty(out_rows, Np, dtype=torch.bfloat16, device=x.device)
-    lib = _kernel_lib()
-    fn = lib.owk_w8a8_bf16 if x.dtype == torch.bfloat16 else lib.owk_w8a8_f32
-    rc = fn(xc.data_ptr(), xq.data_ptr(), xs.data_ptr(), wq_p.data_ptr(),
-            ws_p.data_ptr(), out.data_ptr(), M, xc.shape[1], out_rows, Kp, Np, _INV127,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"w8a8_mm: kernel launch failed (cudaError {rc})")
-    w8a8_mm.launches += 1
-    return out[:M, :N]
+    xc, wq_p, ws_p = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xc, wq_p, ws_p))
+    return M, N, xc, wq_p, ws_p
 
 
 w8a8_mm.launches = 0

@@ -14,9 +14,12 @@ tools/bench_int8_mxu.py (`pallas_mm_bf16`, `pallas_mm_s8`), which
 
 CPU tensors take the plain versions; CUDA tensors launch the kernel on the
 current stream or raise. Each wrapper's `launches` counts its launches.
-T1 takes ragged shapes as they are (its TMA loads fill past the edges with
-zeros) and pads only K or N that is not a multiple of 8; T2 zero-pads
-shapes that are not multiples of its tile per call (the probe's are not).
+Both are persistent TMA + wgmma GEMMs on clusters of two blocks, each at
+the tile its plan picks (`mm_bf16_plan`, `w8a8_plan`: the wider where its
+tile pairs fill the card); both take ragged shapes as they are (TMA fills
+past the edges with zeros), T1 padding only K or N that is not a multiple
+of 8, T2 only K that is not a multiple of 16 or N of 8 (no preset has
+them).
 """
 
 from __future__ import annotations
@@ -30,12 +33,15 @@ import torch.nn.functional as F
 
 from . import _build
 
-TILES = ((128, 128),)   # (rows, columns): T2's tile, which the probe sweeps
-# T1's output tiles: mm_bf16_plan takes the wider where its tile pairs still
-# fill the card
+# T1's output tiles (rows, columns): mm_bf16_plan takes the wider where its
+# tile pairs still fill the card
 MM_BF16_TILES = ((128, 128), (128, 256))
+# the output tiles of K6's GEMM and T2 (csrc/w8a8.cu), which w8a8_plan
+# picks from in the same way
+TILES = ((128, 128), (128, 256))
 _ALIGN_BF16 = 8         # T1's K and N: TMA's row strides are multiples of 16 bytes
-_BK_S8 = 64             # T2's K step (csrc/w8a8.cu)
+_ALIGN_S8_K = 16        # T2's K: 16-byte int8 rows for TMA
+_ALIGN_S8_N = 8         # T2's N: 16-byte bf16 row stores
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # T1 against another bf16 rounding of the same f32 sums (its plain version,
 # JAX's kernel): the largest shares of values that may differ at all, and
@@ -113,21 +119,35 @@ class MmPlan:
         return self.tiles / (self.sms * self.rounds)
 
 
+def _pair_plan(M: int, N: int, sms: int, tiles) -> MmPlan:
+    def plan(t):
+        m_tiles, n_tiles = -(-M // t[0]), -(-N // t[1])
+        pairs = -(-m_tiles // 2) * n_tiles
+        return MmPlan(tile=t, tiles=m_tiles * n_tiles, pairs=pairs,
+                      grid=2 * min(pairs, sms // 2), sms=sms)
+    for t in tiles[::-1]:
+        if plan(t).pairs >= sms // 2:
+            return plan(t)
+    return plan(tiles[0])
+
+
 def mm_bf16_plan(M: int, N: int, sms: int) -> MmPlan:
     """T1's plan for an (M, N) output: one block per SM (its ring of stages
     takes most of the SM's shared memory), two to a cluster, no more
     clusters than tile pairs, at the widest of MM_BF16_TILES whose pairs
     fill every cluster the card holds (fewer bytes per product from L2 and
     shared memory), else the narrowest."""
-    def plan(t):
-        m_tiles, n_tiles = -(-M // t[0]), -(-N // t[1])
-        pairs = -(-m_tiles // 2) * n_tiles
-        return MmPlan(tile=t, tiles=m_tiles * n_tiles, pairs=pairs,
-                      grid=2 * min(pairs, sms // 2), sms=sms)
-    for t in MM_BF16_TILES[::-1]:
-        if plan(t).pairs >= sms // 2:
-            return plan(t)
-    return plan(MM_BF16_TILES[0])
+    return _pair_plan(M, N, sms, MM_BF16_TILES)
+
+
+def w8a8_plan(M: int, N: int, sms: int) -> MmPlan:
+    """The plan of K6's GEMM and T2 for an (M, N) output, as T1's: clusters
+    of two blocks, one block per SM, at the widest of TILES whose tile
+    pairs fill every cluster the card holds. At one encoder window (M =
+    1536) mlp0 and qkv take 128 x 256, o and mlp1 (N = 1280: 30 pairs)
+    128 x 128; at 8 windows every linear takes 128 x 256. The s32 sums are
+    exact, so the tile changes no bit of the result."""
+    return _pair_plan(M, N, sms, TILES)
 
 
 @functools.cache
@@ -148,7 +168,8 @@ def _lib_bf16() -> ctypes.CDLL:
 @functools.cache
 def _lib_s8() -> ctypes.CDLL:
     lib = _build.load("w8a8")
-    lib.owk_mm_s8.argtypes = [_P] * 5 + [_I] * 3 + [_P]   # xq, xs, wt, ws, out, Mp, Kp, Np, stream
+    # xq, xs, wt, ws, out, M, K, N, bn, grid, stream
+    lib.owk_mm_s8.argtypes = [_P] * 5 + [_I] * 5 + [_P]
     lib.owk_mm_s8.restype = ctypes.c_int
     return lib
 
@@ -213,7 +234,7 @@ def mm_s8(a_q: torch.Tensor, a_s: torch.Tensor, b_t: torch.Tensor,
     """Kernel T2: int8 rows a_q (M, K) with f32 scales a_s (M, 1), the int8
     weight transposed b_t (N, K) with f32 column scales b_s (1, N) ->
     bf16 (M, N). CPU tensors take `mm_s8_plain`; CUDA tensors launch K6's
-    GEMM (csrc/w8a8.cu, `owk_mm_s8`) or raise."""
+    GEMM (csrc/w8a8.cu, `owk_mm_s8`) at `w8a8_plan`'s tile, or raise."""
     if a_q.device.type == "cpu":
         return mm_s8_plain(a_q, a_s, b_t, b_s)
     if a_q.device.type != "cuda":
@@ -228,18 +249,19 @@ def mm_s8(a_q: torch.Tensor, a_s: torch.Tensor, b_t: torch.Tensor,
     _check("mm_s8: a_s", a_s, torch.float32, (M, 1), dev)
     _check("mm_s8: b_t", b_t, torch.int8, (N, K), dev)
     _check("mm_s8: b_s", b_s, torch.float32, (1, N), dev)
-    bm, bn = TILES[0]
-    Mp, Kp, Np = _up(M, bm), _up(K, _BK_S8), _up(N, bn)
-    # zero rows and columns add nothing to a sum; padded rows scale by 0
-    aq_p, as_p = _pad_to(a_q, Mp, Kp), _pad_to(a_s, Mp, 1)
-    bt_p, bs_p = _pad_to(b_t, Np, Kp), _pad_to(b_s, 1, Np)
-    out = torch.empty(Mp, Np, dtype=torch.bfloat16, device=dev)
-    rc = _lib_s8().owk_mm_s8(aq_p.data_ptr(), as_p.data_ptr(), bt_p.data_ptr(),
-                             bs_p.data_ptr(), out.data_ptr(), Mp, Kp, Np,
-                             torch.cuda.current_stream(dev).cuda_stream)
-    _launch_check("mm_s8", rc)
-    mm_s8.launches += 1
-    return out[:M, :N] if (Mp, Np) != (M, N) else out
+    Kp, Np = _up(K, _ALIGN_S8_K), _up(N, _ALIGN_S8_N)
+    # zero columns of K add nothing to a sum; the pad columns of N are cut
+    aq_p, bt_p, bs_p = _pad_to(a_q, M, Kp), _pad_to(b_t, Np, Kp), _pad_to(b_s, 1, Np)
+    out = torch.empty(M, Np, dtype=torch.bfloat16, device=dev)
+    if M:
+        plan = w8a8_plan(M, Np, _sms(dev.index if dev.index is not None
+                                     else torch.cuda.current_device()))
+        rc = _lib_s8().owk_mm_s8(aq_p.data_ptr(), a_s.data_ptr(), bt_p.data_ptr(),
+                                 bs_p.data_ptr(), out.data_ptr(), M, Kp, Np, plan.tile[1],
+                                 plan.grid, torch.cuda.current_stream(dev).cuda_stream)
+        _launch_check("mm_s8", rc)
+        mm_s8.launches += 1
+    return out[:, :N] if Np != N else out
 
 
 mm_s8.launches = 0

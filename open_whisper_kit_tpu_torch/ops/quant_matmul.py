@@ -18,7 +18,9 @@ Three kernels, each beside its plain torch version:
   (low nibble = even K row, high nibble = odd), weights (nibble - 8) * s
   rounded to bf16 as the TPU kernel rounds them;
 * K5 `ffn_int8` (csrc/ffn_int8.cu): gelu_tanh(x @ W0 + b0) rounded to bf16,
-  then @ W1, the partial products summed in K order.
+  then @ W1, the partial products summed in K order; two bodies by the
+  number of rows (`ffn_int8_route`): the rows body of K3 twice, the second
+  a dependent launch, for the decode rows, qmm_tile.cuh's tiles above them.
 
 A wrapper takes the plain version only for a CPU tensor; a CUDA tensor
 launches the kernel or raises. Each wrapper's `launches` counts its calls
@@ -266,8 +268,11 @@ _ENTRIES = {
     "qmm_rows": {"owk_qmm_rows": [_P] * 3 + [_I] * 4 + [_P],
                  "owk_qmm_rows_maps": [_P] * 2 + [_I] * 2 + [_P]},
     "qmm4": {"owk_qmm4": _X_PLANES_OUT},
-    # x q0 s0 b0 q1 s1 h out, M K FF N1p, stream
-    "ffn_int8": {"owk_ffn_int8": [_P] * 8 + [_I] * 4 + [_P]},
+    # x q0 s0 b0 q1 s1 h out, M K FF N1p, stream; x maps b0 b0_bf16 h out, M
+    # K FF N1p splits_up splits_down, stream; q0 s0, K FF, q1 s1, N1p, maps
+    "ffn_int8": {"owk_ffn_int8": [_P] * 8 + [_I] * 4 + [_P],
+                 "owk_ffn_int8_rows": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 6 + [_P],
+                 "owk_ffn_int8_maps": [_P] * 2 + [_I] * 2 + [_P] * 2 + [_I, _P]},
 }
 
 
@@ -382,6 +387,15 @@ class RowsPlan:
         the first split of a tile receives."""
         return (self.splits - 1) * self.M * _BN * 4
 
+    def smem(self, stages: int) -> int:
+        """Dynamic shared memory a block asks for with a ring of `stages`
+        (csrc/qmm_rows.cuh's smem_bytes): 1024 bytes of alignment, the
+        ring, the gather barrier, x's rows padded by 16 bytes each, the
+        gathered sums."""
+        x_rows = 8 if self.M <= 8 else 16
+        return (1024 + stages * (32 * _BN + _BN * 4 + 16) + 16 + self.x_smem + 16 * x_rows
+                + self.gather_smem)
+
 
 @functools.cache
 def qmm_rows_plan(M: int, K: int, Np: int) -> RowsPlan:
@@ -400,6 +414,61 @@ def qmm_rows_plan(M: int, K: int, Np: int) -> RowsPlan:
     return plan
 
 
+# K5's two halves on the rows body (csrc/ffn_int8.cu's kUpStages,
+# kDownStages): rings as deep as their splits at whisper-large, so each
+# block asks for its whole split at once (the second half before its wait)
+FFN_UP_STAGES = 14
+FFN_DOWN_STAGES = 20
+# K5's cap on the partial sums a first split gathers (qmm_rows.cuh's
+# kFfnGatherCap): 7 other splits at 16 rows, so that its splits depend on
+# K and N alone and a row's bits on nothing but its own inputs
+FFN_GATHER = 7 * 16 * _BN * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class FfnRowsPlan:
+    """K5's launches at M <= 16: `up` (x @ W0, M x K -> FF) and `down` (h @
+    W1, M x FF -> N1p), each a rows-body plan; `smem` what a block of each
+    asks for."""
+    up: RowsPlan
+    down: RowsPlan
+
+    @property
+    def smem(self) -> tuple[int, int]:
+        return self.up.smem(FFN_UP_STAGES), self.down.smem(FFN_DOWN_STAGES)
+
+
+def _ffn_splits(K: int, Np: int) -> int:
+    nkb, tiles = K // QK, Np // _BN
+    splits = max(1, min(nkb, -(-ROWS_BLOCKS // tiles), ROWS_MAX_SPLITS))
+    while RowsPlan(QMM_ROWS_MAX, K, Np, splits).x_smem > ROWS_X_SMEM:
+        splits += 1
+    if splits > min(nkb, ROWS_MAX_SPLITS):
+        raise ValueError(f"ffn_int8: no rows-body plan for K={K} Np={Np}")
+    return splits
+
+
+@functools.cache
+def ffn_int8_rows_plan(M: int, K: int, FF: int, N1p: int) -> FfnRowsPlan:
+    """K5's plan at M <= 16 rows: each half splits K as the rows route does
+    (about ROWS_BLOCKS blocks, at most ROWS_MAX_SPLITS, x's rows of a split
+    within ROWS_X_SMEM), but for 16 rows whatever M is, with FFN_GATHER
+    room for the gathered sums: the splits, and so the order of every f32
+    sum, depend on K and N alone, and a verify row is bit-equal to the same
+    row run alone."""
+    if not 1 <= M <= QMM_ROWS_MAX:
+        raise ValueError(f"ffn_int8: the rows body takes 1..{QMM_ROWS_MAX} rows, got {M}")
+    return FfnRowsPlan(up=RowsPlan(M, K, FF, _ffn_splits(K, FF)),
+                       down=RowsPlan(M, FF, N1p, _ffn_splits(FF, N1p)))
+
+
+def ffn_int8_route(M: int) -> str:
+    """The K5 body a CUDA call with M rows launches: "rows" (the rows body
+    twice, the second a dependent launch) when M <= QMM_ROWS_MAX, else
+    "tiles" (qmm_tile.cuh's 64-row tiles)."""
+    return "rows" if M <= QMM_ROWS_MAX else "tiles"
+
+
 # The rows route keeps the two tensor maps of each plane between calls, so
 # that a token step's wrapper encodes nothing: keyed on the planes'
 # addresses, K, Np and the device (a map is a function of those alone, so a
@@ -409,19 +478,35 @@ _rows_maps: dict[tuple, tuple[ctypes.Array, int]] = {}
 _ROWS_MAPS_MAX = 4096   # entries kept before the cache starts over
 
 
-def _rows_tensor_maps(qs: torch.Tensor, scales: torch.Tensor, K: int, Np: int) -> int:
-    key = (qs.data_ptr(), scales.data_ptr(), K, Np, qs.device.index)
+def _cached_maps(key: tuple, size: int, encode) -> int:
+    """The address of the tensor maps kept under `key`, encoding them into
+    `size` bytes with encode(address) -> cudaError_t the first time."""
     hit = _rows_maps.get(key)
     if hit is None:
         if len(_rows_maps) >= _ROWS_MAPS_MAX:
             _rows_maps.clear()
-        buf = ctypes.create_string_buffer(256)
-        rc = _kernel_lib("qmm_rows").owk_qmm_rows_maps(qs.data_ptr(), scales.data_ptr(), K,
-                                                        Np, ctypes.addressof(buf))
+        buf = ctypes.create_string_buffer(size)
+        rc = encode(ctypes.addressof(buf))
         if rc != 0:
-            raise RuntimeError(f"qmm: tensor map encoding failed (cudaError {rc})")
+            raise RuntimeError(f"{key[0]}: tensor map encoding failed (cudaError {rc})")
         hit = _rows_maps[key] = (buf, ctypes.addressof(buf))
     return hit[1]
+
+
+def _rows_tensor_maps(qs: torch.Tensor, scales: torch.Tensor, K: int, Np: int) -> int:
+    return _cached_maps(
+        ("qmm", qs.data_ptr(), scales.data_ptr(), K, Np, qs.device.index), 256,
+        lambda addr: _kernel_lib("qmm_rows").owk_qmm_rows_maps(
+            qs.data_ptr(), scales.data_ptr(), K, Np, addr))
+
+
+def _ffn_tensor_maps(q0, s0, q1, s1, K: int, FF: int, N1p: int) -> int:
+    """K5's four maps (W0's two, then W1's), kept per pair of planes."""
+    return _cached_maps(
+        ("ffn_int8", q0.data_ptr(), s0.data_ptr(), q1.data_ptr(), s1.data_ptr(), K, FF, N1p,
+         q0.device.index), 512,
+        lambda addr: _kernel_lib("ffn_int8").owk_ffn_int8_maps(
+            q0.data_ptr(), s0.data_ptr(), K, FF, q1.data_ptr(), s1.data_ptr(), N1p, addr))
 
 
 def qmm(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -474,26 +559,41 @@ def ffn_int8(x: torch.Tensor, q0: torch.Tensor, s0: torch.Tensor,
              b0: torch.Tensor, q1: torch.Tensor, s1: torch.Tensor) -> torch.Tensor:
     """Kernel K5: gelu_tanh(x @ W0 + b0) @ W1 -> (M, N1p) f32, W0 (K, FF)
     unpadded, W1 (FF, N1p). CPU tensors take `ffn_int8_plain`; CUDA tensors
-    launch csrc/ffn_int8.cu (two kernels: the up-projection writes h in
-    bf16, the down-projection sums over h in order)."""
+    launch csrc/ffn_int8.cu on the current stream, two kernels (the
+    up-projection writes h in bf16, the down-projection sums over h in
+    order) of the body `ffn_int8_route(M)` names: at M <= 16 the rows body
+    planned by `ffn_int8_rows_plan`, the second a dependent launch; above,
+    the 64-row tiles. `launches` counts calls, `launches_by_route` the same
+    by route."""
     if x.device.type == "cpu":
         return ffn_int8_plain(x, q0, s0, b0, q1, s1)
-    b0f = b0.float().contiguous()
-    _check("ffn_int8", x, (q0, torch.int8), (s0, torch.float32), (b0f, torch.float32),
-           (q1, torch.int8), (s1, torch.float32))
     M, K = x.shape
+    route = ffn_int8_route(M)
+    # the rows body reads a bf16 or f32 bias as it is; the tiles body f32
+    bias = (b0 if route == "rows" and b0.dtype in (torch.bfloat16, torch.float32)
+            else b0.float()).contiguous()
+    _check("ffn_int8", x, (q0, torch.int8), (s0, torch.float32), (bias, bias.dtype),
+           (q1, torch.int8), (s1, torch.float32))
     FF = _check_shapes("ffn_int8", K, K, q0, s0)
     N1p = _check_shapes("ffn_int8", FF, FF, q1, s1)
-    if tuple(b0f.shape) != (FF,):
-        raise ValueError(f"ffn_int8: b0 {tuple(b0f.shape)} != ({FF},)")
+    if tuple(bias.shape) != (FF,):
+        raise ValueError(f"ffn_int8: b0 {tuple(bias.shape)} != ({FF},)")
     out = torch.empty(M, N1p, dtype=torch.float32, device=x.device)
     if M:
         xb = _bf16_rows(x)
         h = torch.empty(M, FF, dtype=torch.bfloat16, device=x.device)
-        _launch("ffn_int8", xb.data_ptr(), q0.data_ptr(), s0.data_ptr(),
-                b0f.data_ptr(), q1.data_ptr(), s1.data_ptr(), h.data_ptr(),
-                out.data_ptr(), M, K, FF, N1p)
+        if route == "rows":
+            plan = ffn_int8_rows_plan(M, K, FF, N1p)
+            _launch("ffn_int8", xb.data_ptr(), _ffn_tensor_maps(q0, s0, q1, s1, K, FF, N1p),
+                    bias.data_ptr(), int(bias.dtype == torch.bfloat16), h.data_ptr(),
+                    out.data_ptr(), M, K, FF, N1p, plan.up.splits, plan.down.splits,
+                    entry="owk_ffn_int8_rows")
+        else:
+            _launch("ffn_int8", xb.data_ptr(), q0.data_ptr(), s0.data_ptr(),
+                    bias.data_ptr(), q1.data_ptr(), s1.data_ptr(), h.data_ptr(),
+                    out.data_ptr(), M, K, FF, N1p)
         ffn_int8.launches += 1
+        ffn_int8.launches_by_route[route] += 1
     return out
 
 
@@ -501,6 +601,7 @@ qmm.launches = 0
 qmm.launches_by_route = {"rows": 0, "tiles": 0}
 qmm4.launches = 0
 ffn_int8.launches = 0
+ffn_int8.launches_by_route = {"rows": 0, "tiles": 0}
 
 
 # -- what the model calls --------------------------------------------------------

@@ -26,9 +26,9 @@ Python loop whose host side can outlast its kernels, so each timed call
 starts behind a spin on the card twice as long as the second warm call's
 host time: the CUDA events then span the kernels, not the host's launching
 them, as the JAX probe's one jitted scan does. The JAX probe sweeps TPU VMEM blocks;
-here T2 runs once for each output tile of `ops.gemm.TILES` (one today),
-and T1 once, at the tile its plan picks for each product
-(`ops.gemm.mm_bf16_plan`), which its row names on the card.
+here T1 and T2 run once each, at the tile their plans pick for each product
+(`ops.gemm.mm_bf16_plan`, `ops.gemm.w8a8_plan`), which their rows name on
+the card.
 On the CPU (`--device cpu`) every product takes its plain version and the
 times are the CPU's; no share of a peak is given.
 """
@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.encoder_int8 import quantize_w_cols
-from ..ops.gemm import TILES, mm_bf16, mm_bf16_plan, mm_s8
+from ..ops.gemm import mm_bf16, mm_bf16_plan, mm_s8, w8a8_plan
 
 M, K, F_ = 1536, 1280, 5120
 NITER = 32
@@ -163,11 +163,6 @@ def step_xla_s8(x, w1q, w1s, w2q, w2s):
 
 
 # ---- the port's kernels ----
-def _select(bm: int, bn: int) -> None:
-    if (bm, bn) not in TILES:
-        raise ValueError(f"tile {bm}x{bn}: T2 is built for {TILES} only")
-
-
 def make_step_pallas_bf16(w1: torch.Tensor, w2: torch.Tensor):
     """The chained step over T1, each product at its plan's tile."""
     def step(x):
@@ -176,21 +171,31 @@ def make_step_pallas_bf16(w1: torch.Tensor, w2: torch.Tensor):
     return step
 
 
+def _tiles(plan, m: int, k: int, f: int, device: torch.device) -> str:
+    """The tiles `plan` picks for x @ W1 and h @ W2 on the card."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return " / ".join(f"{bm}x{bn}" for bm, bn in (plan(m, n, sms).tile for n in (f, k)))
+
+
 def t1_name(m: int, k: int, f: int, device: torch.device) -> str:
     """T1's row: on the card with the tiles its plan picks for x @ W1 and
     h @ W2."""
     if device.type != "cuda":
         return "T1 bf16"
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = (mm_bf16_plan(m, n, sms).tile for n in (f, k))
-    return "T1 bf16 " + " / ".join(f"{bm}x{bn}" for bm, bn in tiles)
+    return "T1 bf16 " + _tiles(mm_bf16_plan, m, k, f, device)
 
 
-def make_step_pallas_s8(bm: int, bn: int, w1q, w1s, w2q, w2s):
-    """The chained step over T2 at the output tile (bm, bn). The int8
+def t2_name(m: int, k: int, f: int, device: torch.device) -> str:
+    """T2's row, named as T1's."""
+    if device.type != "cuda":
+        return "T2 W8A8 (incl act quant)"
+    return f"T2 W8A8 {_tiles(w8a8_plan, m, k, f, device)} (incl act quant)"
+
+
+def make_step_pallas_s8(w1q, w1s, w2q, w2s):
+    """The chained step over T2, each product at its plan's tile. The int8
     weights come in JAX's (K, N) layout and are transposed here, once,
     into the (N, K) planes T2 takes."""
-    _select(bm, bn)
     w1t, w2t = w1q.t().contiguous(), w2q.t().contiguous()
 
     def step(x):
@@ -225,8 +230,7 @@ def _shape(text: str) -> tuple[int, int, int]:
 
 
 def main(argv: list[str] | None = None) -> list[dict]:
-    """Run the four chains, print one row each (T2 once per tile), return
-    the rows."""
+    """Run the four chains, print one row each, return the rows."""
     ap = argparse.ArgumentParser(prog="python -m open_whisper_kit_tpu_torch.tools.bench_int8_mxu",
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -266,10 +270,8 @@ def main(argv: list[str] | None = None) -> list[dict]:
                    n_gop, int8_peak)]
     rows.append(report(t1_name(m, k, f, device), run(make_step_pallas_bf16(w1, w2)), n_gop,
                        bf16_peak))
-    for bm, bn in TILES:
-        rows.append(report(f"T2 W8A8 {bm}x{bn} (incl act quant)",
-                           run(make_step_pallas_s8(bm, bn, w1q, w1s, w2q, w2s)), n_gop,
-                           int8_peak))
+    rows.append(report(t2_name(m, k, f, device), run(make_step_pallas_s8(w1q, w1s, w2q, w2s)),
+                       n_gop, int8_peak))
     return rows
 
 

@@ -232,13 +232,8 @@ def test_qmm_rows_is_deterministic(cuda, M, N):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("name", ["mha_packed", "qmm", "mm_bf16"])
-def test_redesigned_kernels_run_wgmma(cuda, name):
-    """K1's, K3's tiles route's and T1's libraries hold Hopper warpgroup
-    products (HGMMA in the SASS) and no warp-level mma.sync (HMMA) outside
-    K1's f32 body, whose 3xTF32 products are mma.sync in TF32
-    (HMMA.1688.F32.TF32); K3's rows route (mma.sync) is a library of its
-    own."""
+def _sass(name):
+    """cuobjdump -sass of the kernel library `name` (skips without the tool)."""
     import shutil
     import subprocess
     from pathlib import Path
@@ -246,14 +241,25 @@ def test_redesigned_kernels_run_wgmma(cuda, name):
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
     if not Path(tool).exists():
         pytest.skip("cuobjdump not found")
-    sass = subprocess.run([tool, "-sass", str(_build.build(name))], capture_output=True,
+    return subprocess.run([tool, "-sass", str(_build.build(name))], capture_output=True,
                           text=True, check=True).stdout
-    assert "HGMMA" in sass
+
+
+@pytest.mark.parametrize("name", ["mha_packed", "qmm", "mm_bf16", "w8a8"])
+def test_redesigned_kernels_run_wgmma(cuda, name):
+    """K1's, K3's tiles route's, T1's and K6's (with T2's) libraries hold
+    Hopper warpgroup products (HGMMA in the SASS; the s8 GEMM of K6 and T2
+    IGMMA, the integer warpgroup product) and no warp-level mma.sync (HMMA,
+    IMMA) outside K1's f32 body, whose 3xTF32 products are mma.sync in TF32
+    (HMMA.1688.F32.TF32); K3's rows route (mma.sync) is a library of its
+    own."""
+    sass = _sass(name)
+    assert ("IGMMA" if name == "w8a8" else "HGMMA") in sass
     for body in sass.split("Function : ")[1:]:
         if "mha_packed_f32_kernel" in body.split("\n", 1)[0]:
             assert "HMMA.1688.F32.TF32" in body and "HGMMA" not in body
         else:
-            assert "HMMA" not in body
+            assert "HMMA" not in body and "IMMA" not in body
 
 
 @pytest.mark.parametrize("M", [1, 5])
@@ -267,20 +273,122 @@ def test_qmm4_kernel_matches_plain(cuda, M):
     _close(out, TQ.qmm4_plain(x, w.qs, w.scales))
 
 
-@pytest.mark.parametrize("M", [1, 5, 40])
-def test_ffn_int8_kernel_matches_plain(cuda, M):
-    """K5 at whisper-large widths (1280 -> 5120 -> 1280, W1 padded to
-    1536); 40 rows take the 64-row tile."""
-    w0 = _planes(cuda, 1280, 5120, seed=9, pad=False)
-    w1 = _planes(cuda, 5120, 1280, seed=10)
-    b0 = torch.randn(5120, generator=torch.Generator(device=cuda).manual_seed(11),
+@functools.cache
+def _ffn_planes(S):
+    """K5's planes at model width S (W0 S -> 4S unpadded, W1 4S -> S) and
+    its bias, made once per width."""
+    cuda = torch.device("cuda")
+    w0 = _planes(cuda, S, 4 * S, seed=9, pad=False)
+    w1 = _planes(cuda, 4 * S, S, seed=10)
+    b0 = torch.randn(4 * S, generator=torch.Generator(device=cuda).manual_seed(11),
                      device=cuda).to(torch.bfloat16) * 0.1
-    x = _x(cuda, M, 1280, seed=12)
-    before = TQ.ffn_int8.launches
-    out = TQ.ffn_int8(x, w0.qs, w0.scales, b0, w1.qs, w1.scales)
+    return w0.qs, w0.scales, b0, w1.qs, w1.scales
+
+
+@pytest.mark.parametrize("S", [1280, 384])
+@pytest.mark.parametrize("M", [1, 2, 5, 8, 16, 40])
+def test_ffn_int8_kernel_matches_plain(cuda, M, S):
+    """K5 at whisper-large widths (1280 -> 5120 -> 1280) and tiny's (384 ->
+    1536 -> 384) within 1e-3 of max|ref|; M <= 16 runs the rows body (two
+    launches, the second a dependent launch), 40 rows the 64-row tiles.
+    One call counted per call, on its route."""
+    w = _ffn_planes(S)
+    x = _x(cuda, M, S, seed=12 + M)
+    route = TQ.ffn_int8_route(M)
+    assert route == ("rows" if M <= 16 else "tiles")
+    before, on_route = TQ.ffn_int8.launches, TQ.ffn_int8.launches_by_route[route]
+    out = TQ.ffn_int8(x, *w)
     torch.cuda.synchronize()
     assert TQ.ffn_int8.launches == before + 1
-    _close(out, TQ.ffn_int8_plain(x, w0.qs, w0.scales, b0, w1.qs, w1.scales))
+    assert TQ.ffn_int8.launches_by_route[route] == on_route + 1
+    assert out.shape == (M, S)
+    _close(out, TQ.ffn_int8_plain(x, *w))
+
+
+@pytest.mark.parametrize("M", [1, 5, 16])
+def test_ffn_int8_back_to_back_calls(cuda, M):
+    """Two K5 calls queued back to back behind a 2 ms spin, with different
+    x, each output checked against its own plain version: the second
+    call's first launch must not overlap the first call's second (it
+    carries no dependent-launch attribute), and each dependent launch
+    must read its own h only after its wait. Ten calls in a row agree with
+    the same calls made one by one."""
+    w = _ffn_planes(1280)
+    xs = [_x(cuda, M, 1280, seed=100 + i) for i in range(10)]
+    refs = [TQ.ffn_int8(x, *w) for x in xs]
+    torch.cuda.synchronize()
+    for x, ref in zip(xs[:2], refs[:2]):
+        _close(ref, TQ.ffn_int8_plain(x, *w))
+    torch.cuda._sleep(2_000_000)
+    outs = [TQ.ffn_int8(x, *w) for x in xs]
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("M", [2, 5, 8, 16])
+def test_ffn_int8_rows_equal_one_row_calls(cuda, M):
+    """K5's plan at M <= 16 depends on K and N alone, so each of M rows run
+    together gives the bits of that row run alone (the verify rows of a
+    speculative pass against one-row steps)."""
+    w = _ffn_planes(1280)
+    x = _x(cuda, M, 1280, seed=200 + M)
+    together = TQ.ffn_int8(x, *w)
+    alone = torch.cat([TQ.ffn_int8(x[i:i + 1], *w) for i in range(M)])
+    torch.cuda.synchronize()
+    assert torch.equal(together, alone)
+
+
+def test_ffn_int8_library_has_tma_and_dependent_launch(cuda):
+    """K5's library holds TMA tile loads (UTMALDG), the dependent-launch
+    trigger (PREEXIT) and wait (ACQBULK) and mma.sync (HMMA) in its SASS."""
+    sass = _sass("ffn_int8")
+    for op in ("UTMALDG", "PREEXIT", "ACQBULK", "HMMA"):
+        assert op in sass, op
+
+
+# digests of K3's rows route (rows_digest) at each (M, N), as the tree before
+# qmm_rows.cuh took its epilogue, ring and launch-role template parameters
+# computed them on an NVIDIA H100 80GB HBM3 with ROWS_DIGESTS_TOOLKIT (K5
+# shares the header since then; K3 must keep every bit)
+ROWS_DIGESTS_TOOLKIT = ("2.11.0+cu128", "12.9")   # (torch, nvcc release)
+ROWS_DIGESTS = {
+    (1, 1280): "51c5f9bc0093038c",
+    (1, 3840): "a16ccdd34031128b",
+    (5, 3840): "6ba4e4af2a4258d6",
+    (8, 1280): "dddc4945f6bed355",
+    (16, 1280): "216146199bf1728c",
+    (1, 51866): "3dddb5dd3db5d6ef",
+}
+
+
+def rows_digest(cuda, M, N):
+    """One K3 rows-route call at (M, 1280 -> N) on fixed seeded inputs: the
+    digest of its output."""
+    import hashlib
+    w = _planes(cuda, 1280, N, seed=N + 1)
+    x = _x(cuda, M, 1280, seed=M + 2)
+    out = TQ.qmm(x, w.qs, w.scales)
+    torch.cuda.synchronize()
+    return hashlib.sha256(out.cpu().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+@pytest.mark.parametrize("M,N", [(1, 1280), (1, 3840), (5, 3840), (8, 1280), (16, 1280),
+                                 (1, 51866)])
+def test_qmm_rows_bits_unchanged_by_the_shared_header(cuda, M, N):
+    """K3's rows route gives the same bits as before the rows body took
+    K5's template parameters (ROWS_DIGESTS), with the toolkit that computed
+    them."""
+    import re
+    import subprocess
+    from open_whisper_kit_tpu_torch.ops import _build
+    out = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
+                         check=True).stdout
+    toolkit = (torch.__version__, re.search(r"release (\d+\.\d+)", out).group(1))
+    if toolkit != ROWS_DIGESTS_TOOLKIT:
+        pytest.skip(f"ROWS_DIGESTS were computed with torch and nvcc {ROWS_DIGESTS_TOOLKIT}, "
+                    f"this card has {toolkit}")
+    assert rows_digest(cuda, M, N) == ROWS_DIGESTS[(M, N)]
 
 
 def test_quant_wrappers_never_take_the_plain_version_on_cuda(cuda, monkeypatch):
@@ -966,16 +1074,27 @@ def test_decode_segment_beam_cuda_matches_cpu(cuda):
 
 @pytest.mark.parametrize("M,K,N,dtype", [
     (1536, 1280, 3840, torch.bfloat16), (300, 5120, 1280, torch.bfloat16),
-    (13, 32, 72, torch.float32), (40, 2176, 64, torch.bfloat16), (130, 1280, 1280, torch.float32)])
+    (13, 32, 72, torch.float32), (40, 2176, 64, torch.bfloat16), (130, 1280, 1280, torch.float32),
+    # the 8-window mlp0 and mlp1 (128 x 256 tiles), one window's o and mlp1
+    # (128 x 128), ragged M and K (K = 1000 is padded to 1008, 200 to 208)
+    (12288, 1280, 5120, torch.bfloat16), (12288, 5120, 1280, torch.bfloat16),
+    (1536, 1280, 1280, torch.bfloat16), (1536, 5120, 1280, torch.bfloat16),
+    (1500, 1000, 1280, torch.bfloat16), (777, 200, 3000, torch.float32)])
 def test_w8a8_kernel_matches_plain(cuda, M, K, N, dtype, monkeypatch):
-    """K6 against its plain version, bit for bit: turbo encoder shapes, the
-    padding case (13 x 72, K = 32), wide K, f32 input, rows past a tile
-    edge; an all-zero row gives zeros. One launch per call, never the
+    """K6 against its plain version, bit for bit: turbo encoder shapes at
+    one and eight windows (both planned tiles), the padding case (13 x 72,
+    K = 32), wide K, f32 input, ragged M and K, rows past a tile edge; an
+    all-zero row gives zeros, and a row of half-integers at scale 1 holds
+    the quantizer to round-half-to-even. One launch per call, never the
     plain version."""
     from open_whisper_kit_tpu_torch.ops import encoder_int8 as E8
+    from open_whisper_kit_tpu_torch.ops import gemm as G
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
     x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
     x[1] = 0
+    # a row whose scale is 1 (amax 127): its values round on the ties, to even
+    x[2] = 0
+    x[2, :8] = torch.tensor([127, .5, 1.5, 2.5, -.5, -1.5, -2.5, 126.5])
     w = torch.randn(K, N, generator=g, device=cuda) * K ** -0.5
     wq, ws = E8.quantize_w_cols(w)
     wq_t = wq.t().contiguous()
@@ -990,6 +1109,31 @@ def test_w8a8_kernel_matches_plain(cuda, M, K, N, dtype, monkeypatch):
     n_diff = int((got.float() != ref.float()).sum())
     assert n_diff == 0, f"{n_diff} of {got.numel()} values differ"
     assert not got[1].any()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if (M, K, N) in ((12288, 1280, 5120), (1536, 1280, 1280)):
+        assert G.w8a8_plan(M, N, sms).tile == ((128, 256) if M == 12288 else (128, 128))
+
+
+def test_w8a8_back_to_back_calls(cuda):
+    """Ten K6 calls with different x queued behind a 2 ms spin equal the
+    same calls made one by one: each GEMM (a dependent launch) reads its
+    own quantize launch's rows and scales, after its wait."""
+    from open_whisper_kit_tpu_torch.ops import encoder_int8 as E8
+    g = torch.Generator(device=cuda).manual_seed(5)
+    wq, ws = E8.quantize_w_cols(torch.randn(1280, 5120, generator=g, device=cuda) * 0.03)
+    wq_t = wq.t().contiguous()
+    xs = [torch.randn(1536, 1280, generator=g, device=cuda).to(torch.bfloat16)
+          for _ in range(10)]
+    refs = []
+    for x in xs:
+        refs.append(E8.w8a8_mm(x, wq_t, ws))
+        torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000)
+    outs = [E8.w8a8_mm(x, wq_t, ws) for x in xs]
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert torch.equal(out, ref)
+    assert torch.equal(refs[0], E8.w8a8_mm_plain(xs[0], wq_t, ws))
 
 
 @pytest.mark.parametrize("mode", ["none", "all", "int4"])
@@ -1327,12 +1471,15 @@ def test_mm_bf16_each_tile_matches_plain(cuda, M, K, N, tile):
     assert r["ok"], r
 
 
-@pytest.mark.parametrize("M,K,N", [(1536, 1280, 5120), (1536, 5120, 1280), (200, 72, 136)])
+@pytest.mark.parametrize("M,K,N", [(1536, 1280, 5120), (1536, 5120, 1280), (200, 72, 136),
+                                   (12288, 1280, 5120), (12288, 5120, 1280), (131, 1000, 260),
+                                   (2000, 96, 4096)])
 def test_mm_s8_kernel_matches_plain(cuda, M, K, N, monkeypatch):
-    """T2 (K6's GEMM alone) at the probe's two products (and a padded
-    shape) against its plain version, bit for bit; an all-zero row and an
-    all-zero weight column give zeros. One launch per call, never the
-    plain version."""
+    """T2 (K6's GEMM alone) at the probe's two products (x @ W1 at its plan's
+    128 x 256 tile, h @ W2 at 128 x 128), the 8-window encoder products,
+    ragged M, N and K (K = 72 and 1000 padded to 80 and 1008) against its
+    plain version, bit for bit; an all-zero row and an all-zero weight
+    column give zeros. One launch per call, never the plain version."""
     from open_whisper_kit_tpu_torch.ops import gemm as G
     from open_whisper_kit_tpu_torch.ops import encoder_int8 as E8
     from open_whisper_kit_tpu_torch.tools import bench_int8_mxu as P

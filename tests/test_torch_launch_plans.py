@@ -1,7 +1,9 @@
 """The launch plans of the port's redesigned Hopper kernels, on the CPU.
 
 K3's rows route (ops/quant_matmul.py::qmm_rows_plan, csrc/qmm_rows.cuh),
-T1 (ops/gemm.py::mm_bf16_plan, csrc/mm_bf16.cu) and K2's chain
+K5 on the same rows body (ffn_int8_rows_plan, csrc/ffn_int8.cu), T1
+(ops/gemm.py::mm_bf16_plan, csrc/mm_bf16.cu), K6 and T2 (gemm.w8a8_plan,
+csrc/w8a8.cu) and K2's chain
 (ops/decode_megakernel.py::mega_step_plan, csrc/mega_stream.cuh) size their
 launches in Python: how many splits of K, which K rows each takes, how much
 shared memory a block holds for x's rows and for the other splits' partial
@@ -146,6 +148,144 @@ def test_mm_bf16_plan_widens_only_where_pairs_fill_the_card(n_pairs, tile):
     plan = G.mm_bf16_plan(256, 256 * n_pairs, H100_SMS)
     assert plan.tile == tile
     assert plan.grid == H100_SMS
+
+
+# every model width the port loads (tiny/tiny.en 384 through large 1280)
+PRESET_WIDTHS = sorted({cfg.n_text_state for cfg in TM.PRESETS.values()})
+ROWS_M = [1, 2, 5, 8, 9, 16]
+
+
+def rows_max_smem(stages: int, gather: int) -> int:
+    """The most a rows-body block with a ring of `stages` may ask for
+    (csrc/qmm_rows.cuh's Layout::max_smem, what the kernel opts in to):
+    1024 bytes of alignment, the ring (a 4 KB value tile, 512 bytes of
+    scales, two 8-byte barriers a stage), the gather barrier, ROWS_X_SMEM +
+    256 of x's rows and `gather` bytes of gathered sums."""
+    return 1024 + stages * (32 * 128 + 128 * 4 + 16) + 16 + Q.ROWS_X_SMEM + 256 + gather
+
+
+@pytest.mark.parametrize("M", ROWS_M)
+@pytest.mark.parametrize("S", PRESET_WIDTHS)
+def test_ffn_int8_plan_fits_the_rows_body(S, M):
+    """K5's two launches at every preset width (S -> 4S -> S, W1 padded to
+    128 columns) and every row count of the rows body: splits of whole
+    scale blocks, at most the portable cluster of 8, x's rows of a split
+    within ROWS_X_SMEM, the gathered sums within FFN_GATHER, and what a
+    block asks for within its kernel's opt-in (rows_max_smem) and the
+    H100's 227 KB."""
+    plan = Q.ffn_int8_rows_plan(M, S, 4 * S, S)
+    for p, stages in ((plan.up, Q.FFN_UP_STAGES), (plan.down, Q.FFN_DOWN_STAGES)):
+        assert 1 <= p.splits <= Q.ROWS_MAX_SPLITS and p.splits <= p.K // 32
+        rows = p.split_rows()
+        assert rows[0][0] == 0 and rows[-1][1] == p.K
+        assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+        assert all(start % 32 == 0 and stop > start for start, stop in rows)
+        assert p.x_smem <= Q.ROWS_X_SMEM
+        assert p.gather_smem <= Q.FFN_GATHER
+        assert p.smem(stages) <= rows_max_smem(stages, Q.FFN_GATHER) <= 227 * 1024
+    assert plan.smem == (plan.up.smem(Q.FFN_UP_STAGES), plan.down.smem(Q.FFN_DOWN_STAGES))
+    assert (plan.up.Np, plan.down.K, plan.down.Np) == (4 * S, 4 * S, S)
+
+
+@pytest.mark.parametrize("M", ROWS_M)
+@pytest.mark.parametrize("S", PRESET_WIDTHS)
+def test_ffn_int8_plan_does_not_depend_on_m(S, M):
+    """K5's splits (and so the order of every f32 sum) are those of one row
+    at every M the rows body takes: a verify row is bit-equal to the same
+    row run alone."""
+    one = Q.ffn_int8_rows_plan(1, S, 4 * S, S)
+    plan = Q.ffn_int8_rows_plan(M, S, 4 * S, S)
+    assert (plan.up.splits, plan.down.splits) == (one.up.splits, one.down.splits)
+    assert plan.up.split_rows() == one.up.split_rows()
+    assert plan.down.split_rows() == one.down.split_rows()
+
+
+def test_ffn_int8_plan_at_whisper_large():
+    """At S = 1280 (large-v3, turbo) the first half runs 40 column tiles x
+    3 splits (13-14 stages each, all in its 14-stage ring), the second 10
+    x 8 (20 stages each, all in its 20-stage ring: the whole of W1 is asked
+    for before the dependent launch's wait); both fit one SM together."""
+    plan = Q.ffn_int8_rows_plan(1, 1280, 5120, 1280)
+    assert (plan.up.splits, plan.up.blocks, plan.down.splits, plan.down.blocks) == (3, 120, 8, 80)
+    steps = [(b - a) // 32 for a, b in plan.up.split_rows()]
+    assert max(steps) <= Q.FFN_UP_STAGES
+    assert {(b - a) // 32 for a, b in plan.down.split_rows()} == {Q.FFN_DOWN_STAGES}
+    assert sum(plan.smem) + 2 * 1024 <= 227 * 1024
+
+
+@pytest.mark.parametrize("M", [1, 16, 17, 40])
+def test_ffn_int8_route(M):
+    """M <= 16 rows take the rows body, whose plan refuses any other M."""
+    assert Q.ffn_int8_route(M) == ("rows" if M <= 16 else "tiles")
+    if M <= 16:
+        assert Q.ffn_int8_rows_plan(M, 1280, 5120, 1280).up.M == M
+    else:
+        with pytest.raises(ValueError, match="rows body"):
+            Q.ffn_int8_rows_plan(M, 1280, 5120, 1280)
+
+
+def test_rows_body_constants_are_the_kernels():
+    """The planner's ring depths and gather cap are csrc's: a plan that
+    passes here also launches."""
+    csrc = Path(Q.__file__).parents[1] / "csrc"
+    ffn = (csrc / "ffn_int8.cu").read_text()
+    rows = (csrc / "qmm_rows.cuh").read_text()
+    assert int(re.search(r"constexpr int kUpStages = (\d+);", ffn).group(1)) == Q.FFN_UP_STAGES
+    assert int(re.search(r"constexpr int kDownStages = (\d+);", ffn).group(1)) == \
+        Q.FFN_DOWN_STAGES
+    assert "constexpr uint32_t kFfnGatherCap = 7 * 16 * kBN * 4;" in rows
+    assert Q.FFN_GATHER == 7 * 16 * 128 * 4
+    assert re.search(r"launch_rows<4, kGatherCap, StoreF32Rows, kPdlNone>",
+                     (csrc / "qmm_rows.cu").read_text())
+
+
+# K6's four encoder linears (K, N) at model width S, and the row counts of
+# one 30 s window and a batched round of eight
+def _encoder_linears(S):
+    return {"qkv": (S, 3 * S), "o": (S, S), "mlp0": (S, 4 * S), "mlp1": (4 * S, S)}
+
+
+@pytest.mark.parametrize("M", [1536, 12288])
+@pytest.mark.parametrize("S", PRESET_WIDTHS)
+def test_w8a8_plan_covers_every_tile(S, M):
+    """K6's (and T2's) plan at every preset's encoder linears: a tile of
+    TILES, the wide one exactly where its pairs fill the card's 66
+    clusters, an even grid of at most one block per SM, rounds x clusters
+    covering every pair, and the share of SM-rounds that compute a tile."""
+    for K, N in _encoder_linears(S).values():
+        plan = G.w8a8_plan(M, N, H100_SMS)
+        assert plan.tile in G.TILES
+        wide_pairs = -(-M // 128 // 2) * -(-N // 256)
+        assert plan.tile == ((128, 256) if wide_pairs >= H100_SMS // 2 else (128, 128))
+        m_tiles, n_tiles = -(-M // plan.tile[0]), -(-N // plan.tile[1])
+        assert plan.pairs == -(-m_tiles // 2) * n_tiles
+        assert plan.grid % 2 == 0 and 2 <= plan.grid <= H100_SMS
+        assert plan.rounds * plan.grid // 2 >= plan.pairs
+        assert 0 < plan.fill <= 1
+
+
+@pytest.mark.parametrize("M,name,tile,grid,rounds", [
+    (1536, "qkv", (128, 256), 132, 2), (1536, "o", (128, 128), 120, 1),
+    (1536, "mlp0", (128, 256), 132, 2), (1536, "mlp1", (128, 128), 120, 1),
+    (12288, "qkv", (128, 256), 132, 11), (12288, "o", (128, 256), 132, 4),
+    (12288, "mlp0", (128, 256), 132, 15), (12288, "mlp1", (128, 256), 132, 4)])
+def test_w8a8_plan_at_turbo(M, name, tile, grid, rounds):
+    """The tiles and grids K6 runs at large-v3-turbo's encoder (w8a8.cu's
+    header): one window's o and mlp1 (N = 1280: 30 wide pairs) take 128 x
+    128, everything else 128 x 256; T2's probe products are one window's
+    mlp0 and mlp1."""
+    K, N = _encoder_linears(1280)[name]
+    plan = G.w8a8_plan(M, N, H100_SMS)
+    assert (plan.tile, plan.grid, plan.rounds) == (tile, grid, rounds)
+
+
+def test_w8a8_plan_is_t1s_rule():
+    """K6/T2 and T1 pick their tiles by the same rule from the same two
+    tiles (their plans differ only in the kernel they are for)."""
+    assert G.TILES == G.MM_BF16_TILES
+    for M in (1, 200, 1536, 12288):
+        for N in (8, 1280, 3840, 5120, 51866):
+            assert G.w8a8_plan(M, N, H100_SMS) == G.mm_bf16_plan(M, N, H100_SMS)
 
 
 # K2 (the whole decoder step) at large-v3-turbo and at the narrow S = 128
