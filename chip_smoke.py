@@ -21,10 +21,11 @@ Phases, each gated; any failure exits non-zero before the result lines:
      gives them (gate 1e-3 * max|ref|), with kernel, plain and library times
      (torch.matmul on the dequantized bf16 weight), each launch with a cold
      L2 cache, the bound and the kernel's share of it; at K3's rows-route
-     shapes (1 x 1280 -> 1280 and -> 3840, 5 x 1280 -> 3840, W8 logits) also
-     the kernel's and torch.matmul's device times queued behind a spin, with
-     the bound's share of the queued time, and two launches bit-equal (the
-     splits' ordered combine); K5 at 1, 5, 8 and 16 rows (the rows body)
+     shapes (1 x 1280 -> 1280 and -> 3840, 5 x 1280 -> 3840, W8 logits) and
+     K4's (the W4 logits at 1, 5 and 8 rows, on the rows body) also the
+     kernel's and torch.matmul's device times queued behind a spin, with
+     the bound's share of the queued time (K4 also the call and host_us),
+     and two launches bit-equal (the splits' ordered combine); K5 at 1, 5, 8 and 16 rows (the rows body)
      likewise queued, two launches bit-equal; K2 (the whole decoder
      step) at large-v3-turbo
      width (4 layers, 448 cache rows, 1500 audio positions, vocabulary
@@ -84,8 +85,9 @@ Phases, each gated; any failure exits non-zero before the result lines:
      the two transcripts compared;
   7. runtime W8 logits (decoder_int8=True; K3 once per decoder call) and W4
      logits (quantize_decoder_int8(logits_bits=4); K4 once per decoder call)
-     on the seed-0 turbo preset, one 30 s greedy request each, after the
-     same request on the dense logits projection and, on the same weights,
+     on the seed-0 turbo preset, one 30 s greedy request each (K4 by route,
+     then K4 on that plane at one row: queued, the call and host_us), after
+     the same request on the dense logits projection and, on the same weights,
      with megakernel=True (K2 dense) and megakernel="int4" (K2 int4); and
      beam_size=5 on the same weights with megakernel=False (decode_impl over
      5 beams) and megakernel="int4" (K7 int4);
@@ -94,11 +96,20 @@ Phases, each gated; any failure exits non-zero before the result lines:
      ids equal, at least 100 of them;
   9. a narrow bf16 q8_0 checkpoint with megakernel="int8" (K2 on the card,
      its plain version on the CPU), 35 s: token ids equal, at least 100;
+     then K2 alone from one encoder output (EncoderReplay: the card's
+     token loop starts from the CPU's encoder output and cross-KV), audio
+     seeds 3, 4 and 7: per stream the equal tokens and, where it parts
+     before 100, the step and the CPU's top-two gap there (a parting that
+     is not a near tie, within K7_ARGMAX_GAP of max|logit|, fails);
  10. beam search (beam_size=3, 40 s) on the card against the CPU: the
      narrow f32 config (decode_impl, the device beam loop's sort, dedupe and
      gathers on the card) with token ids equal, at least 100; and the
      narrow bf16 q8_0 checkpoint with megakernel="int8" (K7 on the card, its
      plain version on the CPU) on three 40 s requests, token ids equal;
+     then K7 alone from one encoder output, 90 s requests on audio seeds 3,
+     4 and 7, as phase 9's (the parting step: the first whose three best
+     ids differ on a beam's row, the gap the least between the CPU's four
+     best there);
  11. K6 (the W8A8 matmul) against its plain version, bit for bit, at the
      four encoder linears of large-v3-turbo for one window (M = 1536) and
      a round of eight (M = 12288) and a narrow padding shape; kernel,
@@ -134,7 +145,9 @@ Phases, each gated; any failure exits non-zero before the result lines:
      swapped places with K8 on K2's GEMVs, Q8_BATCH_SEEDS); then, for seeds 4
      and 5, the first-step logits of the card's prompt ingest from the
      CPU's encoder output, copied over, against the CPU's, beside the whole
-     card path's (ingest_split);
+     card path's (ingest_split); then K8 alone: the same batch with the
+     lockstep loop on the card from the CPU's encoder output and cross-KV,
+     per stream the equal tokens and where it parts, as phase 9's;
  16. speculative greedy decoding at full width: the q8_0 checkpoint
      (Transcriber(model_path=..., draft_model_path=...)) serves 30 s and
      65 s greedily with K2, then with a q4_0 draft of its own seed-0 tensors
@@ -155,8 +168,9 @@ Phases, each gated; any failure exits non-zero before the result lines:
      positions, bf16, gate 1e-2 of max|ref|): K9b for one row, five rows
      over one shared plane and eight streams, K9a for eight streams on
      1504-row slabs with ta_valid = 1500; and a narrow f32 shape (gate 1e-5);
-     kernel, plain and SDPA over the float cross-KV that int8 replaces
-     (CUDA events, cold L2, median of 20), and the byte bound;
+     kernel (one launch over clusters of key chunks: queued, the call and
+     host_us), plain and SDPA over the float cross-KV that int8 replaces
+     (CUDA events, cold L2, median of 20), the byte bound and its share;
  19. int8 cross-KV on the q8_0 checkpoint (cross_kv_int8=True,
      temperature_inc = 0): greedy 30 s and 65 s (the K-window loop), 30 s
      with device_windows=1, beam 5 on 30 s, each beside the same request
@@ -423,6 +437,8 @@ QUANT_SHAPES = [
     ("qmm", "decoder o/cq/co, 1 row", 1, 1280, 1280),
     ("qmm", "W8 logits, 1 row", 1, 1280, 51866),
     ("qmm4", "W4 logits, 1 row", 1, 1280, 51866),
+    ("qmm4", "W4 logits, 5 rows", 5, 1280, 51866),
+    ("qmm4", "W4 logits, 8 rows", 8, 1280, 51866),
     ("ffn_int8", "decoder MLP, 1 row", 1, 1280, 5120),
     ("ffn_int8", "decoder MLP, 5 rows", 5, 1280, 5120),
     ("ffn_int8", "decoder MLP, 8 rows", 8, 1280, 5120),
@@ -506,6 +522,24 @@ def phase_quant_kernels(torch, Q):
                   f"{100 * b_ms / kq_ms:.1f} % of the bound; kernel / matmul "
                   f"{kq_ms / lq_ms:.2f}; {plan.splits} splits, {plan.blocks} blocks; two "
                   "launches bit-equal", flush=True)
+            del again
+        elif name == "qmm4" and Q.qmm_route(M) == "rows":
+            again = kern(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"qmm4 rows body ({label}): two launches differ")
+            kq_ms = cuda_ms(torch, lambda: kern(*args), flush=l2_flush, queued=True)
+            lq_ms = cuda_ms(torch, lib_fn, flush=l2_flush, queued=True)
+            h_us = host_us(torch, lambda: kern(*args))
+            plan = Q.qmm4_rows_plan(M, K, args[1].shape[1])
+            row.update(ms=kq_ms, call_ms=k_ms, host_us=h_us, library_ms=lq_ms,
+                       library_ms_unqueued=l_ms, bound_share=b_ms / kq_ms,
+                       body="rows: qmm_rows.cuh with the int4 stage", splits=plan.splits,
+                       blocks=plan.blocks)
+            print(f"[3]   qmm4 on the rows body, queued (device time): kernel {kq_ms * 1e3:.1f} "
+                  f"us, the call {k_ms * 1e3:.1f} us, host {h_us:.1f} us, torch.matmul "
+                  f"{lq_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us, {100 * b_ms / kq_ms:.1f} % of "
+                  f"the bound; {plan.splits} split(s), {plan.blocks} blocks; two launches "
+                  "bit-equal", flush=True)
             del again
         elif name == "ffn_int8" and Q.ffn_int8_route(M) == "rows":
             again = kern(*args)
@@ -1701,6 +1735,18 @@ def phase_narrow_batched(torch, TF, TM, tok_mod, FullParams, mods, q8_path, toke
     check(ids["cuda"][held] == ids["cpu"][held]
           and n_tok >= 100, "narrow q8_0 batch with K8: cuda and cpu differ")
     ingest_split(torch, TF, TM, TB, mods, q8_path, pq, Q8_BATCH_SHOWN + Q8_BATCH_SEEDS)
+    # K8 alone: the card's lockstep loop from the CPU's encoder output
+    ctxs = {dev: TF.WhisperContext.from_file(q8_path, dtype=torch.bfloat16, device=dev)
+            for dev in ("cuda", "cpu")}
+    MK.mega_decode_step_batch.launches = 0
+    one_encoder_output(
+        torch, TM, TB.LR, "15", f"narrow bf16 q8_0 transcribe_batch of {len(files)} x 40 s "
+        f"(audio seeds {', '.join(map(str, seeds))}), megakernel='int8'",
+        lambda c: [[t.id for s in segs for t in s.tokens]
+                   for segs in TB.transcribe_chunks_with_timings(c, pq, files)[0]],
+        ctxs, per_row=True)
+    check(MK.mega_decode_step_batch.launches > 0, "narrow q8_0 batch from one encoder output: "
+          "K8 not launched")
 
 
 def ingest_split(torch, TF, TM, TB, mods, q8_path, p, seeds) -> None:
@@ -1746,6 +1792,155 @@ def ingest_split(torch, TF, TM, TB, mods, q8_path, p, seeds) -> None:
               flush=True)
         check(bool(torch.isfinite(whole).all() and torch.isfinite(from_cpu_enc).all()),
               f"ingest split, audio seed {seed}: non-finite logits")
+
+
+# the card against the CPU from one encoder output (phases 9, 10 and 15):
+# the audio seeds and request lengths of the bf16 q8_0 step-kernel checks,
+# and the equal tokens each stream is asked for
+ONE_ENC_SEEDS = (3, 4, 7)
+ONE_ENC_GREEDY_SECS = 35.0
+ONE_ENC_BEAM_SECS = 90.0
+ONE_ENC_TOKENS = 100
+
+
+class EncoderReplay:
+    """The CPU's encoder outputs on the card. `record()` keeps every
+    TM.encode_with_cross_kv result (enc_out, xk, xv) of the CPU run made
+    while it is installed; `replay(device)` returns them in the same order,
+    copied to the card, in place of the card's own encoder pass (the
+    request's mel window shapes must match), so the card's token loop starts
+    from the CPU's encoder output and cross-KV: its tokens then test the
+    step kernels alone. Every decode path (whisper_full's windows, the
+    K-window loop, the lockstep rounds) calls the encoder through that
+    module attribute."""
+
+    def __init__(self, TM):
+        self.TM, self.real, self.outs, self.served = TM, TM.encode_with_cross_kv, [], 0
+
+    def record(self):
+        def enc(cfg, e, d, mel):
+            out = self.real(cfg, e, d, mel)
+            self.outs.append((tuple(mel.shape), out))
+            return out
+        return self._installed(enc)
+
+    def replay(self, device):
+        def enc(cfg, e, d, mel):
+            check(self.served < len(self.outs), "encoder replay: the card asked for more "
+                  "encoder passes than the CPU made")
+            shape, out = self.outs[self.served]
+            check(tuple(mel.shape) == shape, f"encoder replay: window {tuple(mel.shape)} where "
+                  f"the CPU encoded {shape}")
+            self.served += 1
+            return tuple(t.to(device) for t in out)
+        return self._installed(enc)
+
+    def _installed(self, fn):
+        import contextlib
+
+        @contextlib.contextmanager
+        def ctx():
+            self.TM.encode_with_cross_kv = fn
+            try:
+                yield self
+            finally:
+                self.TM.encode_with_cross_kv = self.real
+        return ctx()
+
+
+class StepLogits:
+    """Every call of the logit rules while installed: the raw logits and the
+    filtered logits' `k` best values and ids of each row, kept on the
+    device until `rows()`."""
+
+    def __init__(self, torch, LR, k=2):
+        self.torch, self.LR, self.k, self.real, self.steps = torch, LR, k, LR.apply_rules, []
+
+    def __enter__(self):
+        def rules(rc, logits, *a, **kw):
+            out = self.real(rc, logits, *a, **kw)
+            top = self.torch.topk(out[0].float(), self.k)
+            self.steps.append((top.values, top.indices, logits.float()))
+            return out
+        self.LR.apply_rules = rules
+        return self
+
+    def __exit__(self, *exc):
+        self.LR.apply_rules = self.real
+
+    def rows(self):
+        return [tuple(t.cpu() for t in step) for step in self.steps]
+
+
+def first_parting(card, cpu, k=1, row=None):
+    """The first step whose best `k` ids differ on any row (or on `row`)
+    between two StepLogits records, masked candidates (-inf, whose order
+    topk leaves open) left out: (step, row, the CPU's smallest gap between
+    adjacent finite candidates among its best k + 1, max|logit| of the
+    CPU's row, max|logits card - cpu| of the row), or None."""
+    for step, ((gv, gi, graw), (cv, ci, craw)) in enumerate(zip(card, cpu)):
+        if gi.shape != ci.shape:
+            return step, None, None, None, None
+        gi = gi[:, :k].masked_fill(~gv[:, :k].isfinite(), -1)
+        ci = ci[:, :k].masked_fill(~cv[:, :k].isfinite(), -1)
+        differ = (gi != ci).any(1)
+        if row is not None:
+            differ = differ[row:row + 1] if row < differ.numel() else differ[:0]
+        differ = differ.nonzero() + (row or 0)
+        if differ.numel():
+            r = int(differ[0])
+            gaps = cv[r, :k] - cv[r, 1:k + 1]
+            gap = gaps[gaps.isfinite()].min().item() if gaps.isfinite().any() else 0.0
+            return (step, r, gap, craw[r].abs().max().item(),
+                    (graw[r] - craw[r]).abs().max().item())
+    return None
+
+
+def one_encoder_output(torch, TM, LR, tag, what, run, ctxs, k=1, per_row=False):
+    """`run(ctx)` (a list of token-id lists, one a stream) on the CPU context,
+    recording its encoder outputs and logits, then on the card context from
+    those outputs. Per stream prints the equal tokens (the common prefix) and,
+    where the streams part before ONE_ENC_TOKENS, the first step whose best
+    `k` ids differ (on the stream's own row of the logits with `per_row`, a
+    lockstep batch; else on any row: one stream's beams) and the CPU's gap
+    there. Fails where a stream parts before
+    ONE_ENC_TOKENS at a step whose CPU gap is wider than K7_ARGMAX_GAP of
+    max|logit| (not a near tie), or where the parting step is not found in
+    greedy decoding (k = 1). Returns [(equal tokens, total, parting)]."""
+    replay = EncoderReplay(TM)
+    with replay.record(), StepLogits(torch, LR, k + 1) as cpu_steps:
+        cpu = run(ctxs["cpu"])
+    with replay.replay(ctxs["cuda"].device), StepLogits(torch, LR, k + 1) as card_steps:
+        card = run(ctxs["cuda"])
+    check(replay.served == len(replay.outs) > 0,
+          f"{what}: the card used {replay.served} of {len(replay.outs)} encoder outputs")
+    card_rows, cpu_rows = card_steps.rows(), cpu_steps.rows()
+    out = []
+    for i, (a, c) in enumerate(zip(card, cpu)):
+        part = first_parting(card_rows, cpu_rows, k, i if per_row else None)
+        equal = next((j for j, (x, y) in enumerate(zip(a, c)) if x != y), min(len(a), len(c)))
+        same = a == c
+        line = (f"[{tag}] {what}, from the CPU's encoder output, stream {i}: tokens cuda "
+                f"{len(a)} cpu {len(c)}, equal {same}, equal tokens {equal}")
+        if not same and part is not None:
+            step, row, gap, big, diff = part
+            line += (f"; the first step whose best {k} differ: {step} (row {row}), the CPU's gap "
+                     f"there {gap:.3e} of max|logit| {big:.3e} ({gap / big:.2e}), max|logits "
+                     f"cuda - cpu| {diff:.3e}" if row is not None else
+                     f"; the steps part at {step} (different rows)")
+        print(line, flush=True)
+        if not same and equal < ONE_ENC_TOKENS:
+            if k == 1:
+                check(part is not None and part[1] is not None
+                      and part[2] <= K7_ARGMAX_GAP * part[3],
+                      f"{what}, stream {i}: parts from the CPU at token {equal}, not at a "
+                      "near tie of the CPU's logits")
+            elif part is not None and part[1] is not None:
+                check(part[2] <= K7_ARGMAX_GAP * part[3],
+                      f"{what}, stream {i}: parts from the CPU at token {equal}, not at a "
+                      "near tie of the CPU's candidates")
+        out.append((equal, len(c), part))
+    return out
 
 
 def witness_k7(torch, tr, FullParams, DB) -> None:
@@ -1988,8 +2183,10 @@ def phase_k9(torch, TM, XQ) -> dict:
         k_ms = cuda_ms(torch, lambda: fn(q, *planes, H, scale, *extra), flush=l2_flush,
                        queued=True)
         c_ms = cuda_ms(torch, lambda: fn(q, *planes, H, scale, *extra), flush=l2_flush)
+        h_us = host_us(torch, lambda: fn(q, *planes, H, scale, *extra))
         p_ms = cuda_ms(torch, lambda: plain(q, *planes, H, scale, *extra), flush=l2_flush,
                        queued=True)
+        plan = XQ.cross_q8_plan(B, H, planes[0].shape[-2] if not nat else qk.ta_valid, Bk < B)
         # the float path's attention over the same cross-KV: rows sharing a
         # plane fold into queries, as decode_impl folds them
         kh, vh = (x[0].view(Bk, K9_TA, H, 64).transpose(1, 2).contiguous() for x in (xk, xv))
@@ -2000,12 +2197,17 @@ def phase_k9(torch, TM, XQ) -> dict:
         b_ms, b_by = bound(2 * sum(live) + 2 * nbytes(q), 4 * B * H * K9_TA * 64,
                            "bf16" if dt == "bf16" else F32_FLOP_PER_S)
         rows[kernel].append({"shape": shape, "max_abs_err": err, "ms": k_ms, "call_ms": c_ms,
-                             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                             "library_ms": None, "float_kv_sdpa_ms": s_ms})
-        print(f"[18]   kernel {k_ms * 1e3:.1f} us (the call with its host side {c_ms * 1e3:.1f} "
-              f"us), plain {p_ms * 1e3:.1f} us, SDPA over the float cross-KV that int8 "
-              f"replaces {s_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}) (median of 20, "
-              "cold L2; device times queued behind a spin)", flush=True)
+                             "host_us": h_us, "plain_ms": p_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": None, "float_kv_sdpa_ms": s_ms,
+                             "chunks": plan.chunks, "chunk": plan.chunk, "rows": plan.rows,
+                             "blocks": plan.blocks})
+        print(f"[18]   kernel {k_ms * 1e3:.1f} us queued (the call with its host side "
+              f"{c_ms * 1e3:.1f} us, host {h_us:.1f} us), plain {p_ms * 1e3:.1f} us, SDPA over "
+              f"the float cross-KV that int8 replaces {s_ms * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}), {100 * b_ms / k_ms:.1f} % of the bound (median of "
+              f"20, cold L2; device times queued behind a spin); one launch: {plan.chunks} "
+              f"chunks of {plan.chunk} keys a cluster, {plan.rows} row(s) a block, "
+              f"{plan.blocks} blocks", flush=True)
         del xk, xv, qk, qv, planes, q, ref, got, kh, vh, qh
     del l2_flush
     torch.cuda.empty_cache()
@@ -2369,6 +2571,7 @@ def reset_counts(A, Q, MK, E8=None, XQ=None) -> None:
     MK.mega_decode_step_beam.launches = MK.mega_decode_step_batch.launches = 0
     Q.qmm.launches = Q.qmm4.launches = Q.ffn_int8.launches = 0
     Q.qmm.launches_by_route.update(rows=0, tiles=0)
+    Q.qmm4.launches_by_route.update(rows=0, tiles=0)
     if E8 is not None:
         E8.w8a8_mm.launches = 0
     if XQ is not None:
@@ -2748,6 +2951,27 @@ def main(profiling: bool = False) -> int:
                   and Q.ffn_int8.launches == 0, f"W{bits} logits: launch counts off")
             if bits == 4:
                 launches["qmm4"] = kern.launches
+                by_route = dict(Q.qmm4.launches_by_route)
+                # K4 on this plane as the request runs it: one row, queued
+                # (device time), the call and the host's time to issue it
+                te4 = dec["te_logits"]
+                x1 = x_ln.reshape(1, -1)
+                ref4 = Q.qmm4_plain(x1, te4.qs, te4.scales)
+                err4 = ((Q.qmm4(x1, te4.qs, te4.scales) - ref4).abs().max()
+                        / ref4.abs().max()).item()
+                flush7 = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+                run4 = lambda: Q.qmm4(x1, te4.qs, te4.scales)   # noqa: E731
+                q4_ms = cuda_ms(torch, run4, flush=flush7, queued=True)
+                c4_ms = cuda_ms(torch, run4, flush=flush7)
+                h4_us = host_us(torch, run4)
+                print(f"[7] W4: K4 launches by route {by_route} (the rows body at every "
+                      f"decoder call of at most {Q.QMM_ROWS_MAX} rows); K4 on this plane, one "
+                      f"row: {q4_ms * 1e3:.1f} us queued (device time), the call "
+                      f"{c4_ms * 1e3:.1f} us, host {h4_us:.1f} us (cold L2, median of 20); "
+                      f"max|err| / max|ref| {err4:.2e} against its plain version", flush=True)
+                check(by_route["rows"] > 0 and err4 <= 1e-3,
+                      "W4 logits: K4's rows body not launched, or off its plain version")
+                del flush7
         del tr, dec
         torch.cuda.empty_cache()
         done("7")
@@ -2807,6 +3031,17 @@ def main(profiling: bool = False) -> int:
               f"tokens {n_tok}, token ids cuda == cpu {ids['cuda'] == ids['cpu']}", flush=True)
         check(ids["cuda"] == ids["cpu"] and n_tok >= 100,
               "narrow bf16 q8_0 with K2: cuda and cpu differ, or too few tokens to tell")
+        # K2 alone: the card's token loop from the CPU's encoder output
+        ctxs = {dev: TF.WhisperContext.from_file(path, dtype=torch.bfloat16, device=dev)
+                for dev in ("cuda", "cpu")}
+        for seed in ONE_ENC_SEEDS:
+            reset_counts(A, Q, MK)
+            one_encoder_output(
+                torch, TM, mods.TB.LR, "9", f"narrow bf16 q8_0 greedy, megakernel='int8', "
+                f"{ONE_ENC_GREEDY_SECS:.0f} s, audio seed {seed}",
+                lambda c, seed=seed: [[t.id for s in TF.whisper_full(
+                    c, p9, audio(ONE_ENC_GREEDY_SECS, seed)).segments for t in s.tokens]], ctxs)
+            check(MK.mega_decode_step.launches > 0, "narrow q8_0 from one encoder output: no K2")
         done("9")
 
         # ---- 10. beam search, beam_size=3: cuda against cpu ----
@@ -2853,6 +3088,18 @@ def main(profiling: bool = False) -> int:
             n_equal += len(ids["cpu"])
         print(f"[10] narrow bf16 q8_0 beam: {n_equal} equal tokens over "
               f"{len(Q8_BEAM_SEEDS)} requests", flush=True)
+        # K7 alone: the card's beam loop from the CPU's encoder output, on
+        # requests long enough for ONE_ENC_TOKENS
+        for seed in ONE_ENC_SEEDS:
+            reset_counts(A, Q, MK)
+            one_encoder_output(
+                torch, TM, mods.TB.LR, "10", f"narrow bf16 q8_0 beam 3, megakernel='int8', "
+                f"{ONE_ENC_BEAM_SECS:.0f} s, audio seed {seed}",
+                lambda c, seed=seed: [[t.id for s in TF.whisper_full(
+                    c, pq, audio(ONE_ENC_BEAM_SECS, seed)).segments for t in s.tokens]], ctxs,
+                k=pq.beam_search.beam_size)
+            check(MK.mega_decode_step_beam.launches > 0,
+                  "narrow q8_0 beam from one encoder output: no K7")
         done("10")
 
         # ---- 14 and 20. batched serving at full width: the W8A8 encoder and

@@ -4,7 +4,7 @@ one or more source trees in turn.
 
     python3 greedy_rtf.py ROOT [ROOT ...] [--reps 3] [--model dense|q8_0]
                           [--request auto|no-megakernel|cross-kv-int8|speculative|
-                                     beam5|batch-k8-int8|batch-k8-dense ...]
+                                     beam5|w4-logits|batch-k8-int8|batch-k8-dense ...]
 
 Each ROOT is a directory holding `open_whisper_kit_tpu_torch/`: this
 checkout, or another commit unpacked with `git archive` into a git-ignored
@@ -25,7 +25,10 @@ only: speculative greedy with gamma 4 and a q4_0 draft of the same seed-0
 tensors, written beside the target, as chip_smoke.py's phase 16 draft (a);
 its token steps run K2 at one row and its verify passes K2 at five) or
 `beam5` (q8_0 only: beam search with beam_size 5, the rest as `auto`:
-every beam token step one K7 launch, int8 planes) or
+every beam token step one K7 launch, int8 planes) or `w4-logits` (dense
+model only: the runtime W4 logits plane, `quantize_decoder_int8(...,
+logits_bits=4)` as chip_smoke.py's phase 7 makes it, swapped in for the
+request: every decoder call one K4 launch, the rest dense) or
 `batch-k8-int8` / `batch-k8-dense` (dense model only: transcribe_batch of
 eight 30 s files, audio seeds 500-507, with the W8A8 encoder and
 megakernel="int8" / True, chip_smoke.py's phase-14 request: every
@@ -76,7 +79,7 @@ def write_checkpoints(paths: dict) -> None:
 
 REQUESTS = {"auto": {}, "no-megakernel": {"megakernel": False},
             "cross-kv-int8": {"cross_kv_int8": True}, "speculative": {"speculative": 4},
-            "beam5": {"beam_size": 5},
+            "beam5": {"beam_size": 5}, "w4-logits": {},
             "batch-k8-int8": {"megakernel": "int8"}, "batch-k8-dense": {"megakernel": True}}
 BATCH_FILES = 8           # 30 s files of a batched request, audio seeds 500 + b
 
@@ -106,10 +109,16 @@ def child(root: Path, reps: int, model_path: Path | None, requests: list[str],
         from open_whisper_kit_tpu_torch.decode import full as TF
         tr.ctx.set_draft(TF.WhisperContext.from_file(draft_path, dtype=torch.bfloat16,
                                                      device="cuda"))
+    dense_dec = tr.ctx.params["decoder"]
     for request in requests:
         if request.startswith("batch"):
             batch_request(root, tr, request, reps)
             continue
+        tr.ctx.params["decoder"] = dense_dec
+        if request == "w4-logits":
+            from open_whisper_kit_tpu_torch.models.whisper import model as TM
+            tr.ctx.params["decoder"] = TM.quantize_decoder_int8(
+                {k: v for k, v in dense_dec.items() if k != "te_logits"}, logits_bits=4)
         for rep in range(reps + 1):
             p = FullParams(print_progress=False)
             p.temperature_inc = 0
@@ -134,6 +143,7 @@ def child(root: Path, reps: int, model_path: Path | None, requests: list[str],
                               "spec_accepted": res.timings.n_spec_accepted,
                               "k7_launches": MK.mega_decode_step_beam.launches - k7,
                               "ms_per_token": 1e3 * wall / max(n, 1)}), flush=True)
+    tr.ctx.params["decoder"] = dense_dec
     # the request's first window alone: encoder + cross-KV, the device span
     # (CUDA events) beside the host's time to issue it; where the two are
     # equal the host paces the window
@@ -227,6 +237,8 @@ def main() -> int:
     for kind in ("speculative", "beam5"):
         if kind in requests and args.model != "q8_0":
             ap.error(f"--request {kind} needs --model q8_0")
+    if "w4-logits" in requests and args.model != "dense":
+        ap.error("--request w4-logits needs --model dense")
     if any(r.startswith("batch") for r in requests) and args.model != "dense":
         ap.error("--request batch-k8-* needs --model dense")
     smi = subprocess.run(

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time K2, K7, K8, K1's f32 body, K3's rows route, T1, K5, K6 and T2 of
-the PyTorch port on one GPU, for one or more source trees in turn.
+"""Time K2, K7, K8, K1's f32 body, K3's rows route, T1, K4, K5, K6, T2 and
+K9 of the PyTorch port on one GPU, for one or more source trees in turn.
 
-    python3 kernel_times.py ROOT [ROOT ...]
+    python3 kernel_times.py ROOT [ROOT ...] [--only k9,k4]
 
 Each ROOT is a directory holding `open_whisper_kit_tpu_torch/`: this
 checkout, or another commit unpacked with `git archive` into a git-ignored
@@ -59,8 +59,19 @@ line per case, every time the median of 20 launches in µs (CUDA events):
   plans one (`gemm.w8a8_plan`); the quantize launch's own bound (its
   bytes);
 - T2 (`ops.gemm.mm_s8`) at the probe's two products beside `_int_mm` +
-  scale ops, queued, cold L2, with the bound and its share.
-The card's name and power limit come first.
+  scale ops, queued, cold L2, with the bound and its share;
+- K4 (`ops.quant_matmul.qmm4`, the W4 logits 1280 -> 51866) at 1, 5 and 8
+  rows, cold L2: queued, the call, `host_us`, `torch.matmul` on the
+  dequantized bf16 weight queued, the bound (the bytes) and its share, and
+  the route (rows body or tiles) where the tree has one;
+- K9b and K9a (`ops.experiments.cross_attention_q8`, `_nat`) at
+  chip_smoke.py's phase-18 cases (K9_CASES: turbo bf16 at one row, five
+  rows over one shared plane, eight streams, K9a's eight streams on
+  1504-row slabs; narrow f32), cold L2: queued, the call, `host_us`, the
+  launches a call, SDPA over the float cross-KV queued, the bound and its
+  share, and the tree's key chunks where it plans them (`cross_q8_plan`).
+`--only` names the groups to time (rows, mm, k5, k6, k1, k2, k7, k8, k4,
+k9; default all). The card's name and power limit come first.
 """
 
 from __future__ import annotations
@@ -83,6 +94,8 @@ K8_HEAD = 258          # of a 448-row cache a stream (n_text_ctx)
 K7_BEAMS = (2, 5, 8)   # at K8_HEAD of a 448-row cache a beam
 K1_F32_SHAPES = [(1, 1536, 128), (1, 1536, 1280)]   # (B, T, S), 1500 live keys
 K5_ROWS = (1, 5, 40)
+K4_ROWS = (1, 5, 8)
+GROUPS = ("rows", "mm", "k5", "k6", "k1", "k2", "k7", "k8", "k4", "k9")
 K6_SHAPES = [(rows, label, k, n) for rows in (1536, 12288)
              for label, k, n in (("qkv", 1280, 3840), ("o", 1280, 1280), ("mlp0", 1280, 5120),
                                  ("mlp1", 5120, 1280))]
@@ -396,7 +409,75 @@ def k6_t2_times(torch, CS, root: Path) -> None:
     torch.cuda.empty_cache()
 
 
-def child(root: Path) -> None:
+def k4_times(torch, CS, root: Path) -> None:
+    from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
+    g = torch.Generator(device="cuda").manual_seed(11)
+    K, N = 1280, 51866
+    w = Q.quantize_linear4(torch.randn(K, N, generator=g, device="cuda") * K ** -0.5)
+    wd = Q.dequantize_dense(w, torch.bfloat16).contiguous()
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for M in K4_ROWS:
+        x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+        ref = Q.qmm4_plain(x, w.qs, w.scales)
+        err = ((Q.qmm4(x, w.qs, w.scales) - ref).abs().max() / ref.abs().max()).item()
+        run = lambda: Q.qmm4(x, w.qs, w.scales)   # noqa: E731
+        b_ms, b_by = CS.bound(CS.nbytes(x, w.qs[:, :N], w.scales[:, :N]) + M * N * 4,
+                              2 * M * K * N)
+        k_ms = CS.cuda_ms(torch, run, flush=flush, queued=True)
+        route = Q.qmm_route(M) if hasattr(Q, "qmm4_rows_plan") else "tiles"
+        emit(root=str(root), kernel="qmm4", M=M, K=K, N=N, rel_err=err, route=route,
+             us=1e3 * k_ms, us_call=1e3 * CS.cuda_ms(torch, run, flush=flush),
+             host_us=call_host_us(torch, run),
+             matmul_us=1e3 * CS.cuda_ms(torch, lambda: torch.matmul(x, wd), flush=flush,
+                                        queued=True),
+             bound_us=1e3 * b_ms, bound_by=b_by, bound_share=b_ms / k_ms)
+
+
+def k9_times(torch, CS, root: Path) -> None:
+    import torch.nn.functional as F
+    from open_whisper_kit_tpu_torch.models.whisper import model as TM
+    from open_whisper_kit_tpu_torch.ops import experiments as XQ
+    g = torch.Generator(device="cuda").manual_seed(19)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    Ta = CS.K9_TA
+    for kernel, dt, H, B, Bk in CS.K9_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        S, nat, scale = H * 64, kernel == "K9a", 64 ** -0.25
+        xk, xv = ((torch.randn(1, Bk, Ta, S, generator=g, device="cuda") * 0.5).to(dtype)
+                  for _ in range(2))
+        quant = TM.quantize_cross_kv_nat if nat else TM.quantize_cross_kv
+        qk, qv = quant(xk, H), quant(xv, H)
+        planes = (qk.qs[0], qk.scale[0], qv.qs[0], qv.scale[0])
+        extra = (qk.ta_valid,) if nat else ()
+        fn = XQ.cross_attention_q8_nat if nat else XQ.cross_attention_q8
+        plain = XQ.cross_attention_q8_nat_plain if nat else XQ.cross_attention_q8_plain
+        q = torch.randn(B, 1, S, generator=g, device="cuda").to(dtype)
+        run = lambda: fn(q, *planes, H, scale, *extra)   # noqa: E731
+        ref = plain(q, *planes, H, scale, *extra).float()
+        before = fn.launches
+        err = ((run().float() - ref).abs().max() / ref.abs().max()).item()
+        per_call = fn.launches - before
+        kh, vh = (x[0].view(Bk, Ta, H, 64).transpose(1, 2).contiguous() for x in (xk, xv))
+        qh = q.view(Bk, B // Bk, H, 64).transpose(1, 2).contiguous()
+        live = Bk * H * Ta * (64 + 4)
+        b_ms, b_by = CS.bound(2 * live + 2 * CS.nbytes(q), 4 * B * H * Ta * 64,
+                              "bf16" if dt == "bf16" else CS.F32_FLOP_PER_S)
+        k_ms = CS.cuda_ms(torch, run, flush=flush, queued=True)
+        plan = (XQ.cross_q8_plan(B, H, extra[0] if nat else Ta, Bk < B)
+                if hasattr(XQ, "cross_q8_plan") else None)
+        emit(root=str(root), kernel=kernel, dtype=dt, H=H, B=B, planes=Bk, rel_err=err,
+             us=1e3 * k_ms, us_call=1e3 * CS.cuda_ms(torch, run, flush=flush),
+             host_us=call_host_us(torch, run), launches_per_call=per_call,
+             sdpa_us=1e3 * CS.cuda_ms(
+                 torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
+                 flush=flush, queued=True),
+             bound_us=1e3 * b_ms, bound_by=b_by, bound_share=b_ms / k_ms,
+             chunks=plan.chunks if plan else None, chunk=plan.chunk if plan else None,
+             rows=plan.rows if plan else None)
+        del xk, xv, qk, qv, planes, kh, vh
+
+
+def child(root: Path, only: tuple[str, ...]) -> None:
     torch, CS = setup(root)
     from open_whisper_kit_tpu_torch.ops import gemm as G
     from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
@@ -405,7 +486,7 @@ def child(root: Path) -> None:
     def us(fn, queued=True):
         return 1e3 * CS.cuda_ms(torch, fn, flush=flush, queued=queued)
 
-    for M, K, N in ROWS_SHAPES:
+    for M, K, N in ROWS_SHAPES if "rows" in only else ():
         w, x, wd = plane(torch, Q, M, K, N, M + N)
         ref = Q.qmm_plain(x, w.qs, w.scales)
         err = ((Q.qmm(x, w.qs, w.scales) - ref).abs().max() / ref.abs().max()).item()
@@ -436,7 +517,7 @@ def child(root: Path) -> None:
                  blocks=splits * Np // 128, rel_err=err, us=us(run))
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    for M, K, N in MM_SHAPES:
+    for M, K, N in MM_SHAPES if "mm" in only else ():
         a = (torch.randn(M, K, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
         b = (torch.randn(K, N, generator=g, device="cuda") * K ** -0.5).to(torch.bfloat16)
         ok = G.mm_bf16_within(G.mm_bf16(a, b), G.mm_bf16_plain(a, b), a, b)["ok"]
@@ -448,26 +529,30 @@ def child(root: Path) -> None:
              cublas_us=us(lambda: torch.mm(a, b, out_dtype=torch.float32)))
     del flush
     torch.cuda.empty_cache()
-    k5_times(torch, CS, root)
-    k6_t2_times(torch, CS, root)
-    k1_f32_times(torch, CS, root)
-    k2_times(torch, CS, root)
-    k7_times(torch, CS, root)
-    k8_times(torch, CS, root)
+    for group, times in (("k5", k5_times), ("k6", k6_t2_times), ("k1", k1_f32_times),
+                         ("k2", k2_times), ("k7", k7_times), ("k8", k8_times),
+                         ("k4", k4_times), ("k9", k9_times)):
+        if group in only:
+            times(torch, CS, root)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="+", type=Path)
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated groups to time (default: all)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    only = tuple(args.only.split(","))
+    if not set(only) <= set(GROUPS):
+        ap.error(f"--only takes {', '.join(GROUPS)}")
     if args.child:
-        child(args.roots[0].resolve())
+        child(args.roots[0].resolve(), only)
         return 0
     print(smi(), flush=True)
     for root in args.roots:
-        subprocess.run([sys.executable, __file__, "--child", str(root)], check=True,
-                       timeout=900)
+        subprocess.run([sys.executable, __file__, "--child", str(root), "--only", args.only],
+                       check=True, timeout=900)
     return 0
 
 

@@ -1,21 +1,24 @@
-// The decode-row body of the int8 dequantize-matmul: y = bf16(x) @ bf16(q * s)
-// for M <= 16 rows of x. Kernel K3's "rows" route (entry in qmm_rows.cu) and
-// both halves of kernel K5 at M <= 16 (ffn_int8.cu) run it; K4 (int4
-// planes) still runs the older qmm_tile.cuh body. The stage is one 32-row
-// scale block of a 128-column tile, and only the TMA boxes and the
-// dequantizing step know the plane's format. Three things are template
-// parameters, so that each kernel has its own instantiation and K3's is the
-// one it always was: the ring's depth (K3: 4 stages), the epilogue that
-// stores the first split's sums (K3 and K5's second half: f32, StoreF32Rows;
-// K5's first half: bias + gelu_tanh rounded to bf16, BiasGeluBf16Rows), and
-// the launch's place in a programmatic-dependent-launch pair (kPdl: none for
-// K3; K5's first half signals its dependents at its start, its second half
-// issues its weight stages at once and waits for the first half only
-// before it reads x, which is h).
+// The decode-row body of the dequantize-matmul: y = bf16(x) @ bf16(q * s)
+// for M <= 16 rows of x. Kernel K3's "rows" route (entry in qmm_rows.cu),
+// both halves of kernel K5 at M <= 16 (ffn_int8.cu) and kernel K4 at M <= 16
+// (int4 planes, qmm4.cu) run it. The stage is one 32-row scale block of a
+// 128-column tile, and only the TMA boxes and the dequantizing step know
+// the plane's format. Four things are template parameters, so that each
+// kernel has its own instantiation and K3's is the one it always was: the
+// ring's depth (K3: 4 stages), the epilogue that stores the first split's
+// sums (K3, K4 and K5's second half: f32, StoreF32Rows; K5's first half:
+// bias + gelu_tanh rounded to bf16, BiasGeluBf16Rows), the launch's place
+// in a programmatic-dependent-launch pair (kPdl: none for K3 and K4; K5's
+// first half signals its dependents at its start, its second half issues
+// its weight stages at once and waits for the first half only before it
+// reads x, which is h), and the plane's bits (kBits: 8, or 4 for K4).
 //
-// Contract (the TPU kernel's _qmm_kernel): x (M, K) bf16; qs (K, Np) int8 and
-// scales (K/32, Np) f32; each weight is q * s in f32, rounded to bf16 once;
-// the products sum in f32; out (M, Np) f32. K % 32 == 0, Np % 128 == 0.
+// Contract (the TPU kernels' _qmm_kernel and _qmm4 kernel): x (M, K) bf16;
+// qs (K, Np) int8, or (K/2, Np) uint8 split-half nibbles (packed row p:
+// the low nibble is K row 2p, the high nibble 2p + 1, each value nibble -
+// 8), and scales (K/32, Np) f32; each weight is q * s in f32, rounded to
+// bf16 once; the products sum in f32; out (M, Np) f32. K % 32 == 0,
+// Np % 128 == 0.
 //
 // What bounds it: bytes, and at the decoder's small planes the latency of
 // one launch. At M <= 16 a weight byte feeds at most 32 FLOP, a tenth of the
@@ -36,11 +39,12 @@
 //    gain (kernel_times.py times the rows route over a range of splits). Split s takes the scale blocks [s * nkb / splits,
 //    (s + 1) * nkb / splits): whole 32-row blocks, one more or less a split.
 //  * One producer thread issues the TMA loads of a stage (the 32 x 128 int8
-//    tile, 128-byte swizzle, 4 KB; its 128 scales, 512 bytes) into a ring of
-//    kStages stages on full / empty mbarriers (K3: four, 18 KB in flight per
-//    block, four blocks per SM; K5's halves: 14 and 20, as deep as their
-//    splits at whisper-large). It issues the first stages right after
-//    initialising the barriers, before the block synchronises.
+//    tile, 128-byte swizzle, 4 KB, or the 16 x 128 tile of packed int4 rows,
+//    2 KB; its 128 scales, 512 bytes) into a ring of kStages stages on full /
+//    empty mbarriers (K3 and K4: four, 18 or 10 KB in flight per block, four
+//    blocks per SM; K5's halves: 14 and 20, as deep as their splits at
+//    whisper-large). It issues the first stages right after initialising
+//    the barriers, before the block synchronises.
 //  * x's rows of the split are loaded once per block into shared memory (8
 //    or 16 rows, rows >= M as zeros) by the four consumer warps while the
 //    first stages arrive.
@@ -54,7 +58,10 @@
 //    swizzle makes them conflict-free), releases the stage, then dequantizes
 //    in registers (q at the byte permute of q_at, times its scale in f32,
 //    rounded to bf16: the TPU kernel's rounding point) and runs eight
-//    products, one per byte j: product j's column g is column 8g + j.
+//    products, one per byte j: product j's column g is column 8g + j. An
+//    int4 lane reads two packed rows, 8 (w % 2) + q and that + 4, whose low
+//    and high nibbles are the same four K rows: each nibble + 120 as a byte
+//    gives q_at its nibble - 8 exactly.
 //  * The two warps of a column half add their sums in shared memory in a
 //    fixed order (the stage's rows 0-15 first). With one split the block
 //    stores its 128 columns. Otherwise every split but the first sends its
@@ -87,8 +94,14 @@ constexpr int kQK = 32;           // K rows a stage: one scale block
 constexpr int kConsumerWarps = 4;
 constexpr int kThreads = 32 * (1 + kConsumerWarps);   // warp 0 the producer
 constexpr int kMaxSplits = 8;                         // the portable cluster size
-constexpr uint32_t kQBytes = kQK * kBN;               // 4 KB of values a stage
 constexpr uint32_t kSBytes = kBN * 4;                 // 512 bytes of scales a stage
+
+// value rows of a stage in the plane (int8: 32; int4: 16 packed rows) and
+// their bytes (4 KB; 2 KB)
+template <int kBits>
+__host__ __device__ constexpr int q_rows() { return kQK * kBits / 8; }
+template <int kBits>
+__host__ __device__ constexpr uint32_t q_bytes() { return q_rows<kBits>() * kBN; }
 // caps of the plans: x's rows (ROWS_X_SMEM, plus 16 bytes of padding a row,
 // 16 rows) and the gathered partials (K3: ROWS_GATHER; K5: FFN_GATHER, the
 // sums of 7 other splits at 16 rows, so that its splits never depend on M)
@@ -101,8 +114,9 @@ constexpr uint32_t kFfnGatherCap = 7 * 16 * kBN * 4;
 // loop they hold the half sums), the scale rows, the ring's barriers, the
 // gather barrier, then x's rows and (first split only) the other splits'
 // partial sums.
-template <int kStages>
+template <int kStages, int kBits = 8>
 struct Layout {
+  static constexpr uint32_t kQBytes = q_bytes<kBits>();
   static constexpr uint32_t kQRing = 0;
   static constexpr uint32_t kSRing = kQRing + kStages * kQBytes;
   static constexpr uint32_t kBars = kSRing + kStages * kSBytes;
@@ -125,9 +139,10 @@ __host__ __device__ inline int x_bytes(int M, int K, int splits) {
   return (M <= 8 ? 8 : 16) * x_stride(K, splits) * 2;
 }
 
-template <int kStages>
+template <int kStages, int kBits = 8>
 __host__ __device__ inline int smem_bytes(int M, int K, int splits) {
-  return 1024 + Layout<kStages>::kXs + x_bytes(M, K, splits) + (splits - 1) * M * kBN * 4;
+  return 1024 + Layout<kStages, kBits>::kXs + x_bytes(M, K, splits) +
+         (splits - 1) * M * kBN * 4;
 }
 
 // the first split's store of four consecutive sums of one row (col a
@@ -196,11 +211,12 @@ __device__ __forceinline__ void add4(float (&acc)[8][4], int e, int u, float4 v)
   acc[j][c] += v.x, acc[j + 1][c] += v.y, acc[j + 2][c] += v.z, acc[j + 3][c] += v.w;
 }
 
-template <int kStages, class Epilogue, int kPdl>
+template <int kStages, class Epilogue, int kPdl, int kBits = 8>
 __global__ void __launch_bounds__(kThreads, 4)
 qmm_rows_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_s,
                 const __nv_bfloat16* __restrict__ x, const Epilogue ep, int M, int K, int splits) {
-  using L = Layout<kStages>;
+  using L = Layout<kStages, kBits>;
+  constexpr uint32_t kQBytes = L::kQBytes;
   constexpr uint32_t kQRing = L::kQRing, kSRing = L::kSRing, kXs = L::kXs;
   if constexpr (kPdl == kPdlPrimary) pdl_trigger();
   extern __shared__ uint8_t smem_raw[];
@@ -221,7 +237,7 @@ qmm_rows_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   auto issue = [&](int i) {
     mbar_expect_tx(ring.full(i), kQBytes + kSBytes);
     tma_load_2d(base + kQRing + (i % kStages) * kQBytes, &tm_q, ring.full(i), n0,
-                (kb0 + i) * kQK);
+                (kb0 + i) * q_rows<kBits>());
     tma_load_2d(base + kSRing + (i % kStages) * kSBytes, &tm_s, ring.full(i), n0, kb0 + i);
   };
   const int primed = n_steps < kStages ? n_steps : kStages;
@@ -279,11 +295,14 @@ qmm_rows_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   const int g = lane / 4, q = lane % 4;
   // warp cw takes rows 16 slice .. + 15 and columns 64 h .. + 63 of a stage
   const int slice = cw & 1, h = cw >> 1;
-  // the byte offsets of this lane's four 8-byte words in a swizzled value tile
-  uint32_t woff[4];
+  // the byte offsets of this lane's 8-byte words in a swizzled value tile:
+  // int8 four rows, int4 two packed rows
+  constexpr int kWords = kBits == 8 ? 4 : 2;
+  uint32_t woff[kWords];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = slice * 16 + 2 * q + (r & 1) + 8 * (r >> 1);
+  for (int r = 0; r < kWords; ++r) {
+    const int row = kBits == 8 ? slice * 16 + 2 * q + (r & 1) + 8 * (r >> 1)
+                               : slice * 8 + q + 4 * r;
     woff[r] = row * 128 + (((h * 4 + (g >> 1)) ^ (row & 7)) << 4) + (g & 1) * 8;
   }
   const uint32_t* const xw = reinterpret_cast<const uint32_t*>(xs);
@@ -301,9 +320,9 @@ qmm_rows_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     const uint8_t* qt = gbase + kQRing + (i % kStages) * kQBytes;
     const float* st =
         reinterpret_cast<const float*>(gbase + kSRing + (i % kStages) * kSBytes) + h * 64 + 8 * g;
-    uint2 w[4];
+    uint2 w[kWords];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) w[r] = *reinterpret_cast<const uint2*>(qt + woff[r]);
+    for (int r = 0; r < kWords; ++r) w[r] = *reinterpret_cast<const uint2*>(qt + woff[r]);
     float s[8];
     *reinterpret_cast<float4*>(&s[0]) = *reinterpret_cast<const float4*>(st);
     *reinterpret_cast<float4*>(&s[4]) = *reinterpret_cast<const float4*>(st + 4);
@@ -314,8 +333,21 @@ qmm_rows_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     const uint32_t a1 = rows16 ? xw[xb + xk] : 0u;
     const uint32_t a3 = rows16 ? xw[xb + xk + 4] : 0u;
     uint32_t v[2][4];   // [columns 0-3, 4-7][row], each byte + 128
+    if constexpr (kBits == 8) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) v[0][r] = w[r].x ^ 0x80808080u, v[1][r] = w[r].y ^ 0x80808080u;
+      for (int r = 0; r < 4; ++r) v[0][r] = w[r].x ^ 0x80808080u, v[1][r] = w[r].y ^ 0x80808080u;
+    } else {
+      // rows 2q, 2q + 1 from packed row 8 slice + q, rows 2q + 8, 2q + 9 from
+      // the one 4 below it: each nibble + 120 as a byte (nibble - 8 + 128)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t u = c ? w[r].y : w[r].x;
+          v[c][2 * r] = (u & 0x0F0F0F0Fu) + 0x78787878u;
+          v[c][2 * r + 1] = ((u >> 4) & 0x0F0F0F0Fu) + 0x78787878u;
+        }
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const uint32_t* vj = v[j >> 2];
@@ -388,14 +420,17 @@ qmm_rows_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   }
 }
 
-// host: the two tensor maps of one plane, qs (K, Np) int8 and scales
-// (K / 32, Np) f32, for the stage's boxes (128 columns by 32 rows, 128-byte
-// swizzle; 128 scales). Returns 0 or a cudaError_t.
-static int encode_rows_maps(const void* qs, const void* scales, int K, int Np, CUtensorMap* maps) {
-  if (K <= 0 || K % kQK || Np <= 0 || Np % kBN) return (int)cudaErrorInvalidValue;
-  const cuuint64_t q_dims[2] = {(cuuint64_t)Np, (cuuint64_t)K};
+// host: the two tensor maps of one plane, qs (K, Np) int8 or (K / 2, Np)
+// packed int4 and scales (K / 32, Np) f32, for the stage's boxes (128
+// columns by 32 rows, or 16 packed rows, 128-byte swizzle; 128 scales).
+// Returns 0 or a cudaError_t.
+static int encode_rows_maps(const void* qs, const void* scales, int K, int Np, CUtensorMap* maps,
+                            int bits = 8) {
+  if (K <= 0 || K % kQK || Np <= 0 || Np % kBN || (bits != 8 && bits != 4))
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t q_dims[2] = {(cuuint64_t)Np, (cuuint64_t)(K * bits / 8)};
   const cuuint64_t q_stride[1] = {(cuuint64_t)Np};
-  const cuuint32_t q_box[2] = {kBN, kQK};
+  const cuuint32_t q_box[2] = {kBN, (cuuint32_t)(kQK * bits / 8)};
   const cuuint64_t s_dims[2] = {(cuuint64_t)Np, (cuuint64_t)(K / kQK)};
   const cuuint64_t s_stride[1] = {(cuuint64_t)Np * 4};
   const cuuint32_t s_box[2] = {kBN, 1};
@@ -410,17 +445,17 @@ static int encode_rows_maps(const void* qs, const void* scales, int K, int Np, C
 // blocks per column tile, a kPdlSecondary launch with the
 // programmatic-dependent-launch attribute; a block's gathered partials may
 // take at most kGather bytes. Returns 0 or a cudaError_t.
-template <int kStages, uint32_t kGather, class Epilogue, int kPdl>
+template <int kStages, uint32_t kGather, class Epilogue, int kPdl, int kBits = 8>
 static int launch_rows(const CUtensorMap (&maps)[2], const void* x, const Epilogue& ep, int M,
                        int K, int Np, int splits, cudaStream_t stream,
                        unsigned long long& smem_allowed) {
   if (M < 1 || M > 16 || K <= 0 || K % kQK || Np <= 0 || Np % kBN || splits < 1 ||
       splits > kMaxSplits || splits > K / kQK)
     return (int)cudaErrorInvalidValue;
-  constexpr int kMax = Layout<kStages>::template max_smem<kGather>();
-  const int smem = smem_bytes<kStages>(M, K, splits);
+  constexpr int kMax = Layout<kStages, kBits>::template max_smem<kGather>();
+  const int smem = smem_bytes<kStages, kBits>(M, K, splits);
   if (smem > kMax) return (int)cudaErrorInvalidValue;
-  const int err = allow_smem(qmm_rows_kernel<kStages, Epilogue, kPdl>, kMax, smem_allowed);
+  const int err = allow_smem(qmm_rows_kernel<kStages, Epilogue, kPdl, kBits>, kMax, smem_allowed);
   if (err != 0) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(Np / kBN, splits);
@@ -443,7 +478,7 @@ static int launch_rows(const CUtensorMap (&maps)[2], const void* x, const Epilog
   }
   cfg.attrs = attrs;
   cfg.numAttrs = n;
-  const cudaError_t rc = cudaLaunchKernelEx(&cfg, qmm_rows_kernel<kStages, Epilogue, kPdl>,
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, qmm_rows_kernel<kStages, Epilogue, kPdl, kBits>,
                                             maps[0], maps[1],
                                             static_cast<const __nv_bfloat16*>(x), ep, M, K,
                                             splits);

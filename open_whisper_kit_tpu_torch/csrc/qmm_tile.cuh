@@ -1,6 +1,7 @@
-// The tiled dequantize-matmul of kernel K4 (qmm4.cu, every M) and of K5's
-// route above 16 rows (ffn_int8.cu's owk_ffn_int8: prompt ingest). K3 left
-// it for its own bodies (qmm.cu above 16 rows, qmm_rows.cuh below), and
+// The tiled dequantize-matmul of kernel K4 above 16 rows (qmm4.cu's
+// owk_qmm4: no decode path reaches it below gamma 16) and of K5's route
+// above 16 rows (ffn_int8.cu's owk_ffn_int8: prompt ingest). K3 left it for
+// its own bodies (qmm.cu above 16 rows, qmm_rows.cuh below), and K4's and
 // K5's decode rows run qmm_rows.cuh too.
 //
 // y[M, Np] = bf16(x)[M, K] @ bf16(dequant(planes))[K, Np], f32 accumulation.
@@ -14,12 +15,11 @@
 // to bf16) go to shared memory, then each warp runs bf16 wmma 16x16x16
 // (mma.sync) on its 32 columns for every 16-row slice of the tile. The next
 // step's global loads are issued into registers before this step's products,
-// so one step's load latency overlaps the previous step's math. MF = 1 serves
-// the skinny rows (M <= 16: K4's logits; the idle rows of the 16-row slice
-// are wasted tensor work, the weight stream is what bounds them), MF = 4
-// more rows (K5's ingest rows). Rows past M load as zero and are never
-// stored. An epilogue functor stores each output element: plain f32 (K4,
-// K5's second half) or bias + gelu_tanh rounded to bf16 (K5's first half).
+// so one step's load latency overlaps the previous step's math. The callers
+// launch it above 16 rows only, at MF = 4 (64-row tiles). Rows past M load
+// as zero and are never stored. An epilogue functor stores each output
+// element: plain f32 (K4, K5's second half) or bias + gelu_tanh rounded to
+// bf16 (K5's first half).
 //
 // Requires K % 32 == 0, Np % 128 == 0, 16-byte aligned x/scales rows and
 // 4-byte aligned value rows; the Python wrappers check.
@@ -229,18 +229,13 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, int M, int K, Planes w,
     }
 }
 
-// launch on `stream`; returns the cudaError_t of the launch
+// launch on `stream` (64-row tiles); returns the cudaError_t of the launch
 template <class Planes, class Epilogue>
 int launch(const void* x, int M, int K, int Np, Planes w, Epilogue ep,
            cudaStream_t stream) {
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  if (M <= 16) {
-    const dim3 grid(Np / kBN, 1);
-    qmm_kernel<1><<<grid, kThreads, 0, stream>>>(xb, M, K, w, ep);
-  } else {
-    const dim3 grid(Np / kBN, (M + 63) / 64);
-    qmm_kernel<4><<<grid, kThreads, 0, stream>>>(xb, M, K, w, ep);
-  }
+  const dim3 grid(Np / kBN, (M + 63) / 64);
+  qmm_kernel<4><<<grid, kThreads, 0, stream>>>(static_cast<const __nv_bfloat16*>(x), M, K, w,
+                                                ep);
   return (int)cudaGetLastError();
 }
 

@@ -32,6 +32,7 @@ every one-row int8 cross-attention of `decode_impl` to K9b on the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -39,8 +40,16 @@ import torch
 from . import _build
 
 HEAD_DIM = 64          # every whisper preset; the kernels take no other
-_TARGET_BLOCKS = 264   # two blocks per SM of the H100's 132
-_MAX_CHUNK = 512       # keys per block (the kernels' shared score row)
+# the kernel's launch plan (csrc/cross_q8.cu): one thread-block cluster of at
+# most K9_MAX_CLUSTER blocks (the portable cluster size) per (head, row
+# group), each block a chunk of the live keys, a multiple of 32 keys and at
+# most K9_MAX_CHUNK (its K and V rows in shared memory), and at most
+# K9_MAX_ROWS query rows of one shared plane
+K9_MAX_CLUSTER = 8
+K9_MAX_CHUNK = 256
+K9_MAX_ROWS = 8
+_K9_WARPS = 8          # the kernel's block: eight warps
+_K9_Q_LD = 80          # floats of a query row in shared memory (64 + padding)
 
 
 # -- plain versions ------------------------------------------------------------
@@ -93,21 +102,81 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("cross_q8")
     for fn in (lib.owk_cross_q8_bf16, lib.owk_cross_q8_f32):
-        # q, kq, ks, vq, vs, out, scores, stats, part;
-        # B, H, n_keys, chunk, key batch/head/row strides, scale batch/head
-        # strides; scale; stream
-        fn.argtypes = [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P]
+        # q, kq, ks, vq, vs, out; B, H, n_keys, chunk, rows, key batch/head/row
+        # strides, scale batch/head strides; scale; stream
+        fn.argtypes = [_P] * 6 + [_I] * 10 + [ctypes.c_float, _P]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _plan(n_streams: int, n_head: int, n_keys: int) -> tuple[int, int]:
-    """(key chunks, keys per chunk): enough blocks to fill the card, chunks
-    a multiple of 32 keys and at most _MAX_CHUNK."""
-    splits = -(-_TARGET_BLOCKS // (n_streams * n_head))
-    chunk = -(-n_keys // splits)
-    chunk = min(max(-(-chunk // 32) * 32, 32), _MAX_CHUNK)
-    return -(-n_keys // chunk), chunk
+@dataclasses.dataclass(frozen=True)
+class CrossQ8Plan:
+    """One K9 launch: a cluster of `chunks` blocks per (head, row group),
+    block c taking the live keys [c * chunk, min((c + 1) * chunk, n_keys));
+    a row group is `rows` query rows that read one plane (all B rows of a
+    shared batch-1 plane, up to K9_MAX_ROWS a group; one row where each row
+    has its own plane)."""
+    B: int
+    H: int
+    n_keys: int
+    shared: bool
+    chunks: int
+    chunk: int
+    rows: int
+
+    @property
+    def groups(self) -> int:
+        return -(-self.B // self.rows)
+
+    @property
+    def blocks(self) -> int:
+        return self.chunks * self.H * self.groups
+
+    def key_chunks(self) -> list[tuple[int, int]]:
+        """The live keys [start, stop) of each block, in chunk order."""
+        return [(c * self.chunk, min((c + 1) * self.chunk, self.n_keys))
+                for c in range(self.chunks)]
+
+    @property
+    def sums_in_k_rows(self) -> bool:
+        """Whether the warps' partial sums and the gathered ones fit where
+        the K rows were (csrc/cross_q8.cu's Layout reuses them there)."""
+        return ((_K9_WARPS + self.chunks - 1) * self.rows * HEAD_DIM * 4
+                <= self.chunk * HEAD_DIM)
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory a block asks for (csrc/cross_q8.cu's
+        Layout): K and V rows and scales of a chunk, the query rows, the
+        scores, every block's (max, sum) per row, each row's (M, L), the
+        gather barrier, and the eight warps' partial sums with the other
+        blocks' ones unless they fit in the K rows' place."""
+        rows, chunk = self.rows, self.chunk
+        base = (2 * chunk * HEAD_DIM + 2 * chunk * 4 + rows * _K9_Q_LD * 4 + rows * chunk * 4
+                + K9_MAX_CLUSTER * K9_MAX_ROWS * 8 + K9_MAX_ROWS * 8 + 16)
+        sums = (_K9_WARPS + self.chunks - 1) * rows * HEAD_DIM * 4
+        return base if self.sums_in_k_rows else base + sums
+
+
+@functools.cache
+def cross_q8_plan(B: int, H: int, n_keys: int, shared: bool) -> CrossQ8Plan:
+    """The plan of B query rows over H heads and n_keys live keys, on one
+    shared batch-1 plane or a plane a row: as many chunks as the cluster
+    takes (K9_MAX_CLUSTER, fewer where there are fewer 32-key blocks of
+    keys), each a multiple of 32 keys; rows of a shared plane in as few
+    groups of at most K9_MAX_ROWS as hold them, evenly."""
+    if n_keys < 1:
+        raise ValueError(f"cross_attention_q8: {n_keys} live keys")
+    chunks = min(K9_MAX_CLUSTER, -(-n_keys // 32))
+    chunk = -(-n_keys // (32 * chunks)) * 32   # ceil(n_keys / chunks), up to 32 keys
+    if chunk > K9_MAX_CHUNK:
+        raise ValueError(f"cross_attention_q8: {n_keys} live keys; the kernel takes at most "
+                         f"{K9_MAX_CLUSTER * K9_MAX_CHUNK}")
+    rows = 1
+    if shared and B > 1:
+        rows = -(-B // -(-B // K9_MAX_ROWS))
+    return CrossQ8Plan(B=B, H=H, n_keys=n_keys, shared=shared and B > 1,
+                       chunks=-(-n_keys // chunk), chunk=chunk, rows=rows)
 
 
 def _launch(name: str, q: torch.Tensor, kq, ks, vq, vs, n_head: int, scale: float,
@@ -142,20 +211,13 @@ def _launch(name: str, q: torch.Tensor, kq, ks, vq, vs, n_head: int, scale: floa
     sb, sh = scale_strides
     if shared:
         kb = sb = 0
-    n_chunks, chunk = _plan(B, n_head, n_keys)
-    # one f32 scratch buffer: scores (chunk each), then (max, sum), then the
-    # 64 partial sums of every (stream, head, chunk)
-    n = B * n_head * n_chunks
-    work = torch.empty(n * (chunk + 2 + HEAD_DIM), dtype=torch.float32, device=q.device)
-    scores = work.data_ptr()
-    stats = scores + 4 * n * chunk
-    part = stats + 4 * n * 2
+    plan = cross_q8_plan(B, n_head, n_keys, shared)
     out = torch.empty_like(q)
     lib = _kernel_lib()
     fn = lib.owk_cross_q8_bf16 if q.dtype == torch.bfloat16 else lib.owk_cross_q8_f32
     rc = fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-            out.data_ptr(), scores, stats, part, B, n_head, n_keys, chunk, kb, kh, kr, sb,
-            sh, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+            out.data_ptr(), B, n_head, n_keys, plan.chunk, plan.rows, kb, kh, kr, sb, sh,
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
     return out

@@ -16,7 +16,9 @@ Three kernels, each beside its plain torch version:
   csrc/qmm.cu above them;
 * K4 `qmm4` (csrc/qmm4.cu): the same over split-half int4 planes
   (low nibble = even K row, high nibble = odd), weights (nibble - 8) * s
-  rounded to bf16 as the TPU kernel rounds them;
+  rounded to bf16 as the TPU kernel rounds them; two bodies by the number
+  of rows (`qmm_route`): K3's rows body with its int4 stage for the decode
+  rows (planned by `qmm4_rows_plan`), qmm_tile.cuh's tiles above them;
 * K5 `ffn_int8` (csrc/ffn_int8.cu): gelu_tanh(x @ W0 + b0) rounded to bf16,
   then @ W1, the partial products summed in K order; two bodies by the
   number of rows (`ffn_int8_route`): the rows body of K3 twice, the second
@@ -267,7 +269,10 @@ _ENTRIES = {
     # x maps out, M K Np splits, stream; qs scales, K Np, maps
     "qmm_rows": {"owk_qmm_rows": [_P] * 3 + [_I] * 4 + [_P],
                  "owk_qmm_rows_maps": [_P] * 2 + [_I] * 2 + [_P]},
-    "qmm4": {"owk_qmm4": _X_PLANES_OUT},
+    # and x maps out, M K Np splits, stream; qs scales, K Np, maps
+    "qmm4": {"owk_qmm4": _X_PLANES_OUT,
+             "owk_qmm4_rows": [_P] * 3 + [_I] * 4 + [_P],
+             "owk_qmm4_rows_maps": [_P] * 2 + [_I] * 2 + [_P]},
     # x q0 s0 b0 q1 s1 h out, M K FF N1p, stream; x maps b0 b0_bf16 h out, M
     # K FF N1p splits_up splits_down, stream; q0 s0, K FF, q1 s1, N1p, maps
     "ffn_int8": {"owk_ffn_int8": [_P] * 8 + [_I] * 4 + [_P],
@@ -353,13 +358,15 @@ ROWS_GATHER = 24 << 10
 
 @dataclasses.dataclass(frozen=True)
 class RowsPlan:
-    """A rows-route launch: `tiles` column tiles of 128 (the grid's x) times
+    """A rows-body launch: `tiles` column tiles of 128 (the grid's x) times
     `splits` of K (its y, one cluster per tile); split s takes the 32-row
-    scale blocks [s * nkb // splits, (s + 1) * nkb // splits) of nkb = K / 32."""
+    scale blocks [s * nkb // splits, (s + 1) * nkb // splits) of nkb = K / 32.
+    `bits` is the plane's: 8, or 4 for K4."""
     M: int
     K: int
     Np: int
     splits: int
+    bits: int = 8
 
     @property
     def tiles(self) -> int:
@@ -390,11 +397,12 @@ class RowsPlan:
     def smem(self, stages: int) -> int:
         """Dynamic shared memory a block asks for with a ring of `stages`
         (csrc/qmm_rows.cuh's smem_bytes): 1024 bytes of alignment, the
-        ring, the gather barrier, x's rows padded by 16 bytes each, the
-        gathered sums."""
+        ring (a stage 32 rows of int8 values or 16 packed int4 rows of 128
+        bytes, 128 scales, two barriers), the gather barrier, x's rows
+        padded by 16 bytes each, the gathered sums."""
         x_rows = 8 if self.M <= 8 else 16
-        return (1024 + stages * (32 * _BN + _BN * 4 + 16) + 16 + self.x_smem + 16 * x_rows
-                + self.gather_smem)
+        stage = 32 * self.bits // 8 * _BN + _BN * 4 + 16
+        return (1024 + stages * stage + 16 + self.x_smem + 16 * x_rows + self.gather_smem)
 
 
 @functools.cache
@@ -412,6 +420,21 @@ def qmm_rows_plan(M: int, K: int, Np: int) -> RowsPlan:
     if plan.splits > min(nkb, ROWS_MAX_SPLITS) or plan.gather_smem > ROWS_GATHER:
         raise ValueError(f"qmm: no rows-route plan for M={M} K={K} Np={Np}")
     return plan
+
+
+# the ring depth of K3's and K4's rows bodies (csrc/qmm_rows.cu, qmm4.cu): a
+# deeper ring was no faster for K4's int4 stages, whose bytes are half
+ROWS_STAGES = 4
+
+
+@functools.cache
+def qmm4_rows_plan(M: int, K: int, Np: int) -> RowsPlan:
+    """K4's plan at M <= 16 rows over int4 planes (K/2, Np): K3's splits
+    (qmm_rows_plan: about ROWS_BLOCKS blocks, the W4 logits' 406 column
+    tiles one split) on the int4 stage."""
+    if not 1 <= M <= QMM_ROWS_MAX:
+        raise ValueError(f"qmm4: the rows body takes 1..{QMM_ROWS_MAX} rows, got {M}")
+    return dataclasses.replace(qmm_rows_plan(M, K, Np), bits=4)
 
 
 # K5's two halves on the rows body (csrc/ffn_int8.cu's kUpStages,
@@ -500,6 +523,13 @@ def _rows_tensor_maps(qs: torch.Tensor, scales: torch.Tensor, K: int, Np: int) -
             qs.data_ptr(), scales.data_ptr(), K, Np, addr))
 
 
+def _rows4_tensor_maps(qs: torch.Tensor, scales: torch.Tensor, K: int, Np: int) -> int:
+    return _cached_maps(
+        ("qmm4", qs.data_ptr(), scales.data_ptr(), K, Np, qs.device.index), 256,
+        lambda addr: _kernel_lib("qmm4").owk_qmm4_rows_maps(
+            qs.data_ptr(), scales.data_ptr(), K, Np, addr))
+
+
 def _ffn_tensor_maps(q0, s0, q1, s1, K: int, FF: int, N1p: int) -> int:
     """K5's four maps (W0's two, then W1's), kept per pair of planes."""
     return _cached_maps(
@@ -540,7 +570,10 @@ def qmm(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor
 
 def qmm4(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Kernel K4: x (M, K) @ split-half int4 planes (K/2, Np) -> (M, Np)
-    f32. CPU tensors take `qmm4_plain`; CUDA tensors launch csrc/qmm4.cu."""
+    f32. CPU tensors take `qmm4_plain`; CUDA tensors launch csrc/qmm4.cu's
+    body of the route `qmm_route(M)` names (rows: K3's rows body with the
+    int4 stage, planned by `qmm4_rows_plan`; tiles: qmm_tile.cuh).
+    `launches` counts launches, `launches_by_route` the same by route."""
     if x.device.type == "cpu":
         return qmm4_plain(x, qs, scales)
     _check("qmm4", x, (qs, torch.uint8), (scales, torch.float32))
@@ -549,9 +582,16 @@ def qmm4(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tenso
     out = torch.empty(M, Np, dtype=torch.float32, device=x.device)
     if M:
         xb = _bf16_rows(x)
-        _launch("qmm4", xb.data_ptr(), qs.data_ptr(), scales.data_ptr(),
-                out.data_ptr(), M, K, Np)
+        route = qmm_route(M)
+        if route == "rows":
+            plan = qmm4_rows_plan(M, K, Np)
+            _launch("qmm4", xb.data_ptr(), _rows4_tensor_maps(qs, scales, K, Np),
+                    out.data_ptr(), M, K, Np, plan.splits, entry="owk_qmm4_rows")
+        else:
+            _launch("qmm4", xb.data_ptr(), qs.data_ptr(), scales.data_ptr(),
+                    out.data_ptr(), M, K, Np)
         qmm4.launches += 1
+        qmm4.launches_by_route[route] += 1
     return out
 
 
@@ -600,6 +640,7 @@ def ffn_int8(x: torch.Tensor, q0: torch.Tensor, s0: torch.Tensor,
 qmm.launches = 0
 qmm.launches_by_route = {"rows": 0, "tiles": 0}
 qmm4.launches = 0
+qmm4.launches_by_route = {"rows": 0, "tiles": 0}
 ffn_int8.launches = 0
 ffn_int8.launches_by_route = {"rows": 0, "tiles": 0}
 

@@ -5,7 +5,9 @@ mode, `decode_impl` over QuantKV and QuantKVNat planes, and every decode
 path end to end (greedy one-window and K-window, beam, host-stepped,
 speculative, transcribe_batched, full_parallel) with the same token ids and
 segments. Audio seeds are ones whose port transcript stays the same when
-the input is scaled by 1 +- 2^-20."""
+the input is scaled by 1 +- 2^-20. The redesigned kernel's order of work
+(key chunks combined in chunk order) runs here in torch against JAX's
+kernels too."""
 
 import dataclasses
 import functools
@@ -133,6 +135,87 @@ def test_k9_plain_matches_jax_kernel(kernel, shared):
     assert tuple(got.shape) == (B, 1, H * dh) and got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), ref, atol=1e-2 * np.abs(ref).max())
     assert (TE.cross_attention_q8.launches, TE.cross_attention_q8_nat.launches) == before
+
+
+def _k9_chunk_order(q, kq, ks, vq, vs, n_head, scale, n_keys, shared):
+    """csrc/cross_q8.cu's arithmetic in its order, in torch, on head-major
+    planes (Bk, H, Ta, 64): the keys in the chunks of cross_q8_plan, each
+    chunk's max and sum of exp(s - max), the row's M the largest max and L
+    the chunks' sums rescaled to M and added in chunk order, p = exp(s - M)
+    / L, w = p * vs rounded to q's dtype, each chunk's w @ V in f32, the
+    chunks' partial sums added in chunk order and rounded to q's dtype."""
+    B, _, S = q.shape
+    plan = TE.cross_q8_plan(B, n_head, n_keys, shared)
+    kf = kq[:, :, :n_keys].float().expand(B, -1, -1, -1)
+    vf = vq[:, :, :n_keys].float().expand(B, -1, -1, -1)
+    qh = q.reshape(B, n_head, S // n_head).float()
+    s = torch.einsum("bhd,bhkd->bhk", qh, kf) * ks[:, :, :n_keys] * scale
+    stats = []
+    for a, b in plan.key_chunks():
+        m = s[..., a:b].amax(-1)
+        stats.append((m, torch.exp(s[..., a:b] - m[..., None]).sum(-1)))
+    big_m = torch.stack([m for m, _ in stats]).amax(0)
+    big_l = torch.zeros_like(big_m)
+    for m, l in stats:
+        big_l = big_l + l * torch.exp(m - big_m)
+    w = (torch.exp(s - big_m[..., None]) / big_l[..., None] * vs[:, :, :n_keys]).to(q.dtype)
+    out = torch.zeros_like(qh)
+    for a, b in plan.key_chunks():
+        out = out + torch.einsum("bhk,bhkd->bhd", w[..., a:b].float(), vf[:, :, a:b])
+    return out.to(q.dtype).reshape(B, 1, S)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("kernel", ["K9b", "K9a"])
+def test_k9_chunk_order_matches_jax_kernel(kernel, shared):
+    """The redesigned kernel's order of work (one cluster of key chunks: 4
+    chunks of 32 keys over Ta = 100, the last 4 keys; statistics and partial
+    sums combined in chunk order), run in torch in bf16, against JAX's
+    cross_attention_q8 / cross_attention_q8_nat (interpret mode, compiled
+    with _EXACT) at test_k9_plain_matches_jax_kernel's shapes and
+    tolerance: within 1e-2 of max|ref|; B = 3 rows over their own planes or
+    one shared batch-1 plane (one row group of three)."""
+    rng = np.random.default_rng(31 + shared)
+    B, H, Ta, dh = 3, 4, 100, 64
+    Bk = 1 if shared else B
+    x = jnp.asarray(_head_major_kv(rng, 2, Bk, H, Ta, dh, zero_row=False) * 0.3)
+    q = jnp.asarray(rng.standard_normal((B, 1, H * dh)), jnp.bfloat16)
+    rep = (lambda a: jnp.repeat(a, B, axis=0)) if shared else (lambda a: a)  # noqa: E731
+    plan = TE.cross_q8_plan(B, H, Ta, shared)
+    assert (plan.chunks, plan.chunk, plan.rows) == (4, 32, B if shared else 1)
+    if kernel == "K9b":
+        kv = M.quantize_cross_kv(x)
+        args = (kv.qs[0], kv.scale[0], kv.qs[1], kv.scale[1])
+        ref = _jax_kernel(JE.cross_attention_q8, (q, *map(rep, args)), n_head=H, scale=0.5)
+        planes = [_t(a) for a in args]
+    else:
+        kv = M.quantize_cross_kv_nat(x)
+        args = (kv.qs[0], kv.scale[0], kv.qs[1], kv.scale[1])
+        ref = _jax_kernel(JE.cross_attention_q8_nat, (q, *map(rep, args)), n_head=H,
+                          scale=0.5, ta_valid=Ta)
+        kq, ks = TE._nat_to_head_major(_t(args[0]), _t(args[1]), H, Ta)
+        vq, vs = TE._nat_to_head_major(_t(args[2]), _t(args[3]), H, Ta)
+        planes = [kq, ks, vq, vs]
+    got = _k9_chunk_order(_t(q), *planes, H, 0.5, Ta, shared)
+    assert tuple(got.shape) == (B, 1, H * dh) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=1e-2 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("Ta", [1500, 1350, 225])
+def test_k9_chunk_order_matches_plain_in_f32(Ta):
+    """In f32 the chunk order is the plain version's function up to f32 sum
+    order: within 1e-5 of max|ref| at large-v3-turbo's key counts (8 chunks
+    of 192, the last 156; the last 6 keys; 8 chunks of 32, the last 1), two
+    rows over a shared plane."""
+    g = torch.Generator().manual_seed(Ta)
+    H = 2
+    xk, xv = (torch.randn(1, 1, Ta, H * 64, generator=g) * 0.5 for _ in range(2))
+    k, v = TM.quantize_cross_kv(xk, H), TM.quantize_cross_kv(xv, H)
+    planes = (k.qs[0], k.scale[0], v.qs[0], v.scale[0])
+    q = torch.randn(2, 1, H * 64, generator=g)
+    ref = TE.cross_attention_q8_plain(q, *planes, H, 0.125)
+    got = _k9_chunk_order(q, *planes, H, 0.125, Ta, True)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
 
 
 def _decode_pair():

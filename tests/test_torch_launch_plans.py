@@ -9,9 +9,12 @@ launches in Python: how many splits of K, which K rows each takes, how much
 shared memory a block holds for x's rows and for the other splits' partial
 sums, T1's tile, its clusters and how many rounds of tile pairs the busiest
 one walks, K2's attention key chunks, and K8's (csrc/mega_batch.cu,
-mega_batch_plan) GEMVs, time blocks and cross chunks. The kernels themselves run only on the card (tests/test_torch_cuda.py);
-these are the numbers they are launched with, checked here at the shapes
-large-v3-turbo gives them.
+mega_batch_plan) GEMVs, time blocks and cross chunks, K4's rows body on
+int4 planes (quant_matmul.qmm4_rows_plan) and K9's clusters of key chunks
+(ops/experiments.py::cross_q8_plan, csrc/cross_q8.cu). The kernels
+themselves run only on the card (tests/test_torch_cuda.py); these are the
+numbers they are launched with, checked here at the shapes large-v3-turbo
+gives them.
 """
 
 import re
@@ -29,6 +32,7 @@ from open_whisper_kit_tpu_torch.decode import tokenizer as TOK
 from open_whisper_kit_tpu_torch.decode.params import FullParams
 from open_whisper_kit_tpu_torch.models.whisper import model as TM
 from open_whisper_kit_tpu_torch.ops import decode_megakernel as MK
+from open_whisper_kit_tpu_torch.ops import experiments as XQ
 from open_whisper_kit_tpu_torch.ops import gemm as G
 from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
 
@@ -696,3 +700,132 @@ def test_mha_f32_plan_fills_the_card_at_narrow_width():
     assert (plan.chunks, plan.chunk_keys, plan.blocks) == (4, 384, 192)
     assert plan.blocks >= H100_SMS
     assert A.mha_f32_plan(1, 1536, 1280, 1500, H100_SMS).chunks == 1
+
+
+# K4 on the rows body: the W4 logits plane (51866 columns padded to 128) at
+# the decode rows: one row, five beams, eight lockstep streams, sixteen
+# verify rows
+@pytest.mark.parametrize("M", [1, 5, 8, 16])
+def test_qmm4_rows_plan_at_the_w4_logits(M):
+    """K4's plan at the W4 logits: 406 column tiles of 128, one split (the
+    tiles alone fill the card), the int4 stage (16 packed rows, 2 KB, and
+    128 scales) on K3's 4-stage ring; what a block asks for fits the H100's
+    227 KB, and four blocks share a multiprocessor."""
+    Np = 51968
+    plan = Q.qmm4_rows_plan(M, 1280, Np)
+    assert (plan.M, plan.K, plan.Np, plan.bits) == (M, 1280, Np, 4)
+    assert plan.tiles == 406 and plan.splits == 1 and plan.blocks == 406
+    assert plan.split_rows() == [(0, 1280)]
+    stage = 16 * 128 + 128 * 4 + 16
+    x_rows = 8 if M <= 8 else 16
+    smem = plan.smem(Q.ROWS_STAGES)
+    assert smem == 1024 + Q.ROWS_STAGES * stage + 16 + plan.x_smem + 16 * x_rows
+    assert 4 * smem <= 227 * 1024
+    assert smem < Q.qmm_rows_plan(M, 1280, Np).smem(Q.ROWS_STAGES)
+
+
+@pytest.mark.parametrize("M", [1, 2, 5, 8, 9, 16])
+@pytest.mark.parametrize("K,Np", [(1280, 1280), (1280, 3840), (5120, 1280), (384, 51968)])
+def test_qmm4_rows_plan_is_k3s_splits_on_the_int4_stage(M, K, Np):
+    """K4 splits K as K3's rows route does at every shape (the same scale
+    blocks a split) and asks for less shared memory: half a stage's value
+    bytes, within 227 KB."""
+    k3, k4 = Q.qmm_rows_plan(M, K, Np), Q.qmm4_rows_plan(M, K, Np)
+    assert k4.splits == k3.splits and k4.split_rows() == k3.split_rows()
+    assert k4.smem(Q.ROWS_STAGES) == k3.smem(Q.ROWS_STAGES) - Q.ROWS_STAGES * 16 * 128
+    assert k4.smem(Q.ROWS_STAGES) <= 227 * 1024
+
+
+@pytest.mark.parametrize("M", [0, 17, 40])
+def test_qmm4_rows_plan_takes_the_decode_rows_only(M):
+    """Past 16 rows K4 takes qmm_tile.cuh's tiles (qmm_route), and the rows
+    plan refuses."""
+    with pytest.raises(ValueError, match="rows body"):
+        Q.qmm4_rows_plan(M, 1280, 51968)
+
+
+def test_qmm4_rows_body_constants_are_the_kernels():
+    """K4's entry runs the rows body at the planner's ring depth with the
+    int4 stage."""
+    csrc = Path(Q.__file__).parents[1] / "csrc"
+    assert re.search(rf"launch_rows<{Q.ROWS_STAGES}, kGatherCap, StoreF32Rows, kPdlNone, 4>",
+                     (csrc / "qmm4.cu").read_text())
+    assert re.search(rf"launch_rows<{Q.ROWS_STAGES}, kGatherCap, StoreF32Rows, kPdlNone>",
+                     (csrc / "qmm_rows.cu").read_text())
+
+
+# K9's launches on the decode path: (B query rows, heads, live keys, shared
+# batch-1 plane): greedy one row, beam 5 over one plane, eight lockstep
+# streams, K9a's 1500 live keys of 1504-row slabs, at large-v3-turbo and
+# the narrow models
+K9_PLANS = [(B, H, n, shared) for H in (20, 2) for n in (1500, 1504)
+            for B, shared in ((1, False), (5, True), (8, True), (8, False))]
+
+
+@pytest.mark.parametrize("B,H,n_keys,shared", K9_PLANS)
+def test_cross_q8_plan_clusters_the_live_keys(B, H, n_keys, shared):
+    """At most 8 chunks (the portable cluster), each a multiple of 32 keys
+    and at most 256, covering exactly the live keys in order with none
+    empty; rows of a shared plane in one block (eight rows at most), a
+    plane a row otherwise; what a block asks for fits the H100's 227 KB."""
+    plan = XQ.cross_q8_plan(B, H, n_keys, shared)
+    assert 1 <= plan.chunks <= XQ.K9_MAX_CLUSTER == 8
+    assert plan.chunk % 32 == 0 and plan.chunk <= XQ.K9_MAX_CHUNK
+    chunks = plan.key_chunks()
+    assert len(chunks) == plan.chunks and chunks[0][0] == 0 and chunks[-1][1] == n_keys
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(stop > start for start, stop in chunks)
+    assert (plan.rows, plan.groups) == ((B, 1) if shared and B > 1 else (1, B))
+    assert plan.blocks == plan.chunks * H * plan.groups
+    assert plan.smem <= 227 * 1024
+
+
+def test_cross_q8_plan_at_turbo():
+    """large-v3-turbo's 1500 audio positions: 8 chunks of 192 keys, the last
+    156; 160 blocks at one row (at least the H100's 132 multiprocessors),
+    160 for five beams over one plane (one block scores the five rows
+    against each key it loads), 1280 for eight streams."""
+    one = XQ.cross_q8_plan(1, 20, 1500, False)
+    assert (one.chunks, one.chunk, one.key_chunks()[-1]) == (8, 192, (1344, 1500))
+    assert one.blocks == 160 >= H100_SMS
+    beams = XQ.cross_q8_plan(5, 20, 1500, True)
+    assert (beams.rows, beams.groups, beams.blocks) == (5, 1, 160)
+    assert XQ.cross_q8_plan(8, 20, 1500, False).blocks == 1280
+    assert XQ.cross_q8_plan(1, 20, 1504, False).key_chunks()[-1] == (1344, 1504)
+
+
+@pytest.mark.parametrize("n_keys,chunks,chunk,last", [
+    (225, 8, 32, 1), (1350, 8, 192, 6), (100, 4, 32, 4), (33, 2, 32, 1), (32, 1, 32, 32),
+    (1, 1, 32, 1), (2048, 8, 256, 256)])
+def test_cross_q8_plan_short_last_chunks(n_keys, chunks, chunk, last):
+    """Key counts whose last chunk holds fewer than 32 live keys, or one:
+    the kernel reads only the live ones."""
+    plan = XQ.cross_q8_plan(1, 20, n_keys, False)
+    assert (plan.chunks, plan.chunk) == (chunks, chunk)
+    start, stop = plan.key_chunks()[-1]
+    assert stop - start == last
+
+
+@pytest.mark.parametrize("B,rows,groups", [(2, 2, 1), (8, 8, 1), (9, 5, 2), (12, 6, 2),
+                                           (17, 6, 3)])
+def test_cross_q8_plan_row_groups_of_a_shared_plane(B, rows, groups):
+    """More rows than a block takes over one shared plane: as few groups of
+    at most 8 rows as hold them, evenly."""
+    plan = XQ.cross_q8_plan(B, 20, 1500, True)
+    assert (plan.rows, plan.groups) == (rows, groups)
+    assert plan.rows <= XQ.K9_MAX_ROWS and (plan.groups - 1) * plan.rows < B
+
+
+def test_cross_q8_plan_rejects_what_no_cluster_holds():
+    XQ.cross_q8_plan(1, 20, 2048, False)
+    with pytest.raises(ValueError, match="at most 2048"):
+        XQ.cross_q8_plan(1, 20, 2049, False)
+
+
+def test_cross_q8_plan_constants_are_the_kernels():
+    """The planner's limits and shared-memory layout are csrc/cross_q8.cu's."""
+    src = (Path(XQ.__file__).parents[1] / "csrc" / "cross_q8.cu").read_text()
+    for name, value in (("kMaxChunk", XQ.K9_MAX_CHUNK), ("kMaxCluster", XQ.K9_MAX_CLUSTER),
+                        ("kMaxRows", XQ.K9_MAX_ROWS), ("kThreads", 32 * XQ._K9_WARPS),
+                        ("kQLd", XQ._K9_Q_LD)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value, name
