@@ -201,8 +201,25 @@ Phases, each gated; any failure exits non-zero before the result lines:
      (open_whisper_kit_tpu_torch.tools.bench_int8_mxu.main) at full shape,
      the path of T1 and T2, with exact launch counts (two per chained
      iteration per chain call).
+ 24. the whisper_full options at full width on phase 6's q8_0 checkpoint
+     (temperature_inc = 0): a 30 s request with a GBNF grammar whose token
+     automaton runs in the on-device loop with K2 (every window given the
+     automaton, K2 once per token step, the host reads of a grammar-free
+     window), each text token accepted by a host Grammar replay; a 30 s
+     request with token-level and DTW timestamps: t_dtw monotone, each DTW
+     re-decode (decode_impl over the window's T tokens) 16 K3 launches (on
+     the tiles when T > 16) and 4 K5, timed, and its alignment heads'
+     probabilities within 1e-2 of max of the CPU's from the same tokens and
+     cross-KV; a random-weight Silero file (io/silero_writer.py): 30 s of
+     VAD timed on the card, its probabilities within 1e-5 of the CPU's, and
+     whisper_full(vad=True) on speech spans between silences;
+ 25. narrow f32 (3 decoder layers) on the card against the CPU, each option:
+     a grammar in the device loop and host-stepped, ref_sampling greedy at
+     t = 0.4 and beam 3 (mt19937 draws), the abort callback at step 25, the
+     logits filter, token and DTW timestamps, VAD: the same token ids and
+     t0 / t1 / t_dtw.
 Phases 11-13, 18 and 23 run right after phase 3, with the other kernel
-checks; 19 and 21 right after 6, on its checkpoint.
+checks; 19, 21 and 24 right after 6, on its checkpoint.
 Every phase prints ms per sampled token beside its RTF. The last three lines are the kernels JSON, the nvidia-smi name/power line
 and {"ok": true, "device": {...}}. Imports nothing of JAX.
 
@@ -2370,6 +2387,296 @@ def phase_narrow_cross_int8(torch, TF, TM, tok_mod, FullParams, mods, tokens) ->
               "few tokens, or K9b not launched on the card")
 
 
+# the whisper_full options (phases 24 and 25): a grammar whose token
+# automaton fits the DFA budget (the synthetic vocabulary's "<i>" tokens)
+OPT_GRAMMAR = 'root ::= "<14444>" | "<2>" | "<777>" "<8>"'
+# one that lets a window run long after its first token (2 states, 50258
+# transitions): the ms per sampled token of a grammar window
+OPT_GRAMMAR_OPEN = 'root ::= "<2>" [<>0-9]*'
+OPT_DTW_ROWS = 64         # the extra re-decode at a window's worth of tokens (K3's tiles)
+OPT_REPLAYED = 8          # text tokens the host Grammar replays at most
+OPT_DTW_TOL = 1e-2        # alignment-head probabilities, card against CPU, of max|cpu|
+OPT_VAD_TOL = 1e-5        # Silero probabilities, card against CPU, absolute
+OPT_SPANS = ((1, 9), (12, 16), (19, 29))   # noise (0.3 rms) in 30 s of silence
+
+
+def speech_audio(seconds: float, spans, seed: int = 1):
+    """Silence with seeded noise (0.3 rms) over `spans` of (start, end) s: the
+    random Silero file calls the noise speech and the silence not."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = np.zeros(int(16000 * seconds), np.float32)
+    for lo, hi in spans:
+        a, b = int(lo * 16000), int(hi * 16000)
+        x[a:b] = rng.standard_normal(b - a) * 0.3
+    return x
+
+
+def phase_options(torch, tr, TF, FullParams, mods, tmp) -> None:
+    """The whisper_full options at full width on the q8_0 turbo checkpoint
+    (temperature_inc = 0): a 30 s grammar request whose windows run the
+    on-device loop with the grammar's token automaton and K2 (one launch per
+    token step, the host read as often as without a grammar), every text
+    token accepted by a host Grammar replay; a 30 s request with token-level
+    and DTW timestamps, its DTW re-decode (decode_impl over the window's
+    tokens, 16 K3 and 4 K5 launches) timed, t_dtw monotone, and the
+    alignment heads' probabilities within OPT_DTW_TOL of the CPU's from the
+    same tokens and cross-KV; a random-weight Silero file: its
+    probabilities on the card within OPT_VAD_TOL of the CPU's, the time of
+    30 s of VAD, and whisper_full(vad=True)."""
+    import numpy as np
+    from open_whisper_kit_tpu_torch.decode import grammar as G
+    from open_whisper_kit_tpu_torch.io import silero_writer as SW
+    from open_whisper_kit_tpu_torch.models.silero import vad as SV
+    from open_whisper_kit_tpu_torch.timestamps import dtw as DTW
+    A, Q, MK, TM, DL, DB = mods.A, mods.Q, mods.MK, mods.TM, mods.DL, mods.DB
+    ctx = tr.ctx
+    vocab = ctx.vocab
+
+    # ---- a grammar in the on-device loop, K2 ----
+    p = dataclasses.replace(greedy_params(FullParams), grammar_rules=OPT_GRAMMAR)
+    t0 = time.perf_counter()
+    ops = TF._grammar_device_ops(ctx, p)
+    dfa_s = time.perf_counter() - t0
+    check(ops is not None and ops.allowed.is_cuda and ctx.mega_mode(p) == "all",
+          "grammar: no device automaton on the card, or K2 not selected")
+    windows, real_seg = [], DL.decode_segment
+
+    def seg(*a, **k):
+        r = real_seg(*a, **k)
+        windows.append((k.get("grammar"), r))
+        return r
+    reset_counts(A, Q, MK)
+    reads0 = ctx.reads.n
+    DL.decode_segment = seg
+    try:
+        with CallCounter(TM, DL, DB) as calls:
+            t0 = time.perf_counter()
+            res = tr.transcribe(audio(30.0, 30), p)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        DL.decode_segment = real_seg
+    reads = ctx.reads.n - reads0
+    n_sample, n_k2 = res.timings.n_sample, MK.mega_decode_step.launches
+    steps = [(r.tokens.cpu().numpy(), int(r.n_tokens)) for _, r in windows]
+    want_reads = sum(1 + -(-n // DL.POLL) for _, n in steps)
+    replayed = 0
+    for toks, n in steps:
+        g = G.Grammar.from_gbnf(OPT_GRAMMAR)
+        for t in toks[:n]:
+            if t >= vocab.token_eot or not vocab.id_to_token[t] or replayed >= OPT_REPLAYED:
+                continue
+            check(int(t) not in set(g.rejected_tokens(vocab)),
+                  f"grammar: token {int(t)} is rejected by the host Grammar")
+            g.accept_token(vocab.id_to_token[t])
+            replayed += 1
+    print(f"[24] q8_0 30 s with a grammar: automaton {ops.allowed.shape[0]} states built in "
+          f"{dfa_s:.2f} s; windows {len(windows)}, sampled tokens {n_sample}, segments "
+          f"{len(res.segments)}; K2 launches {n_k2} (K2 steps {calls.mega}), host reads {reads} "
+          f"(without a grammar: {want_reads}); text tokens replayed through the host Grammar "
+          f"{replayed}, all accepted; wall {wall:.3f} s, {wall * 1e3 / max(n_sample, 1):.2f} ms "
+          "per sampled token", flush=True)
+    check(windows and all(w is ops for w, _ in windows), "grammar: a window left the device loop")
+    check(n_k2 > 0 and n_k2 == calls.mega and reads == want_reads and replayed > 0,
+          "grammar: K2 not on every token step, extra host reads, or no text to replay")
+    # ms per sampled token: the open grammar against the same one-window
+    # requests without one, in turns
+    po = dataclasses.replace(greedy_params(FullParams), grammar_rules=OPT_GRAMMAR_OPEN,
+                             device_windows=0)
+    t0 = time.perf_counter()
+    check(TF._grammar_device_ops(ctx, po) is not None, "open grammar: no device automaton")
+    dfa_s = time.perf_counter() - t0
+    per_tok = {True: [], False: []}
+    for g in (False, True, True, False):
+        q = po if g else dataclasses.replace(po, grammar_rules=None)
+        reset_counts(A, Q, MK)
+        t0 = time.perf_counter()
+        r = tr.transcribe(audio(30.0, 30), q)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = r.timings.n_sample
+        per_tok[g].append((wall * 1e3 / max(n, 1), n, MK.mega_decode_step.launches))
+    print(f"[24] q8_0 30 s, one window per call, ms per sampled token (sampled tokens, K2 "
+          f"launches) with the open grammar {per_tok[True]} (automaton built in {dfa_s:.2f} "
+          f"s), without a grammar {per_tok[False]}", flush=True)
+    check(all(k2 > 0 for _, _, k2 in per_tok[True]), "open grammar: K2 not launched")
+
+    # ---- token-level and DTW timestamps: the re-decode on the card ----
+    p = dataclasses.replace(greedy_params(FullParams), token_timestamps=True,
+                            dtw_token_timestamps=True)
+    recs, real_dec = [], TM.decode_impl
+
+    def dec(*a, **k):
+        if not k.get("collect_cross_qk"):
+            return real_dec(*a, **k)
+        torch.cuda.synchronize()
+        n3, n5, tiles = Q.qmm.launches, Q.ffn_int8.launches, Q.qmm.launches_by_route["tiles"]
+        t0 = time.perf_counter()
+        out = real_dec(*a, **k)
+        torch.cuda.synchronize()
+        recs.append(dict(args=a, kw=k, qk=out[3], ms=(time.perf_counter() - t0) * 1e3,
+                         k3=Q.qmm.launches - n3, k5=Q.ffn_int8.launches - n5,
+                         tiles=Q.qmm.launches_by_route["tiles"] - tiles))
+        return out
+    reset_counts(A, Q, MK)
+    TM.decode_impl = dec
+    real_dtw = DTW.compute_dtw_timestamps
+    dtw_ms = []
+
+    def timed_dtw(*a, **k):
+        t0 = time.perf_counter()
+        real_dtw(*a, **k)
+        dtw_ms.append((time.perf_counter() - t0) * 1e3)
+    DTW.compute_dtw_timestamps = timed_dtw
+    try:
+        t0 = time.perf_counter()
+        res = tr.transcribe(audio(30.0, 30), p)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        TM.decode_impl, DTW.compute_dtw_timestamps = real_dec, real_dtw
+    t_dtw = [t.t_dtw for s in res.segments for t in s.tokens if t.t_dtw >= 0]
+    n_t0 = sum(t.t0 >= 0 for s in res.segments for t in s.tokens)
+    heads = DTW.heads_for_model(ctx.model_type, n_text_layer=ctx.cfg.n_text_layer,
+                                n_head=ctx.cfg.n_text_head)
+    rec = recs[0] if recs else None
+    check(rec is not None, "DTW: no re-decode ran")
+    cfg, a = ctx.cfg, rec["args"]
+    T = a[2].shape[1]
+    dec_cpu = TF._to_device(ctx.params["decoder"], "cpu")
+    kk, kv = TM.init_kv_cache(cfg, 1, dtype=ctx.dtype, device="cpu")
+    cpu_qk = real_dec(cfg, dec_cpu, a[2].cpu(), kk, kv, 0, a[6].cpu(), a[7].cpu(),
+                      **rec["kw"])[3]
+    li = [l for l, _ in heads]
+    hi = [h for _, h in heads]
+    card_h, cpu_h = rec["qk"][li, 0, hi].float().cpu(), cpu_qk[li, 0, hi].float()
+    err = ((card_h - cpu_h).abs().max() / cpu_h.abs().max()).item()
+    # the same re-decode at OPT_DTW_ROWS tokens (a talkative window's): K3 on
+    # its tiles, K5 above 16 rows
+    toks = torch.cat([a[2][:, :3], torch.randint(0, vocab.token_eot, (1, OPT_DTW_ROWS - 4),
+                      generator=torch.Generator().manual_seed(5)).to(a[2].device),
+                      a[2][:, -1:]], dim=1)
+    TM.decode_impl = dec
+    try:
+        kk, kv = TM.init_kv_cache(cfg, 1, dtype=ctx.dtype, device=ctx.device)
+        out64 = TM.decode_impl(cfg, ctx.params["decoder"], toks, kk, kv, 0, a[6], a[7],
+                                      logits_pos=OPT_DTW_ROWS - 1, collect_cross_qk=True)
+    finally:
+        TM.decode_impl = real_dec
+    big = recs.pop()
+    kk, kv = TM.init_kv_cache(cfg, 1, dtype=ctx.dtype, device="cpu")
+    cpu_big = real_dec(cfg, dec_cpu, toks.cpu(), kk, kv, 0, a[6].cpu(), a[7].cpu(),
+                       logits_pos=OPT_DTW_ROWS - 1, collect_cross_qk=True)[3][li, 0, hi].float()
+    err_big = ((out64[3][li, 0, hi].float().cpu() - cpu_big).abs().max()
+               / cpu_big.abs().max()).item()
+    ffn_tiles = Q.ffn_int8.launches_by_route["tiles"]
+    print(f"[24] q8_0 30 s with token and DTW timestamps: segments {len(res.segments)}, "
+          f"tokens with t0 {n_t0}, with t_dtw {len(t_dtw)}; DTW re-decodes {len(recs)} "
+          f"(T = {[r['args'][2].shape[1] for r in recs]} rows): decode_impl "
+          f"{[round(r['ms'], 2) for r in recs]} ms, whole DTW step "
+          f"{[round(m, 2) for m in dtw_ms]} ms per window; K3 launches per re-decode "
+          f"{[r['k3'] for r in recs]} (tiles {[r['tiles'] for r in recs]}), K5 "
+          f"{[r['k5'] for r in recs]}; alignment heads {len(heads)}, card against CPU "
+          f"max|diff| / max|cpu| {err:.2e} at T = {T}; wall {wall:.3f} s", flush=True)
+    print(f"[24] DTW re-decode at T = {OPT_DTW_ROWS}: {big['ms']:.2f} ms, K3 launches "
+          f"{big['k3']} (tiles {big['tiles']}), K5 {big['k5']}; card against CPU "
+          f"max|diff| / max|cpu| {err_big:.2e}", flush=True)
+    check(len(t_dtw) > 0 and n_t0 > 0 and t_dtw == sorted(t_dtw),
+          "DTW: no t_dtw, no token t0, or t_dtw not monotone")
+    check(all(r["k3"] == 16 and r["k5"] == 4
+              and r["tiles"] == (16 if r["args"][2].shape[1] > Q.QMM_ROWS_MAX else 0)
+              for r in recs), "DTW re-decode: K3 / K5 launch counts off")
+    check(err <= OPT_DTW_TOL and err_big <= OPT_DTW_TOL,
+          f"DTW: alignment heads card against CPU {err:.2e}, {err_big:.2e}")
+    check(big["k3"] == big["tiles"] == 16 and big["k5"] == 4 and ffn_tiles >= 4,
+          "DTW re-decode at T > 16: K3 off its tiles, or K5 off its M > 16 body")
+
+    # ---- the Silero VAD prefilter ----
+    path = tmp / "silero-random.bin"
+    SW.write_silero(path, SW.random_silero_tensors(seed=0))
+    x = speech_audio(30.0, OPT_SPANS)
+    vad = ctx.get_vad(str(path))
+    check(vad.device.type == "cuda", "VAD model not on the card")
+    vad.detect_speech(x)
+    vad_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pc = vad.detect_speech(x)
+        vad_ms.append((time.perf_counter() - t0) * 1e3)
+    pp = SV.SileroVAD.from_file(str(path), device="cpu").detect_speech(x)
+    verr = float(np.abs(pc - pp).max())
+    p = dataclasses.replace(greedy_params(FullParams), vad=True, vad_model_path=str(path))
+    reset_counts(A, Q, MK)
+    t0 = time.perf_counter()
+    res = tr.transcribe(x, p)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [(s.t0, s.t1) for s in res.segments if not (0 <= s.t0 < s.t1 <= 3010)]
+    print(f"[24] Silero VAD (random weights) on 30 s: {len(pc)} chunks, "
+          f"{statistics.median(vad_ms):.1f} ms (median of 3, host clock), probabilities "
+          f"max|card - cpu| {verr:.2e}; whisper_full(vad=True): segments {len(res.segments)}, "
+          f"sampled tokens {res.timings.n_sample}, encoder passes {res.timings.n_encode}, "
+          f"wall {wall:.3f} s", flush=True)
+    check(verr <= OPT_VAD_TOL and len(pc) == 938, f"VAD: card against CPU {verr:.2e}")
+    check(res.segments and not bad and A.mha_packed.launches == TURBO_LAYERS
+          * res.timings.n_encode, f"VAD request: segments {bad[:2]} outside the audio, or "
+          "K1 off its count")
+
+
+def phase_narrow_options(torch, TF, TM, tok_mod, FullParams, tmp, tokens) -> None:
+    """Each whisper_full option on the card against the CPU at narrow width
+    (the f32 timestamp config, 25 s of audio): a grammar in the device loop
+    and host-stepped, ref_sampling greedy at t = 0.4 and beam 3, the abort
+    callback at step 25 of 30 s, the logits filter, token and DTW
+    timestamps, VAD on speech spans: the same segments and token t0 / t1 /
+    t_dtw."""
+    from open_whisper_kit_tpu_torch.decode.params import BeamSearchParams, SamplingStrategy
+    cfg3 = TM.WhisperConfig(*NARROW_Q)
+    params3 = TM.init_params(cfg3, seed=0, dtype=torch.float32, device="cpu")
+    path = tmp / "silero-random.bin"
+    base = greedy_params(FullParams)
+    beam = dict(strategy=SamplingStrategy.BEAM_SEARCH,
+                beam_search=BeamSearchParams(beam_size=3))
+
+    def aborting(at):
+        n = [0]
+
+        def abort():
+            n[0] += 1
+            return n[0] >= at
+        return abort
+    cases = (("grammar", dict(grammar_rules=OPT_GRAMMAR), 25.0),
+             ("grammar, host-stepped", dict(grammar_rules=OPT_GRAMMAR, use_device_loops=False,
+                                           max_tokens=2, single_segment=True), 25.0),
+             ("ref_sampling, t = 0.4, best_of 3", dict(ref_sampling=True, temperature=0.4), 25.0),
+             ("ref_sampling, beam 3", dict(ref_sampling=True, **beam), 25.0),
+             ("abort at step 25", dict(max_tokens=24), 30.0),
+             ("logits_filter_callback", dict(logits_filter_callback=lambda *a: None), 25.0),
+             ("token + DTW timestamps", dict(token_timestamps=True,
+                                             dtw_token_timestamps=True), 25.0),
+             ("VAD", dict(vad=True, vad_model_path=str(path)), None))
+    ctxs = {dev: TF.WhisperContext(cfg3, params3, tok_mod.build_vocab(tokens, cfg3.n_vocab),
+                                   TF._synthetic_mel_filters(80), n_loaded=1,
+                                   dtype=torch.float32, device=dev) for dev in ("cuda", "cpu")}
+    for label, kw, secs in cases:
+        x = audio(secs, 2) if secs else speech_audio(30.0, OPT_SPANS)
+        out = {}
+        for dev, c in ctxs.items():
+            p = dataclasses.replace(base, **kw)
+            p.greedy.best_of = 3
+            if label.startswith("abort"):
+                p.abort_callback = aborting(25)
+            r = TF.whisper_full(c, p, x)
+            out[dev] = [(s.t0, s.t1, s.text, [(t.id, t.t0, t.t1, t.t_dtw) for t in s.tokens])
+                        for s in r.segments]
+        n_tok = sum(len(s[3]) for s in out["cpu"])
+        print(f"[25] narrow f32, {label}: segments {len(out['cpu'])}, tokens {n_tok}, cuda == "
+              f"cpu (ids, t0, t1, t_dtw) {out['cuda'] == out['cpu']}", flush=True)
+        check(out["cuda"] == out["cpu"] and n_tok > 0, f"narrow {label}: cuda and cpu differ")
+
+
 # the tensor-core probe's two products (tools/bench_int8_mxu.py): x @ W1 and
 # h @ W2 of large-v3-turbo's encoder MLP, M = 1536 rows (one window, padded)
 MXU_SHAPES = (("x @ W1", 1536, 1280, 5120), ("h @ W2", 1536, 5120, 1280))
@@ -2891,9 +3198,12 @@ def main(profiling: bool = False) -> int:
         done("19")
         # ---- 21. K9a on its path: decode_impl over QuantKVNat planes ----
         launches["cross_attention_q8_nat"] = phase_k9a_path(torch, tr, mods)
+        done("21")
+        # ---- 24. the whisper_full options at full width ----
+        phase_options(torch, tr, TF, FullParams, mods, tmp)
         del tr, blocks
         torch.cuda.empty_cache()
-        done("21")
+        done("24")
 
         # ---- 7. runtime W8 and W4 logits on the turbo preset ----
         tr = Transcriber(preset="large-v3-turbo", dtype=torch.bfloat16,
@@ -3125,6 +3435,10 @@ def main(profiling: bool = False) -> int:
         # ---- 22. narrow int8 cross-KV: cuda against cpu ----
         phase_narrow_cross_int8(torch, TF, TM, tok_mod, FullParams, mods, tokens)
         done("22")
+
+        # ---- 25. narrow whisper_full options: cuda against cpu ----
+        phase_narrow_options(torch, TF, TM, tok_mod, FullParams, tmp, tokens)
+        done("25")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -1,7 +1,7 @@
 """Public API facade of the PyTorch port (port of the Transcriber part of
-open_whisper_kit_tpu/api.py, batched serving included; Diarizer and align
-are not ported yet). Entry points run on the card ("cuda") unless the
-caller asks for the CPU."""
+open_whisper_kit_tpu/api.py, batched serving included, and
+`words_from_result`; Diarizer and align are still to come). Entry points
+run on the card ("cuda") unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
@@ -10,17 +10,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .align.aligner import WordTiming
 from .audio import mel as mel_mod
 from .audio.wav import load_wav
 from .decode import batch as _batch
 from .decode import full as _full
 from .decode.full import Segment, TokenData, TranscribeResult, WhisperContext
-from .decode.params import FullParams, SamplingStrategy
+from .decode.params import FullParams, SamplingStrategy, VadParams
 from .parallel import dp as _dp
 
 __all__ = [
-    "Transcriber", "FullParams", "SamplingStrategy", "Segment", "TokenData",
-    "TranscribeResult", "WhisperContext", "load_wav",
+    "Transcriber", "FullParams", "SamplingStrategy", "VadParams", "Segment",
+    "TokenData", "TranscribeResult", "WhisperContext", "WordTiming", "load_wav",
+    "words_from_result",
 ]
 
 
@@ -45,7 +47,7 @@ class Transcriber:
         `draft_model_path` / `draft_preset`: a smaller model with the same
         vocabulary, loaded on the same device with the same dtype, for
         speculative greedy decoding (FullParams.speculative = gamma).
-        Multi-device meshes are not ported yet."""
+        Multi-device meshes raise NotImplementedError."""
         if mesh is not None:
             raise NotImplementedError("mesh is not ported to the PyTorch package yet")
         if model_path is not None:
@@ -144,3 +146,41 @@ class Transcriber:
     @property
     def is_multilingual(self) -> bool:
         return self.ctx.vocab.is_multilingual
+
+
+def words_from_result(result: TranscribeResult, vocab=None,
+                      ctx: WhisperContext | None = None) -> list[WordTiming]:
+    """Token-level timestamps -> WordTiming list for word alignment.
+
+    Groups tokens into words at leading-space boundaries
+    (the Swift SDK's word extraction, WhisperContext.swift:110-160);
+    timestamps are centiseconds -> seconds."""
+    if vocab is None and ctx is not None:
+        vocab = ctx.vocab
+    words: list[WordTiming] = []
+    for seg in result.segments:
+        cur_text = ""
+        cur_t0 = seg.t0
+        cur_t1 = seg.t0
+        cur_p = []
+        for tk in seg.tokens:
+            if vocab is not None and tk.id >= vocab.token_eot:
+                continue
+            s = vocab.token_to_str(tk.id) if vocab is not None else ""
+            if s.startswith(" ") and cur_text:
+                words.append(WordTiming(cur_text.strip(), cur_t0 / 100.0,
+                                        cur_t1 / 100.0,
+                                        float(np.mean(cur_p)) if cur_p else 1.0))
+                cur_text = ""
+                cur_p = []
+            if not cur_p and tk.t0 >= 0:
+                cur_t0 = tk.t0
+            cur_text += s
+            if tk.t1 >= 0:
+                cur_t1 = tk.t1
+            cur_p.append(tk.p)
+        if cur_text.strip():
+            words.append(WordTiming(cur_text.strip(), cur_t0 / 100.0,
+                                    cur_t1 / 100.0,
+                                    float(np.mean(cur_p)) if cur_p else 1.0))
+    return words

@@ -1,5 +1,5 @@
 """Whisper log-mel spectrogram (port of open_whisper_kit_tpu/audio/mel.py,
-Whisper variant; the NeMo / SortFormer front-end is not ported yet).
+Whisper variant; the NeMo / SortFormer front-end is still to come).
 
 Reference semantics (src/whisper.cpp:3170-3260): SR 16000, n_fft 400, hop
 160, periodic Hann, front reflect-pad 200, end zero-pad 30 s + 200,

@@ -319,9 +319,10 @@ def _lockstep_chunks(ctx: F.WhisperContext, p: FullParams, mel_data: torch.Tenso
     samples for the QA-gate re-run through the single-stream driver.
     `p.cross_kv_int8` (the JAX package's `cross_kv_int8` argument) quantizes
     each round's cross-KV to int8 planes: the lockstep steps then run kernel
-    K9b, and K8 stays off, as in the JAX package. Options the port does not
-    have yet raise (decode/full.py::_refuse_unported)."""
-    F._refuse_unported(p)
+    K9b, and K8 stays off, as in the JAX package. Options that change the
+    step program (grammar, timestamps, VAD, callbacks) are not applied here,
+    as in the JAX package: `transcribe_batch` and `full_parallel` route them
+    to whisper_full, and a chunk sent to the fallback gets them there."""
     cfg = ctx.cfg
     vocab = ctx.vocab
     B = len(bases)

@@ -1,5 +1,5 @@
 """On-device greedy segment decoder (port of
-open_whisper_kit_tpu/decode/device_loop.py, no grammar).
+open_whisper_kit_tpu/decode/device_loop.py).
 
 The t=0 greedy segment decode -- prompt ingest, no-speech probability, the
 full logit rule-set, argmax sampling and the sliding-window/EOT state
@@ -11,6 +11,10 @@ masked, so they change no recorded output, and their cache slot is clamped
 inside n_text_ctx. The host reads one packed result per segment. With `mega` (MegaParams)
 each token step is one call of the decode-step kernel K2
 (ops/decode_megakernel.py); the prompt ingest stays on `decode_impl`.
+With `grammar` (GrammarOps, a grammar's token automaton as tensors) each
+step adds the automaton state's penalty row after the step's logits and
+steps the state on the sampled token, on the device: a grammar window
+reads the host no more often than a grammar-free one.
 `HostReads` counts every device-to-host read these loops make.
 """
 
@@ -27,6 +31,48 @@ from . import logit_rules as LR
 
 CHUNK_FRAMES = 3000  # 100 * WHISPER_CHUNK_SIZE
 POLL = 16            # tokens between host reads of the loop's done flag
+
+
+@dataclasses.dataclass
+class GrammarOps:
+    """A grammar's token automaton (grammar.GrammarDFA) as tensors on the
+    loop's device, with its penalty; lets a grammar window stay in the
+    on-device loop instead of the host-stepped one."""
+    allowed: torch.Tensor   # (n_states, A) long, pad = n_vocab
+    nxt: torch.Tensor       # (n_states, A) long
+    cand: torch.Tensor      # (V,) f32
+    skip: torch.Tensor      # (V,) bool
+    dead: torch.Tensor      # 0-d long
+    penalty: torch.Tensor   # 0-d f32
+
+    @classmethod
+    def from_dfa(cls, dfa, penalty: float, device) -> "GrammarOps":
+        t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+        return cls(allowed=t(dfa.allowed, torch.long), nxt=t(dfa.nxt, torch.long),
+                   cand=t(dfa.cand, torch.float32), skip=t(dfa.skip, torch.bool),
+                   dead=t(dfa.dead, torch.long),
+                   penalty=t(np.float32(penalty), torch.float32))
+
+
+def grammar_mask_row(g: GrammarOps, state: torch.Tensor) -> torch.Tensor:
+    """(V,) additive penalty row for automaton state `state` (0-d long).
+    The allowed ids are padded with n_vocab: they land in a spare last
+    column, which is dropped (JAX's scatter mode="drop")."""
+    V = g.cand.shape[0]
+    row = torch.cat([g.cand * -g.penalty, g.cand.new_zeros(1)])
+    arow = g.allowed.index_select(0, state.reshape(1))[0]
+    return row.index_fill_(0, arow, 0.0)[:V]
+
+
+def grammar_step(g: GrammarOps, state: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """Next automaton state after sampling `tok` (GrammarDFA.step), with no
+    host read: both 0-d long tensors."""
+    s = state.reshape(1)
+    hit = g.allowed.index_select(0, s)[0] == tok
+    # the first hit (argmax has no bool kernel on CUDA)
+    j = hit.to(torch.int32).argmax().reshape(1)
+    nxt = torch.where(hit.any(), g.nxt.index_select(0, s)[0].index_select(0, j)[0], g.dead)
+    return torch.where(g.skip.index_select(0, tok.reshape(1))[0], state, nxt)
 
 
 class HostReads:
@@ -148,8 +194,8 @@ def segment_core(cfg: M.WhisperConfig, rc: LR.RuleConfig,
                  t_real: torch.Tensor, token_nosp: int, seek, seek_end: int, *,
                  n_max: int, reads: HostReads, max_tokens: int = 0,
                  single_segment: bool = False, no_timestamps: bool = False,
-                 stub: bool = False, mega: MK.MegaParams | None = None
-                 ) -> SegmentResult:
+                 stub: bool = False, mega: MK.MegaParams | None = None,
+                 grammar: GrammarOps | None = None) -> SegmentResult:
     """Greedy segment decode on the prompt's device; shared by the one-window
     `decode_segment` and the K-windows loop in decode/device_windows.py.
 
@@ -178,6 +224,7 @@ def segment_core(cfg: M.WhisperConfig, rc: LR.RuleConfig,
     sum_lp = torch.zeros((), dtype=torch.float32, device=dev)
     n_tok = torch.zeros((), dtype=torch.long, device=dev)
     ms = machine_init(dev)
+    gstate = torch.zeros((), dtype=torch.long, device=dev)   # grammar automaton state
     completed = torch.zeros((), dtype=torch.bool, device=dev)
     failed = torch.zeros((), dtype=torch.bool, device=dev)
     initial = (torch.ones(1, dtype=torch.bool, device=dev),
@@ -193,11 +240,14 @@ def segment_core(cfg: M.WhisperConfig, rc: LR.RuleConfig,
             penult_was_ts=ms.penult_was_ts[None],
             has_ts=ms.has_ts[None],
             ts_min=torch.where(ms.has_ts, token_beg + ms.seek_delta // 2, 0)[None])
+        gmask = grammar_mask_row(grammar, gstate)[None] if grammar is not None else None
         f_logits, f_logprobs, f_probs = LR.apply_rules(
-            rc, logits, base_mask, init_mask, st, 0.0)
+            rc, logits, base_mask, init_mask, st, 0.0, gmask)
         tok, p, plog, pt, ptsum, tid = LR.sample_greedy(
             rc, f_logits, f_logprobs, f_probs)
         tok0 = tok[0]
+        if grammar is not None:
+            gstate = torch.where(active, grammar_step(grammar, gstate, tok0), gstate)
         is_ts_tok = tok0 >= token_beg
         # a masked step records the buffers' initial zeros
         tokens[i] = torch.where(active, tok0, 0)
@@ -248,10 +298,12 @@ def decode_segment(cfg: M.WhisperConfig, rc: LR.RuleConfig,
                    max_tokens: int = 0, single_segment: bool = False,
                    no_timestamps: bool = False, stub: bool = False,
                    cache_dtype: torch.dtype = torch.bfloat16,
-                   mega: MK.MegaParams | None = None) -> SegmentResult:
+                   mega: MK.MegaParams | None = None,
+                   grammar: GrammarOps | None = None) -> SegmentResult:
     """Greedy-decode one window. prompt (1, T_pad) long; `scalars` =
     (t_real, token_nosp, seek, seek_end) ints. The self-KV cache is
-    allocated here: a window always starts from an empty cache."""
+    allocated here: a window always starts from an empty cache. `grammar`:
+    the token automaton whose penalties constrain the window."""
     t_real, token_nosp, seek, seek_end = (int(x) for x in scalars)
     kv_k, kv_v = M.init_kv_cache(cfg, 1, dtype=cache_dtype, device=prompt.device)
     t_real_d = torch.tensor(t_real, dtype=torch.long, device=prompt.device)
@@ -259,7 +311,7 @@ def decode_segment(cfg: M.WhisperConfig, rc: LR.RuleConfig,
         cfg, rc, dec, prompt, kv_k, kv_v, xk, xv, base_mask, init_mask,
         t_real_d, token_nosp, seek, seek_end, n_max=n_max, reads=reads,
         max_tokens=max_tokens, single_segment=single_segment,
-        no_timestamps=no_timestamps, stub=stub, mega=mega)
+        no_timestamps=no_timestamps, stub=stub, mega=mega, grammar=grammar)
 
 
 def pack_segment_result(res: SegmentResult) -> torch.Tensor:

@@ -37,9 +37,24 @@ beams, the host-stepped loops, the fallback's re-encode; a speculative
 draft keeps its float cross-KV): the one-row decoder steps then run kernel
 K9b (ops/experiments.py), and K2 and K7 stay off.
 
-Not ported yet, and refused with NotImplementedError: grammars, VAD,
-token-level and DTW timestamps, `ref_sampling`, GGUF checkpoints, and the
-abort / logits-filter callbacks (they need a host poll every token).
+The rest of the whisper_full surface follows the JAX package:
+* grammars (`grammar_rules`): a grammar whose token automaton fits the
+  DFA budget runs in the on-device greedy loop (device_loop.GrammarOps,
+  with K2 where mega_params picks it); a larger one, beams and the sampled
+  fallback run the host-stepped loop with the host Grammar's penalty row;
+* `ref_sampling`: the sampled and beam draws of the host-stepped loop come
+  from whisper.cpp's per-decoder mt19937 streams (utils/mt19937.py), drawn
+  on the host from the step's f32 probabilities;
+* `abort_callback` and `logits_filter_callback` send every window to the
+  host-stepped loop; the abort callback is polled once per token step, the
+  logits filter is never called (the JAX package's behaviour, ROADMAP §3);
+* token-level timestamps (timestamps/energy.py) per emitted segment, and
+  DTW timestamps (timestamps/dtw.py) from a re-decode of each window on
+  the device;
+* the Silero VAD prefilter (models/silero/vad.py on the context's device,
+  vad/segments.py), its segment times mapped back to the original audio.
+
+GGUF checkpoints raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -134,6 +149,7 @@ class _DecoderState:
         self.avg_logprobs = -math.inf
         self.entropy = 0.0
         self.score = -math.inf
+        self.grammar = None
 
 
 def _resolve_device(device: str | torch.device) -> torch.device:
@@ -188,6 +204,7 @@ class WhisperContext:
         self.reads = HostReads()
         self._mask_cache: dict = {}
         self._mega = None         # (decoder, mode, MegaParams), built lazily
+        self._vad = None          # the Silero VAD, loaded on first use
         self.draft: WhisperContext | None = None   # speculative decoding's draft
 
     def set_draft(self, draft: "WhisperContext") -> None:
@@ -317,6 +334,16 @@ class WhisperContext:
             self._mega = (dec, mode, MK.prepare_mega(self.cfg, dec, quant=mode))
         return self._mega[2]
 
+    def get_vad(self, model_path: str | None):
+        """The Silero VAD on this context's device, loaded once
+        (whisper.cpp:6656-6665)."""
+        if self._vad is None:
+            if not model_path:
+                raise ValueError("vad=True requires vad_model_path")
+            from ..models.silero.vad import SileroVAD
+            self._vad = SileroVAD.from_file(model_path, device=self.device)
+        return self._vad
+
     # -- compute wrappers ---------------------------------------------------
 
     def encode_window(self, mel_data: torch.Tensor, seek: int, audio_ctx: int):
@@ -398,33 +425,14 @@ def detect_language(ctx: WhisperContext, mel: mel_mod.Mel,
     return int(np.argmax(probs)), probs
 
 
-def _refuse_unported(p: FullParams) -> None:
-    """Features the port does not have yet raise instead of quietly taking
-    another path."""
-    unported = {
-        "grammar_rules": p.grammar_rules is not None,
-        "VAD (vad=True)": p.vad,
-        "token_timestamps": p.token_timestamps,
-        "dtw_token_timestamps": p.dtw_token_timestamps,
-        "ref_sampling": p.ref_sampling,
-        "abort_callback (per-token host polling)": p.abort_callback is not None,
-        "logits_filter_callback (per-token host polling)":
-            p.logits_filter_callback is not None,
-    }
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported to the PyTorch "
-                                      "package yet")
-
-
 def whisper_full(ctx: WhisperContext, p: FullParams, samples: np.ndarray,
                  generator: torch.Generator | None = None) -> TranscribeResult:
     """Transcribe `samples` (16 kHz mono f32). Port of whisper_full_with_state.
 
     `generator` (on ctx.device) drives the sampled temperature-fallback
     decodes; by default a new one seeded with 0 per call, so a call is
-    reproducible."""
-    _refuse_unported(p)
+    reproducible. With `p.ref_sampling` the sampled draws come from the
+    context's mt19937 streams instead."""
     if generator is None:
         generator = torch.Generator(device=ctx.device).manual_seed(0)
     timings = Timings()
@@ -433,10 +441,31 @@ def whisper_full(ctx: WhisperContext, p: FullParams, samples: np.ndarray,
     rc = ctx.rule_config
     result = TranscribeResult(segments=[], timings=timings)
 
+    # VAD prefilter: transcribe only speech, then map the timestamps back
+    # (whisper_full, src/whisper.cpp:7937-7960 + whisper_vad :6643-6825)
+    vad_mapping: list[tuple[int, int]] | None = None
+    if p.vad:
+        from ..vad import segments as VS
+        vad_model = ctx.get_vad(p.vad_model_path)
+        probs = vad_model.detect_speech(np.asarray(samples, np.float32))
+        vsegs = VS.segments_from_probs(probs, p.vad_params)
+        if not vsegs:
+            return result
+        fr = VS.filter_samples(np.asarray(samples, np.float32), vsegs, p.vad_params)
+        if fr.samples.size == 0:
+            return result
+        samples = fr.samples
+        vad_mapping = fr.mapping
+
     t0 = time.perf_counter()
     mel = mel_mod.log_mel_spectrogram(np.asarray(samples, np.float32),
                                       ctx.filters, device=ctx.device)
     timings.t_mel_ms = (time.perf_counter() - t0) * 1e3
+
+    if p.token_timestamps:
+        from ..timestamps import energy as E
+        result._ts_state = E.TimestampState(
+            E.get_signal_energy(np.asarray(samples, np.float32), 32))
 
     language = p.language
     if ctx.cfg.n_vocab >= 51865 and (
@@ -473,6 +502,16 @@ def whisper_full(ctx: WhisperContext, p: FullParams, samples: np.ndarray,
     n_decoders = max(1, n_decoders)
     if n_decoders > MAX_DECODERS:
         raise ValueError(f"too many decoders ({n_decoders} > {MAX_DECODERS})")
+
+    if p.ref_sampling:
+        # per-decoder mt19937 streams: decoder 0's engine is seeded once per
+        # context (mt19937(0) at state init, whisper.cpp:3470) and persists
+        # across calls; decoders 1..n-1 are reseeded with their index at
+        # every entry (whisper.cpp:6929)
+        from ..utils import mt19937 as MT
+        if getattr(ctx, "_ref_rng0", None) is None:
+            ctx._ref_rng0 = MT.MT19937(0)
+        ctx._ref_rngs = [ctx._ref_rng0] + [MT.MT19937(j) for j in range(1, n_decoders)]
 
     no_timestamps = p.no_timestamps
     # first-release distilled models require no_timestamps (whisper.cpp:7003-7009)
@@ -532,6 +571,8 @@ def whisper_full(ctx: WhisperContext, p: FullParams, samples: np.ndarray,
             ctx, p, result, mel, rc, temperatures, seek_start, seek_end,
             prompt_past1, prompt_init, max_prompt_ctx, no_timestamps,
             base_mask, init_mask, generator, draft_mel=draft_mel)
+        if vad_mapping:
+            _remap_vad(result, vad_mapping)
         return result
 
     seek = seek_start
@@ -560,10 +601,12 @@ def whisper_full(ctx: WhisperContext, p: FullParams, samples: np.ndarray,
             prompt_past0.clear()
             prompt_past1.clear()
 
-        best_decoder_id, decoders, no_speech_prob, prompt = _decode_window_host(
+        best_decoder_id, decoders, no_speech_prob, prompt, aborted = _decode_window_host(
             ctx, p, rc, temperatures, seek, seek_end, xk, xv,
             prompt_past0, prompt_past1, max_prompt_ctx, prompt_init,
             no_timestamps, base_mask, init_mask, timings, generator, dxkv=dxkv)
+        if aborted:
+            return result
 
         # ---- segment emission (whisper.cpp:7608-7772) ----
         best = decoders[best_decoder_id]
@@ -583,9 +626,20 @@ def whisper_full(ctx: WhisperContext, p: FullParams, samples: np.ndarray,
         if not is_no_speech:
             prompt_past1.extend(t.id for t in tokens_cur[:result_len])
 
+        n_seg_before = len(result.segments)
         if tokens_cur and ctx.n_loaded > 0 and not is_no_speech:
             _emit_segments(ctx, p, result, tokens_cur, seek, seek_delta,
                            no_speech_prob)
+
+        # DTW token timestamps over this window's new segments
+        # (whisper.cpp:7727-7745)
+        n_new_segs = len(result.segments) - n_seg_before
+        if p.dtw_token_timestamps and n_new_segs > 0:
+            from ..timestamps import dtw as DTW
+            n_frames = min(min(100 * CHUNK_SIZE, seek_delta), seek_end - seek)
+            result._dtw_encoder_cache = (seek, (None, xk, xv))
+            DTW.compute_dtw_timestamps(ctx, result, n_seg_before, n_new_segs,
+                                       seek, n_frames, language)
 
         # single-timestamp ending skips the whole chunk (whisper.cpp:7758-7764)
         single_ts_end = (len(tokens_cur) > 1
@@ -596,14 +650,34 @@ def whisper_full(ctx: WhisperContext, p: FullParams, samples: np.ndarray,
 
         seek += seek_delta
 
+    if vad_mapping:
+        _remap_vad(result, vad_mapping)
     return result
+
+
+def _remap_vad(result: TranscribeResult, vad_mapping) -> None:
+    """Remap processed-time segments to original time
+    (whisper_full_get_segment_t0/t1_from_state, whisper.cpp:7989-8027)."""
+    from ..vad.segments import map_processed_to_original as _map
+    for s in result.segments:
+        t0m = _map(s.t0, vad_mapping)
+        t1m = _map(s.t1, vad_mapping)
+        if t1m - t0m < 10:
+            t1m = t0m + 10
+        s.t0, s.t1 = t0m, t1m
+        for tk in s.tokens:
+            if tk.t0 >= 0:
+                tk.t0 = _map(tk.t0, vad_mapping)
+            if tk.t1 >= 0:
+                tk.t1 = _map(tk.t1, vad_mapping)
 
 
 def _multiwindow_eligible(ctx: WhisperContext, p: FullParams,
                           temperatures, audio_ctx: int) -> bool:
     """The K-windows-per-call loop covers greedy and beam-search t=0
     decoding (the beams are ranked on the device); anything needing
-    per-window host intervention goes one window per call."""
+    per-window host intervention (grammar, the DTW re-decode, the
+    callbacks, mt19937 beams) goes one window per call."""
     beam_ok = (p.strategy == SamplingStrategy.BEAM_SEARCH
                and p.beam_search.beam_size > 1
                and not p.ref_sampling)
@@ -613,7 +687,11 @@ def _multiwindow_eligible(ctx: WhisperContext, p: FullParams,
             and audio_ctx == 0
             and not p.single_segment
             and not p.carry_initial_prompt
-            and p.encoder_begin_callback is None)
+            and not p.dtw_token_timestamps
+            and p.grammar_rules is None
+            and p.logits_filter_callback is None
+            and p.encoder_begin_callback is None
+            and p.abort_callback is None)
 
 
 def _run_device_windows(ctx: WhisperContext, p: FullParams,
@@ -719,10 +797,12 @@ def _run_device_windows(ctx: WhisperContext, p: FullParams,
             if seek > seek_start and seek + 500 >= seek_end:
                 past_list = []
 
-            best_id, decoders, nsp, prompt = _decode_window_host(
+            best_id, decoders, nsp, prompt, aborted = _decode_window_host(
                 ctx, p, rc, temperatures, seek, seek_end, xk, xv,
                 [], past_list, max_prompt_ctx, prompt_init,
                 no_timestamps, base_mask, init_mask, timings, generator)
+            if aborted:
+                return
             best = decoders[best_id]
             seek_delta = best.seek_delta
             tokens_cur = best.tokens
@@ -756,10 +836,11 @@ def _run_device_windows(ctx: WhisperContext, p: FullParams,
 
 def _device_greedy_window(ctx, p, rc, decoders, prompt, xk, xv,
                           base_mask, init_mask, seek, seek_end,
-                          no_timestamps, timings) -> float:
+                          no_timestamps, timings, grammar=None) -> float:
     """One window through the on-device greedy loop (decode/device_loop.py,
-    its token steps through K2 where ctx.mega_params picks a mode); fills
-    decoders[0], returns no_speech_prob."""
+    its token steps through K2 where ctx.mega_params picks a mode; `grammar`
+    the token automaton of a grammar that fits); fills decoders[0], returns
+    no_speech_prob."""
     from . import device_loop as DL
     cfg, vocab = ctx.cfg, ctx.vocab
     t0 = time.perf_counter()
@@ -770,7 +851,8 @@ def _device_greedy_window(ctx, p, rc, decoders, prompt, xk, xv,
         (T_real, vocab.token_nosp, seek, seek_end), n_max=n_max,
         reads=ctx.reads, max_tokens=p.max_tokens,
         single_segment=p.single_segment, no_timestamps=no_timestamps,
-        stub=ctx.n_loaded == 0, cache_dtype=ctx.dtype, mega=ctx.mega_params(p))
+        stub=ctx.n_loaded == 0, cache_dtype=ctx.dtype, mega=ctx.mega_params(p),
+        grammar=grammar)
     r = DL.unpack_segment_result(ctx.reads.fetch(DL.pack_segment_result(res)),
                                  n_max)
     n_tok = r["n_tokens"]
@@ -861,11 +943,13 @@ def _device_beam_window(ctx, p, rc, decoders, prompt, xk, xv,
 def _host_stepped_window(ctx, p, rc, decoders, prompt, xk, xv,
                          base_mask, init_mask, seek, seek_end,
                          no_timestamps, t_cur, beam_mode, timings,
-                         generator) -> float:
+                         generator) -> tuple[float, bool]:
     """One window through the host-stepped loop: the sampled (t > 0,
-    best_of decoders) fallback, and greedy or beam search (the merge on
-    the host) when device loops are off. One host read per token. Fills
-    `decoders`; returns no_speech_prob."""
+    best_of decoders) fallback, greedy or beam search (the merge on the
+    host) when device loops are off, and every window with a grammar the
+    on-device loop cannot take, `ref_sampling` draws or a per-token
+    callback. One host read per token. Fills `decoders`; returns
+    (no_speech_prob, aborted)."""
     cfg, vocab = ctx.cfg, ctx.vocab
     dec_params = ctx.params["decoder"]
     n_dec_cur = len(decoders)
@@ -893,27 +977,70 @@ def _host_stepped_window(ctx, p, rc, decoders, prompt, xk, xv,
         # ---- rules + sampling (on device, batched over decoders) ----
         t0 = time.perf_counter()
         st = _beam_state(decoders, vocab, ctx.device)
+        gmask = None
+        if p.grammar_rules is not None:
+            gmask = torch.from_numpy(np.stack(
+                [d.grammar.penalty_mask(vocab, p.grammar_penalty)
+                 if d.grammar is not None and not (d.completed or d.failed)
+                 else np.zeros(cfg.n_vocab, np.float32)
+                 for d in decoders])).to(ctx.device)
         f_logits, f_logprobs, f_probs = LR.apply_rules(
-            rc, step_logits, base_mask, init_mask, st, t_cur)
+            rc, step_logits, base_mask, init_mask, st, t_cur, gmask)
+        # mt19937 draws (whisper.cpp:6504-6508, 6519-6592): on the host,
+        # from the step's f32 probabilities, each active decoder on its own
+        # stream
+        draws = p.ref_sampling and (beam_mode or t_cur >= 1e-6)
+        if draws:
+            from ..utils import mt19937 as MT
+            pt, ptsum, tid = LR.ts_aggregates(rc, f_probs)
+            V = f_probs.shape[1]
+            a = ctx.reads.fetch(torch.cat([f_probs, f_logprobs, pt[:, None], ptsum[:, None],
+                                           tid[:, None].float()], dim=1))
+            probs_np, lp_np = a[:, :V], a[:, V:2 * V]
+            pt_a, pts_a, tid_a = a[:, 2 * V], a[:, 2 * V + 1], a[:, 2 * V + 2]
         if beam_mode:
             k = p.beam_search.beam_size
-            out = LR.sample_topk(rc, k, f_logits, f_logprobs, f_probs)
-            a = ctx.reads.fetch(torch.cat([x.double().reshape(n_dec_cur, -1)
-                                           for x in out], dim=1))
-            _beam_expand_and_merge(decoders, a[:, :k], a[:, k:2 * k], a[:, 2 * k:3 * k],
-                                   a[:, 3 * k], a[:, 3 * k + 1], a[:, 3 * k + 2], i,
-                                   vocab.token_beg)
+            if draws:
+                top_id = np.zeros((n_dec_cur, k), np.int64)
+                for j, d in enumerate(decoders):
+                    if d.completed or d.failed:
+                        continue
+                    top_id[j] = MT.DiscreteDistribution(probs_np[j]).draw_k(
+                        ctx._ref_rngs[j], k)
+                _beam_expand_and_merge(
+                    decoders, top_id, np.take_along_axis(probs_np, top_id, 1),
+                    np.take_along_axis(lp_np, top_id, 1), pt_a, pts_a, tid_a, i,
+                    vocab.token_beg)
+            else:
+                out = LR.sample_topk(rc, k, f_logits, f_logprobs, f_probs)
+                a = ctx.reads.fetch(torch.cat([x.double().reshape(n_dec_cur, -1)
+                                               for x in out], dim=1))
+                _beam_expand_and_merge(decoders, a[:, :k], a[:, k:2 * k],
+                                       a[:, 2 * k:3 * k], a[:, 3 * k], a[:, 3 * k + 1],
+                                       a[:, 3 * k + 2], i, vocab.token_beg)
             src = np.array([d._src for d in decoders], np.int64)
             if not np.array_equal(src, np.arange(n_dec_cur)):
                 kv_k, kv_v = M.reorder_kv(kv_k, kv_v, torch.from_numpy(src).to(ctx.device))
+            for d in decoders:
+                if d.grammar is not None and d.tokens and not (d.completed or d.failed):
+                    d.grammar.accept_token(vocab.id_to_token[d.tokens[-1].id])
         else:
-            if t_cur < 1e-6:
-                out = LR.sample_greedy(rc, f_logits, f_logprobs, f_probs)
+            if draws:
+                tok_a = np.zeros(n_dec_cur, np.int64)
+                for j, d in enumerate(decoders):
+                    if d.completed or d.failed:
+                        continue
+                    tok_a[j] = MT.DiscreteDistribution(probs_np[j])(ctx._ref_rngs[j])
+                p_a = probs_np[np.arange(n_dec_cur), tok_a]
+                lp_a = lp_np[np.arange(n_dec_cur), tok_a]
             else:
-                out = LR.sample_multinomial(rc, generator, f_logits, f_logprobs,
-                                            f_probs)
-            tok_a, p_a, lp_a, pt_a, pts_a, tid_a = ctx.reads.fetch(
-                torch.stack([x.double() for x in out]))
+                if t_cur < 1e-6:
+                    out = LR.sample_greedy(rc, f_logits, f_logprobs, f_probs)
+                else:
+                    out = LR.sample_multinomial(rc, generator, f_logits, f_logprobs,
+                                                f_probs)
+                tok_a, p_a, lp_a, pt_a, pts_a, tid_a = ctx.reads.fetch(
+                    torch.stack([x.double() for x in out]))
             for j, d in enumerate(decoders):
                 if d.completed or d.failed:
                     continue
@@ -924,6 +1051,8 @@ def _host_stepped_window(ctx, p, rc, decoders, prompt, xk, xv,
                     td.pt = td.p
                 d.tokens.append(td)
                 d.sum_logprobs_all += td.plog
+                if d.grammar is not None:
+                    d.grammar.accept_token(vocab.id_to_token[td.id])
         timings.t_sample_ms += (time.perf_counter() - t0) * 1e3
         timings.n_sample += 1
 
@@ -984,7 +1113,12 @@ def _host_stepped_window(ctx, p, rc, decoders, prompt, xk, xv,
         timings.t_decode_ms += (time.perf_counter() - t0) * 1e3
         timings.n_decode += 1
 
-    return no_speech_prob
+        # per-step abort check (whisper.cpp polls ggml_abort_callback per
+        # graph compute; here once per token step)
+        if p.abort_callback is not None and p.abort_callback():
+            return no_speech_prob, True
+
+    return no_speech_prob, False
 
 
 def _decode_window_host(ctx: WhisperContext, p: FullParams, rc,
@@ -998,7 +1132,7 @@ def _decode_window_host(ctx: WhisperContext, p: FullParams, rc,
     `dxkv`: the draft's (xk, xv) for this window when decoding
     speculatively.
 
-    Returns (best_decoder_id, decoders, no_speech_prob, prompt)."""
+    Returns (best_decoder_id, decoders, no_speech_prob, prompt, aborted)."""
     vocab = ctx.vocab
     best_decoder_id = 0
     decoders: list[_DecoderState] = []
@@ -1013,6 +1147,12 @@ def _decode_window_host(ctx: WhisperContext, p: FullParams, rc,
         n_dec_cur = max(1, n_dec_cur)
         beam_mode = p.strategy == SamplingStrategy.BEAM_SEARCH and t_cur <= 0
         decoders = [_DecoderState() for _ in range(n_dec_cur)]
+        if p.grammar_rules is not None:
+            from . import grammar as G
+            base_grammar = (p.grammar_rules if isinstance(p.grammar_rules, G.Grammar)
+                            else G.Grammar.from_gbnf(p.grammar_rules))
+            for d in decoders:
+                d.grammar = base_grammar.copy()
 
         # build prompt (whisper.cpp:7121-7148)
         prompt = []
@@ -1030,26 +1170,39 @@ def _decode_window_host(ctx: WhisperContext, p: FullParams, rc,
                     prompt.extend(prompt_past1[-n_take1:])
         prompt.extend(prompt_init)
 
-        on_device = p.use_device_loops and t_cur < 1e-6
+        # the on-device loops take t = 0 windows with no per-token host
+        # callback; a grammar rides the greedy loop when its token automaton
+        # fits the DFA budget, else the window is host-stepped
+        gops = _grammar_device_ops(ctx, p) if t_cur < 1e-6 else None
+        on_device = (p.use_device_loops and t_cur < 1e-6
+                     and p.logits_filter_callback is None
+                     and p.abort_callback is None)
+        use_device_loop = (on_device and n_dec_cur == 1
+                           and (p.grammar_rules is None or gops is not None))
+        use_device_beam = (on_device and beam_mode and n_dec_cur > 1
+                           and not p.ref_sampling and p.grammar_rules is None)
         # speculative greedy: draft proposals + one multi-token verify pass
         # a round; the same output as the greedy loop
-        if on_device and n_dec_cur == 1 and dxkv is not None:
+        if (use_device_loop and dxkv is not None and p.grammar_rules is None
+                and ctx.n_loaded > 0):
             no_speech_prob = _device_speculative_window(
                 ctx, p, rc, decoders, prompt, xk, xv, dxkv, base_mask, init_mask,
                 seek, seek_end, no_timestamps, timings)
-        elif on_device and beam_mode and n_dec_cur > 1:
+        elif use_device_beam:
             no_speech_prob = _device_beam_window(
                 ctx, p, rc, decoders, prompt, xk, xv, base_mask, init_mask,
                 seek, seek_end, no_timestamps, timings)
-        elif on_device and n_dec_cur == 1:
+        elif use_device_loop:
             no_speech_prob = _device_greedy_window(
                 ctx, p, rc, decoders, prompt, xk, xv, base_mask, init_mask,
-                seek, seek_end, no_timestamps, timings)
+                seek, seek_end, no_timestamps, timings, grammar=gops)
         else:
-            no_speech_prob = _host_stepped_window(
+            no_speech_prob, aborted = _host_stepped_window(
                 ctx, p, rc, decoders, prompt, xk, xv, base_mask, init_mask,
                 seek, seek_end, no_timestamps, t_cur, beam_mode, timings,
                 generator)
+            if aborted:
+                return best_decoder_id, decoders, no_speech_prob, prompt, True
 
         # ---- rank sequences (whisper.cpp:7545-7580) ----
         best_decoder_id, success = _rank_decoders(
@@ -1057,7 +1210,37 @@ def _decode_window_host(ctx: WhisperContext, p: FullParams, rc,
         if success:
             break
 
-    return best_decoder_id, decoders, no_speech_prob, prompt
+    return best_decoder_id, decoders, no_speech_prob, prompt, False
+
+
+def _grammar_device_ops(ctx: WhisperContext, p: FullParams):
+    """device_loop.GrammarOps for the on-device greedy loop, or None when
+    there is no grammar or its automaton exceeds the DFA budget (the window
+    is then host-stepped). Cached on the Grammar object, or on the context
+    for GBNF text, per penalty and device."""
+    if p.grammar_rules is None:
+        return None
+    from . import device_loop as DL
+    from . import grammar as G
+    key = (float(p.grammar_penalty), ctx.device)
+    if isinstance(p.grammar_rules, G.Grammar):
+        cached = p.grammar_rules.__dict__.get("_device_ops_cache")
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        base = p.grammar_rules
+    else:
+        text_key = (str(p.grammar_rules), key)
+        cached = getattr(ctx, "_gdfa_cache", None)
+        if cached is not None and cached[0] == text_key:
+            return cached[1]
+        base = G.Grammar.from_gbnf(p.grammar_rules)
+    dfa = G.build_token_dfa(base.copy(), ctx.vocab)
+    ops = DL.GrammarOps.from_dfa(dfa, key[0], ctx.device) if dfa is not None else None
+    if isinstance(p.grammar_rules, G.Grammar):
+        p.grammar_rules.__dict__["_device_ops_cache"] = (key, ops)
+    else:
+        ctx._gdfa_cache = (text_key, ops)
+    return ops
 
 
 def _pad_prompt(cfg: M.WhisperConfig, prompt: list[int], device):
@@ -1177,20 +1360,22 @@ def _beam_expand_and_merge(decoders, top_id, top_p, top_lp, pt, ptsum, tid, i,
                     break
         new_states.append((sum_lp, src_j, td, src_d))
 
-    # apply (copy the source sequence + append the token)
-    snapshot = {j: (list(d.tokens), d.seek_delta, d.has_ts, d.result_len)
+    # apply (copy the source sequence and grammar + append the token)
+    snapshot = {j: (list(d.tokens), d.seek_delta, d.has_ts, d.result_len,
+                    d.grammar.copy() if d.grammar is not None else None)
                 for j, d in enumerate(decoders)}
     for d, ns in zip(decoders, new_states):
         if ns is None:
             continue
         sum_lp, src_j, td, _ = ns
-        toks, sd, hts, rl = snapshot[src_j]
+        toks, sd, hts, rl, gr = snapshot[src_j]
         d.tokens = list(toks)
         d.tokens.append(dataclasses.replace(td))
         d.sum_logprobs_all = sum_lp
         d.seek_delta = sd
         d.has_ts = hts
         d.result_len = rl
+        d.grammar = gr.copy() if gr is not None else None
         d._src = src_j
 
 
@@ -1262,17 +1447,22 @@ def _emit_segments(ctx: WhisperContext, p: FullParams, result: TranscribeResult,
 
 
 def _post_segment(ctx: WhisperContext, p: FullParams, result: TranscribeResult):
-    # token-level timestamps (and the max_len wrap they enable) are refused
-    # up front by _refuse_unported
+    n_new = 1
+    if p.token_timestamps:
+        from ..timestamps import energy as E
+        E.compute_token_level_timestamps(ctx, result, len(result.segments) - 1,
+                                         p.thold_pt, p.thold_ptsum)
+        if p.max_len > 0:
+            n_new = _wrap_segment(ctx, result, p.max_len, p.split_on_word)
     if p.new_segment_callback:
-        p.new_segment_callback(result, 1)
+        p.new_segment_callback(result, n_new)
 
 
 def _wrap_segment(ctx: WhisperContext, result: TranscribeResult,
                   max_len: int, split_on_word: bool) -> int:
     """whisper_wrap_segment (src/whisper.cpp:6077-6129): split the last
-    segment into pieces of at most max_len UTF-8 chars. Reached through
-    token-level timestamps (not ported yet); kept with the segment code."""
+    segment into pieces of at most max_len UTF-8 chars (with token-level
+    timestamps)."""
     vocab = ctx.vocab
     segment = result.segments[-1]
     res = segment.t0

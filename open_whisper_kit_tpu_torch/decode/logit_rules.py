@@ -9,7 +9,8 @@ Static (per-run) suppression sets are precomputed into additive masks
 (numpy, shared with the JAX package's semantics); dynamic rules (timestamp
 pairing, monotonicity, logsumexp timestamp-vs-text) are driven by small
 per-beam state tensors; `sample_topk` expands beams for beam search.
-Grammar masks are not ported yet.
+A grammar's additive penalty rows (`apply_rules(grammar_mask=)`) apply
+after the timestamp rules, as whisper.cpp's do.
 """
 
 from __future__ import annotations
@@ -117,10 +118,14 @@ class BeamState:
 
 
 def apply_rules(rc: RuleConfig, logits: torch.Tensor, base_mask: torch.Tensor,
-                init_mask: torch.Tensor, st: BeamState, temperature: float):
+                init_mask: torch.Tensor, st: BeamState, temperature: float,
+                grammar_mask: torch.Tensor | None = None):
     """(B,V) raw logits -> (filtered logits, logprobs, probs), f32.
 
-    Order of operations matches whisper_process_logits exactly."""
+    Order of operations matches whisper_process_logits exactly.
+    `grammar_mask` (B,V): additive penalties applied only when the
+    timestamp-force rule did not fire, with logprobs recomputed
+    (whisper.cpp:6365-6388)."""
     V = rc.n_vocab
     logits = logits.float()
     if temperature > 0.0:
@@ -146,9 +151,14 @@ def apply_rules(rc: RuleConfig, logits: torch.Tensor, base_mask: torch.Tensor,
     # timestamp-vs-text logsumexp rule (whisper.cpp:6340-6361)
     ts_logprob = torch.logsumexp(torch.where(is_ts, logprobs, NEG_INF), dim=-1)
     max_text = torch.where(is_ts, NEG_INF, logprobs).max(dim=-1).values
-    force_text_off = (ts_logprob > max_text)[:, None] & ~is_ts
-    logits = torch.where(force_text_off, NEG_INF, logits)
-    logprobs = torch.where(force_text_off, NEG_INF, logprobs)
+    force_ts = (ts_logprob > max_text)[:, None]
+    logits = torch.where(force_ts & ~is_ts, NEG_INF, logits)
+    logprobs = torch.where(force_ts & ~is_ts, NEG_INF, logprobs)
+
+    if grammar_mask is not None:
+        logits = logits + torch.where(force_ts, 0.0, grammar_mask)
+        # force_ts rows keep their unrenormalized logprobs
+        logprobs = torch.where(force_ts, logprobs, torch.log_softmax(logits, dim=-1))
 
     probs = torch.where(torch.isneginf(logits), 0.0, torch.exp(logprobs))
     return logits, logprobs, probs

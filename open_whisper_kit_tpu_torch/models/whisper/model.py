@@ -29,8 +29,10 @@ compute graph and rounding points:
   the speculative verify pass) takes `_attention_hm_q`, JAX's XLA einsum.
   The JAX package sends QuantKV to that einsum at every row count.
 
-The int8 self-cache (`init_kv_cache_q8`) and cross-QK collection are not
-ported yet.
+`decode_impl(collect_cross_qk=True)` also returns the softmax
+cross-attention probabilities (the DTW timestamp signal), formed by
+explicit products over the float or QuantKV cross-KV, never by a fused
+kernel. The int8 self-cache (`init_kv_cache_q8`) is still to come.
 """
 
 from __future__ import annotations
@@ -297,9 +299,10 @@ def _layer(blocks: Params, il: int) -> Params:
     return {k: v[il] for k, v in blocks.items()}
 
 
-def _attention(q, k, v, n_head, scale, mask=None):
+def _attention(q, k, v, n_head, scale, mask=None, with_probs: bool = False):
     """q (B,Tq,S), k (B,Tk,S), v (B,Tk,S) -> (B,Tq,S); f32 scores and
-    softmax, probabilities cast to q's dtype before P.V."""
+    softmax, probabilities cast to q's dtype before P.V. `with_probs`: also
+    return the f32 probabilities (B,H,Tq,Tk)."""
     B, Tq, S = q.shape
     Tk = k.shape[1]
     d = S // n_head
@@ -310,8 +313,8 @@ def _attention(q, k, v, n_head, scale, mask=None):
         scores = scores + mask
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype),
-                       v.reshape(B, Tk, n_head, d))
-    return out.reshape(B, Tq, S)
+                       v.reshape(B, Tk, n_head, d)).reshape(B, Tq, S)
+    return (out, probs) if with_probs else out
 
 
 _ENC_PAD_MIN_T = 256   # pad-once threshold (the JAX package's, attention._MIN_FLASH_T)
@@ -503,9 +506,17 @@ def quantize_cross_kv_nat(x: torch.Tensor, n_head: int) -> QuantKVNat:
 _attention_hm_q = cross_attention_q8_plain
 
 
+def _rows_probs(probs: torch.Tensor, B: int, T: int) -> torch.Tensor:
+    """(Bk, H, B*T/Bk, Ta) probabilities of rows folded onto a batch-Bk
+    cross-KV -> (B, H, T, Ta)."""
+    Bk, H, _, Ta = probs.shape
+    return probs.reshape(Bk, H, B // Bk, T, Ta).transpose(1, 2).reshape(B, H, T, Ta)
+
+
 def decode_impl(cfg: WhisperConfig, dec: Params, tokens: torch.Tensor,
                 kv_k: torch.Tensor, kv_v: torch.Tensor, kv_head,
-                xk: torch.Tensor, xv: torch.Tensor, logits_pos=None):
+                xk: torch.Tensor, xv: torch.Tensor, logits_pos=None,
+                collect_cross_qk: bool = False):
     """One decoder forward over `tokens` (B,T) starting at cache slot
     `kv_head` (an int or a 0-d integer tensor; a tensor keeps the host out
     of the loop).
@@ -516,11 +527,16 @@ def decode_impl(cfg: WhisperConfig, dec: Params, tokens: torch.Tensor,
     (B,1,V). xk/xv (L, B or 1, Ta, S), or QuantKV / QuantKVNat planes of
     batch B or 1: with batch 1 all B rows share one cross-KV. A QuantKVNat
     drives one-row steps only. Takes `dec` after prepare_decoder (fused
-    qkv)."""
+    qkv).
+
+    `collect_cross_qk`: also return cross_qk, the (L, B, H, T, Ta) f32
+    softmax cross-attention probabilities (whisper.cpp:2720-2736), as a
+    fourth element; their layer's cross-attention then runs on explicit
+    products (never K9b), and a QuantKVNat cross-KV is refused."""
     dtype = kv_k.dtype
     dev = tokens.device
     B, T = tokens.shape
-    if isinstance(xk, QuantKVNat) and T != 1:
+    if isinstance(xk, QuantKVNat) and (T != 1 or collect_cross_qk):
         raise ValueError("QuantKVNat drives the single-token serving step only")
     C = kv_k.shape[2]
     S, H = cfg.n_text_state, cfg.n_text_head
@@ -537,6 +553,7 @@ def decode_impl(cfg: WhisperConfig, dec: Params, tokens: torch.Tensor,
                        0.0, float("-inf"))
 
     blocks = dec["blocks"]
+    cross_probs = []
     for il in range(cfg.n_text_layer):
         p = _layer(blocks, il)
         h = _ln(x, p["attn_ln_w"], p["attn_ln_b"], cfg.eps)
@@ -554,17 +571,22 @@ def decode_impl(cfg: WhisperConfig, dec: Params, tokens: torch.Tensor,
         if isinstance(xk, QuantKVNat):      # kernel K9a
             ca = cross_attention_q8_nat(cq, xk.qs[il], xk.scale[il], xv.qs[il],
                                         xv.scale[il], H, kqscale, xk.ta_valid)
-        elif isinstance(xk, QuantKV) and T == 1:    # kernel K9b
+        elif isinstance(xk, QuantKV) and T == 1 and not collect_cross_qk:   # kernel K9b
             ca = cross_attention_q8(cq, xk.qs[il], xk.scale[il], xv.qs[il],
                                     xv.scale[il], H, kqscale)
-        elif isinstance(xk, QuantKV):
-            # a cross-KV of batch 1 serves every row: fold the rows into queries
-            ca = _attention_hm_q(cq.reshape(xk.qs.shape[1], -1, S), xk.qs[il],
-                                 xk.scale[il], xv.qs[il], xv.scale[il], H,
-                                 kqscale).reshape(B, T, S)
         else:
-            ca = _attention(cq.reshape(xk.shape[1], -1, S), xk[il], xv[il], H,
-                            kqscale).reshape(B, T, S)
+            # a cross-KV of batch 1 serves every row: fold the rows into queries
+            if isinstance(xk, QuantKV):
+                ca = _attention_hm_q(cq.reshape(xk.qs.shape[1], -1, S), xk.qs[il],
+                                     xk.scale[il], xv.qs[il], xv.scale[il], H, kqscale,
+                                     with_probs=collect_cross_qk)
+            else:
+                ca = _attention(cq.reshape(xk.shape[1], -1, S), xk[il], xv[il], H,
+                                kqscale, with_probs=collect_cross_qk)
+            if collect_cross_qk:
+                ca, probs = ca
+                cross_probs.append(_rows_probs(probs, B, T))
+            ca = ca.reshape(B, T, S)
         x = x + _mm(ca, p["co_w"]) + p["co_b"]
 
         h = _ln(x, p["mlp_ln_w"], p["mlp_ln_b"], cfg.eps)
@@ -583,6 +605,8 @@ def decode_impl(cfg: WhisperConfig, dec: Params, tokens: torch.Tensor,
         logits = qmatmul(x, dec["te_logits"])
     else:
         logits = _dot_f32(x, dec["te"].t())
+    if collect_cross_qk:
+        return logits, kv_k, kv_v, torch.stack(cross_probs)
     return logits, kv_k, kv_v
 
 

@@ -168,6 +168,6 @@ def mha_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d != HEAD_DIM:
         raise NotImplementedError(
             f"head dim {d}: kernel K1 takes 64-wide heads only (every "
-            "whisper preset); other widths are not ported")
+            "whisper preset); other widths have no kernel")
     return mha_packed(q, k, v, scale,
                       q.shape[1] if kv_valid is None else kv_valid)

@@ -56,11 +56,12 @@ _K9_Q_LD = 80          # floats of a query row in shared memory (64 + padding)
 
 def cross_attention_q8_plain(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                              vq: torch.Tensor, vs: torch.Tensor, n_head: int,
-                             scale: float) -> torch.Tensor:
+                             scale: float, with_probs: bool = False):
     """Attention of q (B, T, S) over head-major int8 planes kq/vq
     (Bk, H, Ta, dh) with scales ks/vs (Bk, H, Ta), Bk = B or 1 (shared):
     JAX's `_attention_hm_q` without the mask. The dequantized K/V are
-    products of exact values, so the f32 matmuls reproduce its f32 einsums."""
+    products of exact values, so the f32 matmuls reproduce its f32 einsums.
+    `with_probs`: also return the f32 probabilities (B, H, T, Ta)."""
     B, T, S = q.shape
     d = S // n_head
     qh = q.reshape(B, T, n_head, d).transpose(1, 2)                    # (B,H,T,d)
@@ -69,7 +70,8 @@ def cross_attention_q8_plain(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor
     probs = torch.softmax(scores, dim=-1)
     pv = (probs * vs[:, :, None, :]).to(q.dtype)
     out = torch.matmul(pv.float(), vq.float()).to(q.dtype)             # (B,H,T,d)
-    return out.transpose(1, 2).reshape(B, T, S)
+    out = out.transpose(1, 2).reshape(B, T, S)
+    return (out, probs) if with_probs else out
 
 
 def _nat_to_head_major(kq: torch.Tensor, ks: torch.Tensor, n_head: int, n_keys: int):

@@ -1,9 +1,9 @@
 """Data parallelism over audio chunks (whisper_full_parallel semantics).
 
 Port of open_whisper_kit_tpu/parallel/dp.py (src/whisper.cpp:7801-7929):
-split the samples into n chunks, transcribe each with an independent
-state, then merge segments with time-offset fixup and non-overlap
-clamping. Two routes, as in the JAX package:
+split the (optionally VAD-filtered) samples into n chunks, transcribe each
+with an independent state, then merge segments with time-offset fixup and
+non-overlap clamping. Two routes, as in the JAX package:
 
 1. **Lockstep** (decode/batch.py::transcribe_chunks_with_timings) when the
    params are greedy-t0-compatible: all chunks' windows decode together
@@ -13,8 +13,10 @@ clamping. Two routes, as in the JAX package:
    (the reference's std::thread model), each running whisper_full.
 
 `params.cross_kv_int8` reaches both routes through the params (the JAX
-package hands it to the lockstep route as an argument). VAD (params.vad)
-is not ported yet and raises, as in whisper_full.
+package hands it to the lockstep route as an argument). With `params.vad`
+the Silero VAD filters the samples once, up front, on the context's device;
+the chunks then run with vad=False, and their segment times stay in the
+filtered audio's time, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -64,11 +66,20 @@ def full_parallel(ctx: F.WhisperContext, params: FullParams,
                   samples: np.ndarray, n_processors: int) -> F.TranscribeResult:
     if n_processors <= 1:
         return F.whisper_full(ctx, params, samples)
-    if params.vad:
-        raise NotImplementedError("VAD (vad=True) is not ported to the PyTorch "
-                                  "package yet")
 
     samples = np.asarray(samples, np.float32)
+
+    # VAD filtering happens once, up front (whisper.cpp:7813-7824)
+    if params.vad:
+        from ..vad import segments as VS
+        probs = ctx.get_vad(params.vad_model_path).detect_speech(samples)
+        vsegs = VS.segments_from_probs(probs, params.vad_params)
+        if not vsegs:
+            return F.TranscribeResult(segments=[])
+        fr = VS.filter_samples(samples, vsegs, params.vad_params)
+        if fr.samples.size == 0:
+            return F.TranscribeResult(segments=[])
+        samples = fr.samples
     n_samples = len(samples)
     offset_samples = SAMPLE_RATE * params.offset_ms // 1000
     per_proc = (n_samples - offset_samples) // n_processors
@@ -83,13 +94,14 @@ def full_parallel(ctx: F.WhisperContext, params: FullParams,
             bounds.append((start, end))
     chunks = [samples[lo:hi] for lo, hi in bounds]
 
-    p0 = params
-    p_rest = dataclasses.replace(params, offset_ms=0, print_progress=False,
+    p0 = dataclasses.replace(params, vad=False)
+    p_rest = dataclasses.replace(params, vad=False, offset_ms=0, print_progress=False,
                                  new_segment_callback=None, progress_callback=None)
 
-    # eligibility is judged on offset_ms as given: seeking changes chunk 0's
-    # mel normalization window, which only the threaded route reproduces
-    if _batch_route_eligible(ctx, params):
+    # eligibility is judged with vad cleared (it was applied above) and on
+    # offset_ms as given: seeking changes chunk 0's mel normalization
+    # window, which only the threaded route reproduces
+    if _batch_route_eligible(ctx, p0):
         seg_lists, timings = transcribe_chunks_with_timings(ctx, p_rest, chunks)
         chunk_results = [F.TranscribeResult(segments=segs, timings=timings[i])
                          for i, segs in enumerate(seg_lists)]

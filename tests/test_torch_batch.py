@@ -275,17 +275,35 @@ def test_batch_q8_megakernel_int8_matches_jax(tmp_path):
     assert calls and set(calls) == {2}
 
 
-def test_unported_batch_options_raise(tiny_en):
-    """Token timestamps on the lockstep entry points and VAD on
-    full_parallel are not ported: they raise instead of taking another path."""
-    _, tctx = tiny_en
-    tr = Transcriber.__new__(Transcriber)
-    tr.ctx = tctx
-    files = [audio(2, 0), audio(2, 1)]
-    with pytest.raises(NotImplementedError, match="token_timestamps"):
-        tr.transcribe_batch(files, FullParams(print_progress=False, token_timestamps=True))
-    with pytest.raises(NotImplementedError, match="token_timestamps"):
-        tr.transcribe_batched(audio(4, 0), FullParams(print_progress=False,
-                                                      token_timestamps=True), n_chunks=2)
-    with pytest.raises(NotImplementedError, match="VAD"):
-        tr.full_parallel(FullParams(print_progress=False, vad=True), audio(4, 0), 2)
+def test_unported_batch_options_raise(tiny_en, tmp_path):
+    """The lockstep entry points with options that change the step program,
+    as the JAX package runs them: transcribe_batch with token_timestamps
+    sends each file to whisper_full (token t0/t1 set); transcribe_batched
+    runs the lockstep chunks, where the option does not apply; full_parallel
+    with VAD filters the samples once with the Silero model (a random-weight
+    file both packages read), then splits them. Results equal JAX's."""
+    from open_whisper_kit_tpu import api as JAPI
+    from open_whisper_kit_tpu_torch.io import silero_writer as SW
+    jctx, tctx = tiny_en
+    tr, jt = Transcriber.__new__(Transcriber), JAPI.Transcriber.__new__(JAPI.Transcriber)
+    tr.ctx, jt.ctx = tctx, jctx
+    kw = dict(print_progress=False, token_timestamps=True, temperature_inc=0.0)
+    files = [audio(6, 0), audio(8, 1)]
+    jres = jt.transcribe_batch(files, JFullParams(**kw))
+    tres = tr.transcribe_batch(files, FullParams(**kw))
+    for a, b in zip(jres, tres):
+        _assert_same(a, b)
+        assert ([(t.t0, t.t1) for s in b.segments for t in s.tokens]
+                == [(t.t0, t.t1) for s in a.segments for t in s.tokens])
+    assert any(t.t0 >= 0 for r in tres for s in r.segments for t in s.tokens)
+    _assert_same(JB.transcribe_batched(jctx, JFullParams(**kw), audio(16, 0), 2),
+                 TB.transcribe_batched(tctx, FullParams(**kw), audio(16, 0), 2))
+    path = tmp_path / "silero.bin"
+    SW.write_silero(path, SW.random_silero_tensors(seed=0))
+    rng = np.random.default_rng(1)
+    samples = np.zeros(16000 * 30, np.float32)
+    for lo, hi in ((1, 9), (12, 16), (19, 29)):
+        samples[lo * 16000:hi * 16000] = rng.standard_normal((hi - lo) * 16000) * 0.3
+    vad = dict(print_progress=False, vad=True, vad_model_path=str(path))
+    _assert_same(JDP.full_parallel(jctx, JFullParams(**vad), samples, 2),
+                 TDP.full_parallel(tctx, FullParams(**vad), samples, 2))

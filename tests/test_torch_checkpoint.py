@@ -186,10 +186,6 @@ def test_gguf_and_unported_options_raise(tmp_path):
         TF.WhisperContext.from_file(path, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         Transcriber(model_path=path, device="cpu", mesh=object())
-    # encoder_int8 is ported; VAD on full_parallel is not
-    tr = Transcriber(preset="tiny.en", dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="VAD .* not ported"):
-        tr.full_parallel(FullParams(print_progress=False, vad=True), audio(4, 0), 2)
 
 
 def test_transcriber_draft_model_path(ckpts):

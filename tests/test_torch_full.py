@@ -1,5 +1,5 @@
 """The port's whisper_full and Transcriber against the JAX package, end to
-end on seeded audio (CPU, f32), plus what the port must refuse."""
+end on seeded audio (CPU, f32), its options included."""
 
 import dataclasses
 import re
@@ -87,6 +87,14 @@ def test_host_stepped_greedy_matches_jax(narrow):
     _assert_same_segments(jres, tres)
 
 
+@pytest.fixture(scope="module")
+def silero_path(tmp_path_factory):
+    from open_whisper_kit_tpu_torch.io import silero_writer as SW
+    path = tmp_path_factory.mktemp("vad") / "silero-random.bin"
+    SW.write_silero(path, SW.random_silero_tensors(seed=0))
+    return str(path)
+
+
 @pytest.mark.parametrize("field,value", [
     ("strategy+ref_sampling", (SamplingStrategy.BEAM_SEARCH, True)),
     ("grammar_rules", "root ::= \"a\""),
@@ -95,13 +103,44 @@ def test_host_stepped_greedy_matches_jax(narrow):
     ("abort_callback", lambda: False),
     ("logits_filter_callback", lambda *a: None),
 ])
-def test_unported_features_raise(narrow, field, value):
-    """Beam search is ported; its ref_sampling (mt19937) host path is not."""
+def test_unported_features_raise(narrow_ts, silero_path, field, value):
+    """Each whisper_full option the port once refused, set alone (with the
+    temperature fallback off but under ref_sampling, whose fallback draws
+    are mt19937's on both sides): the same segments and token
+    t0 / t1 / t_dtw and sampled-token count as the JAX package, on 25 s of audio
+    (one window, six segments), with a grammar on 6 s, with VAD on speech
+    spans between silences (the random
+    Silero file's segments, spliced, times mapped back). Beams with
+    ref_sampling take the mt19937 draws; the callbacks route the windows to
+    the host-stepped loop; the logits filter is never called, as in JAX."""
+    from open_whisper_kit_tpu.decode.params import SamplingStrategy as JStrategy
     fields = field.split("+")
     values = value if len(fields) > 1 else (value,)
-    p = dataclasses.replace(FullParams(print_progress=False), **dict(zip(fields, values)))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TF.whisper_full(narrow[1], p, audio(1, 0))
+    kw = dict(zip(fields, values))
+    if "ref_sampling" not in kw:
+        # the sampled fallback draws from torch's and JAX's own generators
+        kw["temperature_inc"] = 0.0
+    samples = audio(25, 2)
+    if field == "vad":
+        kw["vad_model_path"] = silero_path
+        rng = np.random.default_rng(1)
+        samples = np.zeros(16000 * 32, np.float32)
+        for lo, hi in ((2, 12), (15, 19), (22, 31)):
+            samples[lo * 16000:hi * 16000] = rng.standard_normal((hi - lo) * 16000) * 0.3
+    elif field == "grammar_rules":
+        # no token of the synthetic vocabulary spells "a": every text token
+        # takes the penalty, and each window ends on timestamps alone
+        samples = audio(6, 2)
+    jkw = dict(kw, strategy=JStrategy.BEAM_SEARCH) if "strategy" in kw else kw
+    jres = JF.whisper_full(narrow_ts[0], JFullParams(print_progress=False, **jkw), samples)
+    tres = TF.whisper_full(narrow_ts[1], FullParams(print_progress=False, **kw), samples)
+    assert segments(tres) == segments(jres)
+    # (n_encode is not compared: the port also counts the in-loop encoder
+    # pass of a window the K-window loop hands to the fallback)
+    assert tres.timings.n_sample == jres.timings.n_sample
+    assert len(tres.segments) > 0 or (field == "grammar_rules" and tres.timings.n_encode > 1)
+    assert ([(t.t0, t.t1, t.t_dtw) for s in tres.segments for t in s.tokens]
+            == [(t.t0, t.t1, t.t_dtw) for s in jres.segments for t in s.tokens])
 
 
 def test_import_leaves_jax_out():
@@ -124,7 +163,9 @@ def test_port_sources_never_import_jax():
 
 @pytest.mark.parametrize("name", ["decode/tokenizer.py", "decode/params.py",
                                   "io/quant.py", "io/_iq_tables.py",
-                                  "io/ggml_whisper.py"])
+                                  "io/ggml_whisper.py", "decode/grammar.py",
+                                  "utils/mt19937.py", "timestamps/energy.py",
+                                  "vad/segments.py", "io/ggml_silero.py"])
 def test_copied_host_modules_match_their_source(name):
     src = (REPO / "open_whisper_kit_tpu" / name).read_text()
     copy = (REPO / "open_whisper_kit_tpu_torch" / name).read_text()
@@ -186,11 +227,11 @@ def test_transcriber_detect_language_and_tokenize_match_jax():
     for text in ("<12><7>", "hello world", ""):
         assert tr.tokenize(text) == jt.tokenize(text)
     assert tr.is_multilingual and tr.model_type == "tiny"
-    # an option the port does not have yet raises (encoder_int8 and
-    # cross_kv_int8 are ported)
-    with pytest.raises(NotImplementedError, match=r"VAD \(vad=True\) is not ported"):
-        tr.transcribe_batch([samples, samples],
-                            FullParams(print_progress=False, vad=True))
+    # VAD leaves the lockstep route for whisper_full per file, which needs a
+    # Silero model, as in the JAX package
+    for t, P in ((tr, FullParams), (jt, JFullParams)):
+        with pytest.raises(ValueError, match="vad=True requires vad_model_path"):
+            t.transcribe_batch([samples, samples], P(print_progress=False, vad=True))
 
 
 def test_transcribe_wav_path(tmp_path, narrow):
