@@ -217,7 +217,30 @@ Phases, each gated; any failure exits non-zero before the result lines:
      a grammar in the device loop and host-stepped, ref_sampling greedy at
      t = 0.4 and beam 3 (mt19937 draws), the abort callback at step 25, the
      logits filter, token and DTW timestamps, VAD: the same token ids and
-     t0 / t1 / t_dtw.
+     t0 / t1 / t_dtw;
+ 26. SortFormer diarization at the published width (SortformerConfig():
+     17 Conformer layers of 512, 18 Transformer layers of 192, 117 M
+     parameters; seed-0 weights written as an f16 GGUF by the port's
+     exporter) through api.Diarizer(model_path=..., device="cuda") on 90 s
+     of seeded noise, presets offline and low_latency: the device AOSC loop
+     (one host read a file) against the host loop on the card (equal RTTM
+     segments; probabilities within 1e-5 up to the speaker cache's first
+     compression, beyond it printed beside the host loop's own move when
+     the input is scaled by 1 + 2^-20: the random model's near-constant
+     predictions leave its top-K picks to f32 noise), each timed (ms per
+     30 s of audio, host clock around a synchronize) with its host reads and
+     torch.profiler's device operations per chunk; the card against the
+     CPU from the same file (offline 90 s, low_latency 20 s; within 1e-4 up
+     to the first compression, equal segments); the compression at full
+     width on the card against the host's numpy form (scores apart) and
+     the CPU's device form (exact ties); diarize_batch of 30, 45, 60 and
+     90 s against the four single calls (within 1e-4 on the chunks they
+     share up to the first compression); Diarizer.stream("low_latency") fed
+     0.5 s pieces, the device state against the host state (1e-5 up to the
+     first compression, one read a chunk), beside diarize's frames;
+ 27. narrow f32 (3 decoder layers) transcribe with token timestamps,
+     words_from_result, the TINY diarizer and api.align on the card and on
+     the CPU from the same weights: the same DiarizedTranscription.
 Phases 11-13, 18 and 23 run right after phase 3, with the other kernel
 checks; 19, 21 and 24 right after 6, on its checkpoint.
 Every phase prints ms per sampled token beside its RTF. The last three lines are the kernels JSON, the nvidia-smi name/power line
@@ -2677,6 +2700,311 @@ def phase_narrow_options(torch, TF, TM, tok_mod, FullParams, tmp, tokens) -> Non
         check(out["cuda"] == out["cpu"] and n_tok > 0, f"narrow {label}: cuda and cpu differ")
 
 
+# SortFormer diarization (phases 26-27): the published model's shapes
+# (SortformerConfig(): 17 Conformer layers of 512, 18 Transformer layers of
+# 192, 117 M parameters) from seed-0 random weights written as an f16 GGUF,
+# on DIAR_SECS of seeded noise; the TINY config of the JAX package's tests
+# for the narrow card-against-CPU phase
+DIAR_SECS = 90.0
+DIAR_CPU_SECS = {"offline": 90.0, "low_latency": 20.0}
+DIAR_BATCH_SECS = (30.0, 45.0, 60.0, 90.0)
+DIAR_TINY = dict(n_mels=32, d_model=32, n_layers=2, n_heads=4, conv_kernel=5,
+                 ff_expansion=2, subsampling_channels=8, tf_layers=2, tf_d_model=16,
+                 tf_heads=4, tf_ff=32)
+
+
+def device_ops(torch, run) -> int:
+    """The device operations (kernels and copies) one call of run() issues,
+    counted from a torch.profiler trace; 0 if the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def first_compress(scfg, useds) -> int:
+    """The index of the first chunk whose state update compresses the
+    speaker cache (len(useds) if none): the AOSC lengths follow the chunk
+    schedule alone (streaming._state_update)."""
+    sc = fifo = 0
+    for i, used in enumerate(useds):
+        total = fifo + used
+        if total > scfg.fifo_len:
+            pop = min(max(scfg.spkcache_update_period, used - scfg.fifo_len + fifo), total)
+            sc, fifo = sc + pop, total - pop
+            if sc > scfg.spkcache_len:
+                return i
+        else:
+            fifo = total
+    return len(useds)
+
+
+def shared_frames(SD, cfg, scfg, feat: int, feat_full: int, to_compress: bool = True) -> int:
+    """The frames of the chunks that a file of `feat` mel frames shares with
+    the schedule of `feat_full` frames; with `to_compress`, up to the first
+    compression of the speaker cache: where two correct runs must agree
+    (phase_diarize)."""
+    own = SD._chunk_schedule(cfg, scfg, feat)
+    full = SD._chunk_schedule(cfg, scfg, feat_full)
+    stop = first_compress(scfg, full[3]) + 1 if to_compress else len(own[0])
+    k = 0
+    while k < min(len(own[0]), stop) and all(own[j][k] == full[j][k] for j in range(4)):
+        k += 1
+    return sum(own[3][:k])
+
+
+def phase_diarize(torch, tmp) -> None:
+    """Phase 26: SortFormer diarization at the published width through
+    api.Diarizer (module docstring).
+
+    The seed-0 random model's predictions hardly depend on the audio (per
+    speaker within ~2e-2 over a file), so from the first compression of the
+    speaker cache on, its top-K picks among scores that lie within f32
+    noise of each other: two correct runs part there (the host loop parts
+    from itself, up to 6e-3, when the input is scaled by 1 + 2^-20). The
+    loops are held to each other on the chunks up to that compression, and
+    the compression itself is held to the host's on full-width states
+    whose scores are apart."""
+    import numpy as np
+    from open_whisper_kit_tpu_torch import api as TAPI
+    from open_whisper_kit_tpu_torch.align import rttm as RT
+    from open_whisper_kit_tpu_torch.models.sortformer import device_aosc as SD
+    from open_whisper_kit_tpu_torch.models.sortformer import export as SE
+    from open_whisper_kit_tpu_torch.models.sortformer import model as SM
+    from open_whisper_kit_tpu_torch.models.sortformer import streaming as SS
+    smi = nvidia_smi_line()
+    cfg = SM.SortformerConfig()
+    t0 = time.perf_counter()
+    path = SE.write_sortformer_gguf(tmp / "sortformer-seed0-f16.gguf", cfg,
+                                    SM.init_params(cfg, seed=0, device="cpu"))
+    t1 = time.perf_counter()
+    card = TAPI.Diarizer(model_path=path, device="cuda")
+    cpu = TAPI.Diarizer(model_path=path, device="cpu")
+    torch.cuda.synchronize()
+    n_par = sum(v.numel() for k, v in _tensor_leaves(card.engine.params)
+                if k not in ("mel_fb", "mel_window"))
+    print(f"[26] SortformerConfig() seed 0: {n_par / 1e6:.1f} M parameters, f16 GGUF "
+          f"{path.stat().st_size / 2**20:.1f} MiB written in {t1 - t0:.1f} s, loaded on "
+          f"cuda and cpu in {time.perf_counter() - t1:.1f} s | {smi}", flush=True)
+    check(card.device.type == "cuda" and card._auto_device_state(None),
+          "Diarizer on the card does not default to the device loop")
+    reads = card.engine.reads
+    x = audio(DIAR_SECS, 26)
+
+    def segs(segments):
+        return [dataclasses.astuple(s) for s in segments]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        n0, t0 = reads.n, time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, reads.n - n0
+
+    def schedule(scfg, secs):
+        useds = SD._chunk_schedule(cfg, scfg, int(16000 * secs) // cfg.hop_length)[3]
+        i = first_compress(scfg, useds)
+        return useds, i, sum(useds[:i + 1])
+
+    def dmax(a, b, n=None):
+        return float(np.abs(a[:n] - b[:n]).max()) if len(a[:n]) else 0.0
+
+    full = {}
+    for preset in ("offline", "low_latency"):
+        scfg = TAPI.PRESETS[preset]
+        useds, i_c, n_pre = schedule(scfg, DIAR_SECS)
+        n_chunks = len(useds)
+        for ds in (True, False):      # first calls: allocator and cuBLAS set-up
+            card.diarize(audio(2.0, 1), preset, device_state=ds)
+        (pd, sd), ms_dev, r_dev = timed(lambda: card.diarize(x, preset, device_state=True))
+        (ph, sh), ms_host, r_host = timed(lambda: card.diarize(x, preset, device_state=False))
+        full[preset] = pd
+        # the noise floor: the host loop on the input scaled by 1 + 2^-20 (on
+        # 45 s for low_latency), over the frames the two schedules share
+        secs_s = DIAR_SECS if preset == "offline" else 45.0
+        ps, _ = card.diarize(x[:int(16000 * secs_s)] * np.float32(1 + 2.0 ** -20), preset,
+                             device_state=False)
+        n_s = shared_frames(SD, cfg, scfg, int(16000 * secs_s) // cfg.hop_length,
+                            int(16000 * DIAR_SECS) // cfg.hop_length, to_compress=False)
+        per30 = 30.0 / DIAR_SECS
+        print(f"[26] {preset}, {DIAR_SECS:.0f} s, {n_chunks} chunks: device loop "
+              f"{ms_dev * per30:.1f} ms per 30 s of audio ({ms_dev / n_chunks:.2f} ms a chunk, "
+              f"{r_dev} host read), host loop {ms_host * per30:.1f} ms per 30 s "
+              f"({ms_host / n_chunks:.2f} ms a chunk, {r_host} host reads, "
+              f"{r_host / n_chunks:.0f} a chunk) | {smi}", flush=True)
+        lo, hi = ph.min(0), ph.max(0)
+        print(f"[26] {preset}: frames {pd.shape[0]}, probabilities per speaker "
+              f"{' '.join(f'{a:.4f}..{b:.4f}' for a, b in zip(lo, hi))}, RTTM segments {len(sd)}, "
+              f"equal {segs(sd) == segs(sh)}; device against host loop max|d prob| over the "
+              f"{n_pre} frames up to the first compression (chunk {i_c}) {dmax(pd, ph, n_pre):.2e}, "
+              f"over the file {dmax(pd, ph):.2e}; the host loop against itself on the input "
+              f"x (1 + 2^-20), the {n_s} frames of {secs_s:.0f} s {dmax(ph, ps, n_s):.2e}",
+              flush=True)
+        check(pd.shape == ph.shape == (sum(useds), 4) and r_dev == 1 and r_host == n_chunks
+              and np.isfinite(pd).all(), f"diarize {preset}: shapes or host reads wrong")
+        check(dmax(pd, ph, n_pre) <= 1e-5 and segs(sd) == segs(sh) and len(sd) > 0,
+              f"diarize {preset}: the device loop and the host loop differ")
+        ops = {}
+        secs_p = 30.0 if preset == "offline" else 5.0
+        for ds in (True, False):
+            ops[ds] = device_ops(torch, lambda: card.diarize(x[:int(16000 * secs_p)], preset,
+                                                             device_state=ds))
+        n_p = len(schedule(scfg, secs_p)[0])
+        print(f"[26] {preset}: device operations per chunk (torch.profiler, {secs_p:.0f} s, "
+              f"{n_p} chunks): device loop {ops[True] / n_p:.0f}, host loop {ops[False] / n_p:.0f}"
+              if ops[True] else f"[26] {preset}: device operations per chunk: not measured "
+              "(the trace holds no device events)", flush=True)
+        # the card against the CPU, from the same file
+        secs = DIAR_CPU_SECS[preset]
+        xc = x[:int(16000 * secs)]
+        _, i_cc, n_cpu = schedule(TAPI.PRESETS[preset], secs)
+        t0 = time.perf_counter()
+        pc, sc = cpu.diarize(xc, preset)
+        ms_cpu = (time.perf_counter() - t0) * 1e3
+        pg, sg = (pd, sd) if secs == DIAR_SECS else card.diarize(xc, preset)
+        print(f"[26] {preset}, {secs:.0f} s: card (device loop) against cpu (host loop, "
+              f"{ms_cpu * 30.0 / secs:.0f} ms per 30 s) max|d prob| over the {n_cpu} frames up "
+              f"to the first compression {dmax(pg, pc, n_cpu):.2e} (expected within 1e-4), "
+              f"over the file {dmax(pg, pc):.2e}; segments equal {segs(sg) == segs(sc)} "
+              f"({len(sc)} on the cpu) | {smi}", flush=True)
+        check(pg.shape == pc.shape and dmax(pg, pc, n_cpu) <= 1e-4 and segs(sg) == segs(sc),
+              f"diarize {preset}: card and cpu differ")
+
+    # the compression at full width: the card's device form against the
+    # host's numpy form on states whose scores are apart, and against the
+    # CPU's device form on states of exact ties (lax.top_k's order)
+    rng = np.random.default_rng(26)
+    for name in ("offline", "low_latency"):
+        scfg = TAPI.PRESETS[name]
+        n = scfg.spkcache_len + scfg.spkcache_update_period
+        SC_MAX = scfg.spkcache_len + scfg.fifo_len + 190
+        for ties in (False, True):
+            st = SS.StreamState(cfg.d_model)
+            st.spkcache = rng.standard_normal((n, cfg.d_model)).astype(np.float32)
+            p = rng.random((n, 4)).astype(np.float32)
+            if ties:
+                p = np.where(p > 0.6, 1.0, np.where(p < 0.3, 0.0, 0.7)).astype(np.float32)
+            st.spkcache_preds, st.spkcache_preds_valid = p, True
+            st.mean_sil_emb = rng.standard_normal(cfg.d_model).astype(np.float32)
+            bufs = [np.zeros((SC_MAX,) + a.shape[1:], np.float32) for a in (st.spkcache, p)]
+            bufs[0][:n], bufs[1][:n] = st.spkcache, p
+            got = {}
+            for dev in ("cuda", "cpu"):
+                sc, sp, ln = SD._compress_dev(
+                    torch.from_numpy(bufs[0])[None].to(dev), torch.from_numpy(bufs[1])[None].to(dev),
+                    torch.tensor([n], device=dev), torch.from_numpy(st.mean_sil_emb)[None].to(dev),
+                    scfg)
+                got[dev] = (sc[0, :scfg.spkcache_len].cpu().numpy(),
+                            sp[0, :scfg.spkcache_len].cpu().numpy(), int(ln[0]))
+            SS.compress_spkcache(st, scfg)
+            same_host = (np.array_equal(got["cuda"][0], st.spkcache)
+                         and np.array_equal(got["cuda"][1], st.spkcache_preds))
+            same_cpu = all(np.array_equal(a, b) for a, b in zip(got["cuda"], got["cpu"]))
+            print(f"[26] compress_spkcache, {name}, {n} x {cfg.d_model} -> "
+                  f"{scfg.spkcache_len}, {'exact ties' if ties else 'scores apart'}: card "
+                  f"(device form) == cpu (device form) {same_cpu}, == host (numpy) "
+                  f"{same_host}", flush=True)
+            check(same_cpu and got["cuda"][2] == scfg.spkcache_len and (ties or same_host),
+                  f"compress_spkcache at full width ({name}, ties {ties}): the card differs")
+
+    # lockstep batch of uneven files against the single calls
+    preset = "low_latency"
+    scfg = TAPI.PRESETS[preset]
+    xs = [x[:int(16000 * s)] for s in DIAR_BATCH_SECS]
+    batch, ms_b, r_b = timed(lambda: card.diarize_batch(xs, preset))
+    # the single calls (the 90 s file's is the device-loop run above)
+    singles = [full[preset] if len(a) == len(x) else card.diarize(a, preset)[0] for a in xs]
+    feats = [len(a) // cfg.hop_length for a in xs]
+    for (pb, _), ps, f, secs in zip(batch, singles, feats, DIAR_BATCH_SECS):
+        n_same = shared_frames(SD, cfg, scfg, f, max(feats))
+        print(f"[26] diarize_batch, {preset}, {secs:.0f} s of {len(xs)} files: frames "
+              f"{pb.shape[0]}; the {n_same} frames of the chunks it shares with the single "
+              f"call up to the first compression within {dmax(pb, ps, n_same):.2e} of it, "
+              f"the file {dmax(pb, ps):.2e}", flush=True)
+        check(pb.shape == ps.shape and n_same > 0 and dmax(pb, ps, n_same) <= 1e-4
+              and np.isfinite(pb).all(), f"diarize_batch {secs:.0f} s differs from its single call")
+    print(f"[26] diarize_batch of {len(xs)} files ({sum(DIAR_BATCH_SECS):.0f} s): "
+          f"{ms_b:.1f} ms, {ms_b * 30.0 / sum(DIAR_BATCH_SECS):.1f} ms per 30 s of audio, "
+          f"{r_b} host read | {smi}", flush=True)
+    check(r_b == 1, "diarize_batch on the card read the device more than once")
+
+    # true streaming in 0.5 s pieces
+    xs30 = x[:16000 * 30]
+    out = {}
+    for ds in (True, False):
+        st = card.stream(preset, device_state=None if ds else False)
+        check(st.device_state is ds, "stream() did not pick the device state on the card")
+        n0, t0 = reads.n, time.perf_counter()
+        for i in range(0, len(xs30), 8000):
+            st.feed(xs30[i:i + 8000])
+        st.finish()
+        out[ds] = (st.probs(), (time.perf_counter() - t0) * 1e3, reads.n - n0, st.n_chunks)
+    (pd, ms_d, r_d, nc), (ph, ms_h, _, _) = out[True], out[False]
+    # a stream's chunks take no left context: chunk_len frames each
+    n_pre = (first_compress(scfg, [scfg.chunk_len] * nc) + 1) * scfg.chunk_len
+    ref = singles[DIAR_BATCH_SECS.index(30.0)]     # diarize() of the same 30 s
+    print(f"[26] stream {preset}, 30 s in 0.5 s pieces: {nc} chunks, device state "
+          f"{ms_d:.1f} ms ({r_d / nc:.0f} host read a chunk), host state {ms_h:.1f} ms; device "
+          f"against host state max|d prob| over the {min(n_pre, len(pd))} frames up to the "
+          f"first compression {dmax(pd, ph, n_pre):.2e}, the stream {dmax(pd, ph):.2e}; "
+          f"against diarize({preset}) frames {len(pd)} / {len(ref)}, max|d prob| "
+          f"{dmax(pd, ref, min(len(pd), len(ref))):.2e} (no left context, the mel restarts "
+          f"each round) | {smi}", flush=True)
+    check(pd.shape == ph.shape and dmax(pd, ph, n_pre) <= 1e-5 and r_d == nc
+          and np.isfinite(pd).all(), "stream: the device state and the host state differ")
+    check(RT.to_rttm(RT.probs_to_segments(pd, 0.5, 11, "s")).startswith("SPEAKER s 1 "),
+          "stream: no RTTM segment")
+
+
+def _tensor_leaves(tree, key=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tensor_leaves(v, k)
+    else:
+        yield key, tree
+
+
+def phase_narrow_diarize(torch, TF, TM, tok_mod, FullParams, tokens) -> None:
+    """Phase 27: the narrow f32 Whisper (3 decoder layers) with token
+    timestamps, words_from_result, the TINY diarizer and api.align, on the
+    card and on the CPU from the same weights: the same
+    DiarizedTranscription."""
+    import numpy as np
+    from open_whisper_kit_tpu_torch import api as TAPI
+    from open_whisper_kit_tpu_torch.models.sortformer import model as SM
+    cfg3 = TM.WhisperConfig(*NARROW_Q)
+    params3 = TM.init_params(cfg3, seed=0, dtype=torch.float32, device="cpu")
+    tiny = SM.SortformerConfig(**DIAR_TINY)
+    sparams = SM.init_params(tiny, seed=0, device="cpu")
+    x = audio(25.0, 2)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        c = TF.WhisperContext(cfg3, params3, tok_mod.build_vocab(tokens, cfg3.n_vocab),
+                              TF._synthetic_mel_filters(80), n_loaded=1,
+                              dtype=torch.float32, device=dev)
+        p = greedy_params(FullParams)
+        p.token_timestamps = True
+        words = TAPI.words_from_result(TF.whisper_full(c, p, x), ctx=c)
+        d = TAPI.Diarizer(cfg=tiny, params=sparams, device=dev)
+        _, segments = d.diarize(x, stream_config="low_latency", median_win=3)
+        out[dev] = TAPI.align(words, segments)
+    a, b = out["cuda"], out["cpu"]
+    same = (a.text == b.text
+            and [(w.word, w.start, w.end, w.speaker) for w in a.words]
+            == [(w.word, w.start, w.end, w.speaker) for w in b.words]
+            and [(u.speaker, u.text, u.start, u.end, len(u.words)) for u in a.segments]
+            == [(u.speaker, u.text, u.start, u.end, len(u.words)) for u in b.segments])
+    dp = max((abs(u.probability - v.probability) for u, v in zip(a.words, b.words)),
+             default=0.0)
+    print(f"[27] narrow f32 transcribe (token timestamps) + TINY diarizer + api.align, 25 s: "
+          f"words {len(a.words)}, speakers {sorted({w.speaker for w in a.words if w.speaker})}, "
+          f"utterances {len(a.segments)}, cuda == cpu {same}, max|d word probability| "
+          f"{dp:.2e}", flush=True)
+    check(same and len(a.words) > 0 and dp <= 1e-5 and np.isfinite(dp),
+          "narrow diarized transcription: cuda and cpu differ")
+
+
 # the tensor-core probe's two products (tools/bench_int8_mxu.py): x @ W1 and
 # h @ W2 of large-v3-turbo's encoder MLP, M = 1536 rows (one window, padded)
 MXU_SHAPES = (("x @ W1", 1536, 1280, 5120), ("h @ W2", 1536, 5120, 1280))
@@ -3439,6 +3767,14 @@ def main(profiling: bool = False) -> int:
         # ---- 25. narrow whisper_full options: cuda against cpu ----
         phase_narrow_options(torch, TF, TM, tok_mod, FullParams, tmp, tokens)
         done("25")
+
+        # ---- 26. SortFormer diarization at the published width ----
+        phase_diarize(torch, tmp)
+        done("26")
+
+        # ---- 27. narrow diarized transcription: cuda against cpu ----
+        phase_narrow_diarize(torch, TF, TM, tok_mod, FullParams, tokens)
+        done("27")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

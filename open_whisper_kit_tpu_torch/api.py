@@ -1,7 +1,7 @@
-"""Public API facade of the PyTorch port (port of the Transcriber part of
-open_whisper_kit_tpu/api.py, batched serving included, and
-`words_from_result`; Diarizer and align are still to come). Entry points
-run on the card ("cuda") unless the caller asks for the CPU."""
+"""Public API facade of the PyTorch port (port of open_whisper_kit_tpu/
+api.py: the Transcriber with batched serving, the SortFormer Diarizer,
+word <-> speaker `align` and `words_from_result`). Entry points run on the
+card ("cuda") unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
@@ -10,19 +10,25 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .align.aligner import WordTiming
+from .align import aligner as _aligner
+from .align import rttm as _rttm
+from .align.aligner import AlignmentOptions, DiarizedTranscription, WordTiming
+from .align.rttm import RttmSegment
 from .audio import mel as mel_mod
 from .audio.wav import load_wav
 from .decode import batch as _batch
 from .decode import full as _full
 from .decode.full import Segment, TokenData, TranscribeResult, WhisperContext
 from .decode.params import FullParams, SamplingStrategy, VadParams
+from .models.sortformer.streaming import (PRESETS, SortformerDiarizer,
+                                          SortformerStream, StreamConfig)
 from .parallel import dp as _dp
 
 __all__ = [
-    "Transcriber", "FullParams", "SamplingStrategy", "VadParams", "Segment",
-    "TokenData", "TranscribeResult", "WhisperContext", "WordTiming", "load_wav",
-    "words_from_result",
+    "Transcriber", "Diarizer", "FullParams", "SamplingStrategy", "VadParams",
+    "Segment", "TokenData", "TranscribeResult", "WhisperContext", "WordTiming",
+    "AlignmentOptions", "DiarizedTranscription", "RttmSegment", "align",
+    "load_wav", "words_from_result",
 ]
 
 
@@ -146,6 +152,101 @@ class Transcriber:
     @property
     def is_multilingual(self) -> bool:
         return self.ctx.vocab.is_multilingual
+
+
+class Diarizer:
+    """SortFormer speaker diarization (SortFormerContext analog) on one
+    torch device.
+
+    frame duration 0.08 s, max 4 speakers
+    (Sources/OpenWhisperKit/SortFormerContext.swift:20-30).
+    """
+
+    FRAME_DURATION = 0.08
+    MAX_SPEAKERS = 4
+
+    def __init__(self, model_path: str | Path | None = None,
+                 cfg=None, params=None, dtype: torch.dtype = torch.float32,
+                 device: str | torch.device = "cuda"):
+        """`model_path`: a SortFormer GGUF. Or `cfg` and `params` (the
+        model.py dict of tensors, moved to `device`). Runs on the card
+        unless `device` asks for the CPU; raises when CUDA is missing."""
+        dev = _full._resolve_device(device)
+        if model_path is not None:
+            self.engine = SortformerDiarizer.from_file(str(model_path), dtype=dtype,
+                                                       device=dev)
+        elif cfg is not None and params is not None:
+            self.engine = SortformerDiarizer(cfg, _full._to_device(params, dev))
+        else:
+            raise ValueError("model_path or (cfg, params) required")
+        self.device = dev
+
+    def _auto_device_state(self, device_state: bool | None) -> bool:
+        """Default the device AOSC loop (one read per file) on for the card,
+        the host loop on the CPU."""
+        if device_state is not None:
+            return device_state
+        return self.device.type != "cpu"
+
+    def diarize(self, audio: str | Path | np.ndarray,
+                stream_config: StreamConfig | str | None = None,
+                threshold: float = 0.5, median_win: int = 11,
+                file_id: str | None = None,
+                device_state: bool | None = None):
+        """-> (probs (T,4), rttm segments)."""
+        if isinstance(audio, (str, Path)):
+            if file_id is None:
+                file_id = Path(audio).stem
+            audio = load_wav(audio)
+        if isinstance(stream_config, str):
+            stream_config = PRESETS[stream_config]
+        probs = self.engine.diarize(
+            audio, stream_config,
+            device_state=self._auto_device_state(device_state))
+        segments = _rttm.probs_to_segments(probs, threshold, median_win,
+                                           file_id or "unknown")
+        return probs, segments
+
+    def diarize_batch(self, audios: list, stream_config=None,
+                      threshold: float = 0.5, median_win: int = 11,
+                      file_ids: list[str] | None = None,
+                      device_state: bool | None = None):
+        """Lockstep multi-file diarization -> list of (probs, segments)."""
+        loaded = []
+        ids = []
+        for i, a in enumerate(audios):
+            if isinstance(a, (str, Path)):
+                ids.append(Path(a).stem)
+                loaded.append(load_wav(a))
+            else:
+                ids.append(file_ids[i] if file_ids else f"file_{i}")
+                loaded.append(np.asarray(a, np.float32))
+        if isinstance(stream_config, str):
+            stream_config = PRESETS[stream_config]
+        all_probs = self.engine.diarize_batch(
+            loaded, stream_config,
+            device_state=self._auto_device_state(device_state))
+        return [(p, _rttm.probs_to_segments(p, threshold, median_win, fid))
+                for p, fid in zip(all_probs, ids)]
+
+    def diarize_to_rttm(self, audio: str | Path | np.ndarray, **kw) -> str:
+        _, segments = self.diarize(audio, **kw)
+        return _rttm.to_rttm(segments)
+
+    def stream(self, preset: str | StreamConfig = "low_latency",
+               device_state: bool | None = None) -> SortformerStream:
+        """True streaming session (sortformer_stream_* analog).
+
+        `device_state=None` keeps the AOSC state on the card (one read per
+        chunk: its predictions) and on the host on the CPU."""
+        return SortformerStream(self.engine, preset,
+                                device_state=self._auto_device_state(device_state))
+
+
+def align(words: list[WordTiming], segments: list[RttmSegment],
+          options: AlignmentOptions | None = None) -> DiarizedTranscription:
+    """Word <-> speaker alignment (DiarizationAligner.align)."""
+    return _aligner.align(words, segments, options)
 
 
 def words_from_result(result: TranscribeResult, vocab=None,

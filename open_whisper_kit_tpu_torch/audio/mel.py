@@ -1,5 +1,5 @@
-"""Whisper log-mel spectrogram (port of open_whisper_kit_tpu/audio/mel.py,
-Whisper variant; the NeMo / SortFormer front-end is still to come).
+"""Log-mel spectrograms (port of open_whisper_kit_tpu/audio/mel.py): the
+Whisper variant, and the NeMo / SortFormer front-end (`nemo_log_mel`).
 
 Reference semantics (src/whisper.cpp:3170-3260): SR 16000, n_fft 400, hop
 160, periodic Hann, front reflect-pad 200, end zero-pad 30 s + 200,
@@ -94,3 +94,55 @@ def log_mel_spectrogram(samples: np.ndarray, filters: np.ndarray,
     mmax = torch.where(live, logmel, float("-inf")).max() - 8.0
     out = (torch.maximum(logmel, mmax) + 4.0) / 4.0
     return Mel(data=torch.where(live, out, 0.0), n_len=n_len, n_len_org=n_len_org)
+
+
+# ---------------------------------------------------------------------------
+# NeMo / SortFormer variant
+# ---------------------------------------------------------------------------
+
+NEMO_N_FFT = 512
+NEMO_WIN = 400
+NEMO_HOP = 160
+NEMO_PREEMPH = 0.97
+NEMO_LOG_GUARD = 2.0 ** -24
+
+
+def nemo_log_mel(samples: np.ndarray, filters: np.ndarray, pad_to: int = 16, *,
+                 device: str | torch.device) -> torch.Tensor:
+    """SortFormer mel front-end -> (n_frames_padded, n_mel=128) float32 on
+    `device`.
+
+    Mirrors streaming-sortformer/src/sortformer.cpp:779-894: preemphasis,
+    center constant-pad n_fft//2, window 400 centered in 512-point frame,
+    log(x + 2^-24), frames log-guard-padded to a multiple of `pad_to`. The
+    JAX package computes the frames in 256-frame buckets; each frame's value
+    does not depend on its bucket."""
+    x = np.ascontiguousarray(samples, dtype=np.float32)
+    # preemphasis y[t] = x[t] - 0.97 x[t-1], y[0] = x[0]
+    y = np.empty_like(x)
+    if x.shape[0] > 0:
+        y[0] = x[0]
+        y[1:] = x[1:] - NEMO_PREEMPH * x[:-1]
+    pad = NEMO_N_FFT // 2
+    padded = np.concatenate([np.zeros(pad, np.float32), y, np.zeros(pad, np.float32)])
+    n_frames = (1 + (padded.shape[0] - NEMO_N_FFT) // NEMO_HOP
+                if padded.shape[0] >= NEMO_N_FFT else 0)
+
+    # center the 400-sample Hann in the 512-point frame (NeMo's torch.stft
+    # center-pads the window symmetrically: 56 zeros either side)
+    win = np.zeros(NEMO_N_FFT, np.float32)
+    off = (NEMO_N_FFT - NEMO_WIN) // 2
+    win[off:off + NEMO_WIN] = hann_window(NEMO_WIN, periodic=False)
+
+    n_out = -(-n_frames // pad_to) * pad_to
+    out = torch.full((n_out, filters.shape[0]), float(np.log(NEMO_LOG_GUARD)),
+                     dtype=torch.float32, device=device)
+    if n_frames > 0:
+        cos, sin = _rdft_mats(NEMO_N_FFT)
+        buf = torch.from_numpy(padded).to(device)
+        frames = buf.unfold(0, NEMO_N_FFT, NEMO_HOP)[:n_frames] * torch.from_numpy(win).to(device)
+        re = frames @ torch.from_numpy(cos).to(device)
+        im = frames @ torch.from_numpy(sin).to(device)
+        filters_t = torch.from_numpy(np.ascontiguousarray(filters.T, dtype=np.float32))
+        out[:n_frames] = torch.log((re * re + im * im) @ filters_t.to(device) + NEMO_LOG_GUARD)
+    return out

@@ -244,14 +244,6 @@ class WhisperContext:
                   encoder_int8: bool = False) -> "WhisperContext":
         """A ggml-bin checkpoint, from a path or its bytes."""
         dev = _resolve_device(device)
-        if isinstance(path, (bytes, bytearray, memoryview)):
-            head = bytes(path[:4])
-        else:
-            with open(path, "rb") as f:
-                head = f.read(4)
-        if head == b"GGUF":
-            raise NotImplementedError("GGUF checkpoints are not ported to the "
-                                      "PyTorch package yet")
         ck = ggml_whisper.load_checkpoint(path)
         cfg = M.WhisperConfig.from_hparams(ck.hparams)
         vocab = tok_mod.build_vocab(ck.tokens, ck.hparams.n_vocab)

@@ -180,10 +180,19 @@ def test_stub_checkpoint_round_trip(tmp_path):
 
 
 def test_gguf_and_unported_options_raise(tmp_path):
+    """A GGUF file given for a Whisper model fails as in the JAX package,
+    whose ggml-bin reader refuses its magic (neither package loads a Whisper
+    GGUF); a mesh is not ported."""
     path = tmp_path / "m.gguf"
     path.write_bytes(b"GGUF" + bytes(60))
-    with pytest.raises(NotImplementedError, match="GGUF"):
-        TF.WhisperContext.from_file(path, device="cpu")
+    with pytest.raises(ValueError) as ref:
+        JF.WhisperContext.from_file(str(path))
+    for load in (lambda: TF.WhisperContext.from_file(path, device="cpu"),
+                 lambda: TF.WhisperContext.from_buffer(path.read_bytes(), device="cpu")):
+        with pytest.raises(ValueError) as got:
+            load()
+        assert "bad magic" in str(got.value)
+        assert str(got.value).split(":")[-1] == str(ref.value).split(":")[-1]
     with pytest.raises(NotImplementedError, match="not ported"):
         Transcriber(model_path=path, device="cpu", mesh=object())
 

@@ -165,7 +165,9 @@ def test_port_sources_never_import_jax():
                                   "io/quant.py", "io/_iq_tables.py",
                                   "io/ggml_whisper.py", "decode/grammar.py",
                                   "utils/mt19937.py", "timestamps/energy.py",
-                                  "vad/segments.py", "io/ggml_silero.py"])
+                                  "vad/segments.py", "io/ggml_silero.py",
+                                  "io/gguf.py", "models/sortformer/mel_fb.py",
+                                  "align/rttm.py", "align/aligner.py"])
 def test_copied_host_modules_match_their_source(name):
     src = (REPO / "open_whisper_kit_tpu" / name).read_text()
     copy = (REPO / "open_whisper_kit_tpu_torch" / name).read_text()
@@ -182,17 +184,19 @@ def test_cuda_device_without_cuda_raises():
 
 @pytest.mark.parametrize("entry", ["Transcriber(preset)", "Transcriber(model_path)",
                                    "WhisperContext", "from_preset", "from_file",
-                                   "from_buffer"])
+                                   "from_buffer", "Diarizer"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """With no `device`, every entry point targets the card: on a machine
     without CUDA it raises before building anything, and never falls back
     to the CPU."""
     import inspect
+    from open_whisper_kit_tpu_torch.api import Diarizer
+    from open_whisper_kit_tpu_torch.models.sortformer import model as TSM
     from open_whisper_kit_tpu_torch.models.whisper import model as TM
     from open_whisper_kit_tpu_torch.io import ggml_writer as TW
     for fn in (Transcriber.__init__, TF.WhisperContext.__init__,
                TF.WhisperContext.from_preset, TF.WhisperContext.from_file,
-               TF.WhisperContext.from_buffer):
+               TF.WhisperContext.from_buffer, Diarizer.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -208,6 +212,7 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "from_preset": lambda: TF.WhisperContext.from_preset("tiny.en"),
         "from_file": lambda: TF.WhisperContext.from_file(path),
         "from_buffer": lambda: TF.WhisperContext.from_buffer(path.read_bytes()),
+        "Diarizer": lambda: Diarizer(cfg=TSM.SortformerConfig(), params={}),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
