@@ -241,6 +241,28 @@ Phases, each gated; any failure exits non-zero before the result lines:
  27. narrow f32 (3 decoder layers) transcribe with token timestamps,
      words_from_result, the TINY diarizer and api.align on the card and on
      the CPU from the same weights: the same DiarizedTranscription.
+ 28. the port's HTTP server (server/http_server.py) on a thread, serving
+     phase 6's q8_0 turbo checkpoint on the card (K2 auto) with a 50 ms
+     batch window and phase 26's SortFormer: one 30 s /inference in json,
+     srt and verbose_json, each equal to Transcriber.full on the same audio
+     (texts, token ids, times); four concurrent 30 s /inference, each equal
+     to a direct transcribe_chunks_with_timings of the group the batcher
+     formed (its n_dispatches and max_group printed); /detect-language
+     against the direct call; a /stream session of 60 s of s16le in 0.5 s
+     pieces (step 3000, length 10000, keep 200) equal to an in-process
+     StreamingTranscriber fed the same pieces, with ms per stream step
+     (median, slowest), the stream's wall over its audio seconds and K1 /
+     K2 launches per step; five stream steps at audio_ctx 768 (K1 at 768
+     positions, K2's cross-attention planned for Ta 768), warmed once, ms
+     per step (median, slowest), then K1 held to its plain version on the
+     steps' own encoder inputs and the steps' tokens with K2 held to K2 off
+     (decode_impl) from the same encoder outputs; /diarize offline
+     equal to Diarizer.diarize; the HTTP and direct walls and the phase's
+     seconds, beside the card's name and power limit;
+ 29. narrow f32 (3 decoder layers, a ggml-bin) on the card against the
+     CPU: StreamingTranscriber in step mode with keep_context, in step
+     mode at audio_ctx 768 and in VAD mode (the same events), and whisper-cli with -otxt -osrt -ovtt -ocsv
+     -olrc -oj on the card and with -ng (the same files).
 Phases 11-13, 18 and 23 run right after phase 3, with the other kernel
 checks; 19, 21 and 24 right after 6, on its checkpoint.
 Every phase prints ms per sampled token beside its RTF. The last three lines are the kernels JSON, the nvidia-smi name/power line
@@ -3005,6 +3027,480 @@ def phase_narrow_diarize(torch, TF, TM, tok_mod, FullParams, tokens) -> None:
           "narrow diarized transcription: cuda and cpu differ")
 
 
+# serving and streaming at full width (phase 28): the stream's feed pieces,
+# its step / length / keep, and the seconds of each request kind
+SERVE_SECS = 30.0
+SERVE_SEEDS = (281, 282, 283, 284)
+STREAM_SECS = 60.0
+STREAM_CFG = {"step_ms": 3000, "length_ms": 10000, "keep_ms": 200}
+STREAM_PIECE = 8000          # 0.5 s of s16le a /stream/feed
+AUDIO_CTX = 768
+AC_STEPS = 5                 # stream steps of 3 s timed at AUDIO_CTX
+DIAR_SERVE_SECS = 30.0
+
+
+def wav_bytes(x) -> bytes:
+    """16 kHz mono s16le WAV bytes of f32 samples in [-1, 1]."""
+    import io
+    import wave
+    import numpy as np
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def multipart(fields: dict) -> tuple[bytes, str]:
+    b = "smokeboundary28"
+    parts = [f'--{b}\r\nContent-Disposition: form-data; name="{k}"'.encode()
+             + (b'; filename="a.wav"' if k == "file" else b"") + b"\r\n\r\n"
+             + (v if isinstance(v, bytes) else str(v).encode()) + b"\r\n"
+             for k, v in fields.items()]
+    return b"".join(parts) + f"--{b}--\r\n".encode(), f"multipart/form-data; boundary={b}"
+
+
+def http_post(url: str, body: bytes, ctype: str) -> str:
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.read().decode()
+    except urllib.error.HTTPError as e:
+        raise PhaseFailed(f"POST {url}: HTTP {e.code} {e.read()[:500]!r}") from None
+
+
+def handler_params(FullParams, **kw):
+    """The FullParams the server's /inference handler builds from a form
+    that sets only temperature_inc=0 (and response_format)."""
+    p = FullParams(print_progress=False, language="en", temperature_inc=0.0, max_len=60)
+    p.greedy = dataclasses.replace(p.greedy, best_of=2)
+    for k, v in kw.items():
+        setattr(p, k, v)
+    return p
+
+
+def stream_events(evs) -> list:
+    return [(e.text, e.t0, e.t1, e.final, e.speaker_turn_next) for e in evs]
+
+
+def audio_ctx_steps(torch, tr, state, mods, smi) -> None:
+    """Phase 28's stream steps at AUDIO_CTX on the server's transcriber:
+    warmed once, then timed; K1 held to its plain version on the steps' own
+    encoder inputs, and the tokens with K2 to those with K2 off
+    (decode_impl) from the same encoder outputs."""
+    from open_whisper_kit_tpu_torch.audio import mel as MEL
+    from open_whisper_kit_tpu_torch.decode import stream as TS
+    A, Q, MK, TM, LR = mods.A, mods.Q, mods.MK, mods.TM, mods.TB.LR
+    xa = audio(3.0 * AC_STEPS, 286)
+    ac_pieces = [xa[i:i + 48000] for i in range(0, len(xa), 48000)]
+
+    def ac_stream(k2=True, times=None):
+        st = TS.StreamingTranscriber(tr.ctx, TS.StreamParams(audio_ctx=AUDIO_CTX,
+                                                             no_fallback=True))
+        if not k2:
+            real_fp = st._full_params
+
+            def k2_off():
+                fp = real_fp()
+                fp.megakernel = False
+                return fp
+            st._full_params = k2_off
+        ev = []
+        with state.lock:
+            for piece in ac_pieces:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ev += st.feed(piece)
+                torch.cuda.synchronize()
+                if times is not None:
+                    times.append((time.perf_counter() - t0) * 1e3)
+        check(st.n_iter == len(ac_pieces), f"audio_ctx {AUDIO_CTX}: {st.n_iter} steps "
+              f"for {len(ac_pieces)} pieces of 3 s")
+        return stream_events(ev)
+    ac_stream()             # warm: K2's step pack for Ta 768, K1's 768 shape
+    reset_counts(A, Q, MK)
+    ac_ms = []
+    ev_t = ac_stream(times=ac_ms)
+    n_k1, n_k2 = A.mha_packed.launches, MK.mega_decode_step.launches
+    print(f"[28] stream steps at audio_ctx {AUDIO_CTX} ({AC_STEPS} steps of 3 s, warmed "
+          f"once): ms per step median {statistics.median(ac_ms):.1f}, slowest "
+          f"{max(ac_ms):.1f} (min {min(ac_ms):.1f}); per step K1 launches "
+          f"{n_k1 / AC_STEPS:.1f}, K2 launches {n_k2 / AC_STEPS:.1f}; {len(ev_t)} events "
+          f"| {smi}", flush=True)
+    check(n_k1 == TURBO_LAYERS * AC_STEPS and n_k2 > 0
+          and all(0 <= e[1] <= e[2] for e in ev_t),
+          f"audio_ctx {AUDIO_CTX} steps: K1 {n_k1}, K2 {n_k2} launches")
+    # the encoder + cross-KV pass alone at AUDIO_CTX and at the full window
+    mel = MEL.log_mel_spectrogram(xa, tr.ctx.filters, device=tr.ctx.device)
+
+    def enc_ms(ac):
+        ts = []
+        with state.lock:
+            for _ in range(AC_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.ctx.encode_window(mel.data, 0, ac)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+    e_ac, e_full = enc_ms(AUDIO_CTX), enc_ms(0)
+    print(f"[28] the encoder + cross-KV pass alone (median of {AC_STEPS}): "
+          f"{AUDIO_CTX} positions {e_ac:.1f} ms, {tr.ctx.cfg.n_audio_ctx} positions "
+          f"{e_full:.1f} ms | {smi}", flush=True)
+    # the same steps again, keeping the encoder's attention inputs and
+    # outputs, then with K2 off (decode_impl) from those encoder outputs
+    k1_in, real_mha = [], TM.mha_full
+
+    def keeping_mha(q, k, v, n_head, scale, kv_valid=None):
+        if len(k1_in) < TURBO_LAYERS:
+            k1_in.append((q.clone(), k.clone(), v.clone(), n_head, scale, kv_valid))
+        return real_mha(q, k, v, n_head, scale, kv_valid)
+    replay = EncoderReplay(TM)
+    TM.mha_full = keeping_mha
+    try:
+        with replay.record(), StepLogits(torch, LR, 2) as on_steps:
+            ev_on = ac_stream()
+    finally:
+        TM.mha_full = real_mha
+    reset_counts(A, Q, MK)
+    with replay.replay(tr.ctx.device), StepLogits(torch, LR, 2) as off_steps:
+        ev_off = ac_stream(k2=False)
+    n_k1_off, n_k2_off = A.mha_packed.launches, MK.mega_decode_step.launches
+    check(ev_on == ev_t, f"audio_ctx {AUDIO_CTX}: a second run gave other events")
+    check(replay.served == len(replay.outs) == AC_STEPS and n_k1_off == n_k2_off == 0,
+          f"audio_ctx {AUDIO_CTX} with K2 off: {replay.served} of {len(replay.outs)} "
+          f"encoder outputs replayed, K1 {n_k1_off} / K2 {n_k2_off} launches")
+    # K1 at the steps' own encoder shape, on the first step's inputs
+    errs = []
+    for q, k, v, n_head, scale, kv_valid in k1_in:
+        n_valid = q.shape[1] if kv_valid is None else kv_valid
+        ref = A.mha_plain(q, k, v, n_head, scale, n_valid)
+        out = A.mha_packed(q, k, v, scale, n_valid)
+        errs.append(((out.float() - ref.float()).abs().max().item(),
+                     ref.float().abs().max().item(), bool(torch.isfinite(out).all())))
+    worst = max(e / r for e, r, _ in errs)
+    print(f"[28] K1 on the audio_ctx {AUDIO_CTX} step's own inputs: {len(k1_in)} layers at "
+          f"{tuple(k1_in[0][0].shape)} {k1_in[0][0].dtype}, n_valid "
+          f"{k1_in[0][5] or k1_in[0][0].shape[1]}; max|err| / max|ref| against "
+          f"mha_plain {worst:.3e} (limit 1e-2)", flush=True)
+    check(len(k1_in) == TURBO_LAYERS and tuple(k1_in[0][0].shape[1:]) == (AUDIO_CTX, 1280)
+          and all(f for _, _, f in errs) and worst <= 1e-2,
+          f"K1 at audio_ctx {AUDIO_CTX} disagrees with its plain version")
+    # the tokens with K2 against K2 off (decode_impl), one encoder output
+    on_rows, off_rows = on_steps.rows(), off_steps.rows()
+    ids_on = [int(r[1][0, 0]) for r in on_rows]
+    ids_off = [int(r[1][0, 0]) for r in off_rows]
+    equal = next((j for j, (x, y) in enumerate(zip(ids_on, ids_off)) if x != y),
+                 min(len(ids_on), len(ids_off)))
+    part = first_parting(on_rows, off_rows)
+    line = (f"[28] audio_ctx {AUDIO_CTX}, {AC_STEPS} steps from one encoder output: tokens "
+            f"K2 {len(ids_on)}, K2 off {len(ids_off)}, equal {ids_on == ids_off}, equal "
+            f"tokens {equal}, events equal {ev_on == ev_off}")
+    if ids_on != ids_off and part is not None and part[1] is not None:
+        step, _, gap, big, diff = part
+        line += (f"; the first step whose best token differs: {step}, the K2-off gap there "
+                 f"{gap:.3e} of max|logit| {big:.3e}, max|logits K2 - K2 off| {diff:.3e}")
+    print(line, flush=True)
+    if ids_on == ids_off:
+        check(ev_on == ev_off and len(ids_on) > 0,
+              f"audio_ctx {AUDIO_CTX}: equal tokens with and without K2, other events")
+    else:
+        check(part is not None and part[1] is not None
+              and part[2] <= K7_ARGMAX_GAP * part[3],
+              f"audio_ctx {AUDIO_CTX}: K2 parts from K2 off at token {equal}, not at a "
+              "near tie of K2 off's logits")
+
+
+def phase_serving(torch, TF, FullParams, mods, q8_path, gguf_path) -> None:
+    """Phase 28: the port's server (server/http_server.py) on a thread,
+    serving the q8_0 turbo checkpoint on the card (K2 auto), each response
+    held to the direct call on the same model (module docstring)."""
+    import threading
+    import numpy as np
+    from open_whisper_kit_tpu_torch.audio.wav import load_wav
+    from open_whisper_kit_tpu_torch.cli import outputs as O
+    from open_whisper_kit_tpu_torch.compat import whisper_lang_str_full
+    from open_whisper_kit_tpu_torch.decode import stream as TS
+    from open_whisper_kit_tpu_torch.decode.batch import transcribe_chunks_with_timings
+    from open_whisper_kit_tpu_torch.server import http_server as H
+    A, Q, MK = mods.A, mods.Q, mods.MK
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    srv = H.serve(str(q8_path), port=0, device="cuda", batch_window_ms=50,
+                  diarize_model=str(gguf_path))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    state = srv.state
+    groups = []
+    run_group = state.batcher._run_group
+
+    def recording(reqs):
+        groups.append([r.audio for r in reqs])
+        return run_group(reqs)
+    state.batcher._run_group = recording
+    try:
+        check(state.device == torch.device("cuda", torch.cuda.current_device()),
+              f"server device {state.device} is not the indexed card")
+        tr = state.transcriber
+        check(tr.ctx.mega_mode(greedy_params(FullParams)) == "all",
+              "served q8_0 checkpoint: K2 is not switched on")
+        wavs = [wav_bytes(audio(SERVE_SECS, s)) for s in SERVE_SEEDS]
+        tmpwav = Path(q8_path).parent
+
+        def decoded(data):
+            (tmpwav / "a.wav").write_bytes(data)
+            return load_wav(tmpwav / "a.wav")
+        x0 = decoded(wavs[0])
+
+        def direct(p, x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with state.lock:
+                r = tr.full(p, x)
+            torch.cuda.synchronize()
+            return r, (time.perf_counter() - t0) * 1e3
+
+        def via_http(fields):
+            t0 = time.perf_counter()
+            out = http_post(url + "/inference", *multipart({"temperature_inc": b"0", **fields}))
+            return out, (time.perf_counter() - t0) * 1e3
+
+        def written(res, writer, **kw):
+            buf = __import__("io").StringIO()
+            writer(res, buf, None, **kw)
+            return buf.getvalue()
+
+        # ---- one 30 s request in json, srt and verbose_json ----
+        direct(handler_params(FullParams), x0)     # warm: K2's argument pack, first uses
+        res, d_ms = direct(handler_params(FullParams), x0)
+        walls = {}
+        got, walls["json"] = via_http({"file": wavs[0], "response_format": b"json"})
+        ok_json = json.loads(got) == {"text": written(res, O.write_txt)}
+        got, walls["srt"] = via_http({"file": wavs[0], "response_format": b"srt"})
+        ok_srt = got == written(res, O.write_srt)
+        vres, v_ms = direct(handler_params(FullParams, token_timestamps=True), x0)
+        got, walls["verbose_json"] = via_http({"file": wavs[0], "response_format": b"verbose_json"})
+        vj = json.loads(got)
+        eot = tr.ctx.vocab.token_eot
+        ok_v = ([(s["text"], s["tokens"], s["start"], s["end"],
+                  [(w["start"], w["end"]) for w in s["words"]]) for s in vj["segments"]]
+                == [(s.text, [t.id for t in s.tokens if t.id < eot], s.t0 / 100.0, s.t1 / 100.0,
+                     [(t.t0 / 100.0, t.t1 / 100.0) for t in s.tokens if t.id < eot])
+                    for s in vres.segments])
+        n_tok = sum(len(s.tokens) for s in res.segments)
+        print(f"[28] /inference 30 s on q8_0 turbo: {len(res.segments)} segments, {n_tok} "
+              f"tokens; json {walls['json']:.1f} ms, srt {walls['srt']:.1f} ms, verbose_json "
+              f"{walls['verbose_json']:.1f} ms through HTTP against the direct Transcriber.full "
+              f"{d_ms:.1f} ms (token timestamps {v_ms:.1f} ms); equal to the direct call: json "
+              f"{ok_json}, srt {ok_srt}, verbose_json {ok_v} | {smi}", flush=True)
+        check(ok_json and ok_srt and ok_v and n_tok > 0, "/inference differs from Transcriber.full")
+
+        # ---- four concurrent 30 s requests through the batcher ----
+        xs = [decoded(w) for w in wavs]
+        groups.clear()          # the single requests above went through it too
+        outs, errs = [None] * len(wavs), []
+        barrier = threading.Barrier(len(wavs))
+
+        def hit(i):
+            try:
+                barrier.wait()
+                outs[i] = via_http({"file": wavs[i], "response_format": b"srt"})
+            except Exception as e:  # noqa: BLE001
+                errs.append(e)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=hit, args=(i,)) for i in range(len(wavs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        conc_ms = (time.perf_counter() - t0) * 1e3
+        check(not errs, f"concurrent /inference failed: {errs[:1]}")
+        b = state.batcher
+        want = {}
+        d0 = time.perf_counter()
+        for grp in groups:
+            p = handler_params(FullParams)
+            with state.lock:
+                if len(grp) == 1:
+                    rs = [tr.full(p, grp[0])]
+                else:
+                    segs, tms = transcribe_chunks_with_timings(tr.ctx, p, grp)
+                    rs = [TF.TranscribeResult(segments=s, timings=t) for s, t in zip(segs, tms)]
+            for x, r in zip(grp, rs):
+                want[next(i for i, y in enumerate(xs) if np.array_equal(x, y))] = r
+        torch.cuda.synchronize()
+        dd_ms = (time.perf_counter() - d0) * 1e3
+        same = [outs[i][0] == written(want[i], O.write_srt) for i in range(len(wavs))]
+        print(f"[28] 4 concurrent 30 s /inference (srt, batch window 50 ms): batcher "
+              f"n_dispatches {b.n_dispatches}, max_group {b.max_group}, groups "
+              f"{[len(g) for g in groups]}; wall {conc_ms:.1f} ms through HTTP (each "
+              f"{', '.join(f'{o[1]:.1f}' for o in outs)} ms) against {dd_ms:.1f} ms for the "
+              f"direct transcribe_chunks_with_timings of the same groups; each equal to the "
+              f"direct call {same} | {smi}", flush=True)
+        check(all(same) and sorted(want) == list(range(len(wavs))),
+              "batched /inference differs from the direct lockstep call")
+
+        # ---- /detect-language ----
+        t0 = time.perf_counter()
+        dl = json.loads(http_post(url + "/detect-language", *multipart({"file": wavs[1]})))
+        dl_ms = (time.perf_counter() - t0) * 1e3
+        with state.lock:
+            lid, probs = tr.detect_language(xs[1])
+        print(f"[28] /detect-language: {dl['detected_language']} p {dl['probability']:.4f} in "
+              f"{dl_ms:.1f} ms; direct {whisper_lang_str_full(lid)} p {float(probs[lid]):.4f}",
+              flush=True)
+        check(dl["detected_language"] == whisper_lang_str_full(lid)
+              and abs(dl["probability"] - float(probs[lid])) <= 1e-6,
+              "/detect-language differs from the direct call")
+
+        # ---- a 60 s /stream session against an in-process StreamingTranscriber ----
+        xs60 = audio(STREAM_SECS, 285)
+        pcm = (np.clip(xs60, -1, 1) * 32767).astype("<i2")
+        pieces = [pcm[i:i + STREAM_PIECE] for i in range(0, len(pcm), STREAM_PIECE)]
+        sid = json.loads(http_post(url + "/stream/start", json.dumps(STREAM_CFG).encode(),
+                                   "application/json"))["session"]
+        got_ev = []
+        t0 = time.perf_counter()
+        for i, piece in enumerate(pieces):
+            route = "finish" if i == len(pieces) - 1 else "feed"
+            got_ev += json.loads(http_post(f"{url}/stream/{route}?session={sid}",
+                                           piece.tobytes(), "application/octet-stream"))["events"]
+        http_stream_ms = (time.perf_counter() - t0) * 1e3
+        st = TS.StreamingTranscriber(tr.ctx, TS.StreamParams(
+            step_ms=STREAM_CFG["step_ms"], length_ms=STREAM_CFG["length_ms"],
+            keep_ms=STREAM_CFG["keep_ms"], no_fallback=True))
+        reset_counts(A, Q, MK)
+        want_ev, step_ms = [], []
+        t_all = time.perf_counter()
+        with state.lock:
+            for i, piece in enumerate(pieces):
+                n0 = st.n_iter
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want_ev += st.feed(piece.astype(np.float32) / 32768.0)
+                torch.cuda.synchronize()
+                if st.n_iter > n0:
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+            want_ev += st.flush()
+        torch.cuda.synchronize()
+        ip_stream_ms = (time.perf_counter() - t_all) * 1e3
+        n_k1, n_k2 = A.mha_packed.launches, MK.mega_decode_step.launches
+        same = got_ev == [{"text": e.text, "t0": e.t0, "t1": e.t1, "final": e.final,
+                           "speaker_turn_next": e.speaker_turn_next} for e in want_ev]
+        n_steps = st.n_iter
+        print(f"[28] /stream 60 s in 0.5 s s16le pieces (step 3000, length 10000, keep 200): "
+              f"{len(got_ev)} events, equal to the in-process StreamingTranscriber {same}; "
+              f"{n_steps} steps (the flush included); ms per stream step median "
+              f"{statistics.median(step_ms):.1f}, slowest {max(step_ms):.1f} (min "
+              f"{min(step_ms):.1f}); stream wall over audio seconds: HTTP "
+              f"{http_stream_ms / 1e3 / STREAM_SECS:.4f}, in process "
+              f"{ip_stream_ms / 1e3 / STREAM_SECS:.4f}; per step K1 launches "
+              f"{n_k1 / n_steps:.1f}, K2 launches {n_k2 / n_steps:.1f} | {smi}", flush=True)
+        check(same and len(got_ev) > 0 and sid not in state.sessions,
+              "/stream events differ from the in-process StreamingTranscriber")
+        check(n_k1 == TURBO_LAYERS * n_steps and n_k2 > 0,
+              f"stream steps: K1 {n_k1} / K2 {n_k2} launches for {n_steps} steps")
+
+        # ---- stream steps at audio_ctx 768 (K1 at 768 positions, K2 at Ta 768) ----
+        audio_ctx_steps(torch, tr, state, mods, smi)
+
+        # ---- /diarize (offline) with phase 26's full-width SortFormer ----
+        xd = audio(DIAR_SERVE_SECS, 287)
+        wd = wav_bytes(xd)
+        dz_ms = []
+        for _ in range(2):      # the first request loads the SortFormer (lazily)
+            t0 = time.perf_counter()
+            got = json.loads(http_post(url + "/diarize", *multipart(
+                {"file": wd, "preset": b"offline"})))
+            dz_ms.append((time.perf_counter() - t0) * 1e3)
+        with state.lock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, segs = state.diarizer.diarize(decoded(wd), stream_config="offline",
+                                             file_id="audio")
+            torch.cuda.synchronize()
+        dd_ms = (time.perf_counter() - t0) * 1e3
+        same = got == {"segments": [{"speaker": s.speaker, "start": s.start,
+                                     "duration": s.duration} for s in segs]}
+        print(f"[28] /diarize offline 30 s: {len(segs)} segments; through HTTP {dz_ms[0]:.1f} "
+              f"ms (the model's load included), then {dz_ms[1]:.1f} ms, against the direct "
+              f"Diarizer.diarize {dd_ms:.1f} ms; equal to it {same} | {smi}", flush=True)
+        check(same, "/diarize differs from Diarizer.diarize")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        state.batcher._run_group = run_group
+    print(f"[28] phase seconds {time.perf_counter() - t_phase:.1f} | {smi}", flush=True)
+
+
+def phase_narrow_serving(torch, TF, FullParams, tmp, tokens) -> None:
+    """Phase 29: narrow f32 streaming and whisper-cli on the card against
+    the CPU (module docstring)."""
+    import io
+    import contextlib
+    import numpy as np
+    from open_whisper_kit_tpu_torch.cli import main as CLI
+    from open_whisper_kit_tpu_torch.decode import stream as TS
+    from open_whisper_kit_tpu_torch.io import ggml_writer as W
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    hp = W.WhisperHParams(*NARROW_Q, ftype=0, qntvr=0)
+    path = tmp / "narrow-f32.bin"
+    W.write_checkpoint(path, hp, TF._synthetic_mel_filters(80), tokens,
+                       W.random_reference_tensors(hp, seed=0), wtype=W.TYPE_FOR_NAME["f32"])
+    speech = np.zeros(16000 * 14, np.float32)
+    rng = np.random.default_rng(29)
+    for a, b in ((0.5, 3.0), (5.0, 7.5), (10.5, 13.5)):
+        speech[int(a * 16000):int(b * 16000)] = rng.standard_normal(
+            int(b * 16000) - int(a * 16000)) * 0.3
+    cases = (("step mode, keep_context", audio(20.0, 3),
+              dict(step_ms=3000, length_ms=10000, keep_ms=200, no_context=False)),
+             (f"step mode, audio_ctx {AUDIO_CTX}", audio(20.0, 3),
+              dict(step_ms=3000, length_ms=10000, keep_ms=200, audio_ctx=AUDIO_CTX)),
+             ("VAD mode", speech, dict(step_ms=0, length_ms=5000)))
+    for what, x, kw in cases:
+        ev = {}
+        for dev in ("cuda", "cpu"):
+            c = TF.WhisperContext.from_file(path, dtype=torch.float32, device=dev)
+            st = TS.StreamingTranscriber(c, TS.StreamParams(no_fallback=True, **kw))
+            out = []
+            for i in range(0, len(x), 8000):
+                out += st.feed(x[i:i + 8000])
+            out += st.flush()
+            ev[dev] = [(e.text, e.t0, e.t1, e.final, e.n_iter) for e in out]
+        print(f"[29] narrow f32 StreamingTranscriber, {what}: {len(ev['cuda'])} events, "
+              f"cuda == cpu {ev['cuda'] == ev['cpu']}", flush=True)
+        check(ev["cuda"] == ev["cpu"] and ev["cpu"], f"narrow stream ({what}): cuda and cpu differ")
+    wav = tmp / "narrow-cli.wav"
+    wav.write_bytes(wav_bytes(audio(16.0, 1)))
+    flags = ["-m", str(path), "-f", str(wav), "-nf", "--dtype", "f32", "-np",
+             "-otxt", "-osrt", "-ovtt", "-ocsv", "-olrc", "-oj"]
+    for tag, extra in (("cpu", ["-ng"]), ("cuda", [])):
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(CLI.main(flags + ["-of", str(tmp / f"cli-{tag}")] + extra) == 0,
+                  f"whisper-cli on {tag} failed")
+    same = {}
+    for ext in ("txt", "srt", "vtt", "csv", "lrc", "json"):
+        a, b = ((tmp / f"cli-{tag}.{ext}").read_text() for tag in ("cuda", "cpu"))
+        if ext == "json":
+            ja, jb = json.loads(a), json.loads(b)
+            ta, tb = ja["transcription"], jb["transcription"]
+            same[ext] = (len(ta) == len(tb) and all(
+                (u["timestamps"], u["offsets"], u["text"]) == (v["timestamps"], v["offsets"], v["text"])
+                for u, v in zip(ta, tb)) and {k: v for k, v in ja.items() if k != "transcription"}
+                == {k: v for k, v in jb.items() if k != "transcription"})
+        else:
+            same[ext] = a == b
+    n_seg = (tmp / "cli-cpu.srt").read_text().count("-->")
+    print(f"[29] whisper-cli (16 s, {n_seg} segments), card against -ng: files equal {same} "
+          f"| phase seconds {time.perf_counter() - t_phase:.1f} | {smi}", flush=True)
+    check(all(same.values()) and n_seg > 0, "whisper-cli: card and -ng files differ")
+
+
 # the tensor-core probe's two products (tools/bench_int8_mxu.py): x @ W1 and
 # h @ W2 of large-v3-turbo's encoder MLP, M = 1536 rows (one window, padded)
 MXU_SHAPES = (("x @ W1", 1536, 1280, 5120), ("h @ W2", 1536, 5120, 1280))
@@ -3775,6 +4271,15 @@ def main(profiling: bool = False) -> int:
         # ---- 27. narrow diarized transcription: cuda against cpu ----
         phase_narrow_diarize(torch, TF, TM, tok_mod, FullParams, tokens)
         done("27")
+
+        # ---- 28. the server, streaming and the batcher at full width ----
+        phase_serving(torch, TF, FullParams, mods, tmp / "ggml-large-v3-turbo-q8_0.bin",
+                      tmp / "sortformer-seed0-f16.gguf")
+        done("28")
+
+        # ---- 29. narrow streaming and whisper-cli: cuda against cpu ----
+        phase_narrow_serving(torch, TF, FullParams, tmp, tokens)
+        done("29")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

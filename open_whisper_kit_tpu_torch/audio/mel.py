@@ -53,6 +53,10 @@ class Mel:
     def n_mel(self) -> int:
         return int(self.data.shape[1])
 
+    def ref_layout(self) -> np.ndarray:
+        """(n_mel, n_len) float32 layout used by reference debug dumps."""
+        return self.data[:self.n_len].T.cpu().numpy()
+
 
 def _bucket_chunks(n_chunks: int) -> int:
     """Frame-count buckets of the JAX package: exact up to 8 chunks, then

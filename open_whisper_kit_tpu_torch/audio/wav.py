@@ -1,5 +1,5 @@
 # Source: open_whisper_kit_tpu/audio/wav.py, copied without the native
-# decoder branch (audio/native.py is not part of the port yet).
+# decoder branch (the numpy decoder serves every load here).
 """Audio loading: WAV decode + resample to 16 kHz mono float32.
 
 Equivalent capability to the reference's audio loaders (miniaudio in

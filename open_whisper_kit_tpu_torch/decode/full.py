@@ -157,6 +157,10 @@ def _resolve_device(device: str | torch.device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={str(device)!r} requested but CUDA is not "
                            "available")
+    if dev.type == "cuda" and dev.index is None:
+        # the current card is per thread: pin it here, so that the server's
+        # handler and batcher threads use the card the context was made on
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -44,3 +44,20 @@ def audio(seconds: float, seed: int) -> np.ndarray:
 
 def segments(res):
     return [(s.t0, s.t1, s.text, [t.id for t in s.tokens]) for s in res.segments]
+
+
+def write_checkpoint(path, args=NARROW_TS, seed: int = 0):
+    """An f32 ggml-bin of the seed-`seed` weights `contexts(args, seed)`
+    builds (the JAX package's init_params, written by the port's writer),
+    with the same token strings and filters: both packages load it into
+    the contexts' weights, for the entry points that take a file."""
+    from open_whisper_kit_tpu.models.whisper.export import tensors_from_params
+    from open_whisper_kit_tpu_torch.io import ggml_writer as TW
+    jcfg = M.WhisperConfig(*args)
+    params = M.init_params(jcfg, seed=seed, dtype=jnp.float32, device=False)
+    tokens = [b"<%d>" % i for i in range(min(jcfg.n_vocab, 50257))]
+    TW.write_checkpoint(path, TW.WhisperHParams(*args, ftype=0, qntvr=0),
+                        JF._synthetic_mel_filters(jcfg.n_mels), tokens,
+                        tensors_from_params(jcfg, jax.tree.map(np.asarray, params)),
+                        wtype=0)
+    return path

@@ -167,7 +167,9 @@ def test_port_sources_never_import_jax():
                                   "utils/mt19937.py", "timestamps/energy.py",
                                   "vad/segments.py", "io/ggml_silero.py",
                                   "io/gguf.py", "models/sortformer/mel_fb.py",
-                                  "align/rttm.py", "align/aligner.py"])
+                                  "align/rttm.py", "align/aligner.py",
+                                  "audio/native.py", "cli/outputs.py",
+                                  "decode/stream.py"])
 def test_copied_host_modules_match_their_source(name):
     src = (REPO / "open_whisper_kit_tpu" / name).read_text()
     copy = (REPO / "open_whisper_kit_tpu_torch" / name).read_text()
@@ -184,20 +186,35 @@ def test_cuda_device_without_cuda_raises():
 
 @pytest.mark.parametrize("entry", ["Transcriber(preset)", "Transcriber(model_path)",
                                    "WhisperContext", "from_preset", "from_file",
-                                   "from_buffer", "Diarizer"])
+                                   "from_buffer", "Diarizer", "serve", "ServerState",
+                                   "server main", "compat use_gpu", "compat VAD",
+                                   "compat bench", "whisper-cli", "whisper-stream",
+                                   "whisper-bench", "vad-segments", "diarize-cli"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """With no `device`, every entry point targets the card: on a machine
     without CUDA it raises before building anything, and never falls back
     to the CPU."""
     import inspect
+    from open_whisper_kit_tpu_torch import compat as TC
     from open_whisper_kit_tpu_torch.api import Diarizer
+    from open_whisper_kit_tpu_torch.cli import bench as TCB
+    from open_whisper_kit_tpu_torch.cli import diarize as TCD
+    from open_whisper_kit_tpu_torch.cli import main as TCM
+    from open_whisper_kit_tpu_torch.cli import stream as TCS
+    from open_whisper_kit_tpu_torch.cli import vad_segments as TCV
     from open_whisper_kit_tpu_torch.models.sortformer import model as TSM
     from open_whisper_kit_tpu_torch.models.whisper import model as TM
     from open_whisper_kit_tpu_torch.io import ggml_writer as TW
+    from open_whisper_kit_tpu_torch.io import silero_writer as SW
+    from open_whisper_kit_tpu_torch.server import http_server as TH
     for fn in (Transcriber.__init__, TF.WhisperContext.__init__,
                TF.WhisperContext.from_preset, TF.WhisperContext.from_file,
-               TF.WhisperContext.from_buffer, Diarizer.__init__):
+               TF.WhisperContext.from_buffer, Diarizer.__init__, TH.serve,
+               TH.ServerState.__init__, TC.whisper_bench_memcpy_str,
+               TC.whisper_bench_ggml_mul_mat_str):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert TC.WhisperContextParams().use_gpu and TC.WhisperVadContextParams().use_gpu
+    assert TCM.device_from_args(TCM.build_parser().parse_args([])) == "cuda:0"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     cfg = TM.WhisperConfig(*NARROW)
@@ -213,7 +230,27 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "from_file": lambda: TF.WhisperContext.from_file(path),
         "from_buffer": lambda: TF.WhisperContext.from_buffer(path.read_bytes()),
         "Diarizer": lambda: Diarizer(cfg=TSM.SortformerConfig(), params={}),
+        "serve": lambda: TH.serve(str(path), port=0),
+        "ServerState": lambda: TH.ServerState(str(path)),
+        "server main": lambda: TH.main(["-m", str(path), "--port", "0"]),
+        "compat use_gpu": lambda: TC.whisper_init_from_file_with_params(str(path)),
+        "compat VAD": lambda: TC.whisper_vad_init_from_file_with_params(str(silero)),
+        "compat bench": lambda: TC.whisper_bench_memcpy_str(),
+        "whisper-cli": lambda: TCM.main(["-m", str(path), "-f", str(wav)]),
+        "whisper-stream": lambda: TCS.main(["-m", str(path), "--input-wav", str(wav)]),
+        "whisper-bench": lambda: TCB.main(["-m", str(path)]),
+        "vad-segments": lambda: TCV.main(["-vm", str(silero), "-f", str(wav)]),
+        "diarize-cli": lambda: TCD.main(["-m", str(tmp_path / "none.gguf"), "-f", str(wav)]),
     }
+    silero = tmp_path / "silero.bin"
+    SW.write_silero(silero, SW.random_silero_tensors(seed=0))
+    wav = tmp_path / "a.wav"
+    import wave
+    with wave.open(str(wav), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(b"\0\0" * 16000)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
 
