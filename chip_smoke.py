@@ -263,6 +263,36 @@ Phases, each gated; any failure exits non-zero before the result lines:
      CPU: StreamingTranscriber in step mode with keep_context, in step
      mode at audio_ctx 768 and in VAD mode (the same events), and whisper-cli with -otxt -osrt -ovtt -ocsv
      -olrc -oj on the card and with -ng (the same files).
+ 30. the LLaMA runtime (models/llama) at Llama-2-7B's published shapes
+     (meta-llama/Llama-2-7b-hf config.json: hidden 4096, 32 layers, 32
+     heads, FF 11008, vocabulary 32000) at full depth in bf16, random
+     weights drawn on the card and a 32000-piece SPM vocabulary built in
+     the process: 612 prompt tokens ingested (512 + 100), then 128 greedy
+     tokens in chunks of 16; ingest ms per token, ms per generated token,
+     host reads per chunk (one), peak memory, the byte bound (every weight
+     once per token at 3.35 TB/s) and its share;
+ 31. the same width at two layers in f32 (TF32 off) on the card against the
+     CPU, the same weights: 24 host-stepped greedy steps with equal ids and
+     every step's logits within 1e-4 of max|logit| (a parting named with
+     the CPU's top-two gap), LlamaContext.generate's greedy text equal, a
+     seeded sampled reply the same twice on the card;
+ 32. phase 30 at TinyLlama-1.1B's shapes (2048 hidden, 22 layers, 32 heads
+     on 4 kv heads: the GQA repeat at 8, FF 5632);
+ 33. examples/talk's chat loop (examples.talk.chat) on phase 6's q8_0 turbo
+     checkpoint (K2 auto) with TinyLlama-1.1B on the card: a seeded 3 s
+     utterance, its transcript, a greedy reply (at most 32 tokens, the
+     antiprompt "Georgi:"), the session snapshot saved; then the same turn
+     from the restored snapshot, whose reply must be the same; K1/K2/K3/K5
+     launches per turn;
+ 34. the language server (cli/lsp.py) on the same checkpoint:
+     registerCommandset, guided (one encoder pass on K1/K3, the prompt's
+     decode_impl with K5 once a layer) and unguided (whisper_full, K2),
+     walls and launch counts;
+ 35. narrow f32 (3 decoder layers) on the card against the CPU: the
+     language server's responses, and each example's main with -dev 0
+     against -ng (talk with a TINY llama GGUF, voice_command with a command
+     list and in VAD mode, wchess with one spoken move, diarized_transcript
+     with the TINY SortFormer): the same printed output.
 Phases 11-13, 18 and 23 run right after phase 3, with the other kernel
 checks; 19, 21 and 24 right after 6, on its checkpoint.
 Every phase prints ms per sampled token beside its RTF. The last three lines are the kernels JSON, the nvidia-smi name/power line
@@ -3501,6 +3531,462 @@ def phase_narrow_serving(torch, TF, FullParams, tmp, tokens) -> None:
     check(all(same.values()) and n_seg > 0, "whisper-cli: card and -ng files differ")
 
 
+# ---- phases 30-35: the LLaMA runtime, talk, the language server, the examples ----
+
+# published shapes: meta-llama/Llama-2-7b-hf and TinyLlama/TinyLlama-1.1B-Chat-v1.0
+# config.json (hidden, layers, heads, kv heads, FF, vocabulary, context, rms eps,
+# rope base)
+LLAMA_CONFIGS = {
+    "Llama-2-7B": dict(n_vocab=32000, n_ctx=4096, n_embd=4096, n_layer=32, n_head=32,
+                       n_head_kv=32, n_ff=11008, rope_freq_base=10000.0, rms_eps=1e-5),
+    "TinyLlama-1.1B": dict(n_vocab=32000, n_ctx=2048, n_embd=2048, n_layer=22, n_head=32,
+                           n_head_kv=4, n_ff=5632, rope_freq_base=10000.0, rms_eps=1e-5),
+}
+LLAMA_CTX = 2048        # the LlamaContext window of the full-depth runs
+LLAMA_PROMPT = 612      # ingested tokens: two chunks, 512 + 100
+LLAMA_GEN = 128         # greedy tokens, in chunks of LLAMA_CHUNK
+LLAMA_CHUNK = 16
+LLAMA_TRACED = 4        # tokens of the traced chunk (the trace's tables take seconds)
+LLAMA_F32_TOL = 1e-4    # card against CPU, f32, of max|logit|
+LSP_WORDS = [b" up", b" down", b" left", b" right", b" stop", b" select", b" one",
+             b" from", b" the", b" available", b" words", b":", b",", b".", b" Selected",
+             b" word", b"up", b"down", b"left", b"right", b"stop"]
+CHESS_WORDS = ([b" to", b"to", b" ", b" pawn", b" knight", b" bishop", b" rook", b" queen",
+                b" king"] + [c.encode() for c in "abcdefgh12345678"])
+LSP_COMMANDS = ["up", "down", "left", "right", "stop"]
+
+
+def spm_vocab(n: int = 32000):
+    """A SentencePiece vocabulary of `n` pieces built in the process: the
+    three specials, the 256 byte pieces, then "▁" and every 1-3 letter
+    string with and without "▁", scored so that longer merges win."""
+    import itertools
+    import string
+    import numpy as np
+    from open_whisper_kit_tpu_torch.models.llama import tokenizer as LT
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    ttype = [LT.ATTR_UNKNOWN, LT.ATTR_CONTROL, LT.ATTR_CONTROL] + [LT.ATTR_BYTE] * 256
+    pieces = ["▁"]
+    for length in (1, 2, 3):
+        for s in itertools.product(string.ascii_lowercase, repeat=length):
+            pieces += ["▁" + "".join(s), "".join(s)]
+    pieces = pieces[:n - len(tokens)]
+    scores = [0.0] * len(tokens) + [float(len(p)) for p in pieces]
+    tokens += pieces
+    ttype += [LT.ATTR_NORMAL] * len(pieces)
+    return LT.LlamaVocab(model="llama", tokens=tokens, scores=np.asarray(scores, np.float32),
+                         token_type=np.asarray(ttype, np.int32))
+
+
+def llama_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from llama_leaves(v)
+    else:
+        yield tree
+
+
+def phase_llama_full(torch, tag: str, name: str, vocab, smi: str) -> dict:
+    """Phases 30 and 32: one configuration at full depth in bf16, random
+    weights drawn on the card: 612 prompt tokens ingested (two chunks),
+    then 128 greedy tokens in chunks of 16; ingest ms per token, ms per
+    generated token, host reads per chunk, peak memory, the byte bound's
+    share (every weight read once per token)."""
+    import numpy as np
+    from open_whisper_kit_tpu_torch.models.llama import model as LM
+    cfg = LM.LlamaConfig(**LLAMA_CONFIGS[name])
+    t0 = time.perf_counter()
+    params = LM.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_par = sum(t.numel() for t in llama_leaves(params))
+    wbytes = sum(t.numel() * t.element_size() for t in llama_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    ctx = LM.LlamaContext(cfg=cfg, params=params, vocab=vocab, n_ctx=LLAMA_CTX, device="cuda")
+    kv_bytes = 2 * ctx.kv_k.numel() * ctx.kv_k.element_size()
+    prompt = np.random.default_rng(30).integers(259, cfg.n_vocab, LLAMA_PROMPT).tolist()
+    greedy = LM.SampleParams(temp=0.0)
+    # warm-up: both ingest shapes and one chunk (allocator, cuBLAS handles)
+    ctx.eval_tokens(prompt)
+    ctx.generate([prompt[0]], greedy, max_tokens=LLAMA_CHUNK, chunk=LLAMA_CHUNK)
+    ctx.reset()
+    torch.cuda.synchronize()
+    reads0 = ctx.reads.n
+    t0 = time.perf_counter()
+    logits = ctx.eval_tokens(prompt)        # its host read waits for the card
+    t_ing = time.perf_counter() - t0
+    check(logits.shape == (cfg.n_vocab,) and bool(np.isfinite(logits).all()),
+          f"{name}: ingest logits malformed")
+    t0 = time.perf_counter()
+    text = ctx.generate([int(np.argmax(logits))], greedy, max_tokens=LLAMA_GEN,
+                        chunk=LLAMA_CHUNK)
+    t_gen = time.perf_counter() - t0
+    n_gen = ctx.n_past - LLAMA_PROMPT
+    chunks = -(-n_gen // LLAMA_CHUNK)
+    reads = ctx.reads.n - reads0
+    peak = torch.cuda.max_memory_allocated()
+    ms_tok = t_gen / n_gen * 1e3
+    bound_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[{tag}] {name} ({n_par / 1e9:.3f} G parameters, bf16 {wbytes / 1e9:.2f} GB, KV at "
+          f"n_ctx {LLAMA_CTX} {kv_bytes / 1e9:.2f} GB; drawn on the card in {t_init:.2f} s): "
+          f"ingest {LLAMA_PROMPT} tokens {t_ing * 1e3:.1f} ms ({t_ing * 1e3 / LLAMA_PROMPT:.3f} "
+          f"ms per token); {n_gen} greedy tokens in {chunks} chunks of {LLAMA_CHUNK}: "
+          f"{t_gen * 1e3:.1f} ms, {ms_tok:.3f} ms per token; host reads {reads} (1 ingest + "
+          f"{(reads - 1) / max(chunks, 1):.2f} per chunk); peak memory {peak / 1e9:.2f} GB; "
+          f"byte bound {bound_ms:.3f} ms per token, {100 * bound_ms / ms_tok:.1f} % of it "
+          f"reached; {len(text)} characters | {smi}", flush=True)
+    check(n_gen == LLAMA_GEN and reads == 1 + chunks,
+          f"{name}: {n_gen} tokens, {reads} host reads (want {LLAMA_GEN}, 1 + {chunks})")
+    # a chunk of LLAMA_TRACED tokens under torch.profiler: the device's busy
+    # share and its launches per token (chiprun_out/profile-llama-<tag>.txt)
+    profile_call(torch, f"llama-{tag}", f"{name}, one chunk of {LLAMA_TRACED} greedy tokens",
+                 lambda: ctx.generate([0], greedy, max_tokens=LLAMA_TRACED,
+                                      chunk=LLAMA_TRACED) and [])
+    del ctx, params
+    torch.cuda.empty_cache()
+    return {"ingest_ms_per_token": t_ing * 1e3 / LLAMA_PROMPT, "ms_per_token": ms_tok,
+            "bound_ms": bound_ms, "peak_gb": peak / 1e9}
+
+
+def llama_greedy_steps(torch, LM, cfg, params, prompt, steps: int, device: str):
+    """Host-stepped greedy decoding through forward: (ids, logits rows)."""
+    kk, kv = LM.init_kv_cache(cfg, 1, len(prompt) + steps + 1, torch.float32, device=device)
+    logits, kk, kv = LM.forward(cfg, params, torch.tensor([prompt], device=device), kk, kv, 0)
+    ids, rows = [], [logits[0].cpu()]
+    for i in range(steps):
+        ids.append(int(rows[-1].argmax()))
+        logits, kk, kv = LM.forward(cfg, params, torch.tensor([[ids[-1]]], device=device),
+                                    kk, kv, len(prompt) + i)
+        rows.append(logits[0].cpu())
+    return ids, rows
+
+
+def phase_llama_card_vs_cpu(torch, vocab, smi: str) -> None:
+    """Phase 31: Llama-2-7B's width at two layers in f32 (TF32 off), the
+    same CPU-drawn weights on the card and the CPU: greedy ids equal and
+    every step's logits within LLAMA_F32_TOL of max|logit| (first_parting
+    names a parting; it passes only as a near tie, where the CPU's top-two
+    gap is within twice the row's card-CPU difference); LlamaContext.
+    generate's greedy text equal; a seeded sampled reply the same twice on
+    the card."""
+    import numpy as np
+    from open_whisper_kit_tpu_torch.decode.full import _to_device
+    from open_whisper_kit_tpu_torch.models.llama import model as LM
+    t_phase = time.perf_counter()
+    cfg = LM.LlamaConfig(**dict(LLAMA_CONFIGS["Llama-2-7B"], n_layer=2))
+    cpu = LM.init_params(cfg, seed=1, dtype=torch.float32, device="cpu")
+    card = _to_device(cpu, torch.device("cuda"))
+    prompt = np.random.default_rng(31).integers(259, cfg.n_vocab, 48).tolist()
+    out = {dev: llama_greedy_steps(torch, LM, cfg, p, prompt, 24, dev)
+           for dev, p in (("cuda", card), ("cpu", cpu))}
+    (gi, gr), (ci, cr) = out["cuda"], out["cpu"]
+    # first_parting's records: each step's two best logits, their ids, the row
+    records = {dev: [(*r[None].topk(2), r[None]) for r in rows] for dev, (_, rows) in out.items()}
+    part = first_parting(records["cuda"], records["cpu"])
+    n_cmp = len(gr) if part is None else part[0] + 1
+    errs = [((g - c).abs().max() / c.abs().max()).item() for g, c in zip(gr[:n_cmp], cr[:n_cmp])]
+    print(f"[31] Llama-2-7B width, 2 layers, f32 (TF32 off), 48-token prompt + 24 greedy "
+          f"steps: ids equal {gi == ci}, first parting (step, row, CPU top-two gap, "
+          f"max|logit|, max|card - cpu|) {part}, max|logits card - cpu| / max|cpu| "
+          f"{max(errs):.3e} over {n_cmp} rows (gate {LLAMA_F32_TOL})", flush=True)
+    check(max(errs) <= LLAMA_F32_TOL, "llama f32: card and cpu logits differ")
+    check(part is None or part[2] <= 2 * part[4],
+          f"llama f32: ids part at step {part[0] if part else None}, not a near tie")
+    texts = {}
+    for dev, p in (("cuda", card), ("cpu", cpu)):
+        ctx = LM.LlamaContext(cfg=cfg, params=p, vocab=vocab, n_ctx=128, dtype=torch.float32,
+                              device=dev)
+        texts[dev] = (ctx.generate(prompt, LM.SampleParams(temp=0.0), max_tokens=32,
+                                   chunk=LLAMA_CHUNK), ctx.n_past, ctx.reads.n)
+    sampled = []
+    ctx = LM.LlamaContext(cfg=cfg, params=card, vocab=vocab, n_ctx=128, dtype=torch.float32,
+                          device="cuda")
+    for _ in range(2):
+        ctx.reset()
+        sampled.append(ctx.generate(prompt, LM.SampleParams(temp=0.8, top_k=40, top_p=0.95,
+                                                            min_p=0.05),
+                                    max_tokens=32, seed=7, chunk=LLAMA_CHUNK))
+    print(f"[31] LlamaContext.generate greedy (32 tokens, chunk {LLAMA_CHUNK}): card == cpu "
+          f"{texts['cuda'] == texts['cpu']} (n_past {texts['cuda'][1]}, host reads "
+          f"{texts['cuda'][2]}); seeded sampled reply the same twice on the card "
+          f"{sampled[0] == sampled[1]} | phase seconds {time.perf_counter() - t_phase:.1f} "
+          f"| {smi}", flush=True)
+    check(texts["cuda"] == texts["cpu"] or part is not None, "llama generate: card and cpu differ")
+    check(sampled[0] == sampled[1] and sampled[0], "llama sampled reply not reproducible")
+    del card, cpu, ctx
+    torch.cuda.empty_cache()
+
+
+class NoFallback:
+    """whisper_full with temperature_inc 0: the sampled fallback draws from
+    torch's generator, whose streams differ between the card and the CPU."""
+
+    def __init__(self, TF):
+        self.TF = TF
+
+    def __enter__(self):
+        self.f = f = self.TF.whisper_full
+
+        def run(ctx, p, *a, **kw):
+            p.temperature_inc = 0.0
+            return f(ctx, p, *a, **kw)
+        self.TF.whisper_full = run
+        return self
+
+    def __exit__(self, *exc):
+        self.TF.whisper_full = self.f
+
+
+def speech_wav(path, seconds: float, seed: int, spans) -> Path:
+    """A WAV of speech-like noise over `spans` and silence elsewhere."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = np.zeros(int(16000 * seconds), np.float32)
+    for a, b in spans:
+        x[int(a * 16000):int(b * 16000)] = rng.standard_normal(
+            int(b * 16000) - int(a * 16000)) * 0.3
+    path.write_bytes(wav_bytes(x))
+    return path
+
+
+def kernel_counts(A, Q, MK) -> dict:
+    return {"K1": A.mha_packed.launches, "K2": MK.mega_decode_step.launches,
+            "K3": dict(Q.qmm.launches_by_route), "K5": Q.ffn_int8.launches}
+
+
+def phase_talk(torch, TF, mods, q8_path, tmp, vocab, smi: str):
+    """Phase 33: examples/talk's chat loop on the q8_0 turbo checkpoint
+    (K2 auto) with TinyLlama-1.1B (random bf16 weights drawn on the card):
+    a seeded 3 s utterance -> transcript -> a greedy reply of at most 32
+    tokens with the antiprompt "Georgi:"; the session snapshot saved, then
+    restored for the same turn, whose reply must be the same. Returns the
+    whisper context for phase 34."""
+    import contextlib
+    import io
+    import numpy as np
+    from open_whisper_kit_tpu_torch.examples import talk as TALK
+    from open_whisper_kit_tpu_torch.models.llama import model as LM
+    t_phase = time.perf_counter()
+    ctx_w = TF.WhisperContext.from_file(q8_path, dtype=torch.bfloat16, device="cuda")
+    cfg = LM.LlamaConfig(**LLAMA_CONFIGS["TinyLlama-1.1B"])
+    lctx = LM.LlamaContext(cfg=cfg, params=LM.init_params(cfg, seed=0, device="cuda"),
+                           vocab=vocab, n_ctx=LLAMA_CTX, device="cuda")
+    wav = speech_wav(tmp / "talk.wav", 3.0, 33, [(0.3, 2.7)])
+    session = tmp / "talk-session.npz"
+    args = TALK.build_parser().parse_args(
+        ["-mw", str(q8_path), "-ml", "in-process", "--input-wav", str(wav), "--temp", "0",
+         "--reply-tokens", "32", "--max-turns", "1", "--session", str(session)])
+    outs, walls = [], []
+    for turn in range(2):
+        reset_counts(mods.A, mods.Q, mods.MK)
+        reads0 = lctx.reads.n
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as o:
+            check(TALK.chat(args, ctx_w, lctx) == 0, "talk: chat failed")
+        walls.append(time.perf_counter() - t0)
+        outs.append(o.getvalue())
+        counts = kernel_counts(mods.A, mods.Q, mods.MK)
+        heard, _, reply = outs[-1].partition("\nLLaMA:")
+        print(f"[33] talk turn {turn} ({'restored' if turn else 'saved'} the session): "
+              f"{walls[-1] * 1e3:.1f} ms, heard {heard.split(':', 1)[-1].strip()[:60]!r}, reply "
+              f"{len(reply.strip())} characters, llama n_past {lctx.n_past}, host reads "
+              f"{lctx.reads.n - reads0}; launches {counts}", flush=True)
+        check(counts["K1"] == TURBO_LAYERS * (counts["K1"] // TURBO_LAYERS) and counts["K1"] > 0
+              and counts["K2"] > 0 and counts["K3"]["tiles"] > 0,
+              "talk: the transcription did not run K1, K2 and K3")
+    check(session.exists() and outs[0] == outs[1] and "\nLLaMA:" in outs[0],
+          "talk: the restored session's reply differs, or no reply")
+    snap = np.load(session)
+    print(f"[33] talk session {session.stat().st_size / 1e6:.1f} MB (kv f32 "
+          f"{tuple(snap['kv_k'].shape)}), replies equal | phase seconds "
+          f"{time.perf_counter() - t_phase:.1f} | {smi}", flush=True)
+    del lctx
+    torch.cuda.empty_cache()
+    return ctx_w
+
+
+def lsp_round(srv, seconds_seed_guided, seconds_seed_unguided):
+    """registerCommandset, then guided and unguided requests: the responses."""
+    import base64
+    from open_whisper_kit_tpu_torch.cli import lsp as LSP
+
+    def b64(x):
+        return base64.b64encode(x.tobytes()).decode()
+    out = [srv.handle({"jsonrpc": "2.0", "method": "registerCommandset",
+                       "params": LSP_COMMANDS, "id": 1})]
+    for i, (secs, seed) in enumerate(seconds_seed_guided):
+        out.append(srv.handle({"jsonrpc": "2.0", "method": "guided", "id": 10 + i,
+                               "params": {"audio_b64": b64(audio(secs, seed)),
+                                          "commandset_index": 0}}))
+    for i, (secs, seed) in enumerate(seconds_seed_unguided):
+        out.append(srv.handle({"jsonrpc": "2.0", "method": "unguided", "id": 20 + i,
+                               "params": {"audio_b64": b64(audio(secs, seed))}}))
+    return out
+
+
+def phase_lsp(torch, TF, tok_mod, mods, ctx, tokens, smi: str) -> None:
+    """Phase 34: the language server on the q8_0 turbo checkpoint (K2 auto),
+    its vocabulary's strings from id 1000 on the commands' words:
+    registerCommandset, then guided (one encoder pass, one decode_impl over
+    the prompt) and unguided (whisper_full), each with its K1/K2/K3/K5
+    launches and wall."""
+    from open_whisper_kit_tpu_torch.cli import lsp as LSP
+    words = list(tokens)
+    words[1000:1000 + len(LSP_WORDS)] = LSP_WORDS
+    ctx.vocab = tok_mod.build_vocab(words, ctx.cfg.n_vocab)
+    ctx._mask_cache = {}
+    srv = LSP.LspServer(ctx)
+    lsp_round(srv, ((2.0, 34),), ())          # warm-up
+    for method, guided, unguided in (("guided", ((2.0, 35),), ()),
+                                     ("unguided", (), ((3.0, 36),))):
+        reset_counts(mods.A, mods.Q, mods.MK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with NoFallback(TF):
+            res = lsp_round(srv, guided, unguided)[1]
+        wall = time.perf_counter() - t0
+        counts = kernel_counts(mods.A, mods.Q, mods.MK)
+        print(f"[34] lsp {method} on q8_0 turbo: {wall * 1e3:.1f} ms, result "
+              f"{json.dumps(res.get('result'))[:80]}, launches {counts}", flush=True)
+        check("result" in res, f"lsp {method}: {res}")
+        check(counts["K1"] == TURBO_LAYERS and counts["K3"]["tiles"] > 0,
+              f"lsp {method}: not one encoder pass on K1/K3")
+        if method == "guided":
+            check(counts["K5"] == 4 and counts["K2"] == 0,
+                  "lsp guided: the prompt's decode_impl did not run K5 once a layer")
+        else:
+            check(counts["K2"] > 0, "lsp unguided: K2 did not run the token steps")
+    print(f"[34] | {smi}", flush=True)
+
+
+def write_tiny_llama_gguf(path, seed: int = 0):
+    """A random-weight GGUF of tests/test_llama.py's TINY shapes (2 layers,
+    width 64, 4 / 2 heads, 320 pieces) in llama.cpp's layout."""
+    import numpy as np
+    from open_whisper_kit_tpu_torch.io.gguf import GGUFWriter
+    V, S, F, L, H, HKV = 320, 64, 128, 2, 4, 2
+    rng = np.random.default_rng(seed)
+    base = spm_vocab(V)
+    w = GGUFWriter(path)
+    w.add_string("general.architecture", "llama")
+    for key, v in (("embedding_length", S), ("block_count", L), ("attention.head_count", H),
+                   ("attention.head_count_kv", HKV), ("feed_forward_length", F),
+                   ("context_length", 128), ("vocab_size", V)):
+        w.add_uint32(f"llama.{key}", v)
+    w.add_float32("llama.rope.freq_base", 10000.0)
+    w.add_float32("llama.attention.layer_norm_rms_epsilon", 1e-5)
+    w.add_string("tokenizer.ggml.model", "llama")
+    w.add_array("tokenizer.ggml.tokens", base.tokens)
+    w.add_array("tokenizer.ggml.scores", base.scores)
+    w.add_array("tokenizer.ggml.token_type", base.token_type)
+    w.add_uint32("tokenizer.ggml.bos_token_id", 1)
+    w.add_uint32("tokenizer.ggml.eos_token_id", 2)
+    w.add_bool("tokenizer.ggml.add_bos_token", True)
+
+    def r(*shape):
+        return (rng.standard_normal(shape) / np.sqrt(shape[-1])).astype(np.float32)
+    kvd = HKV * (S // H)
+    w.add_tensor("token_embd.weight", r(V, S))
+    w.add_tensor("output_norm.weight", np.abs(r(S)) + 0.5)
+    w.add_tensor("output.weight", r(V, S))
+    for i in range(L):
+        p = f"blk.{i}."
+        for name, shape in (("attn_norm", None), ("attn_q", (S, S)), ("attn_k", (kvd, S)),
+                            ("attn_v", (kvd, S)), ("attn_output", (S, S)),
+                            ("ffn_norm", None), ("ffn_gate", (F, S)), ("ffn_up", (F, S)),
+                            ("ffn_down", (S, F))):
+            w.add_tensor(p + name + ".weight",
+                         np.abs(r(S)) + 0.5 if shape is None else r(*shape))
+    w.write()
+    return path
+
+
+def phase_narrow_examples(torch, TF, tmp, tokens, smi: str) -> None:
+    """Phase 35: narrow f32 checkpoints (3 decoder layers) on the card
+    against the CPU: the language server's responses (f32 contexts), and
+    each example's `main` with -dev 0 against -ng (whisper in bf16 as the
+    examples load it; a TINY llama GGUF; the TINY SortFormer): the same
+    printed output. whisper_full runs with temperature_inc 0."""
+    import contextlib
+    import io
+    from open_whisper_kit_tpu_torch.cli import lsp as LSP
+    from open_whisper_kit_tpu_torch.examples import diarized_transcript as EX_D
+    from open_whisper_kit_tpu_torch.examples import talk as EX_T
+    from open_whisper_kit_tpu_torch.examples import voice_command as EX_V
+    from open_whisper_kit_tpu_torch.examples import wchess as EX_W
+    from open_whisper_kit_tpu_torch.io import ggml_writer as W
+    from open_whisper_kit_tpu_torch.models.sortformer import export as SE
+    from open_whisper_kit_tpu_torch.models.sortformer import model as SM
+    t_phase = time.perf_counter()
+    hp = W.WhisperHParams(*NARROW_Q, ftype=0, qntvr=0)
+    tensors = W.random_reference_tensors(hp, seed=0)
+    words = list(tokens)
+    words[1000:1000 + len(LSP_WORDS + CHESS_WORDS)] = LSP_WORDS + CHESS_WORDS
+    path = tmp / "narrow-words.bin"
+    W.write_checkpoint(path, hp, TF._synthetic_mel_filters(80), words, tensors,
+                       wtype=W.TYPE_FOR_NAME["f32"])
+    # the grammar requests' copy: the other strings empty (never a grammar
+    # automaton's candidates, which keeps its build short) and their
+    # embedding rows zero (a logit of 0, below the best named token's)
+    named = 1000 + len(LSP_WORDS + CHESS_WORDS)
+    te = tensors["decoder.token_embedding.weight"].copy()
+    te[named:50256] = 0.0
+    grammar = tmp / "narrow-grammar.bin"
+    W.write_checkpoint(grammar, hp, TF._synthetic_mel_filters(80),
+                       words[:named] + [b""] * (len(words) - named),
+                       dict(tensors, **{"decoder.token_embedding.weight": te}),
+                       wtype=W.TYPE_FOR_NAME["f32"])
+    resp = {}
+    with NoFallback(TF):
+        for dev in ("cuda", "cpu"):
+            ctx = TF.WhisperContext.from_file(path, dtype=torch.float32, device=dev)
+            resp[dev] = lsp_round(LSP.LspServer(ctx), ((2.0, 0), (2.0, 1), (2.0, 2)),
+                                  ((3.0, 0), (6.0, 4)))
+    print(f"[35] narrow f32 language server (registerCommandset, 3 guided, 2 unguided): "
+          f"card == cpu {resp['cuda'] == resp['cpu']}", flush=True)
+    check(resp["cuda"] == resp["cpu"] and all("result" in r for r in resp["cpu"]),
+          "narrow lsp: card and cpu responses differ")
+    llama = write_tiny_llama_gguf(tmp / "tiny-llama.gguf")
+    sf_cfg = SM.SortformerConfig(n_mels=32, d_model=32, n_layers=2, n_heads=4, conv_kernel=5,
+                                 ff_expansion=2, subsampling_channels=8, tf_layers=2,
+                                 tf_d_model=16, tf_heads=4, tf_ff=32)
+    sortformer = SE.write_sortformer_gguf(tmp / "tiny-sortformer.gguf", sf_cfg,
+                                          SM.init_params(sf_cfg, seed=0, device="cpu"))
+    prompt = tmp / "talk-prompt.txt"
+    prompt.write_text("{0} talks to {1}.\n{0}{4} hello\n{1}{4} hello\n{0}{4}")
+    meeting = tmp / "meeting.wav"
+    meeting.write_bytes(wav_bytes(audio(12.0, 2)))
+    runs = {
+        "talk": (EX_T.main, ["-mw", str(path), "-ml", str(llama), "--input-wav",
+                             str(speech_wav(tmp / "q.wav", 3.0, 0, [(0.0, 3.0)])),
+                             "--temp", "0", "--reply-tokens", "6", "--max-turns", "1",
+                             "--prompt-file", str(prompt)]),
+        "voice_command (commands)": (EX_V.main, [
+            "-m", str(grammar), "--commands", "up,down,left,right", "--input-wav",
+            str(speech_wav(tmp / "cmd.wav", 2.0, 1, [(0.0, 2.0)]))]),
+        "voice_command (stream)": (EX_V.main, [
+            "-m", str(path), "--input-wav",
+            str(speech_wav(tmp / "vad.wav", 4.0, 3, [(0.5, 2.5)]))]),
+        "wchess": (EX_W.main, ["-m", str(grammar), "--audio",
+                               str(speech_wav(tmp / "m1.wav", 2.0, 5, [(0.0, 2.0)]))]),
+        "diarized_transcript": (EX_D.main, [str(meeting), "-m", str(path), "-dm",
+                                            str(sortformer), "--preset", "low_latency"]),
+    }
+    with NoFallback(TF):
+        for name, (main, args) in runs.items():
+            out = {}
+            t0 = time.perf_counter()
+            for dev, flag in (("cuda", ["-dev", "0"]), ("cpu", ["-ng"])):
+                with contextlib.redirect_stdout(io.StringIO()) as o:
+                    check(main(args + flag) == 0, f"{name} on {dev} failed")
+                out[dev] = o.getvalue()
+            print(f"[35] {name}: card == -ng {out['cuda'] == out['cpu']} "
+                  f"({len(out['cpu'])} characters, {time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+            check(out["cuda"] == out["cpu"] and out["cpu"], f"{name}: card and -ng differ")
+    print(f"[35] phase seconds {time.perf_counter() - t_phase:.1f} | {smi}", flush=True)
+
+
 # the tensor-core probe's two products (tools/bench_int8_mxu.py): x @ W1 and
 # h @ W2 of large-v3-turbo's encoder MLP, M = 1536 rows (one window, padded)
 MXU_SHAPES = (("x @ W1", 1536, 1280, 5120), ("h @ W2", 1536, 5120, 1280))
@@ -4280,6 +4766,24 @@ def main(profiling: bool = False) -> int:
         # ---- 29. narrow streaming and whisper-cli: cuda against cpu ----
         phase_narrow_serving(torch, TF, FullParams, tmp, tokens)
         done("29")
+
+        # ---- 30-35. the LLaMA runtime, talk, the language server, the examples ----
+        smi = nvidia_smi_line()
+        vocab = spm_vocab()
+        phase_llama_full(torch, "30", "Llama-2-7B", vocab, smi)
+        done("30")
+        phase_llama_card_vs_cpu(torch, vocab, smi)
+        done("31")
+        phase_llama_full(torch, "32", "TinyLlama-1.1B", vocab, smi)
+        done("32")
+        ctx_w = phase_talk(torch, TF, mods, tmp / "ggml-large-v3-turbo-q8_0.bin", tmp, vocab,
+                           smi)
+        done("33")
+        phase_lsp(torch, TF, tok_mod, mods, ctx_w, tokens, smi)
+        del ctx_w
+        done("34")
+        phase_narrow_examples(torch, TF, tmp, tokens, smi)
+        done("35")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -46,18 +46,29 @@ def segments(res):
     return [(s.t0, s.t1, s.text, [t.id for t in s.tokens]) for s in res.segments]
 
 
-def write_checkpoint(path, args=NARROW_TS, seed: int = 0):
+def write_checkpoint(path, args=NARROW_TS, seed: int = 0, words=(), named=None):
     """An f32 ggml-bin of the seed-`seed` weights `contexts(args, seed)`
     builds (the JAX package's init_params, written by the port's writer),
     with the same token strings and filters: both packages load it into
-    the contexts' weights, for the entry points that take a file."""
+    the contexts' weights, for the entry points that take a file. `words`
+    (byte strings) replace the token strings from id 1000 on, for the
+    entry points that tokenize text. With `named`, the token strings from
+    id `named` to the end-of-text id are empty and their embedding rows
+    zero: a grammar's token automaton walks only the tokens with text
+    (empty ones are never its candidates), and a zero row's logit 0 stays
+    below the best of the named tokens', so the model does not pick them."""
     from open_whisper_kit_tpu.models.whisper.export import tensors_from_params
     from open_whisper_kit_tpu_torch.io import ggml_writer as TW
     jcfg = M.WhisperConfig(*args)
     params = M.init_params(jcfg, seed=seed, dtype=jnp.float32, device=False)
     tokens = [b"<%d>" % i for i in range(min(jcfg.n_vocab, 50257))]
+    tokens[1000:1000 + len(words)] = list(words)
+    tensors = tensors_from_params(jcfg, jax.tree.map(np.asarray, params))
+    if named is not None:
+        tokens[named:50256] = [b""] * (50256 - named)
+        te = tensors["decoder.token_embedding.weight"].copy()
+        te[named:50256] = 0.0
+        tensors["decoder.token_embedding.weight"] = te
     TW.write_checkpoint(path, TW.WhisperHParams(*args, ftype=0, qntvr=0),
-                        JF._synthetic_mel_filters(jcfg.n_mels), tokens,
-                        tensors_from_params(jcfg, jax.tree.map(np.asarray, params)),
-                        wtype=0)
+                        JF._synthetic_mel_filters(jcfg.n_mels), tokens, tensors, wtype=0)
     return path

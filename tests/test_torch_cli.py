@@ -273,7 +273,8 @@ def test_packaging_names_the_port_s_scripts_and_kernel_headers():
     scripts = {k: v for k, v in meta["project"]["scripts"].items() if k.startswith("owk-torch-")}
     assert set(scripts) == {"owk-torch-whisper-cli", "owk-torch-whisper-stream",
                             "owk-torch-whisper-server", "owk-torch-whisper-bench",
-                            "owk-torch-quantize", "owk-torch-vad-segments", "owk-torch-diarize"}
+                            "owk-torch-quantize", "owk-torch-vad-segments", "owk-torch-diarize",
+                            "owk-torch-whisper-lsp"}
     for target in scripts.values():
         mod, fn = target.split(":")
         assert mod.startswith("open_whisper_kit_tpu_torch.")

@@ -147,6 +147,12 @@ def test_import_leaves_jax_out():
     code = ("import sys, open_whisper_kit_tpu_torch, open_whisper_kit_tpu_torch.api; "
             "import open_whisper_kit_tpu_torch.decode.full; "
             "import open_whisper_kit_tpu_torch.decode.device_beam; "
+            "import open_whisper_kit_tpu_torch.models.llama, open_whisper_kit_tpu_torch.cli.lsp; "
+            "import open_whisper_kit_tpu_torch.models.whisper.export; "
+            "import open_whisper_kit_tpu_torch.examples.talk, "
+            "open_whisper_kit_tpu_torch.examples.voice_command, "
+            "open_whisper_kit_tpu_torch.examples.wchess, "
+            "open_whisper_kit_tpu_torch.examples.diarized_transcript; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'open_whisper_kit_tpu.')) "
             "or m == 'open_whisper_kit_tpu' for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -169,7 +175,7 @@ def test_port_sources_never_import_jax():
                                   "io/gguf.py", "models/sortformer/mel_fb.py",
                                   "align/rttm.py", "align/aligner.py",
                                   "audio/native.py", "cli/outputs.py",
-                                  "decode/stream.py"])
+                                  "decode/stream.py", "models/llama/tokenizer.py"])
 def test_copied_host_modules_match_their_source(name):
     src = (REPO / "open_whisper_kit_tpu" / name).read_text()
     copy = (REPO / "open_whisper_kit_tpu_torch" / name).read_text()
@@ -189,7 +195,9 @@ def test_cuda_device_without_cuda_raises():
                                    "from_buffer", "Diarizer", "serve", "ServerState",
                                    "server main", "compat use_gpu", "compat VAD",
                                    "compat bench", "whisper-cli", "whisper-stream",
-                                   "whisper-bench", "vad-segments", "diarize-cli"])
+                                   "whisper-bench", "vad-segments", "diarize-cli",
+                                   "LlamaContext", "whisper-lsp", "talk", "voice_command",
+                                   "wchess", "diarized_transcript"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """With no `device`, every entry point targets the card: on a machine
     without CUDA it raises before building anything, and never falls back
@@ -199,9 +207,15 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
     from open_whisper_kit_tpu_torch.api import Diarizer
     from open_whisper_kit_tpu_torch.cli import bench as TCB
     from open_whisper_kit_tpu_torch.cli import diarize as TCD
+    from open_whisper_kit_tpu_torch.cli import lsp as TCL
     from open_whisper_kit_tpu_torch.cli import main as TCM
     from open_whisper_kit_tpu_torch.cli import stream as TCS
     from open_whisper_kit_tpu_torch.cli import vad_segments as TCV
+    from open_whisper_kit_tpu_torch.examples import diarized_transcript as TED
+    from open_whisper_kit_tpu_torch.examples import talk as TET
+    from open_whisper_kit_tpu_torch.examples import voice_command as TEV
+    from open_whisper_kit_tpu_torch.examples import wchess as TEW
+    from open_whisper_kit_tpu_torch.models.llama import model as TLM
     from open_whisper_kit_tpu_torch.models.sortformer import model as TSM
     from open_whisper_kit_tpu_torch.models.whisper import model as TM
     from open_whisper_kit_tpu_torch.io import ggml_writer as TW
@@ -211,7 +225,7 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
                TF.WhisperContext.from_preset, TF.WhisperContext.from_file,
                TF.WhisperContext.from_buffer, Diarizer.__init__, TH.serve,
                TH.ServerState.__init__, TC.whisper_bench_memcpy_str,
-               TC.whisper_bench_ggml_mul_mat_str):
+               TC.whisper_bench_ggml_mul_mat_str, TLM.LlamaContext.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert TC.WhisperContextParams().use_gpu and TC.WhisperVadContextParams().use_gpu
     assert TCM.device_from_args(TCM.build_parser().parse_args([])) == "cuda:0"
@@ -241,6 +255,15 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "whisper-bench": lambda: TCB.main(["-m", str(path)]),
         "vad-segments": lambda: TCV.main(["-vm", str(silero), "-f", str(wav)]),
         "diarize-cli": lambda: TCD.main(["-m", str(tmp_path / "none.gguf"), "-f", str(wav)]),
+        "LlamaContext": lambda: TLM.LlamaContext(
+            cfg=TLM.LlamaConfig(320, 64, 64, 1, 4, 2, 128), params={}, vocab=None),
+        "whisper-lsp": lambda: TCL.main(["-m", str(path)]),
+        "talk": lambda: TET.main(["-mw", str(path), "-ml", str(tmp_path / "none.gguf"),
+                                  "--input-wav", str(wav)]),
+        "voice_command": lambda: TEV.main(["-m", str(path), "--input-wav", str(wav)]),
+        "wchess": lambda: TEW.main(["-m", str(path), "--audio", str(wav)]),
+        "diarized_transcript": lambda: TED.main([str(wav), "-m", str(path), "-dm",
+                                                 str(tmp_path / "none.gguf")]),
     }
     silero = tmp_path / "silero.bin"
     SW.write_silero(silero, SW.random_silero_tensors(seed=0))
