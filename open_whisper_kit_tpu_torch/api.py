@@ -33,7 +33,7 @@ __all__ = [
 
 
 class Transcriber:
-    """Whisper speech-to-text on one torch device."""
+    """Whisper speech-to-text on one torch device, or on a mesh of them."""
 
     def __init__(self, model_path: str | Path | None = None,
                  preset: str | None = None,
@@ -53,17 +53,21 @@ class Transcriber:
         `draft_model_path` / `draft_preset`: a smaller model with the same
         vocabulary, loaded on the same device with the same dtype, for
         speculative greedy decoding (FullParams.speculative = gamma).
-        Multi-device meshes raise NotImplementedError."""
-        if mesh is not None:
-            raise NotImplementedError("mesh is not ported to the PyTorch package yet")
+        `mesh`: a (dp, tp) mesh (parallel/mesh.py `make_mesh()`, on the
+        device type `device` names; every rank of it builds its
+        Transcriber and makes the same calls): the weights are split over
+        tp, and the batched entry points (transcribe_batch,
+        transcribe_batched, full_parallel) share their chunks out over dp
+        where dp divides them. The W8A8 encoder and speculative decoding
+        stay off on a mesh, as in the JAX package."""
         if model_path is not None:
             self.ctx = WhisperContext.from_file(
                 str(model_path), dtype=dtype, decoder_int8=decoder_int8,
-                device=device, encoder_int8=encoder_int8)
+                device=device, encoder_int8=encoder_int8, mesh=mesh)
         elif preset is not None:
             self.ctx = WhisperContext.from_preset(
                 preset, seed=seed, dtype=dtype, decoder_int8=decoder_int8,
-                device=device, encoder_int8=encoder_int8)
+                device=device, encoder_int8=encoder_int8, mesh=mesh)
         else:
             raise ValueError("model_path or preset required")
         if draft_model_path is not None:

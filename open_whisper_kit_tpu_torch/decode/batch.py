@@ -26,6 +26,12 @@ to the softmax, so the staged run equals the full-width one.
 Semantics match whisper_full per chunk with no_context=True (chunk
 boundaries are full_parallel's). Chunks whose QA gates trip re-run through
 the single-stream whisper_full.
+
+On a mesh context whose dp ranks divide the chunk count (the JAX package's
+rule) each dp rank decodes its block of the chunks in a lockstep loop of
+its own, and the blocks' results are all-gathered (parallel/mesh.fetch_np),
+so every rank returns every chunk's segments; otherwise every rank decodes
+every chunk.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 from ..audio import mel as mel_mod
 from ..models.whisper import model as M
 from ..ops import decode_megakernel as MK
+from ..parallel import mesh as X
 from . import full as F
 from . import logit_rules as LR
 from .device_loop import POLL, HostReads
@@ -310,7 +317,8 @@ def _init_prompt(ctx: F.WhisperContext, p: FullParams) -> list[int]:
 
 
 def _lockstep_chunks(ctx: F.WhisperContext, p: FullParams, mel_data: torch.Tensor,
-                     bases: np.ndarray, ends_local: np.ndarray, fallback_audio):
+                     bases: np.ndarray, ends_local: np.ndarray, fallback_audio,
+                     split: bool = True):
     """Lockstep-decode B independent chunks laid out in one mel buffer.
 
     Chunk b's frames live at mel_data[bases[b] : bases[b]+ends_local[b]]
@@ -322,10 +330,20 @@ def _lockstep_chunks(ctx: F.WhisperContext, p: FullParams, mel_data: torch.Tenso
     K9b, and K8 stays off, as in the JAX package. Options that change the
     step program (grammar, timestamps, VAD, callbacks) are not applied here,
     as in the JAX package: `transcribe_batch` and `full_parallel` route them
-    to whisper_full, and a chunk sent to the fallback gets them there."""
+    to whisper_full, and a chunk sent to the fallback gets them there.
+    `split`: on a mesh, share the chunks out over its dp ranks (module
+    docstring)."""
     cfg = ctx.cfg
     vocab = ctx.vocab
     B = len(bases)
+    dp = X.axis_size(ctx.mesh, "dp")
+    if split and dp > 1 and B % dp == 0:
+        r = X.axis_rank(ctx.mesh, "dp")
+        mine = slice(r * B // dp, (r + 1) * B // dp)
+        segs, tms = _lockstep_chunks(ctx, p, mel_data, np.asarray(bases)[mine],
+                                     np.asarray(ends_local)[mine],
+                                     lambda b: fallback_audio(mine.start + b), split=False)
+        return X.fetch_np(segs, ctx.mesh), X.fetch_np(tms, ctx.mesh)
 
     prompt_init = _init_prompt(ctx, p)
     base_mask, init_mask = ctx.rule_masks(p)

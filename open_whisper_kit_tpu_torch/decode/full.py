@@ -54,6 +54,15 @@ The rest of the whisper_full surface follows the JAX package:
 * the Silero VAD prefilter (models/silero/vad.py on the context's device,
   vad/segments.py), its segment times mapped back to the original audio.
 
+On a mesh (`WhisperContext(mesh=...)`, parallel/mesh.py; one process per
+device) the context's params are this rank's shards (shard_context_params):
+the encoder and the decoder's linears split over the mesh's tp ranks, the
+kernels K2 / K7 / K8 run whole on every rank from planes built from the
+whole decoder, and every output a host branch reads (logits, encoder
+output, caches) is whole and the same on every rank, so the ranks of a tp
+group take the same branches and issue the same collectives. The W8A8
+encoder and speculative decoding stay off on a mesh, as in the JAX package.
+
 GGUF checkpoints raise NotImplementedError.
 """
 
@@ -73,6 +82,7 @@ from ..models.whisper import model as M
 from ..ops import decode_megakernel as MK
 from ..ops.encoder_int8 import prepare_encoder_int8
 from ..ops.quant_matmul import QuantLinear
+from ..parallel import mesh as X
 from . import logit_rules as LR
 from . import tokenizer as tok_mod
 from .device_loop import HostReads
@@ -184,8 +194,11 @@ class WhisperContext:
                  vocab: tok_mod.WhisperVocab, filters: np.ndarray,
                  n_loaded: int, dtype: torch.dtype = torch.bfloat16,
                  model_type: str = "custom", decoder_int8: bool = False,
-                 device: str | torch.device = "cuda", encoder_int8: bool = False):
+                 device: str | torch.device = "cuda", encoder_int8: bool = False,
+                 mesh=None):
         self.device = _resolve_device(device)
+        if mesh is not None and X.mesh_device(mesh) != self.device:
+            raise ValueError(f"mesh on {X.mesh_device(mesh)}, the context on {self.device}")
         self.cfg = cfg
         # params move to the device; the decoder's q/k/v fuse for the
         # per-token path
@@ -194,11 +207,15 @@ class WhisperContext:
         if decoder_int8 and n_loaded > 0:
             # runtime W8: int8 planes for the vocab projection (K3)
             params["decoder"] = M.quantize_decoder_int8(params["decoder"])
-        if encoder_int8 and n_loaded > 0:
-            # the W8A8 encoder (kernel K6; the JAX package's also needs
-            # mesh=None, and the port has no mesh); model.encode tells its
-            # params apart, so every path that encodes picks it up
+        if encoder_int8 and n_loaded > 0 and mesh is None:
+            # the W8A8 encoder (kernel K6; one device only, as in the JAX
+            # package); model.encode tells its params apart, so every path
+            # that encodes picks it up
             params["encoder"] = prepare_encoder_int8(cfg, params["encoder"])
+        self.mesh = mesh
+        if mesh is not None:
+            # this rank's shards: heads and the MLP hidden axis over tp
+            params = X.shard_context_params(params, cfg, mesh)
         self.params = params
         self.vocab = vocab
         self.filters = filters
@@ -235,18 +252,19 @@ class WhisperContext:
     def from_buffer(cls, buf: bytes, dtype: torch.dtype = torch.bfloat16,
                     decoder_int8: bool = False,
                     device: str | torch.device = "cuda",
-                    encoder_int8: bool = False) -> "WhisperContext":
+                    encoder_int8: bool = False, mesh=None) -> "WhisperContext":
         """whisper_init_from_buffer (include/whisper.h:133)."""
         return cls.from_file(buf, dtype=dtype, decoder_int8=decoder_int8,
-                             device=device, encoder_int8=encoder_int8)
+                             device=device, encoder_int8=encoder_int8, mesh=mesh)
 
     @classmethod
     def from_file(cls, path: str | Path | bytes,
                   dtype: torch.dtype = torch.bfloat16,
                   decoder_int8: bool = False,
                   device: str | torch.device = "cuda",
-                  encoder_int8: bool = False) -> "WhisperContext":
-        """A ggml-bin checkpoint, from a path or its bytes."""
+                  encoder_int8: bool = False, mesh=None) -> "WhisperContext":
+        """A ggml-bin checkpoint, from a path or its bytes. `mesh`
+        (parallel/mesh.make_mesh): shard the weights over its ranks."""
         dev = _resolve_device(device)
         ck = ggml_whisper.load_checkpoint(path)
         cfg = M.WhisperConfig.from_hparams(ck.hparams)
@@ -259,14 +277,14 @@ class WhisperContext:
             params = M.params_from_checkpoint(ck, dtype=dtype)
         return cls(cfg, params, vocab, ck.mel_filters, ck.n_loaded, dtype,
                    ck.hparams.model_type, decoder_int8=decoder_int8, device=dev,
-                   encoder_int8=encoder_int8)
+                   encoder_int8=encoder_int8, mesh=mesh)
 
     @classmethod
     def from_preset(cls, name: str, seed: int = 0,
                     dtype: torch.dtype = torch.bfloat16,
                     decoder_int8: bool = False,
                     device: str | torch.device = "cuda",
-                    encoder_int8: bool = False) -> "WhisperContext":
+                    encoder_int8: bool = False, mesh=None) -> "WhisperContext":
         """Random-weight real-shape model, the same weights as the JAX
         package's from_preset with the same seed."""
         cfg = M.PRESETS[name]
@@ -278,7 +296,7 @@ class WhisperContext:
         filters = _synthetic_mel_filters(cfg.n_mels)
         return cls(cfg, params, vocab, filters, n_loaded=1, dtype=dtype,
                    model_type=name, decoder_int8=decoder_int8, device=dev,
-                   encoder_int8=encoder_int8)
+                   encoder_int8=encoder_int8, mesh=mesh)
 
     _MEGA_WEIGHTS = ("qkv_w", "o_w", "cq_w", "co_w", "mlp0_w", "mlp1_w")
 
@@ -321,13 +339,15 @@ class WhisperContext:
 
     def mega_params(self, p: FullParams, draft: bool = False) -> MK.MegaParams | None:
         """MegaParams for `mega_mode(p, draft=draft)`, prepared once per
-        decoder and mode, or None."""
+        decoder and mode, or None. On a mesh they are built from the whole
+        decoder (its shards all-gathered) and run whole on every rank."""
         mode = self.mega_mode(p, draft=draft)
         if mode is None:
             return None
         dec = self.params["decoder"]
         if self._mega is None or self._mega[0] is not dec or self._mega[1] != mode:
-            self._mega = (dec, mode, MK.prepare_mega(self.cfg, dec, quant=mode))
+            whole = X.gather_context_params({"decoder": dec}, self.cfg)["decoder"]
+            self._mega = (dec, mode, MK.prepare_mega(self.cfg, whole, quant=mode))
         return self._mega[2]
 
     def get_vad(self, model_path: str | None):
@@ -551,6 +571,7 @@ def whisper_full(ctx: WhisperContext, p: FullParams, samples: np.ndarray,
     # path of a loaded model, with no grammar or host callbacks (the JAX
     # package's gate); elsewhere the draft's encoder passes would be wasted
     speculating = (p.speculative > 0 and ctx.draft is not None
+                   and ctx.mesh is None
                    and p.use_device_loops and ctx.n_loaded > 0
                    and p.strategy == SamplingStrategy.GREEDY
                    and p.temperature <= 0

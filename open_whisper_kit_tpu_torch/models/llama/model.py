@@ -64,7 +64,14 @@ def config_from_gguf(meta: dict) -> LlamaConfig:
         raise NotImplementedError(
             f"partial rotary (rope_dim={rope_dim}) not supported")
     scale = float(g("rope.scale_linear", 0.0)) or 1.0
-    if g("rope.scaling.type") == "linear":
+    kind = g("rope.scaling.type")
+    if kind not in (None, "none", "linear"):
+        # e.g. Llama-3's "llama3" (per-frequency factors): the JAX package
+        # reads only linear scaling and would run such a model with the
+        # wrong rotary table; the port refuses it
+        raise NotImplementedError(f"rope.scaling.type {kind!r} not supported "
+                                  "(only none and linear)")
+    if kind == "linear":
         scale = float(g("rope.scaling.factor", 1.0))
     return LlamaConfig(
         n_vocab=int(meta.get("tokenizer.ggml.tokens_len",

@@ -32,7 +32,22 @@ compute graph and rounding points:
 `decode_impl(collect_cross_qk=True)` also returns the softmax
 cross-attention probabilities (the DTW timestamp signal), formed by
 explicit products over the float or QuantKV cross-KV, never by a fused
-kernel. The int8 self-cache (`init_kv_cache_q8`) is still to come.
+kernel. `init_kv_cache_q8` makes the int8 self-cache (QuantKV planes per
+(batch, head, position), JAX's layout), which `decode_impl` fills and reads
+like the float one.
+
+Params sharded by parallel/mesh.shard_context_params carry their mesh
+(their "mesh" entry), and `encode`, `cross_kv` and `decode_impl` then split
+each layer over its tp ranks: a dense column-role weight (q/k/v, the fused
+qkv, cq/ck/cv, mlp0) holds this rank's block of output columns, a dense
+row-role weight (o, co, mlp1) its block of rows, whose f32 partial
+product is summed over the ranks (`all_reduce_sum`) and cast back; a
+quantized plane is whole on every rank, and its layer runs whole.
+Attention runs on this rank's heads (K1 in the encoder)
+where tp divides them, else whole on every rank. The outputs every caller
+reads stay whole on every rank: the encoder output, the cross-KV and the
+self-KV cache (their heads' columns are all-gathered after each
+projection), and the logits. With tp = 1 the code is the one-device code.
 """
 
 from __future__ import annotations
@@ -54,6 +69,7 @@ from ...ops.quant_matmul import (QuantLinear, QuantLinear4, QuantPlanes,
                                  concat_quant, fused_ffn_int8, qmatmul,
                                  quantize_linear, quantize_linear4, repack)
 from ...ops.quant_matmul import stack as stack_quant
+from ...parallel import mesh as X
 
 Params = dict[str, Any]
 
@@ -334,18 +350,66 @@ def conv1d_mm(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     return _dot_f32(xw, w.reshape(3 * Ci, Co))
 
 
+# -- a layer split over a mesh's tp ranks ----------------------------------------
+
+def _col(x: torch.Tensor, w, b: torch.Tensor | None, tp: X.TP | None):
+    """A column-role linear: (x @ w + b, whether that is this rank's block
+    of the output columns, as it is for a sharded dense w)."""
+    y = _mm(x, w)
+    return (y if b is None else y + b), tp is not None and isinstance(w, torch.Tensor)
+
+
+def _block_of(y: torch.Tensor, local: bool, tp: X.TP) -> torch.Tensor:
+    """This rank's block of y's last dim (y whole or already the block)."""
+    return y if local else y[..., tp.cols(y.shape[-1])]
+
+
+def _whole(y: torch.Tensor, local: bool, tp: X.TP | None) -> torch.Tensor:
+    """y's last dim whole on every rank (all-gathered from the blocks)."""
+    return X.all_gather_last(y, tp.group) if local else y
+
+
+def _row(a: torch.Tensor, local: bool, w, tp: X.TP | None) -> torch.Tensor:
+    """a @ w for a row-role weight, in a's dtype. A sharded dense w holds
+    this rank's block of rows: the f32 product of a's block is summed over
+    the tp ranks, then cast. A whole w (or no mesh) takes the whole a."""
+    if tp is not None and isinstance(w, torch.Tensor):
+        part = _partial_f32(_block_of(a, local, tp), w)
+        return X.all_reduce_sum(part, tp.group).to(a.dtype)
+    return _mm(_whole(a, local, tp), w)
+
+
+def _partial_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w with an f32 result. 16-bit operands on the card take one
+    16-bit GEMM that accumulates and writes f32 (out_dtype), neither
+    upcasting the weight nor running an f32 GEMM; elsewhere the operands
+    are upcast (exact) and multiplied in f32."""
+    if a.is_cuda and a.dtype == w.dtype and a.dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(a.reshape(-1, a.shape[-1]), w,
+                        out_dtype=torch.float32).reshape(*a.shape[:-1], w.shape[-1])
+    return _dot_f32(a, w)
+
+
 def _encoder_block(cfg: WhisperConfig, p: Params, x: torch.Tensor,
-                   n_valid: int | None = None) -> torch.Tensor:
+                   n_valid: int | None = None, tp: X.TP | None = None) -> torch.Tensor:
+    """One pre-LN encoder layer; `tp` splits it over a mesh's tp ranks
+    (module docstring), None runs it whole."""
     scale = 1.0 / np.sqrt(cfg.d_audio_head)
     h = _ln(x, p["attn_ln_w"], p["attn_ln_b"], cfg.eps)
-    q = _mm(h, p["q_w"]) + p["q_b"]
-    k = _mm(h, p["k_w"])  # no key bias (whisper.cpp:2125)
-    v = _mm(h, p["v_w"]) + p["v_b"]
-    a = mha_full(q, k, v, cfg.n_audio_head, scale, kv_valid=n_valid)
-    x = x + _mm(a, p["o_w"]) + p["o_b"]
+    qkv = [_col(h, p["q_w"], p["q_b"], tp),
+           _col(h, p["k_w"], None, tp),  # no key bias (whisper.cpp:2125)
+           _col(h, p["v_w"], p["v_b"], tp)]
+    local = tp is not None and cfg.n_audio_head % tp.size == 0
+    if local:       # K1 on this rank's heads
+        q, k, v = (_block_of(y, loc, tp).contiguous() for y, loc in qkv)
+    else:           # every head on every rank
+        q, k, v = (_whole(y, loc, tp) for y, loc in qkv)
+    n_head = cfg.n_audio_head // tp.size if local else cfg.n_audio_head
+    a = mha_full(q, k, v, n_head, scale, kv_valid=n_valid)
+    x = x + _row(a, local, p["o_w"], tp) + p["o_b"]
     h = _ln(x, p["mlp_ln_w"], p["mlp_ln_b"], cfg.eps)
-    h = F.gelu(_mm(h, p["mlp0_w"]) + p["mlp0_b"], approximate="tanh")
-    return x + _mm(h, p["mlp1_w"]) + p["mlp1_b"]
+    hid, loc = _col(h, p["mlp0_w"], p["mlp0_b"], tp)
+    return x + _row(F.gelu(hid, approximate="tanh"), loc, p["mlp1_w"], tp) + p["mlp1_b"]
 
 
 def encode(cfg: WhisperConfig, enc: Params, mel: torch.Tensor) -> torch.Tensor:
@@ -354,8 +418,14 @@ def encode(cfg: WhisperConfig, enc: Params, mel: torch.Tensor) -> torch.Tensor:
     conv1(s1)+gelu, conv2(s2)+gelu (gelu on the f32 conv result, then cast),
     + positional embedding, pre-LN blocks, final layernorm. W8A8 params
     (`ops.encoder_int8.prepare_encoder_int8`, told apart by their int8
-    `qkv_q` planes) go to `encode_int8`, as the JAX package routes them."""
+    `qkv_q` planes) go to `encode_int8`, as the JAX package routes them.
+    Params sharded over a mesh (their "mesh" entry) split each block over
+    its tp ranks; the W8A8 encoder is one-device only, as in the JAX
+    package."""
+    tp = X.tp_of(enc.get("mesh"))
     if "qkv_q" in enc["blocks"]:
+        if tp is not None:
+            raise ValueError("the W8A8 encoder runs on one device (a mesh keeps dense params)")
         from ...ops.encoder_int8 import encode_int8
         return encode_int8(cfg, enc, mel)
     dtype = enc["conv1_w"].dtype
@@ -375,7 +445,7 @@ def encode(cfg: WhisperConfig, enc: Params, mel: torch.Tensor) -> torch.Tensor:
         x = F.pad(x, (0, 0, 0, n_pad))
     for il in range(cfg.n_audio_layer):
         x = _encoder_block(cfg, _layer(enc["blocks"], il), x,
-                           n_valid=n_ctx if n_pad else None)
+                           n_valid=n_ctx if n_pad else None, tp=tp)
     if n_pad:
         x = x[:, :n_ctx]
     return _ln(x, enc["ln_post_w"], enc["ln_post_b"], cfg.eps)
@@ -383,13 +453,17 @@ def encode(cfg: WhisperConfig, enc: Params, mel: torch.Tensor) -> torch.Tensor:
 
 def cross_kv(cfg: WhisperConfig, dec: Params, enc_out: torch.Tensor):
     """enc_out (B,Ta,S) -> (xk, xv) each (L,B,Ta,S), natural layout; xk
-    pre-scaled d**-0.25."""
+    pre-scaled d**-0.25. On a mesh each rank projects its heads' columns,
+    all-gathered so that every rank holds the whole cross-KV."""
     kscale = float(cfg.d_text_head) ** -0.25
     blocks = dec["blocks"]
+    tp = X.tp_of(dec.get("mesh"))
     ks, vs = [], []
     for il in range(cfg.n_text_layer):
-        ks.append(_mm(enc_out, blocks["ck_w"][il]) * kscale)
-        vs.append(_mm(enc_out, blocks["cv_w"][il]) + blocks["cv_b"][il])
+        k, kl = _col(enc_out, blocks["ck_w"][il], None, tp)
+        v, vl = _col(enc_out, blocks["cv_w"][il], blocks["cv_b"][il], tp)
+        ks.append(_whole(k * kscale, kl, tp))
+        vs.append(_whole(v, vl, tp))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -467,18 +541,38 @@ class QuantKVNat(NamedTuple):
     ta_valid: int
 
 
-def _quantize_head_rows(x: torch.Tensor, n_head: int):
-    """Natural (L, B, Ta, S) float -> head-major int8 (L, B, H, Ta, dh) and
-    f32 scales (L, B, H, Ta): symmetric per row over dh, scale = amax / 127,
-    q = round(x / scale) half to even, clipped to +-127, an all-zero row
-    giving zeros with scale 0 (JAX's quantize_cross_kv, bit for bit)."""
-    L, B, Ta, S = x.shape
-    x32 = x.float().reshape(L, B, Ta, n_head, S // n_head).transpose(2, 3).contiguous()
+def _quantize_rows(x: torch.Tensor):
+    """(..., dh) float -> int8 rows and f32 scales (...): symmetric per row,
+    scale = amax / 127, q = round(x / scale) half to even, clipped to
+    +-127, an all-zero row giving zeros with scale 0 (JAX's jitted
+    _quantize_rows and quantize_cross_kv, bit for bit)."""
+    x32 = x.float()
     scale = x32.abs().amax(dim=-1) * _INV127    # a jitted amax / 127.0
     safe = torch.where(scale == 0, 1.0, scale)
     inv = torch.where(scale > 0, torch.ones_like(scale) / safe, 0.0)   # IEEE division
     qs = torch.clamp(torch.round(x32 * inv[..., None]), -127, 127).to(torch.int8)
     return qs, scale
+
+
+def _quantize_head_rows(x: torch.Tensor, n_head: int):
+    """Natural (L, B, Ta, S) float -> head-major int8 (L, B, H, Ta, dh) and
+    f32 scales (L, B, H, Ta), quantized per row over dh (_quantize_rows)."""
+    L, B, Ta, S = x.shape
+    return _quantize_rows(x.float().reshape(L, B, Ta, n_head, S // n_head)
+                          .transpose(2, 3).contiguous())
+
+
+def init_kv_cache_q8(cfg: WhisperConfig, n_beams: int, *, device: str | torch.device):
+    """Int8 self-attention cache, a QuantKV pair in JAX's head-major layout:
+    qs (L, B, H, n_text_ctx, dh) int8, scale (L, B, H, n_text_ctx) f32;
+    `decode_impl` quantizes each (batch, head, position) row over dh as it
+    writes it (q8_0-level error), halving the self-KV bytes a step reads."""
+    shape = (cfg.n_text_layer, n_beams, cfg.n_text_head, cfg.n_text_ctx, cfg.d_text_head)
+
+    def z():
+        return QuantKV(qs=torch.zeros(shape, dtype=torch.int8, device=device),
+                       scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+    return z(), z()
 
 
 def quantize_cross_kv(x: torch.Tensor, n_head: int) -> QuantKV:
@@ -500,9 +594,9 @@ def quantize_cross_kv_nat(x: torch.Tensor, n_head: int) -> QuantKVNat:
     return QuantKVNat(qs=qs.contiguous(), scale=sc.contiguous(), ta_valid=Ta)
 
 
-# JAX's `_attention_hm_q` (without its self-cache mask) is K9b's plain
-# version at any row count: attention over head-major int8 K/V planes with
-# their scales folded into the scores and the probabilities
+# JAX's `_attention_hm_q` is K9b's plain version at any row count (with a
+# mask over the int8 self-cache): attention over head-major int8 K/V planes
+# with their scales folded into the scores and the probabilities
 _attention_hm_q = cross_attention_q8_plain
 
 
@@ -514,34 +608,43 @@ def _rows_probs(probs: torch.Tensor, B: int, T: int) -> torch.Tensor:
 
 
 def decode_impl(cfg: WhisperConfig, dec: Params, tokens: torch.Tensor,
-                kv_k: torch.Tensor, kv_v: torch.Tensor, kv_head,
-                xk: torch.Tensor, xv: torch.Tensor, logits_pos=None,
+                kv_k, kv_v, kv_head, xk: torch.Tensor, xv: torch.Tensor, logits_pos=None,
                 collect_cross_qk: bool = False):
     """One decoder forward over `tokens` (B,T) starting at cache slot
     `kv_head` (an int or a 0-d integer tensor; a tensor keeps the host out
     of the loop).
 
     Writes this call's K/V rows into kv_k/kv_v (L,B,n_ctx,S) IN PLACE and
-    returns (logits (B,T,n_vocab) f32, kv_k, kv_v). `logits_pos` (int or
-    0-d tensor): compute logits for that token position only, shape
-    (B,1,V). xk/xv (L, B or 1, Ta, S), or QuantKV / QuantKVNat planes of
-    batch B or 1: with batch 1 all B rows share one cross-KV. A QuantKVNat
-    drives one-row steps only. Takes `dec` after prepare_decoder (fused
-    qkv).
+    returns (logits (B,T,n_vocab) f32, kv_k, kv_v). kv_k/kv_v may be the
+    int8 QuantKV pair of `init_kv_cache_q8` (rows quantized as they are
+    written, attention over the planes with a causal mask; the activations
+    then take te's dtype). `logits_pos` (int or 0-d tensor): compute logits
+    for that token position only, shape (B,1,V). xk/xv (L, B or 1, Ta, S),
+    or QuantKV / QuantKVNat planes of batch B or 1: with batch 1 all B rows
+    share one cross-KV. A QuantKVNat drives one-row steps only. Takes `dec`
+    after prepare_decoder (fused qkv); sharded `dec` (its "mesh" entry)
+    splits each layer over the mesh's tp ranks (module docstring).
 
     `collect_cross_qk`: also return cross_qk, the (L, B, H, T, Ta) f32
     softmax cross-attention probabilities (whisper.cpp:2720-2736), as a
     fourth element; their layer's cross-attention then runs on explicit
     products (never K9b), and a QuantKVNat cross-KV is refused."""
-    dtype = kv_k.dtype
+    quant_self = isinstance(kv_k, QuantKV)
+    dtype = dec["te"].dtype if quant_self else kv_k.dtype
     dev = tokens.device
     B, T = tokens.shape
     if isinstance(xk, QuantKVNat) and (T != 1 or collect_cross_qk):
         raise ValueError("QuantKVNat drives the single-token serving step only")
-    C = kv_k.shape[2]
+    C = kv_k.qs.shape[3] if quant_self else kv_k.shape[2]
     S, H = cfg.n_text_state, cfg.n_text_head
     kqscale = float(cfg.d_text_head) ** -0.25
     positions = torch.as_tensor(kv_head, device=dev).long() + torch.arange(T, device=dev)
+    tp = X.tp_of(dec.get("mesh"))
+    # this rank's heads: their columns of S (natural layout), their slice
+    # of the head axis (head-major planes); None = every head on every rank
+    heads = cols = None
+    if tp is not None and H % tp.size == 0:
+        heads, cols = tp.cols(H), tp.cols(S)
 
     # positions past the table take its last row, as JAX's gather clamps
     # (the speculative verify pass may run a few rows past n_text_ctx)
@@ -557,37 +660,44 @@ def decode_impl(cfg: WhisperConfig, dec: Params, tokens: torch.Tensor,
     for il in range(cfg.n_text_layer):
         p = _layer(blocks, il)
         h = _ln(x, p["attn_ln_w"], p["attn_ln_b"], cfg.eps)
-        qkv = _mm(h, p["qkv_w"]) + p["qkv_b"]
+        qkv, loc = _col(h, p["qkv_w"], p["qkv_b"], tp)
+        qkv = _whole(qkv, loc, tp)          # the cache rows are whole on every rank
         q = qkv[..., :S] * kqscale
         k = qkv[..., S:2 * S] * kqscale
         v = qkv[..., 2 * S:]
-        kv_k[il].index_copy_(1, positions, k.to(dtype))
-        kv_v[il].index_copy_(1, positions, v.to(dtype))
-        a = _attention(q, kv_k[il], kv_v[il], H, 1.0, mask)
-        x = x + _mm(a, p["o_w"]) + p["o_b"]
+        if quant_self:
+            for cache, rows in ((kv_k, k), (kv_v, v)):
+                q8, sc = _quantize_rows(rows.reshape(B, T, H, -1).transpose(1, 2))
+                cache.qs[il].index_copy_(2, positions, q8)
+                cache.scale[il].index_copy_(2, positions, sc)
+            hs = slice(None) if heads is None else heads
+            a = _attention_hm_q(q if cols is None else q[..., cols], kv_k.qs[il][:, hs],
+                                kv_k.scale[il][:, hs], kv_v.qs[il][:, hs],
+                                kv_v.scale[il][:, hs], H if heads is None else H // tp.size,
+                                1.0, mask=mask)
+        else:
+            kv_k[il].index_copy_(1, positions, k.to(dtype))
+            kv_v[il].index_copy_(1, positions, v.to(dtype))
+            if cols is None:
+                a = _attention(q, kv_k[il], kv_v[il], H, 1.0, mask)
+            else:
+                a = _attention(q[..., cols], kv_k[il][..., cols], kv_v[il][..., cols],
+                               H // tp.size, 1.0, mask)
+        x = x + _row(a, cols is not None, p["o_w"], tp) + p["o_b"]
 
         h = _ln(x, p["cross_ln_w"], p["cross_ln_b"], cfg.eps)
-        cq = _mm(h, p["cq_w"]) + p["cq_b"]
-        if isinstance(xk, QuantKVNat):      # kernel K9a
-            ca = cross_attention_q8_nat(cq, xk.qs[il], xk.scale[il], xv.qs[il],
-                                        xv.scale[il], H, kqscale, xk.ta_valid)
-        elif isinstance(xk, QuantKV) and T == 1 and not collect_cross_qk:   # kernel K9b
-            ca = cross_attention_q8(cq, xk.qs[il], xk.scale[il], xv.qs[il],
-                                    xv.scale[il], H, kqscale)
+        cq, loc = _col(h, p["cq_w"], p["cq_b"], tp)
+        ca_local = (cols is not None and not collect_cross_qk
+                    and not isinstance(xk, (QuantKV, QuantKVNat)))
+        if ca_local:        # this rank's heads over its columns of the cross-KV
+            cq = _block_of(cq, loc, tp)
+            ca = _attention(cq.reshape(xk.shape[1], -1, cq.shape[-1]), xk[il][..., cols],
+                            xv[il][..., cols], H // tp.size, kqscale)
+            ca = ca.reshape(B, T, -1)
         else:
-            # a cross-KV of batch 1 serves every row: fold the rows into queries
-            if isinstance(xk, QuantKV):
-                ca = _attention_hm_q(cq.reshape(xk.qs.shape[1], -1, S), xk.qs[il],
-                                     xk.scale[il], xv.qs[il], xv.scale[il], H, kqscale,
-                                     with_probs=collect_cross_qk)
-            else:
-                ca = _attention(cq.reshape(xk.shape[1], -1, S), xk[il], xv[il], H,
-                                kqscale, with_probs=collect_cross_qk)
-            if collect_cross_qk:
-                ca, probs = ca
-                cross_probs.append(_rows_probs(probs, B, T))
-            ca = ca.reshape(B, T, S)
-        x = x + _mm(ca, p["co_w"]) + p["co_b"]
+            ca = _cross_whole(cfg, _whole(cq, loc, tp), xk, xv, il, B, T, collect_cross_qk,
+                              cross_probs)
+        x = x + _row(ca, ca_local, p["co_w"], tp) + p["co_b"]
 
         h = _ln(x, p["mlp_ln_w"], p["mlp_ln_b"], cfg.eps)
         w0, w1 = p["mlp0_w"], p["mlp1_w"]
@@ -595,8 +705,8 @@ def decode_impl(cfg: WhisperConfig, dec: Params, tokens: torch.Tensor,
                 and w0.qs.shape[-1] == w0.n_out):   # kernel K5
             x = x + fused_ffn_int8(h, w0, p["mlp0_b"], w1).to(x.dtype) + p["mlp1_b"]
         else:
-            h = F.gelu(_mm(h, w0) + p["mlp0_b"], approximate="tanh")
-            x = x + _mm(h, w1) + p["mlp1_b"]
+            hid, loc = _col(h, w0, p["mlp0_b"], tp)
+            x = x + _row(F.gelu(hid, approximate="tanh"), loc, w1, tp) + p["mlp1_b"]
 
     x = _ln(x, dec["ln_w"], dec["ln_b"], cfg.eps)
     if logits_pos is not None:
@@ -608,6 +718,33 @@ def decode_impl(cfg: WhisperConfig, dec: Params, tokens: torch.Tensor,
     if collect_cross_qk:
         return logits, kv_k, kv_v, torch.stack(cross_probs)
     return logits, kv_k, kv_v
+
+
+def _cross_whole(cfg: WhisperConfig, cq: torch.Tensor, xk, xv, il: int, B: int, T: int,
+                 collect_cross_qk: bool, cross_probs: list) -> torch.Tensor:
+    """decode_impl's cross-attention of layer il over every head: kernel K9a
+    over QuantKVNat, K9b for one row over QuantKV, else explicit products
+    (their probabilities appended to `cross_probs` with collect_cross_qk)."""
+    S, H = cfg.n_text_state, cfg.n_text_head
+    kqscale = float(cfg.d_text_head) ** -0.25
+    if isinstance(xk, QuantKVNat):      # kernel K9a
+        return cross_attention_q8_nat(cq, xk.qs[il], xk.scale[il], xv.qs[il],
+                                      xv.scale[il], H, kqscale, xk.ta_valid)
+    if isinstance(xk, QuantKV) and T == 1 and not collect_cross_qk:   # kernel K9b
+        return cross_attention_q8(cq, xk.qs[il], xk.scale[il], xv.qs[il],
+                                  xv.scale[il], H, kqscale)
+    # a cross-KV of batch 1 serves every row: fold the rows into queries
+    if isinstance(xk, QuantKV):
+        ca = _attention_hm_q(cq.reshape(xk.qs.shape[1], -1, S), xk.qs[il],
+                             xk.scale[il], xv.qs[il], xv.scale[il], H, kqscale,
+                             with_probs=collect_cross_qk)
+    else:
+        ca = _attention(cq.reshape(xk.shape[1], -1, S), xk[il], xv[il], H,
+                        kqscale, with_probs=collect_cross_qk)
+    if collect_cross_qk:
+        ca, probs = ca
+        cross_probs.append(_rows_probs(probs, B, T))
+    return ca.reshape(B, T, S)
 
 
 # weights on the per-token decode path; ck/cv (per-window cross-KV build)

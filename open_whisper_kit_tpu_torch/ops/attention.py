@@ -4,7 +4,8 @@
 K1, `mha_packed` (csrc/mha_packed.cu, the Hopper counterpart of the TPU
 kernel `_mha_packed`); on a CPU tensor it computes the same math with plain
 torch ops (`mha_plain`). There is no fallback between the two: a CUDA
-tensor the kernel cannot take raises.
+tensor the kernel cannot take raises. `mha_full_tp` is mha_full over a
+mesh (parallel/mesh.py): each rank runs K1 on its block of the heads.
 """
 
 from __future__ import annotations
@@ -171,3 +172,37 @@ def mha_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "whisper preset); other widths have no kernel")
     return mha_packed(q, k, v, scale,
                       q.shape[1] if kv_valid is None else kv_valid)
+
+
+def mha_full_tp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                n_head: int, scale: float, mesh, kv_valid: int | None = None) -> torch.Tensor:
+    """mha_full over `mesh` (parallel/mesh.py), the port of the JAX
+    package's shard_map'd mha_full_tp: each rank runs K1 (the plain version
+    on the CPU) on its tp block of the heads and, where dp divides the
+    batch, its dp block of the batch. Attention is head-parallel, so each
+    rank's block equals those heads of mha_full's whole call.
+
+    q/k/v (B, T, S) whole on every rank: the blocks are all-gathered and
+    every rank returns the whole output. Heads stay whole on every rank
+    where tp does not divide n_head, and the batch where dp does not divide
+    B (the JAX package's fallback, ops/attention.py:190-195). The encoder
+    on a mesh calls mha_full itself on the heads its projections left on
+    this rank (models/whisper/model.py)."""
+    from ..parallel import mesh as X
+    tp, dp = X.axis_size(mesh, "tp"), X.axis_size(mesh, "dp")
+    if n_head % tp:
+        tp = 1
+    if q.shape[0] % dp:
+        dp = 1
+    B, S = q.shape[0], q.shape[-1]
+    hs = slice(X.axis_rank(mesh, "tp") * S // tp, (X.axis_rank(mesh, "tp") + 1) * S // tp)
+    bs = slice(X.axis_rank(mesh, "dp") * B // dp, (X.axis_rank(mesh, "dp") + 1) * B // dp)
+
+    def block(t):
+        return t if (tp, dp) == (1, 1) else t[bs, :, hs].contiguous()
+    a = mha_full(block(q), block(k), block(v), n_head // tp, scale, kv_valid)
+    if tp > 1:
+        a = X.all_gather_last(a, mesh.get_group("tp"))
+    if dp > 1:
+        a = X.all_gather_last(a.movedim(0, -1), mesh.get_group("dp")).movedim(-1, 0)
+    return a.contiguous()

@@ -230,6 +230,23 @@ def qmm_plain(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor
     return _dot_bf16(x, dequantize_dense(QuantLinear(qs, scales)))
 
 
+_FIXED_COLS = 512   # columns a fixed-order product takes at a time
+
+
+def qmm_plain_fixed(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor
+                    ) -> torch.Tensor:
+    """qmm_plain with each output column summed over K in one order that
+    depends on K alone: a column of a block of the planes' columns comes
+    out bit-equal to that column of the whole product, at any row count
+    and thread count (a CPU matmul blocks its sums by the shape it is
+    given). Broadcast products summed by a reduction, 512 columns at a
+    time."""
+    xb = x.to(torch.bfloat16).float()
+    w = dequantize_dense(QuantLinear(qs, scales)).float()
+    return torch.cat([(xb[:, :, None] * w[None, :, j:j + _FIXED_COLS]).sum(1)
+                      for j in range(0, w.shape[1], _FIXED_COLS)], dim=1)
+
+
 def qmm4_plain(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor
                ) -> torch.Tensor:
     """K4's function: x (M, K) -> (M, Np) f32 over int4 planes, weights
@@ -539,17 +556,42 @@ def _ffn_tensor_maps(q0, s0, q1, s1, K: int, FF: int, N1p: int) -> int:
             q0.data_ptr(), s0.data_ptr(), K, FF, q1.data_ptr(), s1.data_ptr(), N1p, addr))
 
 
-def qmm(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+def _check_splits(M: int, K: int, Np: int, splits: int) -> None:
+    """A rows-route launch at `splits` the kernel can take: one split per
+    scale block at most, ROWS_MAX_SPLITS, and x's rows and the gathered
+    sums within their shared memory."""
+    plan = RowsPlan(M, K, Np, splits)
+    if (not 1 <= splits <= min(K // QK, ROWS_MAX_SPLITS) or plan.x_smem > ROWS_X_SMEM
+            or plan.gather_smem > ROWS_GATHER):
+        raise ValueError(f"qmm: splits={splits} does not fit M={M} K={K} Np={Np}")
+
+
+def qmm(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
+        splits: int | None = None) -> torch.Tensor:
     """Kernel K3: x (M, K) @ int8 planes -> (M, Np) f32. CPU tensors take
     `qmm_plain`; CUDA tensors launch the body of the route `qmm_route(M)`
     names on the current stream (rows: csrc/qmm_rows.cu, planned by
     `qmm_rows_plan`; tiles: csrc/qmm.cu). `launches` counts launches,
-    `launches_by_route` the same by route."""
+    `launches_by_route` the same by route.
+
+    `splits` (rows route only) pins the sum order to a wider product's:
+    given the K splits `qmm_rows_plan` takes for the whole width of which
+    these planes are a block of columns, each column comes out bit-equal to
+    the whole product's (a column's sum depends on K and the splits, not on
+    the column count, which sets the plan otherwise). The launch is checked
+    against the kernel's limits. On the CPU it takes `qmm_plain_fixed`,
+    whose column sums are independent of the width."""
     if x.device.type == "cpu":
+        if splits is not None:
+            return qmm_plain_fixed(x, qs, scales)
         return qmm_plain(x, qs, scales)
     _check("qmm", x, (qs, torch.int8), (scales, torch.float32))
     M, K = x.shape
     Np = _check_shapes("qmm", K, K, qs, scales)
+    if splits is not None:
+        if qmm_route(M) != "rows":
+            raise ValueError(f"qmm: splits= is a rows-route launch, M={M} > {QMM_ROWS_MAX}")
+        _check_splits(M, K, Np, splits)
     out = torch.empty(M, Np, dtype=torch.float32, device=x.device)
     if M:
         xb = _bf16_rows(x)
@@ -557,7 +599,8 @@ def qmm(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor
         if route == "rows":
             rc = _kernel_lib("qmm_rows").owk_qmm_rows(
                 xb.data_ptr(), _rows_tensor_maps(qs, scales, K, Np), out.data_ptr(), M, K, Np,
-                qmm_rows_plan(M, K, Np).splits, torch.cuda.current_stream(x.device).cuda_stream)
+                splits or qmm_rows_plan(M, K, Np).splits,
+                torch.cuda.current_stream(x.device).cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"qmm: kernel launch failed (cudaError {rc})")
         else:

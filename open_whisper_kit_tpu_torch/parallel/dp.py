@@ -10,7 +10,14 @@ non-overlap clamping. Two routes, as in the JAX package:
    on the device, each chunk with its own mel normalization context; a
    chunk whose QA gates trip re-runs through whisper_full.
 2. **Threads** otherwise: one thread per chunk over the shared context
-   (the reference's std::thread model), each running whisper_full.
+   (the reference's std::thread model), each running whisper_full. On a
+   mesh the chunks run one after another instead, so that every rank
+   issues the same collectives in the same order.
+
+On a mesh context (WhisperContext(mesh=...)) the lockstep route shares the
+chunks out over the mesh's dp ranks when they divide the chunk count (the
+JAX package's rule), each dp rank in its own lockstep loop, and every rank
+returns the merged result; full_parallel(n_processors=dp) is that case.
 
 `params.cross_kv_int8` reaches both routes through the params (the JAX
 package hands it to the lockstep route as an argument). With `params.vad`
@@ -105,6 +112,9 @@ def full_parallel(ctx: F.WhisperContext, params: FullParams,
         seg_lists, timings = transcribe_chunks_with_timings(ctx, p_rest, chunks)
         chunk_results = [F.TranscribeResult(segments=segs, timings=timings[i])
                          for i, segs in enumerate(seg_lists)]
+    elif ctx.mesh is not None:
+        chunk_results = [F.whisper_full(ctx, p0 if i == 0 else p_rest, chunks[i])
+                         for i in range(n_processors)]
     else:
         # one thread per chunk, shared read-only weights, independent states
         # (whisper.cpp:7856-7861)

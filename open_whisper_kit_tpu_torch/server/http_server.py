@@ -35,6 +35,18 @@ state lock), and the device is pinned to an indexed card at start-up, so
 every thread uses the same card.
 
     python -m open_whisper_kit_tpu_torch.server.http_server -m model.bin [-ng]
+
+On a mesh (`serve(mesh=...)`, `--mesh [--tp N]`; parallel/mesh.py) the
+server runs as one process per device, launched together (torchrun, or
+tools/launch_multihost.py's process setup): rank 0 serves HTTP and every
+other rank follows (`ServerState.follow`). Each call rank 0 makes into its
+Transcriber (a transcription, a lockstep group, language detection, a
+stream step, a model load) is broadcast to the followers first
+(`ServerState.device_call`), so every rank makes the same calls in the
+same order and issues the same collectives. /diarize runs on rank 0 alone.
+
+    torchrun --nproc-per-node 2 -m open_whisper_kit_tpu_torch.server.http_server \
+        -m model.bin --mesh --tp 2
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import os
 import re
 import tempfile
 import threading
@@ -49,6 +62,8 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..decode.full import _resolve_device
 
@@ -61,12 +76,15 @@ class ServerState:
                  public_path: str | None = None, convert: bool = False,
                  diarize_model: str | None = None,
                  device: str | torch.device = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving on a mesh is not ported to the PyTorch package yet")
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise ValueError(f"mesh: a torch DeviceMesh (parallel/mesh.make_mesh), "
+                             f"got {type(mesh).__name__}")
         # the models load lazily: resolve the device now, so a missing card
         # fails at start-up, and pin its index for every handler thread
         self.device = _resolve_device(device)
+        self.mesh = mesh
+        # ranks that follow rank 0's device calls (1: no followers)
+        self.n_ranks = dist.get_world_size() if mesh is not None else 1
         # RLock: load() holds it while the transcriber property re-enters
         self.lock = threading.RLock()
         self.model_path = model_path
@@ -99,17 +117,7 @@ class ServerState:
         return self._diarizer
 
     def new_session(self, params) -> str:
-        from ..decode.stream import StreamingTranscriber
-        with self.lock:
-            self._session_seq += 1
-            sid = f"s{self._session_seq}"
-            st = StreamingTranscriber(self.transcriber.ctx, params)
-            self.sessions[sid] = _StreamSession(sid, st)
-            # bound concurrent sessions; oldest-idle evicted first
-            if len(self.sessions) > 32:
-                oldest = min(self.sessions.values(), key=lambda s: s.last_used)
-                self.sessions.pop(oldest.sid, None)
-        return sid
+        return self.device_call("stream_start", params)
 
     @property
     def transcriber(self):
@@ -120,14 +128,94 @@ class ServerState:
                     self._transcriber = Transcriber(
                         model_path=self.model_path,
                         dtype=self._dtype or torch.bfloat16,
-                        device=self.device)
+                        device=self.device, mesh=self.mesh)
         return self._transcriber
 
     def load(self, model_path: str):
+        self.device_call("load", model_path)
+
+    # -- device calls: run here, and on a mesh by every follower too ------
+
+    def device_call(self, op: str, *args):
+        """Run `_op_<op>(*args)` under the lock; on a mesh of several ranks
+        broadcast (op, args) to the followers first, so every rank makes the
+        same call in the same order."""
         with self.lock:
-            self.model_path = model_path
-            self._transcriber = None
-            _ = self.transcriber
+            if self.n_ranks > 1:
+                dist.broadcast_object_list([(op, args)], src=0)
+            return getattr(self, "_op_" + op)(*args)
+
+    def follow(self) -> None:
+        """A follower rank's loop: run each call rank 0 broadcasts, until
+        `close` (rank 0) sends the end. A call that fails here fails on
+        rank 0 too, which answers the request with the error; the loop
+        goes on."""
+        import sys
+        while True:
+            msg = [None]
+            dist.broadcast_object_list(msg, src=0)
+            if msg[0] is None:
+                return
+            op, args = msg[0]
+            try:
+                getattr(self, "_op_" + op)(*args)
+            except Exception as e:  # noqa: BLE001
+                print(f"rank {dist.get_rank()}: {op} failed: {e}", file=sys.stderr)
+
+    def close(self) -> None:
+        """Rank 0: release the followers (their `follow` returns)."""
+        with self.lock:
+            if self.n_ranks > 1:
+                dist.broadcast_object_list([None], src=0)
+                self.n_ranks = 1
+
+    def _op_load(self, model_path: str):
+        self.model_path = model_path
+        self._transcriber = None
+        _ = self.transcriber
+
+    def _op_full(self, p, audio):
+        return self.transcriber.full(p, audio)
+
+    def _op_chunks(self, p, audios):
+        from ..decode.batch import transcribe_chunks_with_timings
+        return transcribe_chunks_with_timings(self.transcriber.ctx, p, audios)
+
+    def _op_detect(self, audio, ctx=None):
+        from ..audio import mel as mel_mod
+        from ..decode import full as Fmod
+        ctx = ctx or self.transcriber.ctx
+        mel = mel_mod.log_mel_spectrogram(audio, ctx.filters, device=ctx.device)
+        return Fmod.detect_language(ctx, mel)
+
+    def detect_with(self, tr, audio):
+        """Language detection on the model `tr` that served a request (a
+        hot swap may have replaced it since); on a mesh, on the current
+        model, the only one the followers hold."""
+        with self.lock:
+            if self.n_ranks > 1:
+                return self.device_call("detect", audio)
+            return self._op_detect(audio, tr.ctx)
+
+    def _op_stream_start(self, params) -> str:
+        from ..decode.stream import StreamingTranscriber
+        self._session_seq += 1
+        sid = f"s{self._session_seq}"
+        st = StreamingTranscriber(self.transcriber.ctx, params)
+        self.sessions[sid] = _StreamSession(sid, st)
+        # bound concurrent sessions; oldest-idle evicted first
+        if len(self.sessions) > 32:
+            oldest = min(self.sessions.values(), key=lambda s: s.last_used)
+            self.sessions.pop(oldest.sid, None)
+        return sid
+
+    def _op_stream_feed(self, sid: str, pcm, finish: bool):
+        sess = self.sessions[sid]
+        if finish:
+            events = (sess.st.feed(pcm) if len(pcm) else []) + sess.st.flush()
+            self.sessions.pop(sid, None)
+            return events
+        return sess.st.feed(pcm)
 
     def run(self, p, audio):
         """One /inference request -> (TranscribeResult, transcriber).
@@ -138,7 +226,7 @@ class ServerState:
             return self.batcher.submit(p, audio)
         with self.lock:
             tr = self.transcriber
-            return tr.full(p, audio), tr
+            return self.device_call("full", p, audio), tr
 
 
 class _StreamSession:
@@ -212,7 +300,7 @@ class RequestBatcher:
         if not _batch_route_eligible(self.state.transcriber.ctx, p):
             with self.state.lock:
                 tr = self.state.transcriber
-                return tr.full(p, audio), tr
+                return self.state.device_call("full", p, audio), tr
         req = _Req(p, audio, self._key(p))
         with self.cv:
             self.pending.append(req)
@@ -250,11 +338,10 @@ class RequestBatcher:
             with self.state.lock:
                 tr = self.state.transcriber
                 if len(reqs) == 1:
-                    results = [tr.full(reqs[0].p, reqs[0].audio)]
+                    results = [self.state.device_call("full", reqs[0].p, reqs[0].audio)]
                 else:
-                    from ..decode.batch import transcribe_chunks_with_timings
-                    segs, tims = transcribe_chunks_with_timings(
-                        tr.ctx, reqs[0].p, [r.audio for r in reqs])
+                    segs, tims = self.state.device_call(
+                        "chunks", reqs[0].p, [r.audio for r in reqs])
                     results = [TranscribeResult(segments=s, timings=t)
                                for s, t in zip(segs, tims)]
             for r, res in zip(reqs, results):
@@ -379,15 +466,9 @@ def make_handler(state: ServerState):
                 self._send(400, json.dumps({"error": "no 'file' field"}))
                 return
             audio = _load_audio_bytes(fields["file"], convert=state.convert)
-            from ..audio import mel as mel_mod
             from ..compat import whisper_lang_str_full
-            from ..decode import full as Fmod
             from ..decode import tokenizer as tok_mod
-            with state.lock:
-                tr = state.transcriber
-                mel = mel_mod.log_mel_spectrogram(audio, tr.ctx.filters,
-                                                  device=tr.ctx.device)
-                lid, probs = Fmod.detect_language(tr.ctx, mel)
+            lid, probs = state.device_call("detect", audio)
             self._send(200, json.dumps({
                 "detected_language": whisper_lang_str_full(lid),
                 "language": tok_mod.lang_str(lid),
@@ -474,13 +555,8 @@ def make_handler(state: ServerState):
                     np.float32) / 32768.0
             with sess.lock:
                 sess.last_used = time.monotonic()
-                with state.lock:
-                    if path.endswith("/finish"):
-                        events = (sess.st.feed(pcm) if len(pcm) else []
-                                  ) + sess.st.flush()
-                        state.sessions.pop(sid, None)
-                    else:
-                        events = sess.st.feed(pcm)
+                events = state.device_call("stream_feed", sid, pcm,
+                                           path.endswith("/finish"))
             self._send(200, json.dumps({"events": [
                 {"text": e.text, "t0": e.t0, "t1": e.t1, "final": e.final,
                  "speaker_turn_next": e.speaker_turn_next}
@@ -648,12 +724,7 @@ def make_handler(state: ServerState):
                     }
                     if not no_lang_probs:
                         # language probabilities block (server.cpp:1051-1063)
-                        from ..audio import mel as mel_mod
-                        from ..decode import full as Fmod
-                        with state.lock:   # serialize device access
-                            mel = mel_mod.log_mel_spectrogram(
-                                audio, tr.ctx.filters, device=tr.ctx.device)
-                            lid, probs = Fmod.detect_language(tr.ctx, mel)
+                        lid, probs = state.detect_with(tr, audio)
                         jres["detected_language"] = whisper_lang_str_full(lid)
                         jres["detected_language_probability"] = float(
                             probs[lid])
@@ -704,8 +775,10 @@ def serve(model_path: str, host: str = "127.0.0.1", port: int = 8080,
           device: str | torch.device = "cuda"
           ) -> ThreadingHTTPServer:
     """`device`: the torch device the models run on (the card unless the
-    caller asks for the CPU; raises without CUDA). `mesh` raises
-    NotImplementedError: multi-device serving is not ported yet.
+    caller asks for the CPU; raises without CUDA). `mesh`: a DeviceMesh
+    (parallel/mesh.make_mesh) the model is split over; call this on rank 0
+    and `ServerState(..., mesh=mesh).follow()` on every other rank (the
+    module's `main` does both); `server.state.close()` releases them.
     `batch_window_ms` > 0 enables dynamic batching: concurrent greedy
     requests arriving within the window run as ONE lockstep device
     dispatch (RequestBatcher) instead of serializing behind the lock."""
@@ -727,11 +800,12 @@ def main(argv=None) -> int:
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--mesh", action="store_true",
-                    help="shard the model over all visible devices (not "
-                         "ported yet: raises NotImplementedError)")
+                    help="split the model over every rank of the process "
+                         "group (one process per device, e.g. torchrun; a "
+                         "world of one without it): parallel.mesh.make_mesh "
+                         "dp/tp; rank 0 serves, the others follow")
     ap.add_argument("--tp", type=int, default=None,
-                    help="tensor-parallel width within the mesh (not "
-                         "ported yet: raises NotImplementedError)")
+                    help="tensor-parallel width within the mesh (with --mesh)")
     ap.add_argument("--batch-window-ms", type=float, default=0.0,
                     help="dynamic batching: group concurrent greedy "
                          "requests arriving within this window into one "
@@ -752,29 +826,49 @@ def main(argv=None) -> int:
     ap.add_argument("-ng", "--no-gpu", action="store_true",
                     help="run on the CPU")
     args = ap.parse_args(argv)
-    if args.mesh or args.tp is not None:
-        raise NotImplementedError(
-            f"{'--mesh' if args.mesh else '--tp'}: serving on a mesh is not "
-            "ported to the PyTorch package yet")
+    device = "cpu" if args.no_gpu else "cuda"
+    mesh = None
+    if args.tp is not None and not args.mesh:
+        raise ValueError("--tp sets the tensor-parallel width of a mesh: pass --mesh")
+    if args.mesh:
+        mesh = _mesh_from_env(args.tp, device)
     if args.convert:
         import shutil
         if shutil.which("ffmpeg") is None:
             print("warning: --convert requested but ffmpeg was not found; "
                   "non-wav uploads will fail")
-    server = serve(args.model, args.host, args.port,
+    if mesh is not None and dist.get_rank() != 0:
+        ServerState(args.model, mesh=mesh, vad_model=args.vad_model,
+                    diarize_model=args.diarize_model, device=device).follow()
+        return 0
+    server = serve(args.model, args.host, args.port, mesh=mesh,
                    batch_window_ms=args.batch_window_ms,
                    max_batch=args.max_batch, vad_model=args.vad_model,
                    request_path=args.request_path,
                    inference_path=args.inference_path,
                    public_path=args.public, convert=args.convert,
-                   diarize_model=args.diarize_model,
-                   device="cpu" if args.no_gpu else "cuda")
+                   diarize_model=args.diarize_model, device=device)
     print(f"whisper server listening on http://{args.host}:{args.port}")
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
+    finally:
+        server.state.close()
     return 0
+
+
+def _mesh_from_env(tp: int | None, device: str):
+    """--mesh: a mesh over the process group torchrun's environment
+    describes (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT), or a world of
+    one; a --tp that does not divide the ranks raises naming it."""
+    from ..parallel.mesh import make_mesh
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group("nccl" if device == "cuda" else "gloo")
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if tp is not None and (tp < 1 or n % tp):
+        raise ValueError(f"--tp {tp} does not divide the {n} rank(s) of the mesh")
+    return make_mesh(tp=tp, device=device)
 
 
 if __name__ == "__main__":

@@ -182,7 +182,8 @@ def test_stub_checkpoint_round_trip(tmp_path):
 def test_gguf_and_unported_options_raise(tmp_path):
     """A GGUF file given for a Whisper model fails as in the JAX package,
     whose ggml-bin reader refuses its magic (neither package loads a Whisper
-    GGUF); a mesh is not ported."""
+    GGUF), with a mesh as without one (the file is read before the mesh is
+    used)."""
     path = tmp_path / "m.gguf"
     path.write_bytes(b"GGUF" + bytes(60))
     with pytest.raises(ValueError) as ref:
@@ -193,7 +194,7 @@ def test_gguf_and_unported_options_raise(tmp_path):
             load()
         assert "bad magic" in str(got.value)
         assert str(got.value).split(":")[-1] == str(ref.value).split(":")[-1]
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="bad magic"):
         Transcriber(model_path=path, device="cpu", mesh=object())
 
 

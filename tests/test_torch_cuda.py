@@ -1,7 +1,8 @@
 """The port on a CUDA card: kernels K1, K2 (one row and the speculative
 verify rows), K3, K4, K5, K6, K7, K8, K9a, K9b, T1 and T2 against their
-plain versions (K2 and K8 also bit-equal across launches, behind a spin
-and, for K8, across identical streams), the
+plain versions (K1 and K3 also at a tensor-parallel rank's block; K2
+and K8 also bit-equal across launches, behind a spin and, for K8, across
+identical streams), the mesh's row-sharded partial product, the
 device token loops (greedy, beam and speculative) on the card against the
 same loops on the CPU, and a narrow q8_0 checkpoint's transcript on the
 card and the CPU.
@@ -230,6 +231,61 @@ def test_qmm_rows_is_deterministic(cuda, M, N):
     second = TQ.qmm(x, w.qs, w.scales)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("M", [1, 5])
+@pytest.mark.parametrize("K,N,tp", [(1280, 3840, 2), (1280, 1280, 4), (1280, 5120, 2),
+                                    (5120, 1280, 5)])
+def test_qmm_rows_shard_keeps_the_whole_width_sums(cuda, M, K, N, tp):
+    """The tensor-parallel decode step's K3 call (ops/decode_tp.py): a block
+    of the whole plane's columns, padded to 128, launched with the splits
+    the whole width takes, gives that block of the whole product bit for
+    bit (at turbo's qkv, tp 2: 4 splits, where the block alone would take 7)."""
+    g = torch.Generator(device=cuda).manual_seed(K + N + tp)
+    w = torch.randn(K, N, generator=g, device=cuda) * 0.05
+    x = _x(cuda, M, K, seed=M + tp)
+    whole = TQ.quantize_linear(w)
+    splits = TQ.qmm_rows_plan(M, K, whole.qs.shape[1]).splits
+    ref = TQ.qmm(x, whole.qs, whole.scales)
+    nd = N // tp
+    for d in range(tp):
+        part = TQ.quantize_linear(w[:, d * nd:(d + 1) * nd].contiguous())
+        got = TQ.qmm(x, part.qs, part.scales, splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:, :nd], ref[:, d * nd:(d + 1) * nd]), d
+
+
+def test_mha_packed_on_a_block_of_heads_equals_the_whole_call(cuda):
+    """K1 on one rank's ten heads (the mesh encoder at tp 2) against those
+    heads of K1's call over all twenty: bf16 bit for bit (each block one
+    head's); f32 within the f32 body's 2e-5 of max|ref| (mha_f32_plan
+    splits the keys by the grid's size, which the head count sets)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=cuda).manual_seed(21)
+        q, k, v = (torch.randn(1, 1536, 1280, generator=g, device=cuda).to(dtype)
+                   for _ in range(3))
+        whole = A.mha_packed(q, k, v, 0.125, 1500)
+        for d in range(2):
+            cols = slice(640 * d, 640 * (d + 1))
+            got = A.mha_packed(*(t[..., cols].contiguous() for t in (q, k, v)), 0.125, 1500)
+            torch.cuda.synchronize()
+            if dtype == torch.bfloat16:
+                assert torch.equal(got, whole[..., cols]), d
+            else:
+                _close(got, whole[..., cols], tol=2e-5)
+
+
+def test_row_partial_product_is_one_16bit_gemm_with_an_f32_result(cuda):
+    """A row-sharded layer's partial product on a tp mesh
+    (models/whisper/model.py `_partial_f32`): bf16 operands on the card
+    take one bf16 GEMM that writes f32, within f32 summation order of the
+    f32 product of the upcast operands (both sum exact products in f32)."""
+    g = torch.Generator(device=cuda).manual_seed(40)
+    a = torch.randn(2, 7, 640, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(640, 1280, generator=g, device=cuda) * 0.04).to(torch.bfloat16)
+    got = TM._partial_f32(a, w)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 7, 1280)
+    _close(got, torch.matmul(a.float(), w.float()), tol=1e-5)
 
 
 def _sass(name):

@@ -177,7 +177,8 @@ def test_whisper_full_int8_encoder_matches_jax(narrow_int8):
 def test_transcriber_encoder_int8():
     """Transcriber(encoder_int8=True) builds the W8A8 encoder (it raised
     before the port had it); a draft preset is loaded as the JAX package
-    loads it, dense, with the target's dtype; meshes still raise."""
+    loads it, dense, with the target's dtype; on a mesh the encoder stays
+    dense, as the JAX package keeps it (decode/full.py:117)."""
     tr = Transcriber(preset="tiny", dtype=torch.float32, device="cpu", encoder_int8=True,
                      draft_preset="tiny")
     b = tr.ctx.params["encoder"]["blocks"]
@@ -186,5 +187,10 @@ def test_transcriber_encoder_int8():
     draft = tr.ctx.draft
     assert draft.dtype == torch.float32 and draft.device == tr.ctx.device
     assert "q_w" in draft.params["encoder"]["blocks"]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Transcriber(preset="tiny", device="cpu", encoder_int8=True, mesh=object())
+    from open_whisper_kit_tpu_torch.parallel.mesh import make_mesh
+    tm = Transcriber(preset="tiny", dtype=torch.float32, device="cpu", encoder_int8=True,
+                     mesh=make_mesh(device="cpu"))
+    assert "qkv_q" not in tm.ctx.params["encoder"]["blocks"]
+    assert torch.equal(tm.ctx.params["encoder"]["blocks"]["q_w"],
+                       Transcriber(preset="tiny", dtype=torch.float32, device="cpu")
+                       .ctx.params["encoder"]["blocks"]["q_w"])

@@ -149,6 +149,9 @@ def test_import_leaves_jax_out():
             "import open_whisper_kit_tpu_torch.decode.device_beam; "
             "import open_whisper_kit_tpu_torch.models.llama, open_whisper_kit_tpu_torch.cli.lsp; "
             "import open_whisper_kit_tpu_torch.models.whisper.export; "
+            "import open_whisper_kit_tpu_torch.parallel.mesh, "
+            "open_whisper_kit_tpu_torch.ops.decode_tp, "
+            "open_whisper_kit_tpu_torch.tools.launch_multihost; "
             "import open_whisper_kit_tpu_torch.examples.talk, "
             "open_whisper_kit_tpu_torch.examples.voice_command, "
             "open_whisper_kit_tpu_torch.examples.wchess, "
@@ -197,7 +200,8 @@ def test_cuda_device_without_cuda_raises():
                                    "compat bench", "whisper-cli", "whisper-stream",
                                    "whisper-bench", "vad-segments", "diarize-cli",
                                    "LlamaContext", "whisper-lsp", "talk", "voice_command",
-                                   "wchess", "diarized_transcript"])
+                                   "wchess", "diarized_transcript", "make_mesh",
+                                   "launch_multihost"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """With no `device`, every entry point targets the card: on a machine
     without CUDA it raises before building anything, and never falls back
@@ -220,8 +224,10 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
     from open_whisper_kit_tpu_torch.models.whisper import model as TM
     from open_whisper_kit_tpu_torch.io import ggml_writer as TW
     from open_whisper_kit_tpu_torch.io import silero_writer as SW
+    from open_whisper_kit_tpu_torch.parallel import mesh as TX
     from open_whisper_kit_tpu_torch.server import http_server as TH
-    for fn in (Transcriber.__init__, TF.WhisperContext.__init__,
+    from open_whisper_kit_tpu_torch.tools import launch_multihost as TLH
+    for fn in (TX.make_mesh, TX.make_mesh3, Transcriber.__init__, TF.WhisperContext.__init__,
                TF.WhisperContext.from_preset, TF.WhisperContext.from_file,
                TF.WhisperContext.from_buffer, Diarizer.__init__, TH.serve,
                TH.ServerState.__init__, TC.whisper_bench_memcpy_str,
@@ -264,6 +270,9 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "wchess": lambda: TEW.main(["-m", str(path), "--audio", str(wav)]),
         "diarized_transcript": lambda: TED.main([str(wav), "-m", str(path), "-dm",
                                                  str(tmp_path / "none.gguf")]),
+        "make_mesh": lambda: TX.make_mesh(),
+        "launch_multihost": lambda: TLH.main(["--coordinator", "127.0.0.1:1", "--num-hosts",
+                                              "1", "--host-id", "0", "--model", str(path)]),
     }
     silero = tmp_path / "silero.bin"
     SW.write_silero(silero, SW.random_silero_tensors(seed=0))

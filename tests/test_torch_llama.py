@@ -40,10 +40,11 @@ def _vocab_lists(n):
             np.asarray(ttype + [ATTR_NORMAL] * pad, np.int32))
 
 
-def write_gguf(path, seed=0, tie=False, layers=TINY["layers"], types=None):
+def write_gguf(path, seed=0, tie=False, layers=TINY["layers"], types=None, rope=None):
     """A random-weight TINY llama GGUF in llama.cpp's layout (llama-arch.cpp
     tensor names, llama.* metadata keys); `types` maps a tensor name to a
-    ggml type to store it quantized."""
+    ggml type to store it quantized; `rope` adds llama.rope.* keys (a str
+    value as a string, a number as f32)."""
     t = TINY
     S, F, V = t["embd"], t["ff"], t["vocab"]
     kvd = t["heads_kv"] * (S // t["heads"])
@@ -59,6 +60,8 @@ def write_gguf(path, seed=0, tie=False, layers=TINY["layers"], types=None):
     w.add_uint32("llama.vocab_size", V)
     w.add_float32("llama.rope.freq_base", 10000.0)
     w.add_float32("llama.attention.layer_norm_rms_epsilon", 1e-5)
+    for key, value in (rope or {}).items():
+        (w.add_string if isinstance(value, str) else w.add_float32)(f"llama.rope.{key}", value)
     tokens, scores, ttype = _vocab_lists(V)
     w.add_string("tokenizer.ggml.model", "llama")
     w.add_array("tokenizer.ggml.tokens", tokens)
@@ -362,6 +365,25 @@ def test_sampled_generate_is_seeded(contexts):
                              chunk=8)
     a, b, c = run(3), run(3), run(4)
     assert a == b and a != c
+
+
+def test_llama3_rope_scaling_raises(tmp_path):
+    """A Llama-3 GGUF's per-frequency rope scaling ("llama3", with its
+    factor keys) is refused by name: the JAX package reads only linear
+    scaling, so it loads such a file with the unscaled rotary table
+    (a departure, ROADMAP §3). Linear scaling still loads, as in JAX."""
+    llama3 = {"scaling.type": "llama3", "scaling.factor": 8.0,
+              "scaling.low_freq_factor": 1.0, "scaling.high_freq_factor": 4.0,
+              "scaling.original_context_length": 8192.0}
+    path = write_gguf(tmp_path / "llama3.gguf", layers=1, rope=llama3)
+    with pytest.raises(NotImplementedError, match="llama3"):
+        TL.params_from_gguf(load_gguf(path), dtype=torch.float32, device="cpu")
+    jcfg, _ = LM.params_from_gguf(jload_gguf(path), dtype=jnp.float32)
+    assert jcfg.rope_scale == 1.0           # JAX: silently unscaled
+    path = write_gguf(tmp_path / "linear.gguf", layers=1,
+                      rope={"scaling.type": "linear", "scaling.factor": 4.0})
+    jcfg, _, tcfg, _ = _both(path)
+    assert tcfg.rope_scale == jcfg.rope_scale == 0.25
 
 
 def test_eval_tokens_refuses_past_the_window(contexts):

@@ -487,12 +487,16 @@ def test_handler_sets_only_the_listed_fields():
 
 
 def test_mesh_raises_and_names_itself(files):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """Serving on a mesh is ported (tests/test_torch_multiprocess.py serves
+    on one); what it cannot take raises naming the argument: a mesh that is
+    not a DeviceMesh, --tp without --mesh, a --tp that does not divide the
+    ranks (a world of one here)."""
+    with pytest.raises(ValueError, match="mesh"):
         TH.serve(files["model"], port=0, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        TH.main(["-m", files["model"], "--mesh", "-ng"])
-    with pytest.raises(NotImplementedError, match="--tp"):
+    with pytest.raises(ValueError, match="--tp"):
         TH.main(["-m", files["model"], "--tp", "2", "-ng"])
+    with pytest.raises(ValueError, match="--tp"):
+        TH.main(["-m", files["model"], "--mesh", "--tp", "2", "-ng"])
 
 
 def test_multipart_keeps_a_payload_s_trailing_cr_lf_bytes(server):
