@@ -26,7 +26,11 @@ Phases, each gated; any failure exits non-zero before the result lines:
      kernel's and torch.matmul's device times queued behind a spin, with
      the bound's share of the queued time (K4 also the call and host_us),
      and two launches bit-equal (the splits' ordered combine); K5 at 1, 5, 8 and 16 rows (the rows body)
-     likewise queued, two launches bit-equal; K2 (the whole decoder
+     likewise queued, two launches bit-equal; the tiles routes above 16
+     rows (K3: two launches bit-equal and the output's digest; K5 at 24, 40,
+     64 and 227 rows and K4 on the W4 logits at 17 and 64, both on the TMA +
+     wgmma tiles of qmm_wgmma.cuh: queued, two launches bit-equal, the
+     plan's splits and blocks); K2 (the whole decoder
      step) at large-v3-turbo
      width (4 layers, 448 cache rows, 1500 audio positions, vocabulary
      51866) in its four modes (dense, int8 logits, int8, int4): 8
@@ -345,6 +349,7 @@ start before the one in front ends). It is the source of PERF.md's
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import shutil
 import statistics
@@ -565,6 +570,16 @@ QUANT_SHAPES = [
     ("ffn_int8", "decoder MLP, 5 rows", 5, 1280, 5120),
     ("ffn_int8", "decoder MLP, 8 rows", 8, 1280, 5120),
     ("ffn_int8", "decoder MLP, 16 rows", 16, 1280, 5120),
+    # the tiles routes above 16 rows: K5 at the prompt ingests (8 lockstep
+    # streams of 3-4 tokens; kernel_times.py's 40; the host-stepped and DTW
+    # 64-row buckets; one window's 1 + 223 + 3), K4 on the W4 logits past the
+    # rows body (speculative verify at gamma >= 16, full logits)
+    ("ffn_int8", "prompt ingest, 24 rows", 24, 1280, 5120),
+    ("ffn_int8", "prompt ingest, 40 rows", 40, 1280, 5120),
+    ("ffn_int8", "prompt ingest, 64 rows", 64, 1280, 5120),
+    ("ffn_int8", "prompt ingest, 227 rows", 227, 1280, 5120),
+    ("qmm4", "W4 logits, 17 rows", 17, 1280, 51866),
+    ("qmm4", "W4 logits, 64 rows", 64, 1280, 51866),
 ]
 
 
@@ -678,6 +693,33 @@ def phase_quant_kernels(torch, Q):
                   f"{100 * b_ms / kq_ms:.1f} % of the bound; splits {plan.up.splits} / "
                   f"{plan.down.splits}, blocks {plan.up.blocks} / {plan.down.blocks}; two "
                   "launches bit-equal", flush=True)
+            del again
+        elif Q.qmm_route(M) == "tiles":   # K3, K4 and K5 on the TMA + wgmma tiles
+            again = kern(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"{name} tiles ({label}): two launches differ")
+            digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
+            row.update(digest=digest)
+            clusters = Q.tiles_clusters(0)
+            if name == "ffn_int8":
+                tp = Q.ffn_int8_tiles_plan(M, K, N, args[4].shape[1], clusters=clusters)
+                row.update(splits=[tp.up.splits, tp.down.splits],
+                           blocks=[tp.up.blocks, tp.down.blocks])
+            elif name == "qmm4":
+                tp = Q.tiles_plan(M, K, args[1].shape[1], bits=4, clusters=clusters)
+                row.update(splits=tp.splits, blocks=tp.blocks)
+            if name != "qmm":
+                kq_ms = cuda_ms(torch, lambda: kern(*args), flush=l2_flush, queued=True)
+                lq_ms = (cuda_ms(torch, lib_fn, flush=l2_flush, queued=True)
+                         if lib_fn is not None else None)
+                row.update(ms=kq_ms, ms_unqueued=k_ms, library_ms=lq_ms,
+                           library_ms_unqueued=l_ms, bound_share=b_ms / kq_ms)
+                lib_txt = f"{lq_ms * 1e3:.1f} us" if lq_ms is not None else "none"
+                print(f"[3]   {name} tiles, queued (device time): kernel {kq_ms * 1e3:.1f} us, "
+                      f"library {lib_txt}, bound {b_ms * 1e3:.2f} us, "
+                      f"{100 * b_ms / kq_ms:.1f} % of the bound; splits {row['splits']}, "
+                      f"blocks {row['blocks']}", flush=True)
+            print(f"[3]   {name} tiles: two launches bit-equal, digest {digest}", flush=True)
             del again
         out[name].append(row)
         del args, ref, got

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time K2, K7, K8, K1's f32 body, K3's rows route, T1, K4, K5, K6, T2 and
-K9 of the PyTorch port on one GPU, for one or more source trees in turn.
+"""Time K2, K7, K8, K1's f32 body, K3's rows and tiles routes, T1, K4, K5,
+K6, T2 and K9 of the PyTorch port on one GPU, for one or more source trees
+in turn.
 
     python3 kernel_times.py ROOT [ROOT ...] [--only k9,k4]
 
@@ -43,10 +44,18 @@ line per case, every time the median of 20 launches in µs (CUDA events):
   turbo's width, 1500 live keys, warm L2 as the encoder finds its q/k/v:
   queued and not, beside SDPA on the head-major layout with the same mask,
   the plain version and the bound (the f32 operations at the f32 peak);
+- K3's tiles route (`ops.quant_matmul.qmm` above 16 rows) at the encoder's
+  linears, the cross-KV and a window's 227-row prompt ingest and a 64-row
+  bucket (qkv, o), cold
+  L2, queued and not, the plain version (below 1000 rows), `torch.matmul`
+  on the dequantized weight queued, the bound and its share, and the
+  output's digest (to hold two trees' bits against each other);
 - K5 (`ops.quant_matmul.ffn_int8`, the int8 decoder MLP 1280 -> 5120 ->
-  1280 with W1 padded as the port pads it) at 1, 5 and 40 rows, cold L2,
-  queued and not, `host_us`, the plain version, the bound (the bytes) and
-  its share, and the route (rows body or tiles) where the tree has one;
+  1280 with W1 padded as the port pads it) at 1, 5, 24, 40, 64 and 227
+  rows, cold L2, queued and not, `host_us`, the plain version, the bound
+  (the bytes) and its share, the route (rows body or tiles) where the tree
+  has one, the tiles plan where it has one (`ffn_int8_tiles_plan`), the
+  output's digest and whether two calls give the same bits;
 - K6 (`ops.encoder_int8.w8a8_mm`) at the encoder's four linears (qkv, o,
   mlp0, mlp1) for 1 and 8 windows (M = 1536, 12288), bf16 x, cold L2,
   queued: the call (quantize and GEMM together), the GEMM alone (T2's
@@ -60,23 +69,26 @@ line per case, every time the median of 20 launches in µs (CUDA events):
   bytes);
 - T2 (`ops.gemm.mm_s8`) at the probe's two products beside `_int_mm` +
   scale ops, queued, cold L2, with the bound and its share;
-- K4 (`ops.quant_matmul.qmm4`, the W4 logits 1280 -> 51866) at 1, 5 and 8
-  rows, cold L2: queued, the call, `host_us`, `torch.matmul` on the
-  dequantized bf16 weight queued, the bound (the bytes) and its share, and
-  the route (rows body or tiles) where the tree has one;
+- K4 (`ops.quant_matmul.qmm4`, the W4 logits 1280 -> 51866) at 1, 5, 8,
+  17 and 64 rows, cold L2: queued, the call, `host_us`, `torch.matmul` on
+  the dequantized bf16 weight queued, the bound (the bytes) and its share,
+  the route (rows body or tiles) where the tree has one, the tiles plan
+  where it has one (`tiles_plan`), the digest and two calls' bit-equality;
 - K9b and K9a (`ops.experiments.cross_attention_q8`, `_nat`) at
   chip_smoke.py's phase-18 cases (K9_CASES: turbo bf16 at one row, five
   rows over one shared plane, eight streams, K9a's eight streams on
   1504-row slabs; narrow f32), cold L2: queued, the call, `host_us`, the
   launches a call, SDPA over the float cross-KV queued, the bound and its
   share, and the tree's key chunks where it plans them (`cross_q8_plan`).
-`--only` names the groups to time (rows, mm, k5, k6, k1, k2, k7, k8, k4,
-k9; default all). The card's name and power limit come first.
+`--only` names the groups to time (rows, mm, k3, k5, k6, k1, k2, k7, k8,
+k4, k9; default all). The card's name and power limit come first.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -93,9 +105,15 @@ K8_STREAMS = (2, 5, 8)
 K8_HEAD = 258          # of a 448-row cache a stream (n_text_ctx)
 K7_BEAMS = (2, 5, 8)   # at K8_HEAD of a 448-row cache a beam
 K1_F32_SHAPES = [(1, 1536, 128), (1, 1536, 1280)]   # (B, T, S), 1500 live keys
-K5_ROWS = (1, 5, 40)
-K4_ROWS = (1, 5, 8)
-GROUPS = ("rows", "mm", "k5", "k6", "k1", "k2", "k7", "k8", "k4", "k9")
+K5_ROWS = (1, 5, 24, 40, 64, 227)
+K4_ROWS = (1, 5, 8, 17, 64)
+# K3's tiles route: the encoder's linears, the cross-KV, and a window's
+# prompt ingest (227 rows) and a 64-row bucket (host-stepped ingest, the DTW
+# re-decode) at qkv and o
+K3_TILES_SHAPES = [(1536, 1280, 5120), (1536, 1280, 1280), (1536, 5120, 1280),
+                   (1500, 1280, 1280), (227, 1280, 3840), (227, 1280, 1280),
+                   (64, 1280, 3840), (64, 1280, 1280)]
+GROUPS = ("rows", "mm", "k3", "k5", "k5split", "k6", "k1", "k2", "k7", "k8", "k4", "k9")
 K6_SHAPES = [(rows, label, k, n) for rows in (1536, 12288)
              for label, k, n in (("qkv", 1280, 3840), ("o", 1280, 1280), ("mlp0", 1280, 5120),
                                  ("mlp1", 5120, 1280))]
@@ -154,6 +172,100 @@ def call_host_us(torch, fn, reps: int = 50) -> float:
 
 def emit(**row) -> None:
     print(json.dumps(row), flush=True)
+
+
+def bits(torch, fn) -> dict:
+    """The digest of fn()'s output (its bits, to hold two trees' against
+    each other) and whether a second call gives the same bits."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    return {"digest": hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16],
+            "bit_equal": bool(torch.equal(a, b))}
+
+
+def k3_tiles_times(torch, CS, root: Path) -> None:
+    from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for M, K, N in K3_TILES_SHAPES:
+        w, x, wd = plane(torch, Q, M, K, N, M + K + N)
+        run = lambda: Q.qmm(x, w.qs, w.scales)   # noqa: E731
+        ref = Q.qmm_plain(x, w.qs, w.scales)
+        err = ((run() - ref).abs().max() / ref.abs().max()).item()
+        b_ms, b_by = CS.bound(CS.nbytes(x, w.qs[:, :N], w.scales[:, :N]) + M * N * 4,
+                              2 * M * K * N)
+        k_ms = CS.cuda_ms(torch, run, flush=flush, queued=True)
+        emit(root=str(root), kernel="qmm tiles route", M=M, K=K, N=N, rel_err=err,
+             **bits(torch, run), us=1e3 * k_ms,
+             us_unqueued=1e3 * CS.cuda_ms(torch, run, flush=flush),
+             plain_us=1e3 * CS.cuda_ms(torch, lambda: Q.qmm_plain(x, w.qs, w.scales),
+                                       flush=flush, queued=True) if M < 1000 else None,
+             matmul_us=1e3 * CS.cuda_ms(torch, lambda: torch.matmul(x, wd), flush=flush,
+                                        queued=True),
+             bound_us=1e3 * b_ms, bound_by=b_by, bound_share=b_ms / k_ms)
+
+
+# K5's tiles route by hand: (splits of the first half, of the second) at
+# 40 and 227 rows, through the C entry (K5_SPLITS_M x K5_SPLITS)
+K5_SPLITS_M = (40, 227)
+K5_SPLITS = [(1, 1), (1, 5), (1, 8), (2, 5), (2, 8), (3, 5), (3, 8), (4, 5), (2, 2)]
+
+
+def k5_split_times(torch, CS, root: Path) -> None:
+    """K5's tiles route at each (splits_up, splits_down) of K5_SPLITS, and
+    each half alone as an unsplit K3 launch on the same shapes (f32 out):
+    what the splits and the ordered combine buy. Trees with the tiles plan
+    only."""
+    from open_whisper_kit_tpu_torch.ops import quant_matmul as Q
+    if not hasattr(Q, "tiles_clusters"):
+        return
+    g = torch.Generator(device="cuda").manual_seed(9)
+    S, FF = 1280, 5120
+    w0 = Q.quantize_linear(torch.randn(S, FF, generator=g, device="cuda") * S ** -0.5, pad=False)
+    w1 = Q.quantize_linear(torch.randn(FF, S, generator=g, device="cuda") * FF ** -0.5)
+    b0 = (torch.randn(FF, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    lib = Q._kernel_lib("ffn_int8")
+    stream = torch.cuda.current_stream().cuda_stream
+    for M in K5_SPLITS_M:
+        x = torch.randn(M, S, generator=g, device="cuda").to(torch.bfloat16)
+        ref = Q.ffn_int8_plain(x, w0.qs, w0.scales, b0, w1.qs, w1.scales)
+        h = torch.empty(M, FF, dtype=torch.bfloat16, device="cuda")
+        out = torch.empty(M, S, device="cuda")
+        for su, sd in K5_SPLITS:
+            def run(su=su, sd=sd):
+                rc = lib.owk_ffn_int8(x.data_ptr(), w0.qs.data_ptr(), w0.scales.data_ptr(),
+                                      b0.data_ptr(), 1, w1.qs.data_ptr(), w1.scales.data_ptr(),
+                                      h.data_ptr(), out.data_ptr(), M, S, FF, S, su, sd, 8,
+                                      stream)
+                if rc:
+                    raise RuntimeError(f"owk_ffn_int8: cudaError {rc}")
+            run()
+            torch.cuda.synchronize()
+            err = ((out - ref).abs().max() / ref.abs().max()).item()
+            emit(root=str(root), kernel="ffn_int8 tiles by hand", M=M, splits_up=su,
+                 splits_down=sd, rel_err=err,
+                 us=1e3 * CS.cuda_ms(torch, run, flush=flush, queued=True),
+                 us_warm=1e3 * CS.cuda_ms(torch, run, queued=True))
+        hb = h.clone()
+        w4 = Q.quantize_linear4(torch.randn(FF, S, generator=g, device="cuda") * FF ** -0.5)
+        out4 = torch.empty(M, S, device="cuda")
+        for splits in (1, 2, 5, 8):
+            def run4(splits=splits):
+                rc = Q._kernel_lib("qmm4").owk_qmm4(hb.data_ptr(), w4.qs.data_ptr(),
+                                                    w4.scales.data_ptr(), out4.data_ptr(), M,
+                                                    FF, S, splits, 1, stream)
+                if rc:
+                    raise RuntimeError(f"owk_qmm4: cudaError {rc}")
+            emit(root=str(root), kernel="qmm4 tiles by hand", M=M, K=FF, N=S, splits=splits,
+                 us=1e3 * CS.cuda_ms(torch, run4, flush=flush, queued=True),
+                 us_warm=1e3 * CS.cuda_ms(torch, run4, queued=True))
+        for half, (a, w) in (("first half alone (K3, f32 out)", (x, w0)),
+                             ("second half alone (K3)", (hb, w1))):
+            emit(root=str(root), kernel="ffn_int8 tiles by hand", M=M, what=half,
+                 us=1e3 * CS.cuda_ms(torch, lambda a=a, w=w: Q.qmm(a, w.qs, w.scales),
+                                     flush=flush, queued=True),
+                 us_warm=1e3 * CS.cuda_ms(torch, lambda a=a, w=w: Q.qmm(a, w.qs, w.scales),
+                                          queued=True))
 
 
 def k2_times(torch, CS, root: Path) -> None:
@@ -310,8 +422,12 @@ def k5_times(torch, CS, root: Path) -> None:
         moved = CS.nbytes(x, w0.qs, w0.scales, b0, w1.qs[:, :S], w1.scales[:, :S]) + M * S * 4
         b_ms, b_by = CS.bound(moved, 4 * M * S * FF)
         k_ms = CS.cuda_ms(torch, lambda: Q.ffn_int8(*args), flush=flush, queued=True)
+        plan = (dataclasses.asdict(Q.ffn_int8_tiles_plan(M, S, FF, w1.qs.shape[1],
+                                                         clusters=Q.tiles_clusters(0)))
+                if hasattr(Q, "tiles_clusters") and M > 16 else None)
         emit(root=str(root), kernel="ffn_int8", M=M, K=S, FF=FF, rel_err=err,
              route=Q.ffn_int8_route(M) if hasattr(Q, "ffn_int8_route") else "tiles",
+             plan=plan, **bits(torch, lambda: Q.ffn_int8(*args)),
              us=1e3 * k_ms,
              us_unqueued=1e3 * CS.cuda_ms(torch, lambda: Q.ffn_int8(*args), flush=flush),
              host_us=call_host_us(torch, lambda: Q.ffn_int8(*args)),
@@ -425,7 +541,11 @@ def k4_times(torch, CS, root: Path) -> None:
                               2 * M * K * N)
         k_ms = CS.cuda_ms(torch, run, flush=flush, queued=True)
         route = Q.qmm_route(M) if hasattr(Q, "qmm4_rows_plan") else "tiles"
+        plan = (dataclasses.asdict(Q.tiles_plan(M, K, w.qs.shape[1], bits=4,
+                                                clusters=Q.tiles_clusters(0)))
+                if hasattr(Q, "tiles_clusters") and M > 16 else None)
         emit(root=str(root), kernel="qmm4", M=M, K=K, N=N, rel_err=err, route=route,
+             plan=plan, **bits(torch, run),
              us=1e3 * k_ms, us_call=1e3 * CS.cuda_ms(torch, run, flush=flush),
              host_us=call_host_us(torch, run),
              matmul_us=1e3 * CS.cuda_ms(torch, lambda: torch.matmul(x, wd), flush=flush,
@@ -529,8 +649,9 @@ def child(root: Path, only: tuple[str, ...]) -> None:
              cublas_us=us(lambda: torch.mm(a, b, out_dtype=torch.float32)))
     del flush
     torch.cuda.empty_cache()
-    for group, times in (("k5", k5_times), ("k6", k6_t2_times), ("k1", k1_f32_times),
-                         ("k2", k2_times), ("k7", k7_times), ("k8", k8_times),
+    for group, times in (("k3", k3_tiles_times), ("k5", k5_times),
+                         ("k5split", k5_split_times), ("k6", k6_t2_times),
+                         ("k1", k1_f32_times), ("k2", k2_times), ("k7", k7_times), ("k8", k8_times),
                          ("k4", k4_times), ("k9", k9_times)):
         if group in only:
             times(torch, CS, root)

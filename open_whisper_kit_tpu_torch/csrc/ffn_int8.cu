@@ -18,6 +18,9 @@
 // What bounds it on the H100: at decode rows both weight planes stream once
 // (2 * 1280 * 5120 bytes + scales at whisper-large: 14.7 MB, 4.4 us at
 // 3.35 TB/s): HBM bandwidth, behind the latency of two dependent launches.
+// At a prompt ingest (17-227 rows) the same bytes and, at 227 rows, 5.95
+// GFLOP (6.0 us at 989 TFLOP/s); what a tiled launch takes is set by how
+// many 64-row K steps its longest block walks, one after another.
 //
 // Design at M <= 16 (every decode row; owk_ffn_int8_rows): both halves are
 // qmm_rows.cuh's split weight stream (TMA rings on full / empty mbarriers,
@@ -38,8 +41,25 @@
 //    half reads before its wait is written by anyone (the planes); the
 //    first half carries no attribute, so it starts only when the stream's
 //    earlier work (the previous call included) has completed.
-// At M > 16 (prompt ingest; owk_ffn_int8) both halves run the older
-// qmm_tile.cuh body (wmma over 64-row tiles), as before.
+// Design at M > 16 (the prompt ingest; owk_ffn_int8): both halves are
+// qmm_wgmma.cuh's TMA + wgmma tiles (128 x 128 output tiles, dequantizing
+// warpgroups, wgmma consumers), with the splits of K the wrapper plans
+// (ops/quant_matmul.py::ffn_int8_tiles_plan), each tile's splits one
+// cluster whose sums meet over DSMEM in split order.
+//  * The old tiles body (wmma over 64-row tiles, one block per column tile
+//    walking all of K) took 242-259 us at 24-227 rows whatever M was: the
+//    second half has only N1p / 128 = 10 column tiles, each walking FF / 32
+//    = 160 dependent steps on 10-40 of the 132 SMs.
+//  * The first half (M, K -> FF; 40 column tiles a row tile) splits K
+//    where its tiles leave SMs idle, and its epilogue stores bias +
+//    gelu_tanh rounded to bf16 (BiasGeluBf16, the bias in f32 or bf16);
+//    it signals its dependent launch at its start.
+//  * The second half (M, FF -> N1p) splits the hidden axis on its 512-row
+//    tiles (unit 8 steps: the TPU kernel's grid tiles, added in the TPU
+//    kernel's order) so that column tiles x row tiles x splits spread over
+//    the card; it is a programmatic dependent launch whose producer fills
+//    its W1 ring (six 9 KB stages) before griddepcontrol.wait and reads h
+//    only after it.
 //
 // Requires K % 32 == 0, FF % 128 == 0, N1p % 128 == 0 and 16-byte aligned
 // x, planes, b0 and h; the Python wrapper checks.
@@ -47,7 +67,7 @@
 #include <string.h>
 
 #include "qmm_rows.cuh"
-#include "qmm_tile.cuh"
+#include "qmm_wgmma.cuh"
 
 namespace {
 
@@ -104,22 +124,37 @@ extern "C" int owk_ffn_int8_rows(const void* x, const void* maps, const void* b0
                  : ffn_rows<float>(x, m, b0, h, out, M, K, FF, N1p, splits_up, splits_down, st);
 }
 
-// M > 16: the qmm_tile.cuh body, h (M, FF) bf16 scratch.
-extern "C" int owk_ffn_int8(const void* x, const void* q0, const void* s0,
-                            const void* b0, const void* q1, const void* s1,
-                            void* h, void* out, int M, int K, int FF, int N1p,
-                            void* stream) {
-  using namespace owk_qtile;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rc = launch(x, M, K, FF,
-                        Int8Planes{static_cast<const int8_t*>(q0),
-                                   static_cast<const float*>(s0), FF},
-                        BiasGeluBf16{static_cast<__nv_bfloat16*>(h),
-                                     static_cast<const float*>(b0), FF},
-                        st);
+namespace {
+
+template <typename TB>
+int ffn_tiles(const void* x, const void* q0, const void* s0, const void* b0, const void* q1,
+              const void* s1, void* h, void* out, int M, int K, int FF, int N1p, int splits_up,
+              int splits_down, int unit_down, cudaStream_t st) {
+  namespace W = owk_qwg;
+  static unsigned long long up_allowed = 0, down_allowed = 0;
+  const int rc = W::launch_tiles<W::Int8Planes, W::BiasGeluBf16<TB>, W::kPdlPrimary, true>(
+      x, q0, s0,
+      W::BiasGeluBf16<TB>{static_cast<__nv_bfloat16*>(h), static_cast<const TB*>(b0), FF}, M,
+      K, FF, splits_up, 1, st, up_allowed);
   if (rc != 0) return rc;
-  return launch(h, M, FF, N1p,
-                Int8Planes{static_cast<const int8_t*>(q1),
-                           static_cast<const float*>(s1), N1p},
-                StoreF32{static_cast<float*>(out), N1p}, st);
+  return W::launch_tiles<W::Int8Planes, W::StoreF32, W::kPdlSecondary, true>(
+      h, q1, s1, W::StoreF32{static_cast<float*>(out), N1p}, M, FF, N1p, splits_down,
+      unit_down, st, down_allowed);
+}
+
+}  // namespace
+
+// M > 16: the tiles body twice, h (M, FF) bf16 scratch, b0 (FF) f32 or
+// (b0_bf16) bf16; splits of each half and the second half's run of steps
+// (a 512-row hidden tile: 8) from the plan. Returns the first nonzero
+// cudaError_t of the two launches, or 0.
+extern "C" int owk_ffn_int8(const void* x, const void* q0, const void* s0, const void* b0,
+                            int b0_bf16, const void* q1, const void* s1, void* h, void* out,
+                            int M, int K, int FF, int N1p, int splits_up, int splits_down,
+                            int unit_down, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return b0_bf16 ? ffn_tiles<__nv_bfloat16>(x, q0, s0, b0, q1, s1, h, out, M, K, FF, N1p,
+                                            splits_up, splits_down, unit_down, st)
+                 : ffn_tiles<float>(x, q0, s0, b0, q1, s1, h, out, M, K, FF, N1p, splits_up,
+                                    splits_down, unit_down, st);
 }

@@ -10,7 +10,9 @@
 //
 // What bounds it on the H100: the logits plane at decode rows, K/2 * Np
 // bytes of nibbles plus the scales (the (1280, 51866) plane: 42 MB, 12.4 us
-// at 3.35 TB/s): HBM bandwidth.
+// at 3.35 TB/s): HBM bandwidth. At 17-64 rows the same bytes and the f32
+// output (13.5-16.4 us), but the tiles walk their 20 steps of 64 K rows in
+// 406 blocks, one a column tile, four waves of the card: 59-62 us.
 //
 // Design: two bodies by the number of rows, as K3's.
 //  * M <= 16 (every decode call: one row, beams, lockstep streams, verify
@@ -23,11 +25,19 @@
 //    faster: the time follows the column tiles times the stages of each,
 //    as the W8 logits' on this body do, not the bytes, the TMA boxes or the
 //    bytes in flight.
-//  * M > 16 (no decode path below gamma 16): the tiled loop of
-//    qmm_tile.cuh with an int4 loader.
+//  * M > 16 (speculative verify at gamma >= 16, full logits): K3's TMA +
+//    wgmma tiles (qmm_wgmma.cuh) with the int4 loader (a 32 x 128-byte TMA
+//    box of packed rows and two rows of scales a 64-row step, each nibble
+//    dequantized in shared memory by the byte permute of q_at). The W4
+//    logits' 406 column tiles fill the card, so its plan
+//    (quant_matmul.py::tiles_plan) splits K only for a plane with fewer
+//    column tiles than SMs. The old body here (wmma over 64-row tiles, loads
+//    through registers) took 106.0 us at 17 rows and 110.7 at 64 against
+//    torch.matmul's 86.1 / 88.3 on the dequantized plane (H100 80GB HBM3).
 //
 // Entries (plain C, for ctypes), each returning 0 or a cudaError_t:
-//  * owk_qmm4(x, qs, scales, out, M, K, Np, stream): the tiled body;
+//  * owk_qmm4(x, qs, scales, out, M, K, Np, splits, unit, stream): the tiles
+//    body at M > 16, `splits` splits of K in runs of `unit` 64-row steps;
 //  * owk_qmm4_rows_maps(qs, scales, K, Np, maps): encode the two tensor maps
 //    of one plane (256 bytes) into `maps`, kept by the wrapper per plane;
 //  * owk_qmm4_rows(x, maps, out, M, K, Np, splits, stream): the rows body
@@ -37,16 +47,15 @@
 #include <string.h>
 
 #include "qmm_rows.cuh"
-#include "qmm_tile.cuh"
+#include "qmm_wgmma.cuh"
 
-extern "C" int owk_qmm4(const void* x, const void* qs, const void* scales,
-                        void* out, int M, int K, int Np, void* stream) {
-  using namespace owk_qtile;
-  return launch(x, M, K, Np,
-                Int4Planes{static_cast<const uint8_t*>(qs),
-                           static_cast<const float*>(scales), Np},
-                StoreF32{static_cast<float*>(out), Np},
-                static_cast<cudaStream_t>(stream));
+extern "C" int owk_qmm4(const void* x, const void* qs, const void* scales, void* out, int M,
+                        int K, int Np, int splits, int unit, void* stream) {
+  namespace W = owk_qwg;
+  static unsigned long long smem_allowed = 0;
+  return W::launch_tiles<W::Int4Planes, W::StoreF32, W::kPdlNone, true>(
+      x, qs, scales, W::StoreF32{static_cast<float*>(out), Np}, M, K, Np, splits, unit,
+      static_cast<cudaStream_t>(stream), smem_allowed);
 }
 
 extern "C" int owk_qmm4_rows_maps(const void* qs, const void* scales, int K, int Np,

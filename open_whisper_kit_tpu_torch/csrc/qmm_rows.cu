@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel open_whisper_kit_tpu/ops/quant_matmul.py::_qmm
 // (kernel body _qmm_kernel) at the decode rows; K3's M > 16 route is
-// owk_qmm_tiles in qmm.cu. What bounds it on the H100 (the plane stream) and
+// owk_qmm_wgmma in qmm.cu. What bounds it on the H100 (the plane stream) and
 // the design (a split weight stream on TMA rings, an ordered combine of the
 // splits in the same launch) are in qmm_rows.cuh.
 //

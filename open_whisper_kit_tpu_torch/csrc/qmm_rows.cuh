@@ -156,7 +156,7 @@ struct StoreF32Rows {
 };
 
 // h = bf16(gelu_tanh(v + b)), the formula of jax.nn.gelu(approximate=True)
-// and of qmm_tile.cuh's BiasGeluBf16, with the bias b in f32 or bf16 (TB),
+// and of qmm_wgmma.cuh's BiasGeluBf16, with the bias b in f32 or bf16 (TB),
 // widened to f32 (K5's first half)
 template <typename TB>
 struct BiasGeluBf16Rows {

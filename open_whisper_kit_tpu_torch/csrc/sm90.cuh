@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (K1's bf16 body in mha_packed.cu, K3's M > 16 body in qmm.cu, the rows body
-// of K3 and K5 in qmm_rows.cuh, T1 in mm_bf16.cu, K6 and T2 in w8a8.cu).
+// (K1's bf16 body in mha_packed.cu, the tiles body of K3, K4 and K5 above 16
+// rows in qmm_wgmma.cuh, the rows body of K3, K4 and K5 in qmm_rows.cuh, T1
+// in mm_bf16.cu, K6 and T2 in w8a8.cu).
 //
 //  * mbarriers: init, arrive, arrive with an expected transaction count, and
 //    a phase-parity wait that traps after ~10 s instead of hanging the card

@@ -13,16 +13,18 @@ Three kernels, each beside its plain torch version:
 
 * K3 `qmm`: y = bf16(x) @ bf16(q * s), f32 accumulation; two bodies by the
   number of rows (`qmm_route`): csrc/qmm_rows.cu for the decode rows,
-  csrc/qmm.cu above them;
+  csrc/qmm.cu (the TMA + wgmma tiles of csrc/qmm_wgmma.cuh) above them;
 * K4 `qmm4` (csrc/qmm4.cu): the same over split-half int4 planes
   (low nibble = even K row, high nibble = odd), weights (nibble - 8) * s
   rounded to bf16 as the TPU kernel rounds them; two bodies by the number
   of rows (`qmm_route`): K3's rows body with its int4 stage for the decode
-  rows (planned by `qmm4_rows_plan`), qmm_tile.cuh's tiles above them;
+  rows (planned by `qmm4_rows_plan`), K3's tiles with an int4 loader above
+  them (planned by `tiles_plan`);
 * K5 `ffn_int8` (csrc/ffn_int8.cu): gelu_tanh(x @ W0 + b0) rounded to bf16,
   then @ W1, the partial products summed in K order; two bodies by the
-  number of rows (`ffn_int8_route`): the rows body of K3 twice, the second
-  a dependent launch, for the decode rows, qmm_tile.cuh's tiles above them.
+  number of rows (`ffn_int8_route`), each twice, the second a dependent
+  launch: the rows body of K3 for the decode rows, K3's tiles above them,
+  the hidden axis split on its 512-row tiles (`ffn_int8_tiles_plan`).
 
 A wrapper takes the plain version only for a CPU tensor; a CUDA tensor
 launches the kernel or raises. Each wrapper's `launches` counts its calls
@@ -282,17 +284,19 @@ _X_PLANES_OUT = [_P] * 4 + [_I] * 3 + [_P]   # x qs scales out, M K Np, stream
 # the C entries of each kernel library and their arguments; K3's two routes
 # (qmm_route) are two libraries
 _ENTRIES = {
-    "qmm": {"owk_qmm_tiles": _X_PLANES_OUT},
+    "qmm": {"owk_qmm_wgmma": _X_PLANES_OUT, "owk_qmm_clusters": [_I]},
     # x maps out, M K Np splits, stream; qs scales, K Np, maps
     "qmm_rows": {"owk_qmm_rows": [_P] * 3 + [_I] * 4 + [_P],
                  "owk_qmm_rows_maps": [_P] * 2 + [_I] * 2 + [_P]},
-    # and x maps out, M K Np splits, stream; qs scales, K Np, maps
-    "qmm4": {"owk_qmm4": _X_PLANES_OUT,
+    # x qs scales out, M K Np splits unit, stream; x maps out, M K Np
+    # splits, stream; qs scales, K Np, maps
+    "qmm4": {"owk_qmm4": [_P] * 4 + [_I] * 5 + [_P],
              "owk_qmm4_rows": [_P] * 3 + [_I] * 4 + [_P],
              "owk_qmm4_rows_maps": [_P] * 2 + [_I] * 2 + [_P]},
-    # x q0 s0 b0 q1 s1 h out, M K FF N1p, stream; x maps b0 b0_bf16 h out, M
-    # K FF N1p splits_up splits_down, stream; q0 s0, K FF, q1 s1, N1p, maps
-    "ffn_int8": {"owk_ffn_int8": [_P] * 8 + [_I] * 4 + [_P],
+    # x q0 s0 b0 b0_bf16 q1 s1 h out, M K FF N1p splits_up splits_down
+    # unit_down, stream; x maps b0 b0_bf16 h out, M K FF N1p splits_up
+    # splits_down, stream; q0 s0, K FF, q1 s1, N1p, maps
+    "ffn_int8": {"owk_ffn_int8": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 7 + [_P],
                  "owk_ffn_int8_rows": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 6 + [_P],
                  "owk_ffn_int8_maps": [_P] * 2 + [_I] * 2 + [_P] * 2 + [_I, _P]},
 }
@@ -355,8 +359,8 @@ QMM_ROWS_MAX = 16   # K3's "rows" route takes M up to this; the "tiles" route th
 def qmm_route(M: int) -> str:
     """The K3 body a CUDA call with M rows launches: "rows" (csrc/qmm_rows.cu,
     the split weight stream, for the decode rows) when M <= QMM_ROWS_MAX,
-    else "tiles" (the TMA + wgmma kernel of csrc/qmm.cu, 128 x 128 output
-    tiles)."""
+    else "tiles" (the TMA + wgmma body of csrc/qmm_wgmma.cuh, 128 x 128
+    output tiles)."""
     return "rows" if M <= QMM_ROWS_MAX else "tiles"
 
 
@@ -503,10 +507,178 @@ def ffn_int8_rows_plan(M: int, K: int, FF: int, N1p: int) -> FfnRowsPlan:
 
 
 def ffn_int8_route(M: int) -> str:
-    """The K5 body a CUDA call with M rows launches: "rows" (the rows body
-    twice, the second a dependent launch) when M <= QMM_ROWS_MAX, else
-    "tiles" (qmm_tile.cuh's 64-row tiles)."""
+    """The K5 body a CUDA call with M rows launches, twice, the second a
+    dependent launch: "rows" (the rows body) when M <= QMM_ROWS_MAX, else
+    "tiles" (csrc/qmm_wgmma.cuh's 128 x 128 tiles, planned by
+    `ffn_int8_tiles_plan`)."""
     return "rows" if M <= QMM_ROWS_MAX else "tiles"
+
+
+# The tiles body's launch plan (csrc/qmm_wgmma.cuh): a block per 128 x 128
+# output tile and split of K, one block per SM (tiles_smem bytes of shared
+# memory), K walked in 64-row steps one after another; the splits of a tile
+# are one thread-block cluster (at most TILES_MAX_SPLITS, the portable
+# size). A split takes whole runs of `unit` steps: K5's second half runs of
+# 8, its 512-row hidden tiles, so its sum over the hidden axis adds the TPU
+# kernel's tiles in their order.
+TILES_BM, TILES_BK = 128, 64
+TILES_MAX_SPLITS = 8
+# The plan's model of a launch, in 64-row steps (about 0.6 us each on the
+# H100; kernel_times.py --only k5split): each wave of clusters walks its
+# longest split plus TILES_WAVE_STEPS (the launch, the rings' fill and the
+# epilogue: on the H100 a 20-step launch of 40 blocks takes about 20 us, an
+# 80-step one of 10 blocks 56 us), and a split launch TILES_COMBINE_STEPS
+# more for its combine.
+TILES_WAVE_STEPS = 8
+TILES_COMBINE_STEPS = 1
+# clusters of 1..8 tiles blocks an H100 80GB HBM3 (132 SMs) holds at once,
+# as cudaOccupancyMaxActiveClusters gives them: its GPCs hold 39 clusters of
+# three such blocks, not 44. The wrapper asks the card it runs on
+# (owk_qmm_clusters); the CPU plans take these.
+H100_TILES_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15)
+
+
+def tiles_smem(bits: int = 8) -> int:
+    """Dynamic shared memory a tiles block asks for (qmm_wgmma.cuh's
+    Layout::kSmemBytes): 1024 bytes of alignment, six x tiles of 16 KB, six
+    value tiles (8 KB of int8 or 4 KB of int4) with 1 KB of scales, three
+    bf16 B tiles of 16 KB, 15 pairs of ring barriers and the gather
+    barrier."""
+    return 1024 + 6 * 16384 + 6 * (64 * bits // 8 * 128 + 1024) + 3 * 16384 + 16 * 15 + 8
+
+
+@dataclasses.dataclass(frozen=True)
+class TilesPlan:
+    """A tiles-body launch over x (M, K) and planes (K, Np): `row_tiles` x
+    `col_tiles` output tiles of 128 x 128 times `splits` of K; split s takes
+    the runs [s * runs // splits, (s + 1) * runs // splits) of `unit`
+    64-row steps. `bits` is the plane's (8, or 4 for K4); `clusters` how
+    many clusters of 1..TILES_MAX_SPLITS blocks the card holds at once."""
+    M: int
+    K: int
+    Np: int
+    splits: int
+    unit: int = 1
+    bits: int = 8
+    clusters: tuple[int, ...] = H100_TILES_CLUSTERS
+
+    @property
+    def row_tiles(self) -> int:
+        return -(-self.M // TILES_BM)
+
+    @property
+    def col_tiles(self) -> int:
+        return self.Np // _BN
+
+    @property
+    def tiles(self) -> int:
+        return self.row_tiles * self.col_tiles
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def steps(self) -> int:
+        return -(-self.K // TILES_BK)
+
+    @property
+    def runs(self) -> int:
+        return -(-self.steps // self.unit)
+
+    def split_rows(self) -> list[tuple[int, int]]:
+        """The K rows [start, stop) of each split, in split order (the last
+        may end past K, at a 64-row step: the rows past K load as zeros)."""
+        return [(s * self.runs // self.splits * self.unit * TILES_BK,
+                 min((s + 1) * self.runs // self.splits * self.unit, self.steps) * TILES_BK)
+                for s in range(self.splits)]
+
+    def block_work(self) -> list[tuple[int, int, int, int, int]]:
+        """Every block of the grid: (row tile, column tile, split, K start,
+        K stop)."""
+        rows = self.split_rows()
+        return [(m, n, s, *rows[s]) for m in range(self.row_tiles)
+                for n in range(self.col_tiles) for s in range(self.splits)]
+
+    @property
+    def waves(self) -> int:
+        """Rounds of clusters (a tile's splits) the card runs the grid in."""
+        return -(-self.tiles // self.clusters[self.splits - 1])
+
+    @property
+    def walk(self) -> int:
+        """The steps the plan's model charges: each wave walks the longest
+        split's steps and TILES_WAVE_STEPS, a split launch
+        TILES_COMBINE_STEPS more."""
+        longest = -(-self.runs // self.splits) * self.unit
+        return (self.waves * (longest + TILES_WAVE_STEPS)
+                + (TILES_COMBINE_STEPS if self.splits > 1 else 0))
+
+    @property
+    def smem(self) -> int:
+        return tiles_smem(self.bits)
+
+    @property
+    def reason(self) -> str:
+        """Why the plan takes its splits."""
+        if self.splits == 1 and self.tiles >= self.clusters[0]:
+            return (f"{self.tiles} output tiles fill the {self.clusters[0]} "
+                    "multiprocessors: no split")
+        return (f"{self.splits} split(s), {self.blocks} blocks in {self.waves} wave(s) of "
+                f"{self.clusters[self.splits - 1]} cluster(s): the shortest walk "
+                f"({self.walk} steps) of 1-{min(TILES_MAX_SPLITS, self.runs)} splits of "
+                f"{self.runs} runs of {self.unit} step(s)")
+
+
+@functools.cache
+def tiles_plan(M: int, K: int, Np: int, bits: int = 8, unit: int = 1,
+               clusters: tuple[int, ...] = H100_TILES_CLUSTERS) -> TilesPlan:
+    """The tiles body's splits above QMM_ROWS_MAX rows: none when the
+    output tiles fill the card's multiprocessors; else the count of splits
+    (at most TILES_MAX_SPLITS and the runs of `unit` steps there are) whose
+    modelled walk (`TilesPlan.walk`: waves of the clusters the card holds,
+    each as long as the longest split) is shortest, the fewest among
+    equals."""
+    if M <= QMM_ROWS_MAX:
+        raise ValueError(f"qmm: the tiles body takes more than {QMM_ROWS_MAX} rows, got {M}")
+    one = TilesPlan(M, K, Np, 1, unit, bits, clusters)
+    if one.tiles >= clusters[0]:
+        return one
+    plans = [TilesPlan(M, K, Np, s, unit, bits, clusters)
+             for s in range(1, min(TILES_MAX_SPLITS, one.runs) + 1)]
+    return min(plans, key=lambda p: (p.walk, p.splits))
+
+
+@dataclasses.dataclass(frozen=True)
+class FfnTilesPlan:
+    """K5's launches above QMM_ROWS_MAX rows: `up` (x @ W0, M x K -> FF,
+    runs of one step) and `down` (h @ W1, M x FF -> N1p, runs of the
+    512-row hidden tiles), each a tiles-body plan."""
+    up: TilesPlan
+    down: TilesPlan
+
+
+@functools.cache
+def ffn_int8_tiles_plan(M: int, K: int, FF: int, N1p: int,
+                        clusters: tuple[int, ...] = H100_TILES_CLUSTERS) -> FfnTilesPlan:
+    """K5's plan above QMM_ROWS_MAX rows (`tiles_plan` for each half): the
+    second half splits the hidden axis only on the TPU kernel's 512-row
+    tiles (`_FFN_TILE`), so its splits add whole tiles in tile order."""
+    unit = max(1, min(_FFN_TILE, FF) // TILES_BK)
+    return FfnTilesPlan(up=tiles_plan(M, K, FF, clusters=clusters),
+                        down=tiles_plan(M, FF, N1p, unit=unit, clusters=clusters))
+
+
+@functools.cache
+def tiles_clusters(index: int) -> tuple[int, ...]:
+    """How many clusters of 1..TILES_MAX_SPLITS tiles blocks CUDA device
+    `index` holds at once (csrc/qmm.cu's owk_qmm_clusters), asked once."""
+    with torch.cuda.device(index):
+        got = tuple(_kernel_lib("qmm").owk_qmm_clusters(s)
+                    for s in range(1, TILES_MAX_SPLITS + 1))
+    if min(got) <= 0:
+        raise RuntimeError(f"qmm: cluster occupancy query failed ({got})")
+    return got
 
 
 # The rows route keeps the two tensor maps of each plane between calls, so
@@ -605,7 +777,7 @@ def qmm(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
                 raise RuntimeError(f"qmm: kernel launch failed (cudaError {rc})")
         else:
             _launch("qmm", xb.data_ptr(), qs.data_ptr(), scales.data_ptr(),
-                    out.data_ptr(), M, K, Np, entry="owk_qmm_tiles")
+                    out.data_ptr(), M, K, Np, entry="owk_qmm_wgmma")
         qmm.launches += 1
         qmm.launches_by_route[route] += 1
     return out
@@ -615,7 +787,8 @@ def qmm4(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tenso
     """Kernel K4: x (M, K) @ split-half int4 planes (K/2, Np) -> (M, Np)
     f32. CPU tensors take `qmm4_plain`; CUDA tensors launch csrc/qmm4.cu's
     body of the route `qmm_route(M)` names (rows: K3's rows body with the
-    int4 stage, planned by `qmm4_rows_plan`; tiles: qmm_tile.cuh).
+    int4 stage, planned by `qmm4_rows_plan`; tiles: K3's tiles with the
+    int4 loader, planned by `tiles_plan`).
     `launches` counts launches, `launches_by_route` the same by route."""
     if x.device.type == "cpu":
         return qmm4_plain(x, qs, scales)
@@ -631,8 +804,9 @@ def qmm4(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tenso
             _launch("qmm4", xb.data_ptr(), _rows4_tensor_maps(qs, scales, K, Np),
                     out.data_ptr(), M, K, Np, plan.splits, entry="owk_qmm4_rows")
         else:
+            plan = tiles_plan(M, K, Np, bits=4, clusters=tiles_clusters(x.device.index))
             _launch("qmm4", xb.data_ptr(), qs.data_ptr(), scales.data_ptr(),
-                    out.data_ptr(), M, K, Np)
+                    out.data_ptr(), M, K, Np, plan.splits, plan.unit)
         qmm4.launches += 1
         qmm4.launches_by_route[route] += 1
     return out
@@ -644,17 +818,17 @@ def ffn_int8(x: torch.Tensor, q0: torch.Tensor, s0: torch.Tensor,
     unpadded, W1 (FF, N1p). CPU tensors take `ffn_int8_plain`; CUDA tensors
     launch csrc/ffn_int8.cu on the current stream, two kernels (the
     up-projection writes h in bf16, the down-projection sums over h in
-    order) of the body `ffn_int8_route(M)` names: at M <= 16 the rows body
-    planned by `ffn_int8_rows_plan`, the second a dependent launch; above,
-    the 64-row tiles. `launches` counts calls, `launches_by_route` the same
-    by route."""
+    order, a dependent launch) of the body `ffn_int8_route(M)` names: at M
+    <= 16 the rows body planned by `ffn_int8_rows_plan`; above, the TMA +
+    wgmma tiles planned by `ffn_int8_tiles_plan`. Each reads a bf16 or f32
+    bias as it is. `launches` counts calls, `launches_by_route` the same by
+    route."""
     if x.device.type == "cpu":
         return ffn_int8_plain(x, q0, s0, b0, q1, s1)
     M, K = x.shape
     route = ffn_int8_route(M)
-    # the rows body reads a bf16 or f32 bias as it is; the tiles body f32
-    bias = (b0 if route == "rows" and b0.dtype in (torch.bfloat16, torch.float32)
-            else b0.float()).contiguous()
+    # both bodies read a bf16 or f32 bias as it is
+    bias = (b0 if b0.dtype in (torch.bfloat16, torch.float32) else b0.float()).contiguous()
     _check("ffn_int8", x, (q0, torch.int8), (s0, torch.float32), (bias, bias.dtype),
            (q1, torch.int8), (s1, torch.float32))
     FF = _check_shapes("ffn_int8", K, K, q0, s0)
@@ -672,9 +846,11 @@ def ffn_int8(x: torch.Tensor, q0: torch.Tensor, s0: torch.Tensor,
                     out.data_ptr(), M, K, FF, N1p, plan.up.splits, plan.down.splits,
                     entry="owk_ffn_int8_rows")
         else:
+            tp = ffn_int8_tiles_plan(M, K, FF, N1p, clusters=tiles_clusters(x.device.index))
             _launch("ffn_int8", xb.data_ptr(), q0.data_ptr(), s0.data_ptr(),
-                    bias.data_ptr(), q1.data_ptr(), s1.data_ptr(), h.data_ptr(),
-                    out.data_ptr(), M, K, FF, N1p)
+                    bias.data_ptr(), int(bias.dtype == torch.bfloat16), q1.data_ptr(),
+                    s1.data_ptr(), h.data_ptr(), out.data_ptr(), M, K, FF, N1p,
+                    tp.up.splits, tp.down.splits, tp.down.unit)
         ffn_int8.launches += 1
         ffn_int8.launches_by_route[route] += 1
     return out

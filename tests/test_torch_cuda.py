@@ -387,8 +387,8 @@ def _ffn_planes(S):
 def test_ffn_int8_kernel_matches_plain(cuda, M, S):
     """K5 at whisper-large widths (1280 -> 5120 -> 1280) and tiny's (384 ->
     1536 -> 384) within 1e-3 of max|ref|; M <= 16 runs the rows body (two
-    launches, the second a dependent launch), 40 rows the 64-row tiles.
-    One call counted per call, on its route."""
+    launches, the second a dependent launch), 40 rows the TMA + wgmma
+    tiles. One call counted per call, on its route."""
     w = _ffn_planes(S)
     x = _x(cuda, M, S, seed=12 + M)
     route = TQ.ffn_int8_route(M)
@@ -402,7 +402,7 @@ def test_ffn_int8_kernel_matches_plain(cuda, M, S):
     _close(out, TQ.ffn_int8_plain(x, *w))
 
 
-@pytest.mark.parametrize("M", [1, 5, 16])
+@pytest.mark.parametrize("M", [1, 5, 16, 40, 227])
 def test_ffn_int8_back_to_back_calls(cuda, M):
     """Two K5 calls queued back to back behind a 2 ms spin, with different
     x, each output checked against its own plain version: the second
@@ -434,6 +434,74 @@ def test_ffn_int8_rows_equal_one_row_calls(cuda, M):
     alone = torch.cat([TQ.ffn_int8(x[i:i + 1], *w) for i in range(M)])
     torch.cuda.synchronize()
     assert torch.equal(together, alone)
+
+
+@pytest.mark.parametrize("S", [1280, 384])
+@pytest.mark.parametrize("M", [17, 24, 40, 64, 227, 448])
+def test_ffn_int8_tiles_match_plain_twice(cuda, M, S):
+    """K5 above 16 rows (the prompt ingest) on the TMA + wgmma tiles, its
+    splits combined over a cluster in split order: within 1e-3 of max|ref|
+    of the plain version, and a second call gives the same bits; with an
+    f32 bias as with a bf16 one (the epilogue reads either)."""
+    w = _ffn_planes(S)
+    x = _x(cuda, M, S, seed=300 + M)
+    out = TQ.ffn_int8(x, *w)
+    again = TQ.ffn_int8(x, *w)
+    torch.cuda.synchronize()
+    _close(out, TQ.ffn_int8_plain(x, *w))
+    assert torch.equal(out, again)
+    q0, s0, b0, q1, s1 = w
+    f32 = TQ.ffn_int8(x, q0, s0, b0.float(), q1, s1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, f32)   # a bf16 bias widened to f32 is the same bias
+
+
+@pytest.mark.parametrize("M,K,N", [(17, 1280, 51866), (64, 1280, 51866), (130, 1280, 51866),
+                                   (40, 5120, 1280), (227, 1312, 640)])
+def test_qmm4_tiles_match_plain_twice(cuda, M, K, N):
+    """K4 above 16 rows on the tiles body with the int4 loader: the W4
+    logits (406 column tiles, no split), a plane of 10 column tiles that
+    its plan splits over a cluster, and K % 64 == 32 (1312: the last
+    step's rows past K load as zeros); within 1e-3 of max|ref|, two calls
+    bit-equal."""
+    w = _planes(cuda, K, N, seed=K + M, bits=4)
+    x = _x(cuda, M, K, seed=M + 3)
+    plan = TQ.tiles_plan(M, K, w.qs.shape[1], bits=4, clusters=TQ.tiles_clusters(0))
+    assert (plan.splits > 1) == (plan.tiles < plan.clusters[0])
+    out = TQ.qmm4(x, w.qs, w.scales)
+    again = TQ.qmm4(x, w.qs, w.scales)
+    torch.cuda.synchronize()
+    _close(out, TQ.qmm4_plain(x, w.qs, w.scales))
+    assert torch.equal(out, again)
+
+
+def test_tiles_clusters_are_the_cards(cuda):
+    """The card's counts of resident clusters of 1..8 tiles blocks: one
+    block an SM unclustered, never more blocks than SMs, fewer clusters as
+    they grow (H100_TILES_CLUSTERS on the H100 80GB HBM3)."""
+    got = TQ.tiles_clusters(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert len(got) == TQ.TILES_MAX_SPLITS and got[0] == sms
+    assert all(c * n <= sms for c, n in enumerate(got, 1))
+    assert all(a >= b for a, b in zip(got, got[1:]))
+    if torch.cuda.get_device_name(0) == "NVIDIA H100 80GB HBM3":
+        assert got == TQ.H100_TILES_CLUSTERS
+
+
+@pytest.mark.parametrize("name", ["qmm4", "ffn_int8"])
+def test_tiles_routes_run_wgmma(cuda, name):
+    """K4's and K5's libraries hold the tiles body (qmm_wgmma.cuh's
+    tiles_kernel: HGMMA, TMA, no mma.sync) beside the rows body (mma.sync,
+    HMMA)."""
+    sass = _sass(name)
+    bodies = sass.split("Function : ")[1:]
+    tiles = [b for b in bodies if "tiles_kernel" in b.split("\n", 1)[0]]
+    rows = [b for b in bodies if "qmm_rows_kernel" in b.split("\n", 1)[0]]
+    assert tiles and rows
+    for b in tiles:
+        assert "HGMMA" in b and "UTMALDG" in b and "HMMA" not in b
+    for b in rows:
+        assert "HMMA" in b and "HGMMA" not in b
 
 
 def test_ffn_int8_library_has_tma_and_dependent_launch(cuda):

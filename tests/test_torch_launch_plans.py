@@ -738,8 +738,8 @@ def test_qmm4_rows_plan_is_k3s_splits_on_the_int4_stage(M, K, Np):
 
 @pytest.mark.parametrize("M", [0, 17, 40])
 def test_qmm4_rows_plan_takes_the_decode_rows_only(M):
-    """Past 16 rows K4 takes qmm_tile.cuh's tiles (qmm_route), and the rows
-    plan refuses."""
+    """Past 16 rows K4 takes the TMA + wgmma tiles of qmm_wgmma.cuh with the
+    int4 loader (qmm_route), and the rows plan refuses."""
     with pytest.raises(ValueError, match="rows body"):
         Q.qmm4_rows_plan(M, 1280, 51968)
 
@@ -752,6 +752,158 @@ def test_qmm4_rows_body_constants_are_the_kernels():
                      (csrc / "qmm4.cu").read_text())
     assert re.search(rf"launch_rows<{Q.ROWS_STAGES}, kGatherCap, StoreF32Rows, kPdlNone>",
                      (csrc / "qmm_rows.cu").read_text())
+
+
+# the tiles body above 16 rows (csrc/qmm_wgmma.cuh): the row counts its
+# callers give it (8 lockstep streams of 3-4 prompt tokens, kernel_times.py's
+# 40, the host-stepped and DTW 64-row buckets, one window's 1 + 223 + 3
+# prompt ingest, a whole text context), and its three planes at
+# large-v3-turbo: K5's two halves and K4's W4 logits
+TILES_M = [17, 24, 40, 64, 227, 448]
+
+
+def _tiles_plans(M):
+    ffn = Q.ffn_int8_tiles_plan(M, 1280, 5120, 1280)
+    return {"ffn up": ffn.up, "ffn down": ffn.down,
+            "qmm4 logits": Q.tiles_plan(M, 1280, 51968, bits=4)}
+
+
+@pytest.mark.parametrize("M", TILES_M)
+def test_tiles_plan_covers_every_tile_once(M):
+    """Every (row tile, column tile, split) is one block of the grid, and
+    the splits of a tile walk K's 64-row steps once each, in order, none
+    empty; at most TILES_MAX_SPLITS (the portable cluster) and no more
+    than the runs there are."""
+    for name, plan in _tiles_plans(M).items():
+        work = plan.block_work()
+        assert len(work) == plan.blocks == plan.row_tiles * plan.col_tiles * plan.splits
+        assert len({w[:3] for w in work}) == len(work), name
+        assert plan.row_tiles == -(-M // 128) and plan.col_tiles == plan.Np // 128
+        assert 1 <= plan.splits <= min(Q.TILES_MAX_SPLITS, plan.runs)
+        for m in range(plan.row_tiles):
+            for n in range(plan.col_tiles):
+                rows = sorted((w[2], w[3], w[4]) for w in work if w[:2] == (m, n))
+                assert [r[0] for r in rows] == list(range(plan.splits))
+                assert rows[0][1] == 0 and rows[-1][2] == -(-plan.K // 64) * 64 >= plan.K
+                assert all(a[2] == b[1] for a, b in zip(rows, rows[1:]))
+                assert all(stop > start and start % 64 == 0 for _, start, stop in rows)
+
+
+@pytest.mark.parametrize("M", TILES_M)
+def test_ffn_int8_tiles_plan_splits_on_512_row_tiles(M):
+    """K5's second half splits the hidden axis on the TPU kernel's 512-row
+    tiles only (runs of 8 steps), so its splits add whole tiles in tile
+    order; the first half splits K in 64-row steps."""
+    plan = Q.ffn_int8_tiles_plan(M, 1280, 5120, 1280)
+    assert plan.down.unit == 8 and plan.up.unit == 1
+    assert plan.down.runs == 10
+    for start, stop in plan.down.split_rows():
+        assert start % 512 == 0 and stop % 512 == 0
+    assert (plan.up.K, plan.up.Np, plan.down.K, plan.down.Np) == (1280, 5120, 5120, 1280)
+
+
+@pytest.mark.parametrize("M", TILES_M)
+def test_tiles_plan_walk_is_the_shortest(M):
+    """The plan's splits give the shortest modelled walk (waves of the
+    clusters the card holds, each as long as its longest split, plus the
+    combine) of every admissible split count, the fewest splits among
+    equals; with as many output tiles as multiprocessors it splits
+    nothing."""
+    for name, plan in _tiles_plans(M).items():
+        if plan.tiles >= H100_SMS:
+            assert plan.splits == 1 and "fill" in plan.reason
+            continue
+        others = [Q.TilesPlan(M, plan.K, plan.Np, s, plan.unit, plan.bits)
+                  for s in range(1, min(Q.TILES_MAX_SPLITS, plan.runs) + 1)]
+        assert all((plan.walk, plan.splits) <= (o.walk, o.splits) for o in others), name
+        assert f"{plan.blocks} blocks" in plan.reason
+
+
+def test_tiles_plan_at_a_windows_ingest():
+    """One window's prompt ingest at large-v3-turbo (227 rows): the first
+    half's 80 output tiles unsplit (one wave of 80 blocks: two splits would
+    take two waves of the H100's 66 clusters of two), the second half's 20
+    x 5 splits (100 blocks in one wave of the 22 clusters of five, two
+    512-row tiles a split). Fewer than 132 blocks, and the plan says why:
+    6 to 8 splits would still leave two tiles to a split and take a second
+    wave (the card holds 17 clusters of six, 15 of seven or eight); 10
+    splits (one tile each) pass the portable cluster of 8. K4's W4 logits
+    fill the card unsplit."""
+    plan = Q.ffn_int8_tiles_plan(227, 1280, 5120, 1280)
+    assert (plan.up.splits, plan.up.blocks, plan.up.waves) == (1, 80, 1)
+    assert Q.TilesPlan(227, 1280, 5120, 2).waves == 2
+    assert (plan.down.splits, plan.down.blocks, plan.down.waves) == (5, 100, 1)
+    assert plan.down.blocks < H100_SMS and "shortest walk" in plan.down.reason
+    for splits in (6, 7, 8):
+        more = Q.TilesPlan(227, 5120, 1280, splits, 8)
+        assert more.waves == 2 and more.walk > plan.down.walk
+    w4 = Q.tiles_plan(227, 1280, 51968, bits=4)
+    assert (w4.splits, w4.blocks) == (1, 406 * 2)
+
+
+@pytest.mark.parametrize("M", [17, 24, 40, 64])
+def test_tiles_plan_at_one_row_tile(M):
+    """Up to 128 rows (one row tile) K5's first half takes two splits (80
+    blocks, the H100's 66 clusters of two hold them in one wave; three
+    splits' 40 clusters of three pass the 39 it holds), its second half
+    five (50 blocks, two 512-row tiles a split: 6-8 splits leave as many
+    to their longest)."""
+    plan = Q.ffn_int8_tiles_plan(M, 1280, 5120, 1280)
+    assert (plan.up.splits, plan.up.blocks, plan.down.splits, plan.down.blocks) == (2, 80, 5, 50)
+    assert Q.TilesPlan(M, 1280, 5120, 3).waves == 2
+    assert {(b - a) // 512 for a, b in plan.down.split_rows()} == {2}
+    assert all(Q.TilesPlan(M, 5120, 1280, s, 8).walk == plan.down.walk for s in (6, 7, 8))
+
+
+def test_tiles_plan_counts_waves_in_the_cards_clusters():
+    """The waves are the tiles over the clusters of that size the card holds
+    (not the multiprocessors over the size): another card's counts give
+    another plan."""
+    h100 = Q.H100_TILES_CLUSTERS
+    assert h100[0] == H100_SMS and all(a >= b for a, b in zip(h100, h100[1:]))
+    assert Q.TilesPlan(40, 1280, 5120, 3).waves == 2          # 40 tiles, 39 clusters
+    roomy = (132, 66, 44, 33, 26, 22, 18, 16)                  # 132 // size
+    assert Q.TilesPlan(40, 1280, 5120, 3, clusters=roomy).waves == 1
+    assert Q.tiles_plan(40, 1280, 5120, clusters=roomy).splits == 3
+    assert Q.tiles_plan(40, 1280, 5120).splits == 2
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_tiles_smem_fits_the_h100(bits):
+    """What a tiles block asks for (qmm_wgmma.cuh's Layout) fits the 227 KB
+    a block can have, and the DSMEM combine's receive slots (a sender's
+    share of 16 column chunks for each of 256 consumer threads, 16 bytes
+    each) fit in the six x tiles it reuses, at every split count."""
+    assert Q.tiles_smem(bits) <= 227 * 1024
+    for splits in range(2, Q.TILES_MAX_SPLITS + 1):
+        assert splits * 256 * -(-16 // splits) * 16 <= 6 * 128 * 64 * 2
+
+
+def test_tiles_body_constants_are_the_kernels():
+    """The planner's tile, steps, ring depths and cluster cap are csrc's,
+    and K3's entry takes the body unsplit (its ingest build up to 64
+    rows, the split-free build above)."""
+    csrc = Path(Q.__file__).parents[1] / "csrc"
+    body = (csrc / "qmm_wgmma.cuh").read_text()
+    assert "constexpr int kBM = 128, kBN = 128, kBK = 64;" in body
+    assert (Q.TILES_BM, Q.TILES_BK) == (128, 64)
+    for ring, depth in (("kXStages", 6), ("kWStages", 6), ("kBStages", 3)):
+        assert re.search(rf"constexpr int {ring} = {depth};", body)
+    assert f"constexpr int kMaxSplits = {Q.TILES_MAX_SPLITS};" in body
+    k3 = (csrc / "qmm.cu").read_text()
+    for ingest in ("true", "false"):
+        assert re.search(rf"launch_tiles<Int8Planes, StoreF32, kPdlNone, {ingest}>\(\s*"
+                         r"x, qs, scales, ep, M, K, Np, 1, 1,", k3)
+    assert not (csrc / "qmm_tile.cuh").exists()
+
+
+@pytest.mark.parametrize("M", [0, 1, 16])
+def test_tiles_plan_refuses_the_decode_rows(M):
+    """The tiles plans take more than 16 rows; the rows body the rest."""
+    with pytest.raises(ValueError, match="tiles body"):
+        Q.tiles_plan(M, 1280, 51968, bits=4)
+    with pytest.raises(ValueError, match="tiles body"):
+        Q.ffn_int8_tiles_plan(M, 1280, 5120, 1280)
 
 
 # K9's launches on the decode path: (B query rows, heads, live keys, shared

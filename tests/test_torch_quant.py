@@ -114,9 +114,9 @@ def test_qmm_plain_matches_jax_kernel(M_rows):
 
 
 def test_qmm_route_by_rows():
-    """K3's route on the card: the decode rows (M <= 16) keep the 16-row
-    slice of qmm_tile.cuh, every larger M takes the 128 x 128 TMA + wgmma
-    tiles (130 and 300 cross the 128-row tile edges)."""
+    """K3's route on the card: the decode rows (M <= 16) take the rows body
+    (qmm_rows.cuh), every larger M the 128 x 128 TMA + wgmma tiles of
+    qmm_wgmma.cuh (130 and 300 cross the 128-row tile edges)."""
     rows = [1, 5, 16, 17, 130, 300, 1500, 1536, 12288]
     assert [TQ.qmm_route(M) for M in rows] == ["rows"] * 3 + ["tiles"] * 6
     assert set(TQ.qmm.launches_by_route) == {"rows", "tiles"}
@@ -169,7 +169,7 @@ def _ffn_both(M_rows, saturated: bool):
     return ref, got
 
 
-@pytest.mark.parametrize("M_rows", [1, 5, 37])
+@pytest.mark.parametrize("M_rows", [1, 5, 37, 227])
 def test_ffn_int8_plain_matches_jax_kernel(M_rows):
     """K5's plain version against the TPU kernel `_ffn_int8` (interpret
     mode), within 1e-5 of max|ref|: 2 hidden tiles of 512, N padded.
@@ -180,7 +180,7 @@ def test_ffn_int8_plain_matches_jax_kernel(M_rows):
     assert _rel_err(ref, got) <= 1e-5
 
 
-@pytest.mark.parametrize("M_rows", [1, 5, 37])
+@pytest.mark.parametrize("M_rows", [1, 5, 37, 227])
 def test_ffn_int8_plain_matches_jax_kernel_on_gelu_curve(M_rows):
     """Pre-activations on gelu's curve: XLA's tanh and torch's differ in the
     last place, which flips the bf16 rounding of an occasional h by one
