@@ -327,6 +327,19 @@ Phases, each gated; any failure exits non-zero before the result lines:
      against K2 int8 on the same planes (queued), K3 at the tp 2 shards'
      shapes with the whole width's splits (queued, plain, torch.matmul,
      bound) and K1 on ten heads (plain, SDPA, bound).
+ 37. the port's host tools (open_whisper_kit_tpu_torch/tools/) at full
+     width: phase 6's seed-0 turbo tensors written as an OpenAI .pt,
+     converted by tools.convert_pt_to_ggml --f32 --vocab-from phase 6's
+     file and requantized to q8_0 by cli.quantize: byte-equal to phase 6's
+     file outside the mel-filter block, which holds the slaney filters
+     (sha256 of both tensor sections printed); tools.eval_wer --no-fallback
+     on the converted file over three seeded 10 s WAVs (.txt and
+     *.trans.txt references): its lines equal to those computed from
+     direct Transcriber.transcribe calls on phase 6's file given the
+     converted file's filters, every transcript equal, K1, K2, K3 and K5
+     launched; tools.validate_gguf --stats on phase 26's GGUF: OK;
+     tools.compare_rttm between phase 26's device-loop and host-loop
+     segments: DER 0. The seconds of each step and of the phase.
 Phases 11-13, 18 and 23 run right after phase 3, with the other kernel
 checks; 19, 21 and 24 right after 6, on its checkpoint.
 Every phase prints ms per sampled token beside its RTF. The last three lines are the kernels JSON, the nvidia-smi name/power line
@@ -2905,7 +2918,7 @@ def shared_frames(SD, cfg, scfg, feat: int, feat_full: int, to_compress: bool = 
     return sum(own[3][:k])
 
 
-def phase_diarize(torch, tmp) -> None:
+def phase_diarize(torch, tmp) -> dict:
     """Phase 26: SortFormer diarization at the published width through
     api.Diarizer (module docstring).
 
@@ -2916,7 +2929,8 @@ def phase_diarize(torch, tmp) -> None:
     from itself, up to 6e-3, when the input is scaled by 1 + 2^-20). The
     loops are held to each other on the chunks up to that compression, and
     the compression itself is held to the host's on full-width states
-    whose scores are apart."""
+    whose scores are apart. Returns {preset: (device-loop segments,
+    host-loop segments)} of the 90 s file, held equal here (phase 37)."""
     import numpy as np
     from open_whisper_kit_tpu_torch import api as TAPI
     from open_whisper_kit_tpu_torch.align import rttm as RT
@@ -2961,7 +2975,7 @@ def phase_diarize(torch, tmp) -> None:
     def dmax(a, b, n=None):
         return float(np.abs(a[:n] - b[:n]).max()) if len(a[:n]) else 0.0
 
-    full = {}
+    full, held = {}, {}
     for preset in ("offline", "low_latency"):
         scfg = TAPI.PRESETS[preset]
         useds, i_c, n_pre = schedule(scfg, DIAR_SECS)
@@ -2996,6 +3010,7 @@ def phase_diarize(torch, tmp) -> None:
               and np.isfinite(pd).all(), f"diarize {preset}: shapes or host reads wrong")
         check(dmax(pd, ph, n_pre) <= 1e-5 and segs(sd) == segs(sh) and len(sd) > 0,
               f"diarize {preset}: the device loop and the host loop differ")
+        held[preset] = (sd, sh)
         ops = {}
         secs_p = 30.0 if preset == "offline" else 5.0
         for ds in (True, False):
@@ -3106,6 +3121,7 @@ def phase_diarize(torch, tmp) -> None:
           and np.isfinite(pd).all(), "stream: the device state and the host state differ")
     check(RT.to_rttm(RT.probs_to_segments(pd, 0.5, 11, "s")).startswith("SPEAKER s 1 "),
           "stream: no RTTM segment")
+    return held
 
 
 def _tensor_leaves(tree, key=""):
@@ -4881,6 +4897,197 @@ def phase_mesh(torch, TF, Transcriber, FullParams, tok_mod, mods, q8_path, dense
                                                "step_ms_one")}}
 
 
+TOOLS_WER_SECS = 10.0
+TOOLS_WER_SEEDS = (371, 372, 373)     # the corpus's audio seeds (smoke's audio())
+TOOLS_WORDS = ("the", "of", "and", "to", "in", "is", "you", "that", "it", "was", "for", "on",
+               "are", "with", "they", "be", "at", "one", "have", "this", "from", "word", "but",
+               "what", "some", "we", "can", "out", "other", "were", "all", "there", "when",
+               "up", "use", "your", "how", "said", "an", "each")
+TOOLS_BUDGET_S = 120.0
+PT_DIMS = ("n_vocab", "n_audio_ctx", "n_audio_state", "n_audio_head", "n_audio_layer",
+           "n_text_ctx", "n_text_state", "n_text_head", "n_text_layer", "n_mels")
+
+
+def tensor_section(buf) -> int:
+    """The byte offset of a whisper ggml-bin's first tensor record: past
+    the header, the mel filters and the vocabulary."""
+    def i32(at):
+        return int.from_bytes(bytes(buf[at:at + 4]), "little", signed=True)
+    off = 56 + 4 * i32(48) * i32(52)
+    n_tok = i32(off)
+    off += 4
+    for _ in range(n_tok):
+        off += 4 + i32(off)
+    return off
+
+
+def phase_tools(torch, mods, q8_path, tensors, gguf_path, diar_segs, smi) -> None:
+    """Phase 37: the port's host tools on the card's machine, at full width.
+
+    Convert: phase 6's seed-0 turbo tensors written as an OpenAI .pt, then
+    tools.convert_pt_to_ggml --f32 --vocab-from phase 6's file and
+    cli.quantize q8_0; the result is phase 6's file byte for byte outside
+    the mel-filter block, which holds the slaney filters (phase 6 writes
+    _synthetic_mel_filters there). WER: tools.eval_wer on the converted
+    file over three seeded 10 s WAVs (two .txt references, one
+    *.trans.txt line); its lines equal those computed from direct
+    Transcriber.transcribe calls on phase 6's file given the converted
+    file's filters, with eval_wer's own FullParams, and each transcript
+    equal; K1, K2, K3 and K5 launched. Then tools.validate_gguf --stats on
+    phase 26's GGUF, and tools.compare_rttm between phase 26's device-loop
+    and host-loop RTTM segments (`diar_segs`), which phase 26 holds equal:
+    DER 0."""
+    import contextlib
+    import io
+    import numpy as np
+    from open_whisper_kit_tpu_torch import api
+    from open_whisper_kit_tpu_torch.align import rttm as RT
+    from open_whisper_kit_tpu_torch.cli import quantize as QZ
+    from open_whisper_kit_tpu_torch.io import ggml_whisper as GW
+    from open_whisper_kit_tpu_torch.models.sortformer.mel_fb import mel_filterbank
+    from open_whisper_kit_tpu_torch.tools import compare_rttm as CR
+    from open_whisper_kit_tpu_torch.tools import convert_pt_to_ggml as CPT
+    from open_whisper_kit_tpu_torch.tools import eval_wer as EW
+    from open_whisper_kit_tpu_torch.tools import validate_gguf as VG
+    A, Q, MK = mods.A, mods.Q, mods.MK
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="tools-", dir=q8_path.parent))
+    took = {}
+
+    def run(tag, fn):
+        """fn() with its printed lines captured; its seconds under `tag`."""
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = fn()
+        took[tag] = time.perf_counter() - t0
+        for line in out.getvalue().splitlines():
+            print(f"[37]   {tag}: {line}", flush=True)
+        return rc, out.getvalue()
+
+    # ---- convert and requantize ----
+    t0 = time.perf_counter()
+    pt = work / "large-v3-turbo.pt"
+    conv_biases = ("encoder.conv1.bias", "encoder.conv2.bias")
+    torch.save({"dims": dict(zip(PT_DIMS, TURBO)),
+                "model_state_dict": {k: torch.from_numpy(v.reshape(-1) if k in conv_biases
+                                                         else v) for k, v in tensors.items()}},
+               pt)
+    took["write .pt"] = time.perf_counter() - t0
+    pt_gb = pt.stat().st_size / 1e9
+    rc, _ = run("convert_pt_to_ggml", lambda: CPT.main(
+        [str(pt), str(work), "--f32", "--vocab-from", str(q8_path)]))
+    check(rc == 0, f"convert_pt_to_ggml exited {rc}")
+    pt.unlink()
+    f32 = work / "ggml-model-f32.bin"
+    f32_gb = f32.stat().st_size / 1e9
+    conv = work / "ggml-model-q8_0.bin"
+    rc, _ = run("quantize", lambda: QZ.main([str(f32), str(conv), "q8_0"]))
+    check(rc == 0, f"quantize exited {rc}")
+    f32.unlink()
+    t0 = time.perf_counter()
+    ref, got = np.memmap(q8_path, np.uint8, mode="r"), np.memmap(conv, np.uint8, mode="r")
+    lo = 56
+    hi = lo + 4 * 128 * 201
+    slaney = np.ascontiguousarray(mel_filterbank(128, 400, 16000), np.float32).tobytes()
+    same_len = len(ref) == len(got)
+    outside = same_len and np.array_equal(ref[:lo], got[:lo]) and np.array_equal(ref[hi:], got[hi:])
+    differ = np.flatnonzero(ref[lo:hi] != got[lo:hi]) + lo if same_len else np.zeros(0, int)
+    off = tensor_section(got)
+    digests = [hashlib.sha256(memoryview(m[off:])).hexdigest() for m in (ref, got)]
+    took["compare"] = time.perf_counter() - t0
+    print(f"[37] convert: {pt_gb:.2f} GB .pt -> {f32_gb:.2f} GB f32 ggml-bin -> q8_0 "
+          f"{len(got)} bytes (phase 6's {len(ref)}); outside the filter block (bytes {lo}-{hi - 1}) "
+          f"equal {outside}; filter block the slaney filters {bytes(got[lo:hi]) == slaney}, "
+          f"differing from phase 6's at {len(differ)} bytes in {differ[:1].tolist()}.."
+          f"{differ[-1:].tolist()}; tensor section from byte {off}: sha256 phase 6 "
+          f"{digests[0]}, converted {digests[1]}", flush=True)
+    check(same_len and outside and bytes(got[lo:hi]) == slaney and digests[0] == digests[1],
+          "the converted turbo q8_0 file differs from phase 6's outside the filter block")
+    del ref, got
+
+    # ---- WER through the port's harness on the card ----
+    corpus = work / "corpus"
+    (corpus / "ls").mkdir(parents=True)
+    rng = np.random.default_rng(37)
+    refs = [" ".join(rng.choice(TOOLS_WORDS, 12)) for _ in TOOLS_WER_SEEDS]
+    names = [f"tools-{s}" for s in TOOLS_WER_SEEDS]
+    for i, (name, seed) in enumerate(zip(names, TOOLS_WER_SEEDS)):
+        where = corpus / "ls" if i == 2 else corpus
+        (where / f"{name}.wav").write_bytes(wav_bytes(audio(TOOLS_WER_SECS, seed)))
+        if i < 2:
+            (corpus / f"{name}.txt").write_text(refs[i].capitalize() + ".\n")
+    (corpus / "ls" / "ls.trans.txt").write_text(f"{names[2]} {refs[2].upper()}\n")
+    calls = []
+    transcribe = api.Transcriber.transcribe
+
+    def spy(self, audio_in, params=None, generator=None):
+        t0 = time.perf_counter()
+        res = transcribe(self, audio_in, params, generator)
+        calls.append((params, res, time.perf_counter() - t0))
+        return res
+
+    reset_counts(A, Q, MK)
+    api.Transcriber.transcribe = spy
+    try:
+        rc, out = run("eval_wer", lambda: EW.main(
+            ["--model", str(conv), "--corpus", str(corpus), "--no-fallback"]))
+    finally:
+        api.Transcriber.transcribe = transcribe
+    torch.cuda.synchronize()
+    counts = {"K1": A.mha_packed.launches, "K2": MK.mega_decode_step.launches,
+              "K3": Q.qmm.launches, "K5": Q.ffn_int8.launches}
+    check(rc == 0 and len(calls) == len(TOOLS_WER_SEEDS), f"eval_wer exited {rc}")
+    t0 = time.perf_counter()
+    tr = api.Transcriber(model_path=q8_path, dtype=torch.bfloat16)
+    tr.ctx.filters = GW.load_checkpoint(conv, load_tensors=False).mel_filters
+    want, err, words, n_tok = [], 0.0, 0, []
+    for (af, text), (p, res_conv, _) in zip(EW.collect_corpus(corpus), calls):
+        res = tr.transcribe(af, p)
+        ids = [t.id for s in res.segments for t in s.tokens]
+        check(ids == [t.id for s in res_conv.segments for t in s.tokens]
+              and res.text == res_conv.text,
+              f"{af.name}: the converted file transcribes otherwise than phase 6's")
+        n_tok.append(len(ids))
+        w, n = EW.wer(EW.normalize_text(text), EW.normalize_text(res.text))
+        err, words = err + w * n, words + n
+        want.append(f"{af.name}: wer={w:.3f}")
+    want += ["", f"TOTAL WER: {err / max(1, words):.4f} over {words} words, {len(want)} files"]
+    took["direct calls"] = time.perf_counter() - t0
+    del tr
+    torch.cuda.empty_cache()
+    print(f"[37] eval_wer --no-fallback on the converted file, {len(calls)} x "
+          f"{TOOLS_WER_SECS:.0f} s: tokens {n_tok} equal to the direct calls on phase 6's file; "
+          f"wall a file {', '.join(f'{c[2]:.3f}' for c in calls)} s; "
+          f"lines equal {out.splitlines() == want}; launches {counts} | {smi}", flush=True)
+    check(out.splitlines() == want and min(n_tok) > 0,
+          "eval_wer's lines differ from the direct calls'")
+    check(all(v > 0 for v in counts.values()), f"eval_wer did not launch every kernel: {counts}")
+
+    # ---- validate phase 26's GGUF; score its RTTM segments ----
+    rc, out = run("validate_gguf", lambda: VG.main([str(gguf_path), "--stats"]))
+    check(rc == 0 and out.splitlines()[-1] == "OK" and "nan/inf total: 0" in out,
+          "validate_gguf: phase 26's GGUF did not validate")
+    for preset, (dev, host) in diar_segs.items():
+        paths = [work / f"{preset}-{side}.rttm" for side in ("device", "host")]
+        RT.write_rttm(paths[0], dev)
+        RT.write_rttm(paths[1], host)
+        r = CR.der(str(paths[0]), str(paths[1]))
+        rc, out = run(f"compare_rttm {preset}", lambda: CR.main([str(p) for p in paths]))
+        print(f"[37] compare_rttm, phase 26's {preset} segments (device loop as reference, "
+              f"host loop): {len(dev)} / {len(host)} segments; der(): missed {r['missed']}, "
+              f"false alarm {r['false_alarm']}, confusion {r['confusion']} of {r['total_ref']} "
+              f"scored speaker frames, DER {float(r['der'])}", flush=True)
+        check(rc == 0 and r["der"] == 0.0 and r["total_ref"] > 0
+              and "DER          : 0.00%" in out, f"compare_rttm {preset}: DER not 0")
+    shutil.rmtree(work, ignore_errors=True)
+    total = time.perf_counter() - t_phase
+    print(f"[37] seconds: {', '.join(f'{k} {v:.1f}' for k, v in took.items())}; the phase "
+          f"{total:.1f} (budget {TOOLS_BUDGET_S:.0f}) | {smi}", flush=True)
+    check(total <= TOOLS_BUDGET_S,
+          f"phase 37 took {total:.1f} s, past its {TOOLS_BUDGET_S:.0f} s budget")
+
+
 def main(profiling: bool = False) -> int:
     if not (REPO / "open_whisper_kit_tpu_torch").is_dir():
         print("chip_smoke: the open_whisper_kit_tpu_torch package is not beside "
@@ -5037,8 +5244,8 @@ def main(profiling: bool = False) -> int:
         t0 = time.perf_counter()
         hp = W.WhisperHParams(*TURBO, ftype=1, qntvr=0)
         path = tmp / "ggml-large-v3-turbo-q8_0.bin"
-        W.write_checkpoint(path, hp, TF._synthetic_mel_filters(128), tokens,
-                           W.random_reference_tensors(hp, seed=0),
+        turbo_tensors = W.random_reference_tensors(hp, seed=0)   # phase 37 converts them
+        W.write_checkpoint(path, hp, TF._synthetic_mel_filters(128), tokens, turbo_tensors,
                            wtype=W.TYPE_FOR_NAME["q8_0"])
         print(f"[6] q8_0 large-v3-turbo checkpoint written in "
               f"{time.perf_counter() - t0:.1f} s ({path.stat().st_size / 1e6:.0f} MB)",
@@ -5387,7 +5594,7 @@ def main(profiling: bool = False) -> int:
         done("25")
 
         # ---- 26. SortFormer diarization at the published width ----
-        phase_diarize(torch, tmp)
+        diar_segs = phase_diarize(torch, tmp)
         done("26")
 
         # ---- 27. narrow diarized transcription: cuda against cpu ----
@@ -5426,6 +5633,12 @@ def main(profiling: bool = False) -> int:
                    tmp / "ggml-large-v3-turbo-q8_0.bin", dense_turbo, smi)
         del dense_turbo
         done("36")
+
+        # ---- 37. the port's host tools: convert, WER, validate, score ----
+        phase_tools(torch, mods, tmp / "ggml-large-v3-turbo-q8_0.bin", turbo_tensors,
+                    tmp / "sortformer-seed0-f16.gguf", diar_segs, smi)
+        del turbo_tensors
+        done("37")
     finally:
         if drafts is not None and drafts.poll() is None:
             drafts.kill()
